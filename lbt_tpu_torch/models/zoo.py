@@ -1,0 +1,69 @@
+"""Model zoo (PyTorch port of ``lbt_tpu/models/zoo.py``): the CIFAR
+ResNets.  The other ``lbt_tpu`` models are not ported yet."""
+
+from __future__ import annotations
+
+from typing import Callable, Dict
+
+from lbt_tpu_torch.config import QuantConfig
+from lbt_tpu_torch.nn.blocks import ResidualBlock
+from lbt_tpu_torch.nn.layers import AvgPool, Conv2d, Dense, Flatten, ReLU
+from lbt_tpu_torch.nn.model import Model
+from lbt_tpu_torch.nn.norm import BatchNorm
+
+
+def _res_stage(cfg, name, cin, channels, num_blocks, stride):
+    blocks = []
+    for i in range(1, 1 + num_blocks):
+        blocks.append(ResidualBlock(
+            f"{name}-{i}", cfg, cin, channels,
+            stride=stride if i == 1 else 1))
+        cin = channels * ResidualBlock.expansion
+    return blocks, cin
+
+
+def cifar10_resnet(cfg: QuantConfig, depth: int = 20,
+                   num_classes: int = 10) -> Model:
+    """CIFAR ResNet-{20,32,44,56}: 3x3x16 bias-free stem + BN + ReLU,
+    three stages of basic blocks at 16/32/64 channels (strides 1/2/2), 8x8
+    avgpool and a bias-free 64->num_classes head.  Parameters are zero
+    until :meth:`Model.init`."""
+    if (depth - 2) % 6:
+        raise ValueError(f"bad CIFAR resnet depth {depth}")
+    n = (depth - 2) // 6
+    layers = [
+        Conv2d("conv1", cfg, (3, 3, 3, 16), (1, 1), "SAME", use_bias=False),
+        BatchNorm("conv1-bn", cfg, 16),
+        ReLU(),
+    ]
+    cin = 16
+    for channels, stride in ((16, 1), (32, 2), (64, 2)):
+        stage, cin = _res_stage(cfg, f"block{channels}", cin, channels, n,
+                                stride)
+        layers += stage
+    layers += [
+        AvgPool(ksize=(8, 8), strides=(1, 1), padding="VALID"),
+        Flatten(),
+        Dense("softmax", cfg, 64, num_classes, use_bias=False),
+    ]
+    return Model(f"cifar10_resnet{depth}", layers, input_shape=(32, 32, 3),
+                 num_classes=num_classes, cfg=cfg)
+
+
+MODEL_REGISTRY: Dict[str, Callable] = {
+    f"CIFAR10_Resnet{d}": (lambda cfg, d=d, **kw: cifar10_resnet(cfg, d, **kw))
+    for d in (20, 32, 44, 56)
+}
+
+# lbt_tpu's other registry entries, not ported yet
+_NOT_PORTED = ("PI_MNIST", "MNIST", "CIFAR10", "CIFAR10_VGG",
+               "VGG16_CIFAR100", "Imagenet_Resnet18", "Imagenet_Resnet50")
+
+
+def build_model(name: str, cfg: QuantConfig, **kw) -> Model:
+    if name in _NOT_PORTED:
+        raise NotImplementedError(f"model {name!r} is not ported yet")
+    if name not in MODEL_REGISTRY:
+        raise ValueError(
+            f"unknown model {name!r}; have {sorted(MODEL_REGISTRY)}")
+    return MODEL_REGISTRY[name](cfg, **kw)

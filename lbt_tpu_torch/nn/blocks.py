@@ -1,0 +1,46 @@
+"""Residual blocks (PyTorch port of ``lbt_tpu/nn/blocks.py``):
+``relu(residual(x) + shortcut(x))``."""
+
+from __future__ import annotations
+
+import torch
+
+from lbt_tpu_torch.config import QuantConfig
+from lbt_tpu_torch.nn.core import Layer, Sequential
+from lbt_tpu_torch.nn.layers import Conv2d, ReLU
+from lbt_tpu_torch.nn.norm import BatchNorm
+
+
+def _conv_bn(name: str, cfg: QuantConfig, ksize, strides):
+    return [Conv2d(name, cfg, ksize, strides, "SAME", use_bias=False),
+            BatchNorm(name + "-bn", cfg, ksize[3])]
+
+
+class ResidualBlock(Layer):
+    """Basic 3x3+3x3 residual block, expansion 1.  The shortcut is the
+    identity when the shape is kept, else a 1x1 strided conv + BN."""
+
+    expansion = 1
+
+    def __init__(self, name: str, cfg: QuantConfig, in_channels: int,
+                 channels: int, stride: int = 1):
+        super().__init__(name, cfg)
+        self.residual = Sequential("residual", (
+            _conv_bn("conv1", cfg, (3, 3, in_channels, channels),
+                     (stride, stride))
+            + [ReLU("relu1")]
+            + _conv_bn("conv2", cfg, (3, 3, channels, channels), (1, 1))))
+        shortcut = []
+        if stride != 1 or in_channels != self.expansion * channels:
+            shortcut = _conv_bn(
+                "conv", cfg, (1, 1, in_channels, self.expansion * channels),
+                (stride, stride))
+        self.shortcut = Sequential("shortcut", shortcut)
+
+    def sublayers(self):
+        return (self.residual, self.shortcut)
+
+    def forward(self, x, ctx):
+        # where(s > 0, ...): the tie rule of lbt_tpu's join
+        s = self.residual(x, ctx) + self.shortcut(x, ctx)
+        return torch.where(s > 0, s, 0.0)

@@ -1,0 +1,91 @@
+"""Build and load the port's CUDA kernels from the sources in the checkout.
+
+CUDA C++ sources under ``lbt_tpu_torch/csrc`` are compiled with ``nvcc``
+for ``sm_90a`` into a shared library with a plain C interface and loaded
+with ``ctypes`` — no PyTorch headers, so a build takes seconds.  Builds
+happen at first use into ``lbt_tpu_torch/_build/`` (listed in
+``.gitignore``), named by a hash of the sources and flags, so a changed
+source rebuilds and an unchanged one loads the cached library.  Triton's
+own cache is pointed at the same directory.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+import hashlib
+import os
+import shutil
+import subprocess
+import tempfile
+from pathlib import Path
+
+PKG_DIR = Path(__file__).resolve().parents[2]
+CSRC_DIR = PKG_DIR / "csrc"
+BUILD_DIR = PKG_DIR / "_build"
+
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-shared", "-Xcompiler", "-fPIC")
+
+
+def nvcc_path() -> str:
+    """``$CUDA_HOME/bin/nvcc``, else ``nvcc`` on PATH, else the default
+    toolkit location; raises if none exists."""
+    candidates = []
+    if os.environ.get("CUDA_HOME"):
+        candidates.append(Path(os.environ["CUDA_HOME"]) / "bin" / "nvcc")
+    if shutil.which("nvcc"):
+        candidates.append(Path(shutil.which("nvcc")))
+    candidates.append(Path("/usr/local/cuda/bin/nvcc"))
+    for c in candidates:
+        if c.is_file():
+            return str(c)
+    raise RuntimeError("nvcc not found: set CUDA_HOME or put nvcc on PATH")
+
+
+def build_library(name: str, sources, extra_flags=()) -> Path:
+    """Compile ``sources`` (file names under ``csrc/``) into
+    ``_build/lib<name>-<hash>.so`` unless that file exists; return it."""
+    flags = NVCC_FLAGS + tuple(extra_flags)
+    h = hashlib.sha256(" ".join(flags).encode())
+    paths = [CSRC_DIR / s for s in sources]
+    for p in paths:
+        h.update(p.name.encode())
+        h.update(p.read_bytes())
+    lib = BUILD_DIR / f"lib{name}-{h.hexdigest()[:16]}.so"
+    if lib.exists():
+        return lib
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
+    os.close(fd)
+    try:
+        proc = subprocess.run(
+            [nvcc_path(), *flags, "-o", tmp, *map(str, paths)],
+            capture_output=True, text=True)
+        if proc.returncode != 0:
+            raise RuntimeError(
+                f"nvcc failed building {name} ({proc.returncode}):\n"
+                f"{proc.stdout}{proc.stderr}")
+        os.replace(tmp, lib)
+    finally:
+        if os.path.exists(tmp):
+            os.unlink(tmp)
+    return lib
+
+
+@functools.cache
+def int8_gemm_library() -> ctypes.CDLL:
+    """K2 (``csrc/int8_gemm.cu``), built on first use."""
+    lib = ctypes.CDLL(str(build_library("int8_gemm", ["int8_gemm.cu"])))
+    fn = lib.lbt_int8_gemm
+    fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+                   ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
+                   ctypes.c_int, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    return lib
+
+
+def use_triton_cache_dir() -> None:
+    """Point Triton's kernel cache into ``_build/`` unless the caller
+    chose one with ``TRITON_CACHE_DIR``; call before importing triton."""
+    os.environ.setdefault("TRITON_CACHE_DIR", str(BUILD_DIR / "triton"))
