@@ -1,5 +1,6 @@
 #!/usr/bin/env python3
-"""Smoke run of lbt_tpu_torch on one NVIDIA GPU: serve DFXP-INT8 ResNet-20.
+"""Smoke run of lbt_tpu_torch on one NVIDIA GPU: serve and train DFXP-INT8
+ResNet-20.
 
 Run from the root of a checkout, on a machine with one CUDA card:
 
@@ -8,8 +9,9 @@ Run from the root of a checkout, on a machine with one CUDA card:
 Phases; each raises on failure and the script then exits non-zero:
 
 1. device  needs CUDA; prints the card's name and power limit; TF32 off.
-2. build   builds K2 (nvcc, sm_90a) and compiles K1 (Triton) from the
-           sources in the checkout; prints the seconds each took.
+2. build   builds K2 and kernels #4/#5 (one nvcc per source, started
+           together, sm_90a) and compiles K1 (Triton) from the sources in
+           the checkout; prints the seconds each took.
 3. K1      quantize kernel vs its plain PyTorch version on the card,
            bitwise, at every quantize shape of the serving path (batch
            128) and at odd sizes; bits 8 and 9; deterministic and both
@@ -28,8 +30,22 @@ Phases; each raises on failure and the script then exits non-zero:
            on the card (in turns), each kernel against its plain version
            at the path's shapes, and takes a profiler window that also
            gives each kernel's device time as the serving path runs it.
+6. train shapes  one training step of CIFAR10_Resnet20 under
+           uniform(8, noise_mode='hash') at batch 128 records every call
+           of K1 (with its min/max output), K2 (both forms) and #4/#5.
+7. K1-stats, K2-train, fused  each of those calls' shapes: the kernel vs
+           its plain version, bitwise (codes, min/max, int64 sums,
+           moments), timed as in 3-4, per training step.
+8. train   ResNet-20 at batch 128, weights from seed 0, data from a numpy
+           seed: 4 steps through the kernels (every launch counter reset
+           just before and required to rise) and the same 4 steps through
+           the plain versions on the card from the same start, under
+           deterministic algorithms: losses finite and equal, parameters,
+           velocity, exponents and BN state equal (tolerance 0).  The
+           first step's loss must match the CPU route at rtol 1e-5.  Then
+           ms per step of both routes in turns and a profiler window.
 
-Prints one JSON line of kernels, then, last, one JSON line
+Prints the card, then one JSON line of kernels, then, last, one JSON line
 ``{"ok": true, "device": {...}}``.
 """
 
@@ -40,15 +56,21 @@ import collections
 import contextlib
 import json
 import math
+import os
 import statistics
 import subprocess
 import sys
 import time
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 from unittest import mock
 
-import numpy as np
-import torch
+# cuBLAS (the plain versions' float64 GEMMs) is deterministic only with a
+# fixed workspace; set before the first CUDA call
+os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
+
+import numpy as np  # noqa: E402
+import torch  # noqa: E402
 
 REPO = Path(__file__).resolve().parent
 BATCH = 128
@@ -145,19 +167,31 @@ def phase_device() -> dict:
 
 
 def phase_build(quant, gemm, build) -> dict:
+    """nvcc for each CUDA source, all started together, then Triton."""
+    def timed(fn):
+        t0 = time.perf_counter()
+        fn()
+        return time.perf_counter() - t0
+
     t0 = time.perf_counter()
-    build.int8_gemm_library()
-    k2_s = time.perf_counter() - t0
+    with ThreadPoolExecutor(2) as pool:
+        k2 = pool.submit(timed, build.int8_gemm_library)
+        fused = pool.submit(timed, build.conv_fused_library)
+        k2_s, fused_s = k2.result(), fused.result()
+    nvcc_s = time.perf_counter() - t0
     t0 = time.perf_counter()
     x = torch.zeros(4, device="cuda")
     mult = torch.ones((), device="cuda")
     for bits in (8, 9):
         for seed, light in ((None, False), (1, False), (1, True)):
-            quant.quantize_codes(x, bits, mult, seed, light)
+            for stats in (False, True):
+                quant.quantize_codes(x, bits, mult, seed, light, stats)
     torch.cuda.synchronize()
     k1_s = time.perf_counter() - t0
-    print(f"build: K2 nvcc {k2_s:.1f} s, K1 triton {k1_s:.1f} s", flush=True)
-    return {"k2_nvcc_s": k2_s, "k1_triton_s": k1_s}
+    print(f"build: nvcc K2 {k2_s:.1f} s and #4/#5 {fused_s:.1f} s in "
+          f"parallel ({nvcc_s:.1f} s), K1 triton {k1_s:.1f} s", flush=True)
+    return {"k2_nvcc_s": k2_s, "fused_nvcc_s": fused_s, "nvcc_s": nvcc_s,
+            "k1_triton_s": k1_s}
 
 
 def record_path_calls(model, x, qmod, qops, quant, gemm):
@@ -166,9 +200,9 @@ def record_path_calls(model, x, qmod, qops, quant, gemm):
     from lbt_tpu_torch.nn.core import Ctx
     k1, k2 = collections.Counter(), collections.Counter()
 
-    def k1_rec(t, bits, mult, seed=None, light=False):
+    def k1_rec(t, bits, mult, seed=None, light=False, stats=False):
         k1[(tuple(t.shape), bits)] += 1
-        return quant.quantize_codes(t, bits, mult, seed, light)
+        return quant.quantize_codes(t, bits, mult, seed, light, stats)
 
     def k2_rec(a, b, inv=None):
         k2[(a.shape[0], a.shape[1], b.shape[1], inv is not None)] += 1
@@ -273,11 +307,19 @@ def phase_k2(gemm, k2_calls) -> dict:
 
 @contextlib.contextmanager
 def plain_route(qmod, qops, quant, gemm):
-    """Send the serving path through the plain versions of K1 and K2 on
-    the card (for timing and cross-checking the kernel route only)."""
+    """Send the path through the plain versions of K1, K2 (both forms)
+    and #4/#5 on the card (for timing and cross-checking the kernel route
+    only)."""
+    from lbt_tpu_torch.ops.kernels import conv_fused
     with mock.patch.object(qmod, "quantize_codes",
                            quant.quantize_codes_plain), \
-            mock.patch.object(qops, "int8_matmul", gemm.int8_matmul_plain):
+            mock.patch.object(qops, "int8_matmul", gemm.int8_matmul_plain), \
+            mock.patch.object(qops, "int8_matmul_tn",
+                              gemm.int8_matmul_tn_plain), \
+            mock.patch.object(qops, "conv3x3_fused",
+                              conv_fused.conv_fused_plain), \
+            mock.patch.object(qops, "conv1x1_fused",
+                              conv_fused.conv_fused_plain):
         yield
 
 
@@ -411,22 +453,443 @@ def phase_profile(predictor, x) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# training
+# ---------------------------------------------------------------------------
+
+TRAIN_STEPS = 4
+TRAIN_LR = 1e-2
+TRAIN_KEY_SEED = 7
+
+
+def build_train_model(seed: int):
+    """CIFAR10_Resnet20 under uniform(8, noise_mode='hash') with the
+    default recipe's weight decay, weights from ``seed``, BN state at
+    init."""
+    from lbt_tpu_torch.config import QuantConfig, TrainConfig
+    from lbt_tpu_torch.models import build_model
+    model = build_model("CIFAR10_Resnet20",
+                        QuantConfig.uniform(8, noise_mode="hash"),
+                        weight_decay=TrainConfig().weight_decay)
+    return model.init(torch.Generator().manual_seed(seed))
+
+
+def train_batches(n: int) -> list:
+    rng = np.random.default_rng(SEED + 10)
+    return [(torch.from_numpy(rng.normal(0, 1, (BATCH, 32, 32, 3)).astype(
+                np.float32)),
+             torch.from_numpy(rng.integers(0, 10, (BATCH,))))
+            for _ in range(n)]
+
+
+def make_trainer(model):
+    """``(velocity, run(step_index, batch) -> loss tensor)``."""
+    from lbt_tpu_torch.config import TrainConfig
+    from lbt_tpu_torch.dfxp.keys import base_key
+    from lbt_tpu_torch.train.optim import momentum_init
+    from lbt_tpu_torch.train.step import make_train_step
+    step = make_train_step(model, TrainConfig())
+    velocity = momentum_init(dict(model.net.named_parameters()))
+    dev = model.device
+
+    def run(i, batch):
+        x, y = batch
+        return step(model, velocity, x.to(dev), y.to(dev), i, TRAIN_LR,
+                    base_key(TRAIN_KEY_SEED))["loss"]
+    return velocity, run
+
+
+def train_counters(quant, gemm, fused) -> dict:
+    return {"k1": quant.quantize_codes.launches,
+            "k2": gemm.int8_matmul.launches,
+            "k2_tn": gemm.int8_matmul_tn.launches,
+            "conv3x3": fused.conv3x3_fused.launches,
+            "conv1x1": fused.conv1x1_fused.launches}
+
+
+def reset_counters(quant, gemm, fused) -> None:
+    for fn in (quant.quantize_codes, gemm.int8_matmul, gemm.int8_matmul_tn,
+               fused.conv3x3_fused, fused.conv1x1_fused):
+        fn.launches = 0
+
+
+def record_train_calls(qmod, qops, quant, gemm, fused):
+    """One training step at batch 128 on the card with every kernel call
+    recorded: (shape, bits, seeded, light, stats) of K1; (M, K, N,
+    scaled) of K2; (K, M, N) of its X^T.g form; (kind, x shape, x dtype,
+    W shape, strides, pads, seeded, light) of #4/#5."""
+    k1, k2, tn, conv = (collections.Counter() for _ in range(4))
+
+    def k1_rec(t, bits, mult, seed=None, light=False, stats=False):
+        k1[(tuple(t.shape), bits, seed is not None, bool(light),
+            bool(stats))] += 1
+        return quant.quantize_codes(t, bits, mult, seed, light, stats)
+
+    def k2_rec(a, b, inv=None):
+        k2[(a.shape[0], a.shape[1], b.shape[1], inv is not None)] += 1
+        return gemm.int8_matmul(a, b, inv)
+
+    def tn_rec(a, b):
+        tn[(a.shape[0], a.shape[1], b.shape[1])] += 1
+        return gemm.int8_matmul_tn(a, b)
+
+    def conv_rec(kind):
+        def rec(xc, wc, inv, mult, *, strides, pads, bits_out=8, seed=None,
+                light=False):
+            conv[(kind, tuple(xc.shape), str(xc.dtype), tuple(wc.shape),
+                  tuple(strides), tuple(pads), seed is not None,
+                  bool(light))] += 1
+            return getattr(fused, kind)(xc, wc, inv, mult, strides=strides,
+                                        pads=pads, bits_out=bits_out,
+                                        seed=seed, light=light)
+        return rec
+
+    model = build_train_model(SEED).to("cuda")
+    _, run = make_trainer(model)
+    with mock.patch.object(qmod, "quantize_codes", k1_rec), \
+            mock.patch.object(qops, "int8_matmul", k2_rec), \
+            mock.patch.object(qops, "int8_matmul_tn", tn_rec), \
+            mock.patch.object(qops, "conv3x3_fused",
+                              conv_rec("conv3x3_fused")), \
+            mock.patch.object(qops, "conv1x1_fused",
+                              conv_rec("conv1x1_fused")):
+        run(0, train_batches(1)[0])
+    torch.cuda.synchronize()
+    print(f"train shapes: one step makes {sum(k1.values())} K1, "
+          f"{sum(k2.values())} K2, {sum(tn.values())} K2 X^T.g, "
+          f"{sum(conv.values())} fused conv calls", flush=True)
+    return k1, k2, tn, conv
+
+
+def _print_rows(tag, rows, label):
+    for r in rows:
+        print(f"  {tag} {label(r)} x{r['calls']}: device "
+              f"{r['ms'] * 1e3:.1f} us (plain {r['plain_ms'] * 1e3:.1f})")
+    tot = _per_forward(rows)
+    print(f"{tag}: {len(rows)} path shapes bitwise equal; per step, device "
+          f"{tot['ms']:.4f} ms (plain {tot['plain_ms']:.4f}), launched "
+          f"eagerly {tot['eager_ms']:.4f} ms (plain "
+          f"{tot['plain_eager_ms']:.4f})", flush=True)
+    return tot
+
+
+def _max_err(got, want) -> float:
+    d = (got.to(torch.float64) - want.to(torch.float64)).abs()
+    return d.max().item() if d.numel() else 0.0
+
+
+def phase_k1_train(quant, k1_calls) -> dict:
+    """K1 at every quantize call of the training step, with the path's
+    rounding mode and its min/max output, bitwise against the plain
+    version; timed per shape."""
+    from lbt_tpu_torch.dfxp.quantize import multiplier
+    gen = torch.Generator().manual_seed(SEED + 4)
+    err, rows = 0.0, []
+    for (shape, bits, seeded, light, stats), count in sorted(
+            k1_calls.items()):
+        x = (torch.randn(shape, generator=gen) * 2).cuda()
+        mult = multiplier(bits, 1).cuda()
+        seed = 0x5DEECE66 if seeded else None
+        for s in (None, seed):
+            got = quant.quantize_codes(x, bits, mult, s, light, True)
+            want = quant.quantize_codes_plain(x, bits, mult, s, light, True)
+            torch.cuda.synchronize()
+            for g, w in zip(got, want):
+                err = max(err, _max_err(g, w))
+                check(g.dtype == w.dtype and torch.equal(g, w),
+                      f"K1 (stats) differs from its plain version at "
+                      f"{shape} bits={bits} seed={s} light={light}")
+        code_bytes = torch.empty((), dtype=quant.code_dtype(bits)) \
+            .element_size()
+        rows.append({
+            "shape": list(shape), "bits": bits, "seeded": seeded,
+            "stats": stats, "calls": count,
+            **_timings(
+                lambda x, m: quant.quantize_codes(x, bits, m, seed, light,
+                                                  stats),
+                lambda x, m: quant.quantize_codes_plain(x, bits, m, seed,
+                                                        light, stats),
+                (x, mult), x.numel() * (4 + code_bytes))})
+    tot = _print_rows("K1-stats", rows, lambda r: f"{r['shape']} b{r['bits']}"
+                      f"{' s' if r['seeded'] else ''}"
+                      f"{' mm' if r['stats'] else ''}")
+    return {"max_abs_err": err, **tot, "shapes": rows}
+
+
+def phase_k2_train(gemm, k2_calls, tn_calls) -> dict:
+    """K2's forward form at the step's dx / dense shapes and its X^T.g
+    form at every dW shape (split-9 planes, the head), bitwise against
+    the plain versions; timed per shape."""
+    gen = torch.Generator().manual_seed(SEED + 5)
+    err, rows = 0.0, []
+    inv = torch.tensor([2.0 ** -15], device="cuda")
+    for (m, k, n, scaled), count in sorted(k2_calls.items()):
+        a = torch.randint(-128, 128, (m, k), generator=gen,
+                          dtype=torch.int8).cuda()
+        b = torch.randint(-128, 128, (k, n), generator=gen,
+                          dtype=torch.int8).cuda()
+        args = (a, b, inv) if scaled else (a, b)
+        got, want = gemm.int8_matmul(*args), gemm.int8_matmul_plain(*args)
+        torch.cuda.synchronize()
+        err = max(err, _max_err(got, want))
+        check(torch.equal(got, want),
+              f"K2 differs from its plain version at M={m} K={k} N={n}")
+        rows.append({"form": "AB", "m": m, "k": k, "n": n, "calls": count,
+                     **_timings(gemm.int8_matmul, gemm.int8_matmul_plain,
+                                args, m * k + k * n + m * n * 4)})
+    for (k, m, n), count in sorted(tn_calls.items()):
+        a = torch.randint(-128, 128, (k, m), generator=gen,
+                          dtype=torch.int8).cuda()
+        b = torch.randint(-128, 128, (k, n), generator=gen,
+                          dtype=torch.int8).cuda()
+        got, want = gemm.int8_matmul_tn(a, b), gemm.int8_matmul_tn_plain(a, b)
+        torch.cuda.synchronize()
+        err = max(err, _max_err(got, want))
+        check(torch.equal(got, want), f"K2 X^T.g differs from its plain "
+              f"version at K={k} M={m} N={n}")
+        rows.append({"form": "ATB", "m": m, "k": k, "n": n, "calls": count,
+                     **_timings(gemm.int8_matmul_tn,
+                                gemm.int8_matmul_tn_plain, (a, b),
+                                k * (m + n) + m * n * 8)})
+    tot = _print_rows("K2-train", rows, lambda r: f"{r['form']} M{r['m']} "
+                      f"K{r['k']} N{r['n']}")
+    return {"max_abs_err": err, **tot, "shapes": rows}
+
+
+def phase_fused(fused, conv_calls) -> dict:
+    """#4 and #5 at every conv -> BN shape of the step (batch 128):
+    codes (deterministic, and stochastic with the path's hash), moments
+    and min/max equal to the plain version's; timed per shape."""
+    gen = torch.Generator().manual_seed(SEED + 6)
+    out = {}
+    for kind in ("conv3x3_fused", "conv1x1_fused"):
+        err, rows = 0.0, []
+        for key, count in sorted(conv_calls.items()):
+            k, xshape, xdtype, wshape, strides, pads, seeded, light = key
+            if k != kind:
+                continue
+            lim = 256 if xdtype == str(torch.int16) else 128
+            dtype = torch.int16 if lim == 256 else torch.int8
+            xc = torch.randint(-lim, lim, xshape, generator=gen,
+                               dtype=dtype).cuda()
+            wc = torch.randint(-128, 128, wshape, generator=gen,
+                               dtype=torch.int8).cuda()
+            inv = torch.tensor([2.0 ** -14], device="cuda")
+            mult = torch.tensor([2.0 ** -2], device="cuda")
+            seed = 0x2545F491 if seeded else None
+            fn = getattr(fused, kind)
+            for s in (None, seed):
+                kw = dict(strides=strides, pads=pads, seed=s, light=light)
+                got = fn(xc, wc, inv, mult, **kw)
+                want = fused.conv_fused_plain(xc, wc, inv, mult, **kw)
+                torch.cuda.synchronize()
+                for g, w in zip(got, want):
+                    err = max(err, _max_err(g, w))
+                    check(g.dtype == w.dtype and torch.equal(g, w),
+                          f"{kind} differs from its plain version at "
+                          f"x {xshape} w {wshape} seed={s}")
+            kw = dict(strides=strides, pads=pads, seed=seed, light=light)
+            nbytes = xc.numel() * xc.element_size() + math.prod(
+                got[0].shape)
+            rows.append({"x": list(xshape), "x_dtype": xdtype,
+                         "w": list(wshape), "strides": list(strides),
+                         "calls": count,
+                         **_timings(lambda x, w: fn(x, w, inv, mult, **kw),
+                                    lambda x, w: fused.conv_fused_plain(
+                                        x, w, inv, mult, **kw),
+                                    (xc, wc), nbytes)})
+        for r in rows:
+            macs = math.prod(r["w"]) * r["x"][0] * r["x"][1] * r["x"][2] / (
+                r["strides"][0] * r["strides"][1])
+            r["int_tops"] = 2 * macs / r["ms"] / 1e9
+        tot = _print_rows(kind, rows, lambda r: f"x{r['x']} w{r['w']} "
+                          f"s{r['strides'][0]}")
+        out[kind] = {"max_abs_err": err, **tot, "shapes": rows}
+    return out
+
+
+def _state(model, velocity) -> dict:
+    out = {f"net.{k}": v.detach().clone()
+           for k, v in model.net.state_dict().items()}
+    out.update({f"velocity.{k}": v.clone() for k, v in velocity.items()})
+    return out
+
+
+def _kernel_device_ms(rows, n_steps) -> dict:
+    names = {"k1": ("_quant_kernel", "_minmax_kernel"),
+             "k2": ("int8_gemm_kernel", "int8_gemm_tn_kernel"),
+             "conv3x3": ("conv_fused_kernel<3", "conv_fused_kernelILi3"),
+             "conv1x1": ("conv_fused_kernel<1", "conv_fused_kernelILi1")}
+    return {k: sum(r["device_ms"] for r in rows
+                   if any(n in r["name"] for n in ns)) / n_steps
+            for k, ns in names.items()}
+
+
+def phase_train(qmod, qops, quant, gemm, fused) -> dict:
+    torch.use_deterministic_algorithms(True)
+    try:
+        return _phase_train(qmod, qops, quant, gemm, fused)
+    finally:
+        torch.use_deterministic_algorithms(False)
+
+
+def _phase_train(qmod, qops, quant, gemm, fused) -> dict:
+    batches = train_batches(TRAIN_STEPS)
+    card = build_train_model(SEED).to("cuda")
+    plain = build_train_model(SEED).to("cuda")
+    card_vel, card_run = make_trainer(card)
+    plain_vel, plain_run = make_trainer(plain)
+
+    reset_counters(quant, gemm, fused)
+    losses = [card_run(i, b) for i, b in enumerate(batches)]
+    torch.cuda.synchronize()
+    launches = train_counters(quant, gemm, fused)
+    print(f"train: {TRAIN_STEPS} steps of {BATCH} through the kernels; "
+          f"launches {launches}", flush=True)
+    for k, v in launches.items():
+        check(v > 0, f"{k} never launched on the training path")
+    losses = [x.item() for x in losses]
+    check(all(math.isfinite(x) for x in losses), f"losses {losses}")
+
+    with plain_route(qmod, qops, quant, gemm):
+        plain_losses = [plain_run(i, b).item()
+                        for i, b in enumerate(batches)]
+    torch.cuda.synchronize()
+    check(train_counters(quant, gemm, fused) == launches,
+          "the plain route launched a kernel")
+    check(plain_losses == losses,
+          f"losses differ: kernels {losses}, plain {plain_losses}")
+    got, want = _state(card, card_vel), _state(plain, plain_vel)
+    diff = [k for k in want if not torch.equal(got[k], want[k])]
+    check(not diff, f"kernel and plain routes differ in {diff[:5]} "
+          f"({len(diff)} tensors)")
+    n_exp = sum(1 for k in got if k.rsplit(".", 1)[-1].startswith("exp_"))
+    print(f"train: losses {losses}; kernel and plain routes equal in all "
+          f"{len(got)} tensors ({n_exp} exponents; tolerance 0)",
+          flush=True)
+
+    cpu = build_train_model(SEED)
+    _, cpu_run = make_trainer(cpu)
+    cpu_loss = cpu_run(0, batches[0]).item()
+    check(math.isclose(cpu_loss, losses[0], rel_tol=1e-5),
+          f"first-step loss {losses[0]} differs from the CPU route's "
+          f"{cpu_loss}")
+    print(f"train: first-step loss matches the CPU route ({cpu_loss})",
+          flush=True)
+
+    # host cost of one step's site keys (every uid x site, two numpy calls)
+    from lbt_tpu_torch.dfxp import keys
+    t0 = time.perf_counter()
+    for i in range(50):
+        keys.site_keys(keys.fold_in(keys.base_key(TRAIN_KEY_SEED), i),
+                       card.num_layers(), 5)
+    site_keys_us = (time.perf_counter() - t0) / 50 * 1e6
+    print(f"train: host time of one step's site-key table "
+          f"({card.num_layers()} uids x 5 sites) {site_keys_us:.1f} us",
+          flush=True)
+
+    samples = {"kernel": [], "plain": []}
+    step_no = {"kernel": TRAIN_STEPS, "plain": TRAIN_STEPS}
+    for route in ("plain", "kernel", "kernel", "plain") * 2:
+        run = card_run if route == "kernel" else plain_run
+        with (plain_route(qmod, qops, quant, gemm) if route == "plain"
+              else contextlib.nullcontext()):
+            for b in batches[:2]:
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                run(step_no[route], b)
+                torch.cuda.synchronize()
+                samples[route].append((time.perf_counter() - t0) * 1e3)
+                step_no[route] += 1
+    med = {r: statistics.median(v) for r, v in samples.items()}
+    print(f"train: median ms per step of {BATCH}: kernel route "
+          f"{med['kernel']:.3f}, plain route {med['plain']:.3f}",
+          flush=True)
+
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for b in batches[:2]:
+            card_run(step_no["kernel"], b)
+            step_no["kernel"] += 1
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    rows = [{"name": ev.key[:120], "calls": ev.count,
+             "device_ms": ev.self_device_time_total / 1e3}
+            for ev in prof.key_averages()
+            if ev.device_type == torch.autograd.DeviceType.CUDA
+            and ev.self_device_time_total > 0]
+    rows.sort(key=lambda r: -r["device_ms"])
+    busy = sum(r["device_ms"] for r in rows) if rows else None
+    in_path = _kernel_device_ms(rows, 2) if rows else None
+    prof_out = {"wall_ms": wall_ms, "device_ms": busy,
+                "busy_share": busy / wall_ms if rows else None,
+                "launches_per_step": sum(r["calls"] for r in rows) / 2,
+                "kernel_ms_per_step": in_path, "top": rows[:20]}
+    print(f"train profile: 2 steps, wall {wall_ms:.2f} ms, device kernels "
+          f"{busy} ms (busy share {prof_out['busy_share']}); per step in "
+          f"the path {in_path}", flush=True)
+    return {"launches": launches, "losses": losses,
+            "plain_losses": plain_losses, "cpu_first_loss": cpu_loss,
+            "ms_per_step": med, "samples_ms": samples,
+            "site_keys_us": site_keys_us,
+            "profile": prof_out, "steps": TRAIN_STEPS, "batch": BATCH}
+
+
 def port_modules():
     """Import every module of the port that this script drives and check
-    that none of them loaded JAX, which the card's machine does not have
-    (the port's config comes from ``lbt_tpu.config``, so
-    ``lbt_tpu/__init__.py`` runs too).  Returns the modules the phases
-    take."""
+    that none of them loaded JAX, which the card's machine does not have,
+    or anything of ``lbt_tpu``.  Returns the modules the phases take."""
     import lbt_tpu_torch.config  # noqa: F401
     import lbt_tpu_torch.infer  # noqa: F401
     import lbt_tpu_torch.models  # noqa: F401
     import lbt_tpu_torch.nn.core  # noqa: F401
     import lbt_tpu_torch.nn.norm  # noqa: F401
+    import lbt_tpu_torch.train.step  # noqa: F401
     from lbt_tpu_torch.dfxp import quantize as qmod
     from lbt_tpu_torch.ops import qops
     from lbt_tpu_torch.ops.kernels import build, gemm, quant
     check("jax" not in sys.modules, "importing lbt_tpu_torch loaded jax")
+    check(not [m for m in sys.modules if m.split(".")[0] == "lbt_tpu"],
+          "importing lbt_tpu_torch loaded lbt_tpu")
     return qmod, qops, build, gemm, quant
+
+
+def kernel_lines(report) -> list:
+    """The four kernels: launches from the training path's counted run,
+    errors from every comparison, device and plain ms per training step
+    at the path's shapes (operands out of L2)."""
+    k1, k2, fused = report["k1_train"], report["k2_train"], report["fused"]
+    launches = report["train"]["launches"]
+    return [
+        {"name": "k1_quantize", "route": "triton",
+         "source": "lbt_tpu_torch/ops/kernels/quant_triton.py",
+         "replaces": "lbt_tpu/ops/pallas/quant_kernels.py:126",
+         "launches": launches["k1"],
+         "max_abs_err": max(report["k1"]["max_abs_err"], k1["max_abs_err"]),
+         "ms": k1["ms"], "plain_ms": k1["plain_ms"]},
+        {"name": "k2_int8_gemm", "route": "cuda",
+         "source": "lbt_tpu_torch/csrc/int8_gemm.cu",
+         "replaces": "lbt_tpu/ops/pallas/quant_kernels.py:187",
+         "launches": launches["k2"] + launches["k2_tn"],
+         "max_abs_err": max(report["k2"]["max_abs_err"], k2["max_abs_err"]),
+         "ms": k2["ms"], "plain_ms": k2["plain_ms"]},
+        {"name": "conv3x3_fused", "route": "cuda",
+         "source": "lbt_tpu_torch/csrc/conv_fused.cu",
+         "replaces": "lbt_tpu/ops/pallas/conv_kernels.py:170",
+         "launches": launches["conv3x3"],
+         "max_abs_err": fused["conv3x3_fused"]["max_abs_err"],
+         "ms": fused["conv3x3_fused"]["ms"],
+         "plain_ms": fused["conv3x3_fused"]["plain_ms"]},
+        {"name": "conv1x1_fused", "route": "cuda",
+         "source": "lbt_tpu_torch/csrc/conv_fused.cu",
+         "replaces": "lbt_tpu/ops/pallas/conv1x1_kernels.py:146",
+         "launches": launches["conv1x1"],
+         "max_abs_err": fused["conv1x1_fused"]["max_abs_err"],
+         "ms": fused["conv1x1_fused"]["ms"],
+         "plain_ms": fused["conv1x1_fused"]["plain_ms"]},
+    ]
 
 
 def main(argv=None) -> int:
@@ -443,6 +906,7 @@ def main(argv=None) -> int:
               file=sys.stderr)
         return 1
     qmod, qops, build, gemm, quant = port_modules()
+    from lbt_tpu_torch.ops.kernels import conv_fused
 
     report = {"device": phase_device()}
     report["build"] = phase_build(quant, gemm, build)
@@ -457,20 +921,14 @@ def main(argv=None) -> int:
     from lbt_tpu_torch.infer import Predictor
     report["profile"] = phase_profile(Predictor(probe), x)
 
-    kernels = [
-        {"name": "k1_quantize", "route": "triton",
-         "source": "lbt_tpu_torch/ops/kernels/quant_triton.py",
-         "replaces": "lbt_tpu/ops/pallas/quant_kernels.py:126",
-         "launches": report["serve"]["launches"]["k1"],
-         "max_abs_err": report["k1"]["max_abs_err"],
-         "ms": report["k1"]["ms"], "plain_ms": report["k1"]["plain_ms"]},
-        {"name": "k2_int8_gemm", "route": "cuda",
-         "source": "lbt_tpu_torch/csrc/int8_gemm.cu",
-         "replaces": "lbt_tpu/ops/pallas/quant_kernels.py:187",
-         "launches": report["serve"]["launches"]["k2"],
-         "max_abs_err": report["k2"]["max_abs_err"],
-         "ms": report["k2"]["ms"], "plain_ms": report["k2"]["plain_ms"]},
-    ]
+    k1_t, k2_t, tn_t, conv_t = record_train_calls(qmod, qops, quant, gemm,
+                                                  conv_fused)
+    report["k1_train"] = phase_k1_train(quant, k1_t)
+    report["k2_train"] = phase_k2_train(gemm, k2_t, tn_t)
+    report["fused"] = phase_fused(conv_fused, conv_t)
+    report["train"] = phase_train(qmod, qops, quant, gemm, conv_fused)
+
+    kernels = kernel_lines(report)
     report["kernels"] = kernels
     if args.out is not None:
         args.out.parent.mkdir(parents=True, exist_ok=True)

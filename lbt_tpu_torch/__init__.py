@@ -1,15 +1,17 @@
 """lbt-tpu's PyTorch / CUDA port for NVIDIA Hopper (H100).
 
 A second package beside ``lbt_tpu`` (the JAX reference, which it never
-imports apart from the framework-neutral ``lbt_tpu.config``).  Module paths
-mirror ``lbt_tpu``'s.  This slice serves the CIFAR ResNets under the
-integer engine: ``models.zoo`` builds them, ``infer.Predictor`` serves
-them, ``convert`` loads ``lbt_tpu``'s trees.  The hot ops are hand-written
-kernels in ``ops/kernels``: K1, DFXP quantize in Triton, and K2, an int8
-GEMM with a dequant epilogue in CUDA C++ (``csrc/``), each with a plain
-PyTorch version that CPU tensors take.
+imports).  Module paths mirror ``lbt_tpu``'s.  The port serves the CIFAR
+ResNets under the integer engine (``infer.Predictor``) and trains them one
+step at a time on one device (``train.step.make_train_step``);
+``models.zoo`` builds them and ``convert`` carries ``lbt_tpu``'s trees in
+and out.  The hot ops are hand-written kernels in ``ops/kernels``: K1,
+DFXP quantize with min/max, in Triton; K2, an int8 GEMM in CUDA C++ with
+a split-K ``X^T.g`` form; #4 / #5, 3x3 and 1x1 convs fused with the next
+BatchNorm input's quantize and moments, in CUDA C++ (``csrc/``).  Each
+has a plain PyTorch version that CPU tensors take.
 """
 
-__version__ = "0.1.0"
+__version__ = "0.2.0"
 
 from lbt_tpu_torch.config import QuantConfig, TrainConfig  # noqa: F401

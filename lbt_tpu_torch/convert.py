@@ -1,4 +1,5 @@
-"""Load ``lbt_tpu`` params / qstate trees into the port's modules.
+"""Carry ``lbt_tpu`` params / qstate / velocity trees into the port's
+modules and back.
 
 The trees are ``lbt_tpu``'s nested dicts with numpy arrays at the leaves
 (``jax.tree.map(np.asarray, ...)`` of what ``Model.init`` or a checkpoint
@@ -7,11 +8,14 @@ names; a leaf layer's params map to its parameters by name, its
 ``qstate['exp'][site]`` to the int32 buffer ``exp_<site>`` and its
 ``qstate['state']`` entries (BN ``mean`` / ``var``) to buffers of the same
 name.  Any missing, extra or mis-shaped entry raises ``ValueError``.
+The momentum velocity has the params tree's layout in ``lbt_tpu`` and is a
+dict keyed by parameter name (``model.net.named_parameters()``) in the
+port (:mod:`lbt_tpu_torch.train.optim`).
 """
 
 from __future__ import annotations
 
-from typing import Mapping
+from typing import Dict, Mapping, Optional
 
 import numpy as np
 import torch
@@ -37,17 +41,24 @@ def _copy(path: str, dst: torch.Tensor, src) -> None:
 
 
 def load_jax_numpy(layer: Layer, params: Mapping, qstate: Mapping,
-                   path: str = "") -> None:
-    """Copy one layer subtree's ``lbt_tpu`` params / qstate into ``layer``."""
+                   path: str = "", velocity: Optional[Mapping] = None,
+                   velocity_out: Optional[Dict[int, torch.Tensor]] = None
+                   ) -> None:
+    """Copy one layer subtree's ``lbt_tpu`` params / qstate into ``layer``;
+    with ``velocity`` (params layout) also fill ``velocity_out``
+    (``id(parameter) -> tensor``)."""
     path = f"{path}/{layer.name}"
     children = layer.sublayers()
     if children:
         names = [c.name for c in children]
         _keys_match(path, "params", params, names)
         _keys_match(path, "qstate", qstate, names)
+        if velocity is not None:
+            _keys_match(path, "velocity", velocity, names)
         for child in children:
             load_jax_numpy(child, params[child.name], qstate[child.name],
-                           path)
+                           path, None if velocity is None
+                           else velocity[child.name], velocity_out)
         return
     own_params = dict(layer.named_parameters(recurse=False))
     own_buffers = dict(layer.named_buffers(recurse=False))
@@ -60,6 +71,8 @@ def load_jax_numpy(layer: Layer, params: Mapping, qstate: Mapping,
     _keys_match(path, "qstate/exp", exps, layer.exp_sites())
     _keys_match(path, "qstate/state", state,
                 set(own_buffers) - {f"exp_{s}" for s in layer.exp_sites()})
+    if velocity is not None:
+        _keys_match(path, "velocity", velocity, own_params)
     with torch.no_grad():
         for k, v in params.items():
             _copy(f"{path}/{k}", own_params[k], v)
@@ -67,9 +80,62 @@ def load_jax_numpy(layer: Layer, params: Mapping, qstate: Mapping,
             _copy(f"{path}/exp/{site}", own_buffers[f"exp_{site}"], v)
         for k, v in state.items():
             _copy(f"{path}/state/{k}", own_buffers[k], v)
+        for k, v in (velocity or {}).items():
+            dst = torch.zeros_like(own_params[k]).detach()
+            _copy(f"{path}/velocity/{k}", dst, v)
+            velocity_out[id(own_params[k])] = dst
 
 
-def from_jax_numpy(model: Model, params: Mapping, qstate: Mapping) -> Model:
-    """Load a whole ``lbt_tpu`` model's trees into ``model``; returns it."""
-    load_jax_numpy(model.net, params, qstate)
-    return model
+def from_jax_numpy(model: Model, params: Mapping, qstate: Mapping,
+                   velocity: Optional[Mapping] = None):
+    """Load a whole ``lbt_tpu`` model's trees into ``model``.  Returns
+    ``model``, or ``(model, velocity)`` when a velocity tree is given, the
+    port's velocity on the model's device."""
+    by_id: Dict[int, torch.Tensor] = {}
+    load_jax_numpy(model.net, params, qstate, velocity=velocity,
+                   velocity_out=by_id)
+    if velocity is None:
+        return model
+    return model, {name: by_id[id(p)]
+                   for name, p in model.net.named_parameters()}
+
+
+def _numpy(t: torch.Tensor) -> np.ndarray:
+    return t.detach().cpu().numpy().copy()
+
+
+def dump_jax_numpy(layer: Layer, velocity_by_id=None):
+    """One layer subtree as ``lbt_tpu`` ``(params, qstate, velocity)``
+    trees of numpy arrays (``velocity`` None without ``velocity_by_id``)."""
+    children = layer.sublayers()
+    if children:
+        sub = {c.name: dump_jax_numpy(c, velocity_by_id) for c in children}
+        return ({k: v[0] for k, v in sub.items()},
+                {k: v[1] for k, v in sub.items()},
+                None if velocity_by_id is None
+                else {k: v[2] for k, v in sub.items()})
+    own = dict(layer.named_parameters(recurse=False))
+    params = {k: _numpy(p) for k, p in own.items()}
+    qstate = {}
+    if layer.cfg is not None:
+        sites = layer.exp_sites()
+        qstate = {"exp": {s: _numpy(layer.exp(s)) for s in sites},
+                  "state": {k: _numpy(b) for k, b in
+                            layer.named_buffers(recurse=False)
+                            if k not in {f"exp_{s}" for s in sites}}}
+    velocity = None
+    if velocity_by_id is not None:
+        velocity = {k: _numpy(velocity_by_id[id(p)]) for k, p in own.items()}
+    return params, qstate, velocity
+
+
+def to_jax_numpy(model: Model, velocity: Optional[Mapping] = None):
+    """``(params, qstate, velocity)`` of ``model`` as ``lbt_tpu`` trees of
+    numpy arrays; ``velocity`` (the port's dict) becomes a params-layout
+    tree, or None when not given."""
+    by_id = None
+    if velocity is not None:
+        named = dict(model.net.named_parameters())
+        _keys_match("velocity", "parameter", velocity, named)
+        by_id = {id(named[k]): v for k, v in velocity.items()}
+    return dump_jax_numpy(model.net, by_id)

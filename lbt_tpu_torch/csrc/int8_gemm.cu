@@ -22,6 +22,16 @@
 //     the stem, N = 10 at the head.
 // mma.sync / wgmma tensor-core tiles and TMA pipelines are later work.
 //
+// The X^T.g form (lbt_int8_gemm_tn) is the weight gradient of training:
+// C[M,N] = A[K,M]^T @ B[K,N], A read transposed, where K = B*Ho*Wo rows of
+// im2col patches reaches 131072 at ResNet-20's first stage while M x N is
+// at most 576 x 64.  The output is too small to fill the card, so K is
+// split over the grid's z dimension: each block sums a chunk of at most
+// 2^16 rows exactly in int32 (|a*b| <= 2^14) and adds its partial into an
+// int64 output with atomicAdd.  Integer addition is associative, so the
+// result does not depend on the order the blocks run in; an int64 sum
+// cannot wrap where the exact int32 one would (2^17 rows x 2^14).
+//
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -O3 -shared
 //        -Xcompiler -fPIC (lbt_tpu_torch/ops/kernels/build.py).
 
@@ -153,6 +163,120 @@ cudaError_t launch(const int8_t* a, const int8_t* b, void* out,
   return cudaGetLastError();
 }
 
+// C[M,N] += A[K,M]^T @ B[K,N] over rows [z*chunk, (z+1)*chunk) of K
+template <int BN>
+__global__ void __launch_bounds__(kThreads)
+int8_gemm_tn_kernel(const int8_t* __restrict__ a, const int8_t* __restrict__ b,
+                    unsigned long long* __restrict__ out, int m, int n, int k,
+                    int chunk) {
+  constexpr int kNT = BN / kTN;
+  constexpr int kMT = kThreads / kNT;
+  constexpr int kBM = kMT * kTM;
+  __shared__ int32_t as[kBM][kKQ + 1];
+  __shared__ int32_t bs[BN][kKQ + 1];
+
+  const int tid = threadIdx.x;
+  const int tx = tid % kNT;
+  const int ty = tid / kNT;
+  const int m0 = blockIdx.x * kBM;
+  const int n0 = blockIdx.y * BN;
+  const int kbeg = blockIdx.z * chunk;
+  const int kend = min(k, kbeg + chunk);
+
+  int32_t acc[kTM][kTN];
+#pragma unroll
+  for (int i = 0; i < kTM; ++i)
+#pragma unroll
+    for (int j = 0; j < kTN; ++j) acc[i][j] = 0;
+
+  for (int k0 = kbeg; k0 < kend; k0 += kBK) {
+    // A stage: column m0+r of A (a row of A^T), four k per word; threads
+    // adjacent in r read adjacent bytes of one row of A
+    for (int i = tid; i < kBM * kKQ; i += kThreads) {
+      const int r = i % kBM;
+      const int q = i / kBM;
+      const int col = m0 + r;
+      const int kk = k0 + 4 * q;
+      uint32_t w = 0;
+      if (col < m) {
+#pragma unroll
+        for (int t = 0; t < 4; ++t)
+          if (kk + t < kend)
+            w |= static_cast<uint32_t>(static_cast<uint8_t>(
+                     a[static_cast<int64_t>(kk + t) * m + col]))
+                 << (8 * t);
+      }
+      as[r][q] = static_cast<int32_t>(w);
+    }
+    for (int i = tid; i < BN * kKQ; i += kThreads) {
+      const int c = i % BN;
+      const int q = i / BN;
+      const int col = n0 + c;
+      const int kk = k0 + 4 * q;
+      uint32_t w = 0;
+      if (col < n) {
+#pragma unroll
+        for (int t = 0; t < 4; ++t)
+          if (kk + t < kend)
+            w |= static_cast<uint32_t>(static_cast<uint8_t>(
+                     b[static_cast<int64_t>(kk + t) * n + col]))
+                 << (8 * t);
+      }
+      bs[c][q] = static_cast<int32_t>(w);
+    }
+    __syncthreads();
+#pragma unroll
+    for (int q = 0; q < kKQ; ++q) {
+      int32_t av[kTM], bv[kTN];
+#pragma unroll
+      for (int i = 0; i < kTM; ++i) av[i] = as[ty + i * kMT][q];
+#pragma unroll
+      for (int j = 0; j < kTN; ++j) bv[j] = bs[tx + j * kNT][q];
+#pragma unroll
+      for (int i = 0; i < kTM; ++i)
+#pragma unroll
+        for (int j = 0; j < kTN; ++j) acc[i][j] = __dp4a(av[i], bv[j], acc[i][j]);
+    }
+    __syncthreads();
+  }
+
+#pragma unroll
+  for (int i = 0; i < kTM; ++i) {
+    const int row = m0 + ty + i * kMT;
+    if (row >= m) continue;
+#pragma unroll
+    for (int j = 0; j < kTN; ++j) {
+      const int col = n0 + tx + j * kNT;
+      if (col >= n || acc[i][j] == 0) continue;
+      atomicAdd(out + static_cast<int64_t>(row) * n + col,
+                static_cast<unsigned long long>(
+                    static_cast<long long>(acc[i][j])));
+    }
+  }
+}
+
+constexpr int kMaxChunk = 1 << 16;  // rows per block: exact in int32
+constexpr int kTargetBlocks = 4 * 132;
+
+template <int BN>
+cudaError_t launch_tn(const int8_t* a, const int8_t* b,
+                      unsigned long long* out, int m, int n, int k,
+                      cudaStream_t stream) {
+  constexpr int kBM = (kThreads / (BN / kTN)) * kTM;
+  const int mt = (m + kBM - 1) / kBM;
+  const int nt = (n + BN - 1) / BN;
+  // enough K splits to give the card ~4 blocks per SM, in whole stages
+  int splits = (kTargetBlocks + mt * nt - 1) / (mt * nt);
+  int chunk = (k + splits - 1) / splits;
+  chunk = ((chunk + kBK - 1) / kBK) * kBK;
+  if (chunk > kMaxChunk) chunk = kMaxChunk;
+  splits = (k + chunk - 1) / chunk;
+  const dim3 grid(mt, nt, splits);
+  int8_gemm_tn_kernel<BN><<<grid, kThreads, 0, stream>>>(a, b, out, m, n, k,
+                                                        chunk);
+  return cudaGetLastError();
+}
+
 }  // namespace
 
 // C interface for ctypes.  out is float32 when inv_scale is non-null,
@@ -173,6 +297,26 @@ extern "C" int lbt_int8_gemm(const void* a, const void* b, void* out,
     err = launch<32>(a8, b8, out, s, m, n, k, st);
   } else {
     err = launch<64>(a8, b8, out, s, m, n, k, st);
+  }
+  return static_cast<int>(err);
+}
+
+// C interface: out[M,N] (int64, zeroed by the caller) += A[K,M]^T @ B[K,N].
+// Requires m, n, k >= 1 and k / 2^16 splits within the grid's z limit.
+extern "C" int lbt_int8_gemm_tn(const void* a, const void* b, void* out,
+                                int m, int n, int k, void* stream) {
+  if (m < 1 || n < 1 || k < 1) return static_cast<int>(cudaErrorInvalidValue);
+  const auto* a8 = static_cast<const int8_t*>(a);
+  const auto* b8 = static_cast<const int8_t*>(b);
+  auto* o = static_cast<unsigned long long*>(out);
+  auto st = static_cast<cudaStream_t>(stream);
+  cudaError_t err;
+  if (n <= 16) {
+    err = launch_tn<16>(a8, b8, o, m, n, k, st);
+  } else if (n <= 32) {
+    err = launch_tn<32>(a8, b8, o, m, n, k, st);
+  } else {
+    err = launch_tn<64>(a8, b8, o, m, n, k, st);
   }
   return static_cast<int>(err);
 }

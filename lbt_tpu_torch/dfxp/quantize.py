@@ -9,15 +9,20 @@ codes clipped to ``[-2**(bits-1), 2**(bits-1)-1]``, rounded half-to-even
 Codes come from kernel K1 (:mod:`lbt_tpu_torch.ops.kernels.quant`).
 Stochastic noise is the ``hash`` / ``hash1`` counter hash of ``lbt_tpu``
 (``backend='xla_hash'`` / ``'xla_hash1'``), seeded from a key's raw data
-exactly as ``lbt_tpu`` seeds it, so codes match bit for bit.  The
-straight-through estimator, overflow statistics and the exponent
-controller belong to training and are not ported yet.
+exactly as ``lbt_tpu`` seeds it, so codes match bit for bit.
+
+For training: the straight-through estimator (:func:`straight_through`,
+:func:`quantize_ste`), the overflow statistics the range controllers read
+(:func:`overflow_rates`, :func:`overflow_stats`, and
+:func:`overflow_indicators` from the ``[min, max]`` that K1 emits beside
+the codes), and the controller step :func:`update_exponent`.  Exponents
+and statistics stay device tensors: a controller step needs no host sync.
 """
 
 from __future__ import annotations
 
 import math
-from typing import Optional, Sequence, Union
+from typing import Optional, Sequence, Tuple, Union
 
 import torch
 
@@ -25,7 +30,9 @@ from lbt_tpu_torch.ops.kernels.quant import (code_dtype, hash_uniform_flat,
                                              quantize_codes)
 
 __all__ = ["EXP_MIN", "code_dtype", "dequantize", "hash_uniform",
-           "key_seed", "multiplier", "quantize", "quantize_int"]
+           "key_seed", "multiplier", "noise_seed", "overflow_indicators",
+           "overflow_rates", "overflow_stats", "quantize", "quantize_int",
+           "quantize_ste", "straight_through", "update_exponent"]
 
 # Below this exponent the f32 multiplier 2**(bits-1-exp) would overflow.
 EXP_MIN = -110
@@ -66,6 +73,21 @@ def hash_uniform(key: KeyData, shape, light: bool = False,
         tuple(shape))
 
 
+def noise_seed(key: Optional[KeyData], stochastic: bool,
+               backend: str) -> Tuple[Optional[int], bool]:
+    """``(seed, light)`` of the counter-hash noise for a quantize site:
+    ``seed`` None rounds to nearest; ``light`` selects ``hash1``."""
+    if not stochastic:
+        return None, False
+    if key is None:
+        raise ValueError("stochastic quantization requires a PRNG key")
+    if backend not in _HASH_BACKENDS:
+        raise NotImplementedError(
+            f"stochastic backend {backend!r} is not ported; the port "
+            f"draws noise from {sorted(_HASH_BACKENDS)}")
+    return key_seed(key), _HASH_BACKENDS[backend]
+
+
 def quantize_int(
     x: torch.Tensor,
     bits: int,
@@ -74,29 +96,25 @@ def quantize_int(
     *,
     stochastic: bool = False,
     backend: str = "xla_hash",
-) -> tuple[torch.Tensor, torch.Tensor]:
+    stats: bool = False,
+):
     """Quantize to integer codes: ``(codes, multiplier)`` with
     ``dequantized = codes / multiplier`` and codes in :func:`code_dtype`.
 
     ``key`` is raw key data (two uint32 words); stochastic rounding
     draws the counter-hash noise of ``backend`` (``'xla_hash'`` or
-    ``'xla_hash1'``).  ``bits`` must be < 32."""
+    ``'xla_hash1'``).  ``bits`` must be < 32.  ``stats=True`` returns
+    ``(codes, multiplier, minmax)``, ``minmax`` the f32 ``[min, max]`` of
+    ``x * multiplier`` from the same K1 pass."""
     if bits >= 32:
         raise ValueError("quantize_int needs bits < 32")
     mult = multiplier(bits, exp, x.device)
-    seed = None
-    if stochastic:
-        if key is None:
-            raise ValueError("stochastic quantization requires a PRNG key")
-        if backend not in _HASH_BACKENDS:
-            raise NotImplementedError(
-                f"stochastic backend {backend!r} is not ported; the port "
-                f"draws noise from {sorted(_HASH_BACKENDS)}")
-        seed = key_seed(key)
+    seed, light = noise_seed(key, stochastic, backend)
     x = x.to(torch.float32).contiguous()
-    codes = quantize_codes(x, bits, mult, seed,
-                           light=_HASH_BACKENDS.get(backend, False))
-    return codes, mult
+    out = quantize_codes(x, bits, mult, seed, light=light, stats=stats)
+    if stats:
+        return out[0], mult, out[1]
+    return out, mult
 
 
 def dequantize(codes: torch.Tensor, mult: torch.Tensor) -> torch.Tensor:
@@ -119,3 +137,103 @@ def quantize(
     codes, mult = quantize_int(x, bits, exp, key, stochastic=stochastic,
                                backend=backend)
     return dequantize(codes, mult)
+
+
+# ---------------------------------------------------------------------------
+# Straight-through estimator
+# ---------------------------------------------------------------------------
+
+
+class _StraightThrough(torch.autograd.Function):
+    """Forward returns ``xq``; backward hands the cotangent to ``x``
+    untouched (the reference's ``lambda dy: dy``)."""
+
+    @staticmethod
+    def forward(ctx, x, xq):
+        return xq
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+
+def straight_through(x: torch.Tensor, xq: torch.Tensor) -> torch.Tensor:
+    """``xq`` in the forward, identity gradient to ``x`` in the backward."""
+    if not x.requires_grad:
+        return xq
+    return _StraightThrough.apply(x, xq)
+
+
+def quantize_ste(
+    x: torch.Tensor,
+    bits: int,
+    exp: Exp,
+    key: Optional[KeyData] = None,
+    *,
+    stochastic: bool = False,
+    backend: str = "xla_hash",
+    stats: bool = False,
+):
+    """Fake-quantize with a straight-through gradient.  ``stats=True``
+    returns ``(xq, minmax)`` (``minmax`` as in :func:`quantize_int`)."""
+    if bits >= 32:
+        if stats:
+            raise ValueError("no statistics of a passthrough site")
+        return x
+    out = quantize_int(x, bits, exp, key, stochastic=stochastic,
+                       backend=backend, stats=stats)
+    xq = straight_through(x, dequantize(out[0], out[1]))
+    return (xq, out[2]) if stats else xq
+
+
+# ---------------------------------------------------------------------------
+# Overflow measurement + dynamic range controller
+# ---------------------------------------------------------------------------
+
+
+def overflow_rates(x: torch.Tensor, bits: int, exp: Exp) -> torch.Tensor:
+    """``[overflow(x), overflow(2x)]``: the fractions of elements whose
+    ``x * multiplier`` clips at the full and at half range (f32 ``(2,)``)."""
+    scaled = x.detach().to(torch.float32) * multiplier(bits, exp, x.device)
+    limit = float(2 ** (bits - 1))
+    over = (scaled >= limit) | (scaled < -limit)
+    over2 = (scaled >= limit / 2) | (scaled < -limit / 2)
+    # exact counts times the f32 reciprocal of n: XLA's mean rounds so
+    inv_n = torch.tensor(1.0, device=x.device) / max(x.numel(), 1)
+    return torch.stack([over.to(torch.float32).sum() * inv_n,
+                        over2.to(torch.float32).sum() * inv_n])
+
+
+def overflow_indicators(minmax: torch.Tensor, bits: int) -> torch.Tensor:
+    """The indicator form of the overflow statistics from ``[min, max]``
+    of the scaled tensor: ``[any clips at full range, any at half]`` as
+    f32 (``lbt_tpu``'s ``overflow_stats`` at a zero target)."""
+    limit = float(2 ** (bits - 1))
+    mn, mx = minmax[0], minmax[1]
+    over = (mx >= limit) | (mn < -limit)
+    over2 = (mx >= limit / 2) | (mn < -limit / 2)
+    return torch.stack([over, over2]).to(torch.float32)
+
+
+def overflow_stats(x: torch.Tensor, bits: int, exp: Exp,
+                   target_overflow_rate: float = 0.0) -> torch.Tensor:
+    """Statistics sufficient for :func:`update_exponent`: the indicator
+    form at a zero target, the true fractions otherwise."""
+    if target_overflow_rate != 0.0:
+        return overflow_rates(x, bits, exp)
+    scaled = x.detach().to(torch.float32) * multiplier(bits, exp, x.device)
+    return overflow_indicators(
+        torch.stack([scaled.amin(), scaled.amax()]), bits)
+
+
+def update_exponent(exp: Exp, rates: torch.Tensor, bits: int,
+                    target_overflow_rate: float = 0.0) -> torch.Tensor:
+    """One controller step: widen (+1) when ``overflow(x)`` exceeds the
+    target, tighten (-1) when ``overflow(2x)`` does not, else hold;
+    clipped to ``[EXP_MIN, bits - 1]``.  Returns an int32 tensor."""
+    exp = torch.as_tensor(exp, device=rates.device).to(torch.int32)
+    one = torch.ones((), dtype=torch.int32, device=rates.device)
+    delta = torch.where(rates[..., 0] > target_overflow_rate, one,
+                        torch.where(rates[..., 1] <= target_overflow_rate,
+                                    -one, 0 * one))
+    return torch.clamp(exp + delta, EXP_MIN, bits - 1)

@@ -1,5 +1,6 @@
 """Model zoo (PyTorch port of ``lbt_tpu/models/zoo.py``): the CIFAR
-ResNets.  The other ``lbt_tpu`` models are not ported yet."""
+ResNets (the reference's dropout and gradient-buffer options are not
+ported).  The other ``lbt_tpu`` models are not ported yet."""
 
 from __future__ import annotations
 
@@ -12,39 +13,43 @@ from lbt_tpu_torch.nn.model import Model
 from lbt_tpu_torch.nn.norm import BatchNorm
 
 
-def _res_stage(cfg, name, cin, channels, num_blocks, stride):
+def _res_stage(cfg, name, cin, channels, num_blocks, stride, weight_decay):
     blocks = []
     for i in range(1, 1 + num_blocks):
         blocks.append(ResidualBlock(
             f"{name}-{i}", cfg, cin, channels,
-            stride=stride if i == 1 else 1))
+            stride=stride if i == 1 else 1, weight_decay=weight_decay))
         cin = channels * ResidualBlock.expansion
     return blocks, cin
 
 
 def cifar10_resnet(cfg: QuantConfig, depth: int = 20,
+                   weight_decay: float = 0.0,
                    num_classes: int = 10) -> Model:
     """CIFAR ResNet-{20,32,44,56}: 3x3x16 bias-free stem + BN + ReLU,
     three stages of basic blocks at 16/32/64 channels (strides 1/2/2), 8x8
-    avgpool and a bias-free 64->num_classes head.  Parameters are zero
-    until :meth:`Model.init`."""
+    avgpool and a bias-free 64->num_classes head.  ``weight_decay`` is
+    every conv's, dense's and BN gamma's in-gradient L2 coefficient.
+    Parameters are zero until :meth:`Model.init`."""
     if (depth - 2) % 6:
         raise ValueError(f"bad CIFAR resnet depth {depth}")
     n = (depth - 2) // 6
     layers = [
-        Conv2d("conv1", cfg, (3, 3, 3, 16), (1, 1), "SAME", use_bias=False),
-        BatchNorm("conv1-bn", cfg, 16),
+        Conv2d("conv1", cfg, (3, 3, 3, 16), (1, 1), "SAME", use_bias=False,
+               weight_decay=weight_decay),
+        BatchNorm("conv1-bn", cfg, 16, weight_decay=weight_decay),
         ReLU(),
     ]
     cin = 16
     for channels, stride in ((16, 1), (32, 2), (64, 2)):
         stage, cin = _res_stage(cfg, f"block{channels}", cin, channels, n,
-                                stride)
+                                stride, weight_decay)
         layers += stage
     layers += [
         AvgPool(ksize=(8, 8), strides=(1, 1), padding="VALID"),
         Flatten(),
-        Dense("softmax", cfg, 64, num_classes, use_bias=False),
+        Dense("softmax", cfg, 64, num_classes, use_bias=False,
+              weight_decay=weight_decay),
     ]
     return Model(f"cifar10_resnet{depth}", layers, input_shape=(32, 32, 3),
                  num_classes=num_classes, cfg=cfg)

@@ -11,9 +11,11 @@ from lbt_tpu_torch.nn.layers import Conv2d, ReLU
 from lbt_tpu_torch.nn.norm import BatchNorm
 
 
-def _conv_bn(name: str, cfg: QuantConfig, ksize, strides):
-    return [Conv2d(name, cfg, ksize, strides, "SAME", use_bias=False),
-            BatchNorm(name + "-bn", cfg, ksize[3])]
+def _conv_bn(name: str, cfg: QuantConfig, ksize, strides, weight_decay):
+    return [Conv2d(name, cfg, ksize, strides, "SAME", use_bias=False,
+                   weight_decay=weight_decay),
+            BatchNorm(name + "-bn", cfg, ksize[3],
+                      weight_decay=weight_decay)]
 
 
 class ResidualBlock(Layer):
@@ -23,18 +25,20 @@ class ResidualBlock(Layer):
     expansion = 1
 
     def __init__(self, name: str, cfg: QuantConfig, in_channels: int,
-                 channels: int, stride: int = 1):
+                 channels: int, stride: int = 1, weight_decay: float = 0.0):
         super().__init__(name, cfg)
+        wd = weight_decay
         self.residual = Sequential("residual", (
             _conv_bn("conv1", cfg, (3, 3, in_channels, channels),
-                     (stride, stride))
+                     (stride, stride), wd)
             + [ReLU("relu1")]
-            + _conv_bn("conv2", cfg, (3, 3, channels, channels), (1, 1))))
+            + _conv_bn("conv2", cfg, (3, 3, channels, channels), (1, 1),
+                       wd)))
         shortcut = []
         if stride != 1 or in_channels != self.expansion * channels:
             shortcut = _conv_bn(
                 "conv", cfg, (1, 1, in_channels, self.expansion * channels),
-                (stride, stride))
+                (stride, stride), wd)
         self.shortcut = Sequential("shortcut", shortcut)
 
     def sublayers(self):

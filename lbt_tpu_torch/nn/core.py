@@ -5,12 +5,17 @@ exponents (one int32 scalar per site, buffer ``exp_<site>``) and BN running
 statistics are buffers.  ``forward(x, ctx)`` maps activations to
 activations.  Layer names, child names and the DFS ``uid`` numbering are
 ``lbt_tpu``'s, so a layer's path in the port is its path in ``lbt_tpu``'s
-params / qstate trees (:mod:`lbt_tpu_torch.convert` walks both).
+params / qstate trees (:mod:`lbt_tpu_torch.convert` walks both), and its
+uid folds into the same site keys.
 
-Only the serving forward is ported: ``Ctx(train=False, update=False)``.
-Training behaviour (batch statistics, exponent controllers, cotangent
-barriers and their sinks) comes with the training slice and raises
-``NotImplementedError`` until then.
+State updates of a training forward follow ``lbt_tpu``'s functional
+order: every exponent is read before its controller steps in that step.
+A layer stages the new value of a forward-site exponent or BN statistic
+on the :class:`Ctx` (:meth:`Ctx.stage`); the train step commits the
+staged values after the backward pass (:meth:`Ctx.commit`), as ``lbt_tpu``
+returns ``new_qstate``.  Gradient-site exponents move only in
+:meth:`Layer.absorb_sinks`, from the statistics the cotangent barriers
+wrote into the sinks (:func:`make_sinks`).
 """
 
 from __future__ import annotations
@@ -18,35 +23,86 @@ from __future__ import annotations
 import dataclasses
 from typing import Dict, Iterable, List, Optional, Sequence, Tuple
 
+import numpy as np
 import torch
 from torch import nn
 
 from lbt_tpu_torch.config import QuantConfig, check_supported
+from lbt_tpu_torch.dfxp.barrier import make_sink
+from lbt_tpu_torch.dfxp.keys import site_keys
+from lbt_tpu_torch.dfxp.quantize import (overflow_indicators, overflow_stats,
+                                         quantize_ste, update_exponent)
 
 _RESERVED = {"exp", "state", "grad", "buffer"}
+N_SITES = 5  # site indices folded into a layer key: x, w, b, g, dropout
 
 
 @dataclasses.dataclass
 class Ctx:
-    """Per-call context.  ``train`` selects behaviour (BN batch statistics),
-    ``update`` state mutation (controllers, BN EMA); ``generator`` will
-    seed stochastic rounding in training.  Serving is
-    ``Ctx(train=False, update=False)``."""
+    """Per-call context.
+
+    ``train`` selects behaviour (BN batch statistics), ``update`` state
+    mutation (controllers, BN EMA), ``update_gate`` whether the range
+    controllers run this step (``QuantConfig.range_update_every``).
+    ``key`` is the step's raw threefry key data (``uint32[2]``, see
+    :mod:`lbt_tpu_torch.dfxp.keys`); without it quantization rounds
+    deterministically.  ``sinks`` maps a layer uid to its stat sink;
+    ``n_uids`` sizes the table of site keys built on first use.  Serving
+    is ``Ctx(train=False, update=False)``."""
 
     train: bool
+    key: Optional[np.ndarray] = None
     update: Optional[bool] = None
-    generator: Optional[torch.Generator] = None
+    update_gate: bool = True
+    sinks: Optional[Dict[int, torch.Tensor]] = None
+    n_uids: int = 0
+    _keys: Optional[np.ndarray] = dataclasses.field(default=None, repr=False)
+    _staged: list = dataclasses.field(default_factory=list, repr=False)
+    _taken: set = dataclasses.field(default_factory=set, repr=False)
 
     def __post_init__(self):
         if self.update is None:
             self.update = self.train
+        if self.key is not None:
+            self.key = np.asarray(self.key, np.uint32)
 
+    @property
+    def controls(self) -> bool:
+        """Whether the range controllers run in this call."""
+        return bool(self.update and self.update_gate)
 
-def check_serving(ctx: Ctx) -> None:
-    if ctx.train or ctx.update:
-        raise NotImplementedError(
-            "only the serving forward (Ctx(train=False, update=False)) is "
-            "ported; training comes with the training slice")
+    def layer_key(self, uid: int, site: int) -> Optional[Tuple[int, int]]:
+        """``fold_in(fold_in(key, uid), site)`` as two ints, from a table
+        built for every uid and site at once."""
+        if self.key is None:
+            return None
+        if self._keys is None or uid >= self._keys.shape[0]:
+            n = max(uid + 1, self.n_uids,
+                    0 if self._keys is None else 2 * self._keys.shape[0])
+            self._keys = site_keys(self.key, n, N_SITES)
+        k = self._keys[uid, site]
+        return int(k[0]), int(k[1])
+
+    def sink(self, layer: "Layer") -> Optional[torch.Tensor]:
+        """The stat sink of ``layer``'s barrier; a layer reached twice in
+        one call raises rather than adding two cotangents' statistics."""
+        if self.sinks is None:
+            return None
+        if layer.uid in self._taken:
+            raise RuntimeError(f"layer {layer.name!r} (uid {layer.uid}) "
+                               f"reached twice: its sink is taken")
+        self._taken.add(layer.uid)
+        return self.sinks.get(layer.uid)
+
+    def stage(self, buf: torch.Tensor, value: torch.Tensor) -> None:
+        """Record ``buf``'s value after this step (written by commit)."""
+        self._staged.append((buf, value.detach()))
+
+    def commit(self) -> None:
+        with torch.no_grad():
+            for buf, value in self._staged:
+                buf.copy_(value)
+        self._staged.clear()
 
 
 class Layer(nn.Module):
@@ -74,6 +130,34 @@ class Layer(nn.Module):
         ``lbt_tpu``'s ``init`` does (same distributions, not the same
         numbers)."""
 
+    # -- training structure -------------------------------------------------
+    def has_grad_sink(self) -> bool:
+        """Whether this layer's barrier writes a stat sink."""
+        return "grad" in self.exp_sites()
+
+    def own_decay(self) -> Dict[str, float]:
+        """Weight-decay coefficient of each own parameter."""
+        return {}
+
+    def decay_tree(self) -> Dict:
+        """``lbt_tpu``'s decay tree: own coefficients for a leaf, child
+        name -> subtree for a container."""
+        children = self.sublayers()
+        if children:
+            return {c.name: c.decay_tree() for c in children}
+        return self.own_decay()
+
+    def absorb_sinks(self, sink_cots: Dict[int, torch.Tensor]) -> None:
+        """Step each gradient-site exponent under this layer from its
+        sink's cotangent (``uid -> (2,)`` statistics)."""
+        for child in self.sublayers():
+            child.absorb_sinks(sink_cots)
+        if self.has_grad_sink() and self.uid in sink_cots:
+            exp = self.exp("grad")
+            exp.copy_(update_exponent(exp, sink_cots[self.uid],
+                                      self.cfg.bits_g,
+                                      self.cfg.target_overflow_rate))
+
     # -- quantizer exponents ----------------------------------------------
     def _register_exps(self, sites: Iterable[Tuple[str, int, int]]) -> None:
         """One int32 buffer ``exp_<site>`` per (site, bits, initial exp)
@@ -95,6 +179,44 @@ class Layer(nn.Module):
     def _reset_exps(self) -> None:
         for site, init in getattr(self, "_exp_init", {}).items():
             self.exp(site).fill_(init)
+
+    # -- helpers of quantized layers ---------------------------------------
+    def _qkw(self, ctx: Ctx) -> dict:
+        """Rounding options: stochastic only with a key (no key =
+        serving, round-to-nearest)."""
+        return dict(stochastic=self.cfg.stochastic and ctx.key is not None,
+                    backend=self.cfg.quant_backend)
+
+    def _ctrl(self, ctx: Ctx, site: str, bits: int, x: torch.Tensor,
+              minmax: Optional[torch.Tensor] = None) -> None:
+        """Stage one controller step of ``site``, measured on the
+        pre-quantization tensor ``x`` at the current exponent (from K1's
+        ``minmax`` of ``x * multiplier`` when given).  No-op unless the
+        controllers run."""
+        if not ctx.controls or bits >= 32 or site not in self.exp_sites():
+            return
+        target = self.cfg.target_overflow_rate
+        exp = self.exp(site)
+        if minmax is not None and target == 0.0:
+            rates = overflow_indicators(minmax, bits)
+        else:
+            rates = overflow_stats(x, bits, exp, target)
+        ctx.stage(exp, update_exponent(exp, rates, bits, target))
+
+    def _quant(self, ctx: Ctx, site: str, t: torch.Tensor, bits: int,
+               site_idx: int) -> torch.Tensor:
+        """STE fake-quantize ``t`` at ``site`` with its site key, staging
+        the site's controller step."""
+        if bits >= 32:
+            return t
+        key = ctx.layer_key(self.uid, site_idx)
+        if not ctx.controls:
+            return quantize_ste(t, bits, self.exp(site), key,
+                                **self._qkw(ctx))
+        tq, minmax = quantize_ste(t, bits, self.exp(site), key, stats=True,
+                                  **self._qkw(ctx))
+        self._ctrl(ctx, site, bits, t, minmax)
+        return tq
 
 
 def site_init_exp(cfg: QuantConfig, site: str) -> int:
@@ -139,8 +261,19 @@ def walk(root: Layer) -> List[Layer]:
     return out
 
 
+def make_sinks(root: Layer, device=None) -> Dict[int, torch.Tensor]:
+    """A fresh zero stat sink (``requires_grad``) for every layer under
+    ``root`` whose barrier writes one, keyed by uid."""
+    return {layer.uid: make_sink(device) for layer in walk(root)
+            if layer.has_grad_sink()}
+
+
 class Sequential(Layer):
-    """Chain of layers; lbt_tpu's trees nest them by child name."""
+    """Chain of layers; lbt_tpu's trees nest them by child name.
+
+    In training, a layer that can take over the layer before it
+    (``fuses_with``, as BatchNorm takes a conv) runs both through
+    ``forward_from``: the fused conv + BN-input kernels."""
 
     def __init__(self, name: str, layers: Sequence[Layer]):
         super().__init__(name)
@@ -150,6 +283,16 @@ class Sequential(Layer):
         return tuple(self.layers)
 
     def forward(self, x, ctx):
-        for layer in self.layers:
-            x = layer(x, ctx)
+        layers = list(self.layers)
+        i = 0
+        while i < len(layers):
+            nxt = layers[i + 1] if i + 1 < len(layers) else None
+            if (ctx.train and nxt is not None
+                    and hasattr(nxt, "fuses_with")
+                    and nxt.fuses_with(layers[i])):
+                x = nxt.forward_from(layers[i], x, ctx)
+                i += 2
+            else:
+                x = layers[i](x, ctx)
+                i += 1
         return x

@@ -1,6 +1,13 @@
-"""Quantized leaf layers (PyTorch port of ``lbt_tpu/nn/layers.py``),
-serving forward.  Integer compute is delegated to
-:mod:`lbt_tpu_torch.ops.qops`."""
+"""Quantized leaf layers (PyTorch port of ``lbt_tpu/nn/layers.py``):
+serving and training forwards.  Integer compute is delegated to
+:mod:`lbt_tpu_torch.ops.qops`.
+
+In training, each quantized site draws its stochastic noise from its own
+key, ``fold_in(fold_in(step_key, uid), site)`` with ``lbt_tpu``'s site
+indices (:data:`SITE_X` ...), measures its controller statistics in the
+same K1 pass that quantizes it, and the layer's output passes the
+cotangent barrier (``dfxp/barrier.py``) at the gradient site.
+"""
 
 from __future__ import annotations
 
@@ -10,9 +17,12 @@ import torch
 from torch import nn
 
 from lbt_tpu_torch.config import QuantConfig, carrier_dtype
-from lbt_tpu_torch.dfxp.quantize import quantize
-from lbt_tpu_torch.nn.core import Layer, check_serving, site_init_exp
+from lbt_tpu_torch.dfxp.barrier import grad_quant_barrier
+from lbt_tpu_torch.nn.core import Ctx, Layer, site_init_exp
 from lbt_tpu_torch.ops.qops import qconv2d, qmatmul
+
+# PRNG site indices (folded into the layer key), as lbt_tpu's
+SITE_X, SITE_W, SITE_B, SITE_G, SITE_DROP = range(5)
 
 
 def _uniform_(t: torch.Tensor, limit: float, generator) -> None:
@@ -21,13 +31,27 @@ def _uniform_(t: torch.Tensor, limit: float, generator) -> None:
         t.copy_(u * (2 * limit) - limit)
 
 
+def barrier(layer: Layer, y: torch.Tensor, ctx: Ctx) -> torch.Tensor:
+    """The layer's cotangent barrier at its gradient site."""
+    cfg = layer.cfg
+    if cfg.bits_g >= 32:
+        return y
+    return grad_quant_barrier(
+        y, cfg.bits_g, layer.exp("grad"), ctx.sink(layer),
+        ctx.layer_key(layer.uid, SITE_G),
+        target_overflow_rate=cfg.target_overflow_rate,
+        gate=ctx.update_gate, **layer._qkw(ctx))
+
+
 class _QuantLeaf(Layer):
     """Shared shape of Dense and Conv2d: weight ``W``, optional bias ``b``,
-    exponent sites x, w, grad (and b)."""
+    exponent sites x, w, grad (and b).  ``W`` decays by ``weight_decay``,
+    ``b`` does not."""
 
-    def __init__(self, name, cfg, wshape, bits_x, use_bias):
+    def __init__(self, name, cfg, wshape, bits_x, use_bias, weight_decay):
         super().__init__(name, cfg)
         self.use_bias = use_bias
+        self.weight_decay = weight_decay
         self.W = nn.Parameter(torch.zeros(wshape))
         sites = [("x", bits_x), ("w", cfg.bits_w), ("grad", cfg.bits_g)]
         if use_bias:
@@ -46,10 +70,33 @@ class _QuantLeaf(Layer):
                 self.b.zero_()
         self._reset_exps()
 
-    def _bias(self, y: torch.Tensor) -> torch.Tensor:
-        if not self.use_bias:
-            return y
-        return y + quantize(self.b, self.cfg.bits_b, self.exp("b"))
+    def own_decay(self):
+        d = {"W": self.weight_decay}
+        if self.use_bias:
+            d["b"] = 0.0
+        return d
+
+    def _operands(self, ctx: Ctx, bits_x: int) -> dict:
+        """Keyword arguments of the quantized contraction: exponents,
+        widths, site keys, rounding and whether to return statistics."""
+        cfg = self.cfg
+        return dict(bits_x=bits_x, bits_w=cfg.bits_w,
+                    exp_g=self.exp("grad"), bits_g=cfg.bits_g,
+                    key_x=ctx.layer_key(self.uid, SITE_X),
+                    key_w=ctx.layer_key(self.uid, SITE_W),
+                    stats=ctx.controls, **self._qkw(ctx))
+
+    def _finish(self, x, out, ctx: Ctx, bits_x: int) -> torch.Tensor:
+        """Controllers of x and W, the bias, the barrier, the carrier."""
+        if ctx.controls:
+            y, mm_x, mm_w = out
+            self._ctrl(ctx, "x", bits_x, x, mm_x)
+            self._ctrl(ctx, "w", self.cfg.bits_w, self.W, mm_w)
+        else:
+            y = out
+        if self.use_bias:
+            y = y + self._quant(ctx, "b", self.b, self.cfg.bits_b, SITE_B)
+        return barrier(self, y, ctx).to(carrier_dtype(self.cfg))
 
 
 class Dense(_QuantLeaf):
@@ -58,8 +105,10 @@ class Dense(_QuantLeaf):
     ``W`` is ``[in, out]``."""
 
     def __init__(self, name: str, cfg: QuantConfig, in_units: int,
-                 units: int, use_bias: bool = True):
-        super().__init__(name, cfg, (in_units, units), cfg.bits_a, use_bias)
+                 units: int, use_bias: bool = True,
+                 weight_decay: float = 0.0):
+        super().__init__(name, cfg, (in_units, units), cfg.bits_a, use_bias,
+                         weight_decay)
         self.in_units = in_units
         self.units = units
 
@@ -67,11 +116,11 @@ class Dense(_QuantLeaf):
         return (6.0 / (self.in_units + self.units)) ** 0.5
 
     def forward(self, x, ctx):
-        check_serving(ctx)
-        cfg = self.cfg
-        y = qmatmul(x.to(torch.float32), self.W, self.exp("x"),
-                    self.exp("w"), bits_x=cfg.bits_a, bits_w=cfg.bits_w)
-        return self._bias(y).to(carrier_dtype(cfg))
+        x = x.to(torch.float32)
+        bits_x = self.cfg.bits_a
+        out = qmatmul(x, self.W, self.exp("x"), self.exp("w"),
+                      **self._operands(ctx, bits_x))
+        return self._finish(x, out, ctx, bits_x)
 
 
 class Conv2d(_QuantLeaf):
@@ -82,8 +131,9 @@ class Conv2d(_QuantLeaf):
     def __init__(self, name: str, cfg: QuantConfig,
                  ksize: Tuple[int, int, int, int],
                  strides: Tuple[int, int] = (1, 1), padding="SAME",
-                 use_bias: bool = True):
-        super().__init__(name, cfg, tuple(ksize), cfg.bits_a_conv, use_bias)
+                 use_bias: bool = True, weight_decay: float = 0.0):
+        super().__init__(name, cfg, tuple(ksize), cfg.bits_a_conv, use_bias,
+                         weight_decay)
         self.ksize = tuple(ksize)  # (kh, kw, Cin, Cout)
         self.strides = tuple(strides)
         self.padding = padding
@@ -93,17 +143,17 @@ class Conv2d(_QuantLeaf):
         return (3.0 / (kh * kw * cin)) ** 0.5
 
     def forward(self, x, ctx):
-        check_serving(ctx)
-        cfg = self.cfg
-        y = qconv2d(x.to(torch.float32), self.W, self.exp("x"),
-                    self.exp("w"), strides=self.strides,
-                    padding=self.padding, bits_x=cfg.bits_a_conv,
-                    bits_w=cfg.bits_w)
-        return self._bias(y).to(carrier_dtype(cfg))
+        x = x.to(torch.float32)
+        bits_x = self.cfg.bits_a_conv
+        out = qconv2d(x, self.W, self.exp("x"), self.exp("w"),
+                      strides=self.strides, padding=self.padding,
+                      **self._operands(ctx, bits_x))
+        return self._finish(x, out, ctx, bits_x)
 
 
 class ReLU(Layer):
-    """``where(x > 0, x, 0)``: the tie rule of lbt_tpu's ReLU."""
+    """``where(x > 0, x, 0)``: the tie rule of lbt_tpu's ReLU (zero
+    gradient at exactly 0)."""
 
     def forward(self, x, ctx):
         return torch.where(x > 0, x, 0.0)

@@ -3,11 +3,12 @@ stack plus classification-head utilities."""
 
 from __future__ import annotations
 
-from typing import Optional, Sequence, Tuple
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import torch
 
 from lbt_tpu_torch.config import QuantConfig
+from lbt_tpu_torch.nn import core
 from lbt_tpu_torch.nn.core import Ctx, Layer, Sequential, finalize, walk
 
 
@@ -43,8 +44,34 @@ class Model:
     def device(self) -> torch.device:
         return next(self.net.buffers()).device
 
+    def num_layers(self) -> int:
+        return len(walk(self.net))
+
+    # -- training structure ------------------------------------------------
+    def make_sinks(self) -> Dict[int, torch.Tensor]:
+        return core.make_sinks(self.net, self.device)
+
+    def absorb_sinks(self, sink_cots: Dict[int, torch.Tensor]) -> None:
+        self.net.absorb_sinks(sink_cots)
+
+    def decay_tree(self) -> Dict:
+        return self.net.decay_tree()
+
+    def decays(self) -> List[Tuple[str, float]]:
+        """``(parameter name in net.named_parameters(), weight decay)``
+        for every parameter."""
+        owner = {id(p): (layer, k) for layer in walk(self.net)
+                 for k, p in layer.named_parameters(recurse=False)}
+        return [(name, owner[id(p)][0].own_decay()[owner[id(p)][1]])
+                for name, p in self.net.named_parameters()]
+
     # -- compute -----------------------------------------------------------
     def apply(self, x: torch.Tensor, ctx: Ctx) -> torch.Tensor:
+        """Logits of ``x``.  Outside training no autograd graph is built:
+        nothing differentiates an eval forward."""
+        if not ctx.train:
+            with torch.no_grad():
+                return self.net(x, ctx)
         return self.net(x, ctx)
 
     def loss_and_acc(self, logits: torch.Tensor, labels: torch.Tensor):
@@ -52,7 +79,10 @@ class Model:
         logits = logits.to(torch.float32)
         labels = labels.to(torch.int64)
         logz = torch.logsumexp(logits, dim=-1)
-        ll = torch.gather(logits, -1, labels[:, None])[:, 0]
+        # a one-hot product picks the label's logit exactly, and its
+        # backward needs no scatter (deterministic on the card)
+        onehot = torch.nn.functional.one_hot(labels, logits.shape[-1])
+        ll = (logits * onehot.to(torch.float32)).sum(-1)
         loss = torch.mean(logz - ll)
         acc = torch.mean((logits.argmax(dim=-1) == labels).to(torch.float32))
         return loss, acc

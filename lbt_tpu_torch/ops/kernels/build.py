@@ -82,6 +82,25 @@ def int8_gemm_library() -> ctypes.CDLL:
                    ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
                    ctypes.c_int, ctypes.c_void_p]
     fn.restype = ctypes.c_int
+    fn = lib.lbt_int8_gemm_tn
+    fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+                   ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    return lib
+
+
+@functools.cache
+def conv_fused_library() -> ctypes.CDLL:
+    """Kernels #4 and #5 (``csrc/conv_fused.cu``), built on first use."""
+    lib = ctypes.CDLL(str(build_library("conv_fused", ["conv_fused.cu"])))
+    for name in ("lbt_conv3x3_fused", "lbt_conv1x1_fused"):
+        fn = getattr(lib, name)
+        fn.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p,
+                       ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+                       ctypes.c_void_p, ctypes.c_void_p, ctypes.c_uint32,
+                       ctypes.c_int, ctypes.c_int, ctypes.c_int,
+                       ctypes.POINTER(ctypes.c_int), ctypes.c_void_p]
+        fn.restype = ctypes.c_int
     return lib
 
 

@@ -9,6 +9,13 @@ PyTorch's current stream.
 
 :func:`int8_matmul` is the wrapper: a CPU tensor takes the plain PyTorch
 version :func:`int8_matmul_plain`; a CUDA tensor launches the kernel.
+
+:func:`int8_matmul_tn` is the ``X^T . g`` form that training's weight
+gradients need (``lbt_tpu/ops/qops.py``, ``_MM_XG`` and the dW conv):
+``A[K, M]`` read transposed times ``B[K, N]``, summed exactly into int64
+(plain version :func:`int8_matmul_tn_plain`).  The ``g . W^T`` form meets
+only small weights (the 64 x 10 head, conv kernels that are flipped and
+reshaped anyway), so its callers copy ``W^T`` into the forward form.
 """
 
 from __future__ import annotations
@@ -18,6 +25,8 @@ from typing import Optional
 import torch
 
 _INT_MAX = 2 ** 31 - 1
+# rows of K summed exactly in int32 before the int64 partials are added
+K_CHUNK = 2 ** 16
 
 
 def int8_matmul_plain(a: torch.Tensor, b: torch.Tensor,
@@ -33,13 +42,27 @@ def int8_matmul_plain(a: torch.Tensor, b: torch.Tensor,
     return acc.to(torch.float32) * inv_scale
 
 
+def int8_matmul_tn_plain(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Plain PyTorch version of the ``X^T . g`` form: ``a[K, M]^T @
+    b[K, N]`` as int64, summed in chunks of :data:`K_CHUNK` rows (each
+    exact in float64) whose partials add in int64, like the kernel."""
+    out = torch.zeros((a.shape[1], b.shape[1]), dtype=torch.int64,
+                      device=a.device)
+    for k0 in range(0, a.shape[0], K_CHUNK):
+        out += (a[k0:k0 + K_CHUNK].to(torch.float64).t()
+                @ b[k0:k0 + K_CHUNK].to(torch.float64)).to(torch.int64)
+    return out
+
+
 def _check(a: torch.Tensor, b: torch.Tensor,
-           inv_scale: Optional[torch.Tensor]) -> None:
+           inv_scale: Optional[torch.Tensor], tn: bool = False) -> None:
     if a.dtype != torch.int8 or b.dtype != torch.int8:
         raise ValueError(f"operands must be int8, got {a.dtype}, {b.dtype}")
-    if a.dim() != 2 or b.dim() != 2 or a.shape[1] != b.shape[0]:
+    kdim = 0 if tn else 1
+    if a.dim() != 2 or b.dim() != 2 or a.shape[kdim] != b.shape[0]:
+        form = "[K,M]^T @ [K,N]" if tn else "[M,K] @ [K,N]"
         raise ValueError(
-            f"need [M,K] @ [K,N], got {tuple(a.shape)} @ {tuple(b.shape)}")
+            f"need {form}, got {tuple(a.shape)}, {tuple(b.shape)}")
     if not (a.is_contiguous() and b.is_contiguous()):
         raise ValueError("operands must be contiguous (row-major)")
     if b.device != a.device:
@@ -91,3 +114,34 @@ def int8_matmul(a: torch.Tensor, b: torch.Tensor,
 
 
 int8_matmul.launches = 0
+
+
+def int8_matmul_tn(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """``a[K, M]^T @ b[K, N]`` over int8 codes, exact, as int64 ``[M, N]``
+    (the split-K ``X^T . g`` kernel on a CUDA tensor)."""
+    _check(a, b, None, tn=True)
+    if a.device.type == "cpu":
+        return int8_matmul_tn_plain(a, b)
+    if a.device.type != "cuda":
+        raise ValueError(f"no K2 kernel for device {a.device}")
+    k, m = a.shape
+    n = b.shape[1]
+    out = torch.zeros((m, n), dtype=torch.int64, device=a.device)
+    if k == 0 or m == 0 or n == 0:
+        return out
+    if -(-k // K_CHUNK) > 65535:
+        raise ValueError(f"K={k} needs more than 65535 splits")
+    from lbt_tpu_torch.ops.kernels.build import int8_gemm_library
+    lib = int8_gemm_library()
+    with torch.cuda.device(a.device):
+        stream = torch.cuda.current_stream(a.device).cuda_stream
+        rc = lib.lbt_int8_gemm_tn(a.data_ptr(), b.data_ptr(), out.data_ptr(),
+                                  m, n, k, stream)
+    if rc != 0:
+        raise RuntimeError(f"int8 GEMM (X^T.g) launch failed: cudaError "
+                           f"{rc} at M={m} N={n} K={k}")
+    int8_matmul_tn.launches += 1
+    return out
+
+
+int8_matmul_tn.launches = 0

@@ -18,6 +18,12 @@ hardware PRNG is replaced by the counter hash of ``lbt_tpu``'s
 over the row-major flat index, so stochastic codes match ``lbt_tpu``
 bit for bit.
 
+For the range controllers the same pass can also emit ``[min, max]`` of the
+scaled tensor ``x * mult`` (``stats=True``), which is all that
+``overflow_stats`` needs at a zero target rate: each block writes its pair
+and a one-block second pass reduces them, so the result does not depend on
+the order blocks run in.
+
 :func:`quantize_codes` is the wrapper: a CPU tensor takes the plain PyTorch
 version :func:`quantize_codes_plain`; a CUDA tensor launches the kernel.
 """
@@ -71,8 +77,8 @@ def hash_uniform_flat(seed: int, n: int, light: bool,
 
 
 def quantize_codes_plain(x: torch.Tensor, bits: int, mult: torch.Tensor,
-                         seed: Optional[int] = None,
-                         light: bool = False) -> torch.Tensor:
+                         seed: Optional[int] = None, light: bool = False,
+                         stats: bool = False):
     """Plain PyTorch version of K1 (any device)."""
     limit = float(2 ** (bits - 1))
     scaled = x * mult
@@ -82,18 +88,23 @@ def quantize_codes_plain(x: torch.Tensor, bits: int, mult: torch.Tensor,
         u = hash_uniform_flat(seed, x.numel(), light, x.device)
         codes = torch.floor(
             torch.clamp(scaled + u.view(x.shape), -limit, limit - 1))
-    return codes.to(code_dtype(bits))
+    codes = codes.to(code_dtype(bits))
+    if stats:
+        return codes, torch.stack([scaled.amin(), scaled.amax()])
+    return codes
 
 
 def quantize_codes(x: torch.Tensor, bits: int, mult: torch.Tensor,
-                   seed: Optional[int] = None,
-                   light: bool = False) -> torch.Tensor:
+                   seed: Optional[int] = None, light: bool = False,
+                   stats: bool = False):
     """DFXP codes of ``x`` (f32, contiguous, any shape) in
     :func:`code_dtype` of ``bits``.
 
     ``mult`` is the one-element f32 multiplier on ``x``'s device.
     ``seed=None`` rounds half-to-even; an int seed selects stochastic
-    rounding with the counter-hash noise (``light`` = ``hash1``)."""
+    rounding with the counter-hash noise (``light`` = ``hash1``).
+    ``stats=True`` returns ``(codes, minmax)`` with ``minmax`` the f32
+    ``[min, max]`` of ``x * mult`` (``x`` must not be empty)."""
     if not 1 <= bits < 32:
         raise ValueError(f"bits={bits} outside 1..31")
     if x.dtype != torch.float32 or not x.is_contiguous():
@@ -107,16 +118,19 @@ def quantize_codes(x: torch.Tensor, bits: int, mult: torch.Tensor,
             f"{mult.dtype} x{mult.numel()} on {mult.device}")
     if x.numel() >= 2 ** 32:
         raise ValueError("the hash counter covers at most 2**32 elements")
+    if stats and not x.numel():
+        raise ValueError("min / max of an empty tensor")
     if x.device.type == "cpu":
-        return quantize_codes_plain(x, bits, mult, seed, light)
+        return quantize_codes_plain(x, bits, mult, seed, light, stats)
     if x.device.type != "cuda":
         raise ValueError(f"no K1 kernel for device {x.device}")
     out = torch.empty(x.shape, dtype=code_dtype(bits), device=x.device)
+    minmax = x.new_empty(2) if stats else None
     if x.numel():
         from lbt_tpu_torch.ops.kernels import quant_triton
-        quant_triton.launch(x, mult, out, bits, seed, light)
+        quant_triton.launch(x, mult, out, bits, seed, light, minmax)
         quantize_codes.launches += 1
-    return out
+    return (out, minmax) if stats else out
 
 
 quantize_codes.launches = 0

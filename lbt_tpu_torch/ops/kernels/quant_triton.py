@@ -22,13 +22,22 @@ NUM_WARPS = 8
 
 
 @triton.jit
-def _quant_kernel(x_ptr, mult_ptr, out_ptr, n, seed,
+def _quant_kernel(x_ptr, mult_ptr, out_ptr, part_ptr, n, seed,
                   LIMIT: tl.constexpr, STOCHASTIC: tl.constexpr,
-                  LIGHT: tl.constexpr, BLOCK: tl.constexpr):
-    offs = tl.program_id(0).to(tl.int64) * BLOCK + tl.arange(0, BLOCK)
+                  LIGHT: tl.constexpr, STATS: tl.constexpr,
+                  BLOCK: tl.constexpr):
+    pid = tl.program_id(0)
+    offs = pid.to(tl.int64) * BLOCK + tl.arange(0, BLOCK)
     mask = offs < n
     x = tl.load(x_ptr + offs, mask=mask, other=0.0)
     scaled = x * tl.load(mult_ptr)
+    if STATS:
+        # this block's min / max of the scaled tensor; _minmax_kernel
+        # reduces the per-block pairs (min / max are exact in any order)
+        tl.store(part_ptr + 2 * pid,
+                 tl.min(tl.where(mask, scaled, float("inf")), axis=0))
+        tl.store(part_ptr + 2 * pid + 1,
+                 tl.max(tl.where(mask, scaled, -float("inf")), axis=0))
     if STOCHASTIC:
         # lbt_tpu's uint32 counter hash, in int64 lanes masked to 32 bits
         h = offs ^ seed
@@ -48,11 +57,35 @@ def _quant_kernel(x_ptr, mult_ptr, out_ptr, n, seed,
     tl.store(out_ptr + offs, codes.to(out_ptr.dtype.element_ty), mask=mask)
 
 
-def launch(x, mult, out, bits: int, seed, light: bool) -> None:
-    """Quantize ``x`` into ``out`` on ``x``'s current CUDA stream."""
+@triton.jit
+def _minmax_kernel(part_ptr, out_ptr, nparts, BLOCK: tl.constexpr):
+    lo = tl.full([BLOCK], float("inf"), tl.float32)
+    hi = tl.full([BLOCK], -float("inf"), tl.float32)
+    for start in range(0, nparts, BLOCK):
+        offs = start + tl.arange(0, BLOCK)
+        m = offs < nparts
+        lo = tl.minimum(lo, tl.load(part_ptr + 2 * offs, mask=m,
+                                    other=float("inf")))
+        hi = tl.maximum(hi, tl.load(part_ptr + 2 * offs + 1, mask=m,
+                                    other=-float("inf")))
+    tl.store(out_ptr, tl.min(lo, axis=0))
+    tl.store(out_ptr + 1, tl.max(hi, axis=0))
+
+
+def launch(x, mult, out, bits: int, seed, light: bool,
+           minmax=None) -> None:
+    """Quantize ``x`` into ``out`` on ``x``'s current CUDA stream; with
+    ``minmax`` (two f32 on the device) also write ``[min, max]`` of
+    ``x * mult`` there."""
     n = x.numel()
     stochastic = seed is not None
-    _quant_kernel[(triton.cdiv(n, BLOCK),)](
-        x, mult, out, n, (seed & 0xFFFFFFFF) if stochastic else 0,
+    grid = triton.cdiv(n, BLOCK)
+    part = (x.new_empty((grid, 2), dtype=x.dtype) if minmax is not None
+            else x)
+    _quant_kernel[(grid,)](
+        x, mult, out, part, n, (seed & 0xFFFFFFFF) if stochastic else 0,
         LIMIT=float(2 ** (bits - 1)), STOCHASTIC=stochastic,
-        LIGHT=bool(light), BLOCK=BLOCK, num_warps=NUM_WARPS)
+        LIGHT=bool(light), STATS=minmax is not None, BLOCK=BLOCK,
+        num_warps=NUM_WARPS)
+    if minmax is not None:
+        _minmax_kernel[(1,)](part, minmax, grid, BLOCK=1024, num_warps=4)

@@ -1,0 +1,69 @@
+"""The single-device train step (PyTorch port of ``lbt_tpu/train/step.py``).
+
+One call runs, eagerly on the model's device: the forward with the range
+controllers (new exponents and BN statistics staged aside), the backward
+through the cotangent barriers (their overflow statistics land in the
+sinks), the commit of the staged state, ``absorb_sinks`` for the gradient
+sites, in-gradient weight decay and momentum SGD.  Parameters, exponent
+and BN buffers and the velocity are updated in place.
+
+The controller cadence (``QuantConfig.range_update_every = K``) is a
+Python branch: a step with ``step % K == 0`` or ``step <
+range_update_warmup_steps`` runs the controllers; any other step runs
+with ``update_gate=False`` (exponents hold, barriers emit the hold
+sentinel).
+"""
+
+from __future__ import annotations
+
+from typing import Callable, Dict
+
+import numpy as np
+import torch
+
+from lbt_tpu_torch.config import TrainConfig
+from lbt_tpu_torch.dfxp.keys import fold_in
+from lbt_tpu_torch.nn.core import Ctx
+from lbt_tpu_torch.nn.model import Model
+from lbt_tpu_torch.train.optim import apply_weight_decay, momentum_update
+
+
+def make_train_step(model: Model, tc: TrainConfig) -> Callable:
+    """``train_step(model, velocity, x, y, step, lr, base_key) ->
+    {'loss', 'accuracy'}`` (0-d device tensors).  ``velocity`` is
+    :func:`~lbt_tpu_torch.train.optim.momentum_init` of the parameters;
+    ``base_key`` is raw threefry key data (``dfxp.keys.base_key(seed)``)."""
+    cfg = model.cfg
+    cadence = cfg.range_update_every if cfg else 1
+    warmup = cfg.range_update_warmup_steps if cfg else 0
+    decays = dict(model.decays())
+    n_uids = model.num_layers()
+
+    def train_step(model: Model, velocity: Dict[str, torch.Tensor],
+                   x: torch.Tensor, y: torch.Tensor, step: int, lr: float,
+                   base_key) -> Dict[str, torch.Tensor]:
+        gate = cadence == 1 or step % cadence == 0 or step < warmup
+        sinks = model.make_sinks()
+        ctx = Ctx(train=True, key=fold_in(np.asarray(base_key), step),
+                  update=True, update_gate=gate, sinks=dict(sinks),
+                  n_uids=n_uids)
+        params = dict(model.net.named_parameters())
+        for p in params.values():
+            p.grad = None
+        logits = model.apply(x, ctx)
+        loss, acc = model.loss_and_acc(logits, y)
+        loss.backward()
+        with torch.no_grad():
+            ctx.commit()
+            # a sink no cotangent reached reads zero, as lbt_tpu's would
+            model.absorb_sinks({uid: s.grad if s.grad is not None
+                                else torch.zeros_like(s)
+                                for uid, s in sinks.items()})
+            grads = apply_weight_decay(
+                {k: p.grad for k, p in params.items()}, params, decays)
+            momentum_update(params, velocity, grads, lr, tc.momentum)
+        for p in params.values():
+            p.grad = None
+        return {"loss": loss.detach(), "accuracy": acc.detach()}
+
+    return train_step

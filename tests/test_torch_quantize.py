@@ -143,9 +143,8 @@ def test_wrappers_refuse_devices_without_a_kernel():
 
 def test_port_imports_no_jax():
     """The port, and chip_smoke.py's own imports and walk of the serving
-    path, load no JAX: the card's machine has none.  The port's config
-    comes from ``lbt_tpu.config``, so this also fails if
-    ``lbt_tpu/__init__.py`` starts importing JAX."""
+    path, load no JAX, and nothing of ``lbt_tpu``: the card's machine has
+    no JAX, and the port owns its config."""
     code = (
         "import sys, torch\n"
         "import lbt_tpu_torch\n"
@@ -159,6 +158,8 @@ def test_port_imports_no_jax():
         "assert sum(k1.values()) == 128 and sum(k2.values()) == 43, (k1, k2)\n"
         "Predictor(m, device='cpu')(torch.zeros(1, 32, 32, 3))\n"
         "assert 'jax' not in sys.modules, 'jax was imported'\n"
+        "assert not [m for m in sys.modules if m.split('.')[0] == 'lbt_tpu'"
+        "], 'lbt_tpu was imported'\n"
         "print('ok')\n")
     out = subprocess.run([sys.executable, "-c", code], capture_output=True,
                          text=True, timeout=120,

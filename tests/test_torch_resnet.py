@@ -154,7 +154,7 @@ def test_converter_raises_on_mismatch():
 @pytest.mark.parametrize("kw", [
     dict(engine="sim"), dict(engine="sim_bf16"), dict(fused_bn=True),
     dict(act_dtype="bf16"), dict(remat_bn=True), dict(bn_residual_q16=True),
-    dict(conv9_split=True), dict(stem_s2d=True)])
+    dict(noise_shared_axis0=True), dict(stem_s2d=True)])
 def test_unported_config_options_raise(kw):
     with pytest.raises(NotImplementedError):
         cifar10_resnet(QuantConfig.uniform(8, **kw), 20)
@@ -169,8 +169,10 @@ def test_registry_and_serving_only_context():
         build_model("MNIST", cfg)
     with pytest.raises(ValueError):
         build_model("no_such_model", cfg)
+    # training with threefry 'prng' noise: the stream is not ported
     with pytest.raises(NotImplementedError):
-        model.apply(torch.zeros(1, 32, 32, 3), Ctx(train=True))
+        model.apply(torch.zeros(1, 32, 32, 3),
+                    Ctx(train=True, key=np.array([0, 1], np.uint32)))
 
 
 def test_init_is_seeded_and_device_independent():

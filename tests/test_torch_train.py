@@ -1,0 +1,429 @@
+"""The port's training path held against lbt_tpu on the CPU: the key
+chain, the controllers, the cotangent barrier, the integer backward of
+qmatmul / qconv2d, the config and converter, and three train steps of a
+CIFAR ResNet-8 under ``QuantConfig.uniform(8, noise_mode='hash')``.
+
+Integer results (keys, codes, exponents, contractions under 2**24) are
+compared bitwise.  The train step is compared at the tolerances stated on
+``test_train_step_matches_lbt_tpu``.
+"""
+
+import dataclasses
+import importlib
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+import lbt_tpu.config as jconfig
+from lbt_tpu.dfxp.barrier import grad_quant_barrier as jbarrier
+from lbt_tpu.models import cifar10_resnet as jax_resnet
+from lbt_tpu.ops import qops as jops
+from lbt_tpu.train.optim import momentum_init as jmomentum_init
+from lbt_tpu.train.optim import piecewise_lr as jpiecewise_lr
+from lbt_tpu.train.step import make_train_step as jmake_train_step
+from lbt_tpu_torch import config as tconfig
+from lbt_tpu_torch import convert
+from lbt_tpu_torch.dfxp import keys
+from lbt_tpu_torch.dfxp import quantize as tq
+from lbt_tpu_torch.dfxp.barrier import grad_quant_barrier, make_sink
+from lbt_tpu_torch.models import cifar10_resnet
+from lbt_tpu_torch.nn.core import Ctx
+from lbt_tpu_torch.ops import qops
+from lbt_tpu_torch.train.optim import momentum_init, piecewise_lr
+from lbt_tpu_torch.train.step import make_train_step
+
+jq = importlib.import_module("lbt_tpu.dfxp.quantize")
+
+
+def _kd(key) -> np.ndarray:
+    return np.asarray(jax.random.key_data(key))
+
+
+# ---------------------------------------------------------------------------
+# keys
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("seed", [0, 1, 7, 2 ** 31 - 1])
+def test_fold_in_matches_jax(seed):
+    base = jax.random.key(seed, impl="threefry2x32")
+    np.testing.assert_array_equal(keys.base_key(seed), _kd(base))
+    for data in (0, 1, 5, 1000, 2 ** 31 + 3, 2 ** 32 - 1):
+        np.testing.assert_array_equal(
+            keys.fold_in(keys.base_key(seed), data),
+            _kd(jax.random.fold_in(base, np.uint32(data))))
+
+
+def test_site_keys_match_layer_keys():
+    """One step's table of site keys equals ``Ctx.layer_key``'s chain."""
+    from lbt_tpu.nn.core import Ctx as JCtx
+    step_key = jax.random.fold_in(jax.random.key(3), 11)
+    jctx = JCtx(train=True, key=step_key)
+    ctx = Ctx(train=True, key=keys.fold_in(keys.base_key(3), 11))
+    for uid in (0, 1, 17, 52):
+        for site in range(5):
+            assert ctx.layer_key(uid, site) == tuple(
+                int(v) for v in _kd(jctx.layer_key(uid, site)))
+
+
+# ---------------------------------------------------------------------------
+# controllers
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("bits", [8, 9])
+@pytest.mark.parametrize("target", [0.0, 0.01])
+def test_overflow_stats_and_update_exponent_match_lbt_tpu(bits, target):
+    rng = np.random.default_rng(bits)
+    for scale in (1e-6, 0.01, 1.0, 50.0, 1e30):
+        x = (rng.normal(0, 1, (6, 7, 5)) * scale).astype(np.float32)
+        for exp in (bits - 1, 3, 0, -20, jq.EXP_MIN, jq.EXP_MIN + 1):
+            want = np.asarray(jq.overflow_stats(jnp.asarray(x), bits,
+                                                jnp.int32(exp), target))
+            got = tq.overflow_stats(torch.from_numpy(x), bits, exp, target)
+            np.testing.assert_array_equal(got.numpy(), want)
+            new = tq.update_exponent(torch.tensor(exp, dtype=torch.int32),
+                                     got, bits, target)
+            assert new.dtype == torch.int32
+            assert new.item() == int(jq.update_exponent(
+                jnp.int32(exp), jnp.asarray(want), bits, target))
+            if target == 0.0:  # K1's min / max gives the same indicators
+                _, _, mm = tq.quantize_int(torch.from_numpy(x), bits, exp,
+                                           stats=True)
+                np.testing.assert_array_equal(
+                    tq.overflow_indicators(mm, bits).numpy(), want)
+
+
+# ---------------------------------------------------------------------------
+# the cotangent barrier
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("gate", [True, False])
+@pytest.mark.parametrize("exp", [-3, 2, jq.EXP_MIN])
+def test_barrier_matches_lbt_tpu(exp, gate):
+    rng = np.random.default_rng(5)
+    x = rng.normal(0, 1, (3, 6, 6, 8)).astype(np.float32)
+    g = (rng.normal(0, 1, x.shape) * 2.0 ** (exp - 4)).astype(np.float32)
+    key = jax.random.fold_in(jax.random.key(1), 9)
+
+    def f(x, sink):
+        y = jbarrier(x, 8, jnp.int32(exp), sink, key, stochastic=True,
+                     backend="xla_hash", gate=gate)
+        return jnp.vdot(y, jnp.asarray(g))
+
+    want_gx, want_sink = jax.grad(f, argnums=(0, 1))(
+        jnp.asarray(x), jnp.zeros((2,), jnp.float32))
+
+    tx = torch.from_numpy(x).requires_grad_()
+    sink = make_sink()
+    y = grad_quant_barrier(tx, 8, torch.tensor(exp, dtype=torch.int32),
+                           sink, tuple(int(v) for v in _kd(key)),
+                           stochastic=True, backend="xla_hash", gate=gate)
+    assert torch.equal(y.detach(), tx.detach())
+    y.backward(torch.from_numpy(g))
+    np.testing.assert_array_equal(tx.grad.numpy(), np.asarray(want_gx))
+    np.testing.assert_array_equal(sink.grad.numpy(), np.asarray(want_sink))
+
+
+# ---------------------------------------------------------------------------
+# qmatmul / qconv2d backward
+# ---------------------------------------------------------------------------
+
+# (x shape, kernel HWIO, stride): ResNet-20's conv classes at small size
+BWD_CLASSES = {
+    "3x3s1": ((2, 8, 8, 16), (3, 3, 16, 16), 1),
+    "3x3s2": ((2, 8, 8, 16), (3, 3, 16, 32), 2),
+    "1x1s2": ((2, 8, 8, 16), (1, 1, 16, 32), 2),
+    "stem": ((2, 8, 8, 3), (3, 3, 3, 16), 1),
+    "3x3s2_odd": ((2, 7, 9, 4), (3, 3, 4, 8), 2),
+}
+
+
+def _grid_cotangent(rng, shape, exp_g):
+    return (rng.integers(-128, 128, shape) / 2.0 ** (7 - exp_g)).astype(
+        np.float32)
+
+
+@pytest.mark.parametrize("bits_x", [8, 9])
+@pytest.mark.parametrize("cls", sorted(BWD_CLASSES))
+def test_qconv2d_backward_matches_lbt_tpu(cls, bits_x):
+    xshape, wshape, s = BWD_CLASSES[cls]
+    rng = np.random.default_rng(11)
+    x = rng.normal(0, 1, xshape).astype(np.float32)
+    w = rng.uniform(-0.5, 0.5, wshape).astype(np.float32)
+    exp_x, exp_w, exp_g = 1, 0, -3
+    kw = dict(strides=(s, s), padding="SAME", bits_x=bits_x, bits_w=8)
+
+    def f(x, w):
+        return jops.qconv2d(x, w, jnp.int32(exp_x), jnp.int32(exp_w),
+                            jnp.int32(exp_g), bits_g=8, engine="int8", **kw)
+
+    y, vjp = jax.vjp(f, jnp.asarray(x), jnp.asarray(w))
+    g = _grid_cotangent(rng, y.shape, exp_g)
+    want_dx, want_dw = vjp(jnp.asarray(g))
+    # lbt_tpu's dW of 9-bit codes sums in f32: exact only below 2**24.
+    # A dW element sums |x code| * |g code| <= 128 |x code| over part of
+    # one input channel.
+    xc = np.abs(np.asarray(jq.quantize_int(jnp.asarray(x), bits_x,
+                                           jnp.int32(exp_x))[0], np.float64))
+    assert xc.sum(axis=(0, 1, 2)).max() * 128 < 2 ** 24
+
+    tx = torch.from_numpy(x).requires_grad_()
+    tw = torch.from_numpy(w).requires_grad_()
+    ty = qops.qconv2d(tx, tw, exp_x, exp_w, exp_g=exp_g, bits_g=8, **kw)
+    np.testing.assert_array_equal(ty.detach().numpy(), np.asarray(y))
+    ty.backward(torch.from_numpy(g))
+    np.testing.assert_array_equal(tx.grad.numpy(), np.asarray(want_dx))
+    np.testing.assert_array_equal(tw.grad.numpy(), np.asarray(want_dw))
+
+
+@pytest.mark.parametrize("exps", [(2, 1, -2), (0, -1, -9)])
+def test_qmatmul_backward_matches_lbt_tpu(exps):
+    exp_x, exp_w, exp_g = exps
+    rng = np.random.default_rng(13)
+    x = rng.normal(0, 1, (4, 64)).astype(np.float32)
+    w = rng.uniform(-0.5, 0.5, (64, 10)).astype(np.float32)
+
+    def f(x, w):
+        return jops.qmatmul(x, w, jnp.int32(exp_x), jnp.int32(exp_w),
+                            jnp.int32(exp_g), bits_x=8, bits_w=8, bits_g=8,
+                            engine="int8")
+
+    y, vjp = jax.vjp(f, jnp.asarray(x), jnp.asarray(w))
+    g = _grid_cotangent(rng, y.shape, exp_g)
+    want_dx, want_dw = vjp(jnp.asarray(g))
+    tx = torch.from_numpy(x).requires_grad_()
+    tw = torch.from_numpy(w).requires_grad_()
+    ty = qops.qmatmul(tx, tw, exp_x, exp_w, bits_x=8, bits_w=8, exp_g=exp_g,
+                      bits_g=8)
+    ty.backward(torch.from_numpy(g))
+    np.testing.assert_array_equal(tx.grad.numpy(), np.asarray(want_dx))
+    np.testing.assert_array_equal(tw.grad.numpy(), np.asarray(want_dw))
+
+
+def test_dilate_pad_crops_negative_pads():
+    g = torch.arange(2 * 3 * 3 * 1).view(2, 3, 3, 1)
+    out = qops.dilate_pad(g, (2, 2), ((1, -1), (0, 2)))
+    assert out.shape == (2, 5, 7, 1)
+    assert torch.equal(out[:, 1::2, 0:5:2], g[:, :2])
+    assert out[:, 0].abs().sum() == 0 and out[:, :, 5:].abs().sum() == 0
+
+
+# ---------------------------------------------------------------------------
+# config, converter, optimizer
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("name", ["QuantConfig", "TrainConfig"])
+def test_config_matches_lbt_tpu(name):
+    mine, theirs = getattr(tconfig, name), getattr(jconfig, name)
+    assert ([(f.name, f.default) for f in dataclasses.fields(mine)]
+            == [(f.name, f.default) for f in dataclasses.fields(theirs)])
+    if name == "QuantConfig":
+        for kw in ({}, {"noise_mode": "hash"}, {"conv_act_extra": 0}):
+            assert (dataclasses.asdict(mine.uniform(8, **kw))
+                    == dataclasses.asdict(theirs.uniform(8, **kw)))
+        assert (dataclasses.asdict(mine.uniform(32))
+                == dataclasses.asdict(theirs.uniform(32)))
+        for bad in ({"bits_w": 0}, {"engine": "x"}, {"noise_mode": "x"},
+                    {"range_update_every": 0}, {"initial_exponent_g": 99}):
+            with pytest.raises(ValueError):
+                mine(**bad)
+        assert mine(conv9_split=True).quant_backend == "xla"
+        assert tconfig.check_supported(mine(conv9_split=True))
+
+
+def _jax_trees(depth, cfg, seed=0, wd=0.0):
+    jm = jax_resnet(cfg, depth, weight_decay=wd)
+    params, qstate = jm.init(jax.random.key(seed))
+    return jm, params, qstate
+
+
+def test_converter_round_trip():
+    cfg = jconfig.QuantConfig.uniform(8)
+    _, params, qstate = _jax_trees(8, cfg)
+    params, qstate = (jax.tree.map(np.asarray, t) for t in (params, qstate))
+    rng = np.random.default_rng(0)
+    velocity = jax.tree.map(
+        lambda p: rng.normal(0, 1, p.shape).astype(np.float32), params)
+    model, vel = convert.from_jax_numpy(cifar10_resnet(cfg, 8), params,
+                                        qstate, velocity)
+    back = convert.to_jax_numpy(model, vel)
+    for want, got in zip((params, qstate, velocity), back):
+        assert (jax.tree.structure(want) == jax.tree.structure(got))
+        for a, b in zip(jax.tree.leaves(want), jax.tree.leaves(got)):
+            assert a.dtype == b.dtype and a.shape == b.shape
+            np.testing.assert_array_equal(a, b)
+    p2, q2, v2 = convert.to_jax_numpy(model)
+    assert v2 is None
+
+
+def test_decay_tree_matches_lbt_tpu():
+    cfg = jconfig.QuantConfig.uniform(8)
+    jm, _, _ = _jax_trees(8, cfg, wd=3e-4)
+    model = cifar10_resnet(cfg, 8, weight_decay=3e-4)
+    assert model.decay_tree() == jm.decay_tree()
+    named = dict(model.net.named_parameters())
+    assert {k for k, d in model.decays() if d} == {
+        k for k in named if k.endswith((".W", ".gamma"))}
+
+
+def test_converter_velocity_mismatch_raises():
+    cfg = jconfig.QuantConfig.uniform(8)
+    _, params, qstate = _jax_trees(8, cfg)
+    velocity = jax.tree.map(np.zeros_like, params)
+    bad = dict(velocity)
+    del bad["softmax"]
+    with pytest.raises(ValueError, match="missing"):
+        convert.from_jax_numpy(cifar10_resnet(cfg, 8), params, qstate, bad)
+    bad = dict(velocity)
+    bad["softmax"] = {"W": np.zeros((64, 9), np.float32)}
+    with pytest.raises(ValueError, match="shape"):
+        convert.from_jax_numpy(cifar10_resnet(cfg, 8), params, qstate, bad)
+    model = cifar10_resnet(cfg, 8)
+    with pytest.raises(ValueError, match="unexpected"):
+        convert.to_jax_numpy(model, {"nope": torch.zeros(1)})
+
+
+def test_piecewise_lr_matches_lbt_tpu():
+    for epoch in (0, 1, 4, 79, 80, 121, 150):
+        for warm in (0, 5):
+            assert piecewise_lr(0.1, 0.1, (80, 120, 140), epoch, warm) == \
+                jpiecewise_lr(0.1, 0.1, (80, 120, 140), epoch, warm)
+
+
+# ---------------------------------------------------------------------------
+# the train step
+# ---------------------------------------------------------------------------
+
+N_STEPS = 3
+BATCH = 4
+TOL = dict(rtol=1e-5, atol=1e-5)
+LSB_SHARE = 1e-4
+
+
+def _lsb(bits, exp):
+    return 2.0 ** (int(exp) - (bits - 1))
+
+
+def _compare_floats(got, want, lsb, path):
+    """At rtol = atol = 1e-5, except at most ``LSB_SHARE`` of the leaf's
+    elements, which may differ by up to one LSB of the leaf's site grid
+    (a stochastic code flipped by a one-ulp BN difference upstream)."""
+    d = np.abs(got.astype(np.float64) - want)
+    off = d > TOL["atol"] + TOL["rtol"] * np.abs(want)
+    assert off.sum() <= int(LSB_SHARE * got.size), (path, off.sum(), d.max())
+    assert (d[off] <= lsb).all(), (path, d.max(), lsb)
+
+
+def _compare_trees(got, want, lsb_of, path=""):
+    if isinstance(want, dict):
+        assert set(got) == set(want), path
+        for k in want:
+            _compare_trees(got[k], want[k], lsb_of, f"{path}/{k}")
+        return
+    want = np.asarray(want)
+    if want.dtype == np.int32:
+        np.testing.assert_array_equal(got, want, err_msg=path)
+    else:
+        _compare_floats(got, want, lsb_of(path), path)
+
+
+def test_train_step_matches_lbt_tpu():
+    """Three steps of ResNet-8 (batch 4, 32x32) under uniform(8,
+    noise_mode='hash') from the same converted weights, base key and
+    data, against lbt_tpu's jitted ``make_train_step``.
+
+    Tolerances: losses at rtol 1e-5; exponents bitwise after every step;
+    params, velocity and BN state at
+    rtol = atol = 1e-5, except at most 1e-4 of each leaf's elements, which
+    may differ by one LSB of that leaf's 8-bit grid at the current
+    exponent.  The BN moments are exact code sums in the port and f32
+    reductions in lbt_tpu, so a stochastic code may flip by one."""
+    cfg = jconfig.QuantConfig.uniform(8, noise_mode="hash")
+    tc = jconfig.TrainConfig()
+    jm, params, qstate = _jax_trees(8, cfg, seed=0, wd=tc.weight_decay)
+    velocity = jmomentum_init(params)
+    model, vel = convert.from_jax_numpy(
+        cifar10_resnet(cfg, 8, weight_decay=tc.weight_decay),
+        *(jax.tree.map(np.asarray, t) for t in (params, qstate, velocity)))
+    jstep = jmake_train_step(jm, tc, jit=True, donate=False)
+    step = make_train_step(model, tconfig.TrainConfig())
+    rng = np.random.default_rng(0)
+    jkey = jax.random.key(7)
+    for s in range(N_STEPS):
+        x = rng.normal(0, 1, (BATCH, 32, 32, 3)).astype(np.float32)
+        y = rng.integers(0, 10, (BATCH,)).astype(np.int32)
+        params, qstate, velocity, jmet = jstep(
+            params, qstate, velocity, jnp.asarray(x), jnp.asarray(y), s,
+            tc.lr, jkey)
+        met = step(model, vel, torch.from_numpy(x), torch.from_numpy(y), s,
+                   tc.lr, keys.base_key(7))
+        np.testing.assert_allclose(met["loss"].item(),
+                                   float(jmet["loss"]), rtol=1e-5)
+        assert met["accuracy"].item() == float(jmet["accuracy"])
+        p, q, v = convert.to_jax_numpy(model, vel)
+        jq_np = jax.tree.map(np.asarray, qstate)
+
+        def lsb_of(path, q=jq_np):
+            node = q
+            parts = path.strip("/").split("/")
+            for part in parts[:-1]:
+                node = node[part]
+            exps = node.get("exp", {}) if isinstance(node, dict) else {}
+            site = {"W": "w", "b": "b", "gamma": "gamma",
+                    "beta": "beta"}.get(parts[-1], "x")
+            return _lsb(8, exps.get(site, 2))
+
+        _compare_trees(q, jq_np, lambda path: _lsb(8, 2))
+        _compare_trees(p, jax.tree.map(np.asarray, params), lsb_of)
+        _compare_trees(v, jax.tree.map(np.asarray, velocity), lsb_of)
+
+
+def test_layer_reached_twice_refuses_its_sink():
+    """Two calls of one layer in one step would add two cotangents'
+    statistics in its sink: the second call raises instead."""
+    from lbt_tpu_torch.nn.core import finalize, make_sinks
+    from lbt_tpu_torch.nn.layers import Dense
+    cfg = tconfig.QuantConfig.uniform(8, noise_mode="hash")
+    layer = finalize(Dense("d", cfg, 4, 4))
+    ctx = Ctx(train=True, key=keys.base_key(0), sinks=make_sinks(layer))
+    x = torch.ones(2, 4)
+    layer(x, ctx)
+    with pytest.raises(RuntimeError, match="reached twice"):
+        layer(x, ctx)
+
+
+def test_cadence_gates_the_controllers():
+    """``range_update_every=2`` without warmup: step 1 holds every
+    exponent (forward sites and, through the hold sentinel, gradient
+    sites) while the BN statistics still move; step 2 runs them."""
+    cfg = tconfig.QuantConfig.uniform(8, noise_mode="hash",
+                                      range_update_every=2,
+                                      range_update_warmup_steps=0)
+    model = cifar10_resnet(cfg, 8).init(torch.Generator().manual_seed(0))
+    vel = momentum_init(dict(model.net.named_parameters()))
+    step = make_train_step(model, tconfig.TrainConfig())
+    rng = np.random.default_rng(1)
+
+    def run(s):
+        x = torch.from_numpy(rng.normal(0, 1, (2, 32, 32, 3)).astype(
+            np.float32))
+        step(model, vel, x, torch.tensor([1, 2]), s, 0.01, keys.base_key(0))
+
+    def exps():
+        return {k: b.clone() for k, b in model.net.named_buffers()
+                if k.rsplit(".", 1)[-1].startswith("exp_")}
+
+    run(0)
+    before = exps()
+    mean0 = model.net.layers[1].layers[0].mean.clone()
+    run(1)
+    assert all(torch.equal(before[k], v) for k, v in exps().items())
+    assert not torch.equal(mean0, model.net.layers[1].layers[0].mean)
+    run(2)
+    assert any(not torch.equal(before[k], v) for k, v in exps().items())
