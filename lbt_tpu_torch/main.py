@@ -1,0 +1,256 @@
+"""Experiment CLI of the PyTorch port: ``main.py``'s flags and defaults,
+plus ``--device``.
+
+    python -m lbt_tpu_torch.main --model CIFAR10_Resnet20 --bits 8 \\
+        --noise_mode hash --batch_size 128 --device cuda
+
+A command line of ``main.py`` runs here unchanged where the port has what
+it asks for.  A flag value the port cannot run exits with status 2 before
+any work, naming the value and the ROADMAP item that ports it; none is
+replaced in silence.  ``main.py``'s default ``--noise_mode prng`` is one of
+them: pass ``--noise_mode hash``.
+"""
+
+from __future__ import annotations
+
+import argparse
+import datetime
+import json
+import os
+import sys
+from typing import List, Optional
+
+import torch
+
+from lbt_tpu_torch.config import QuantConfig, TrainConfig
+from lbt_tpu_torch.data.datasets import load_dataset, make_augment
+from lbt_tpu_torch.models import build_model
+from lbt_tpu_torch.models.zoo import (MODEL_DATASET, MODEL_REGISTRY,
+                                      NOT_PORTED)
+from lbt_tpu_torch.train.trainer import Trainer
+from lbt_tpu_torch.utils.logging import get_logger
+
+
+PROG = "python -m lbt_tpu_torch.main"
+
+
+def _fail(msg: str):
+    """Exit with argparse's status for a bad command line, 2."""
+    print(f"{PROG}: error: {msg}", file=sys.stderr)
+    raise SystemExit(2)
+
+
+def build_parser() -> argparse.ArgumentParser:
+    p = argparse.ArgumentParser(
+        prog=PROG, description="DFXP low-bit training, PyTorch port")
+    p.add_argument("--exp_path", type=str, default=None)
+    p.add_argument("--model", type=str, default="CIFAR10_Resnet20",
+                   choices=sorted(set(MODEL_REGISTRY) | set(NOT_PORTED)))
+    p.add_argument("--device", type=str, default="cuda",
+                   help="torch device to train on ('cuda', 'cuda:1', "
+                        "'cpu'); 'cuda' without a card is an error")
+    # quantization
+    p.add_argument("--bits", type=int, default=8,
+                   help="uniform bit-width (32 = fp32 passthrough)")
+    p.add_argument("--bits_w", type=int, default=None)
+    p.add_argument("--bits_a", type=int, default=None)
+    p.add_argument("--bits_g", type=int, default=None)
+    p.add_argument("--engine", type=str, default="int8",
+                   choices=["sim", "sim_bf16", "int8", "pallas"])
+    p.add_argument("--target_overflow_rate", type=float, default=0.0)
+    p.add_argument("--deterministic_rounding", action="store_true",
+                   help="round-to-nearest-even instead of stochastic")
+    p.add_argument("--noise_mode", type=str, default="prng",
+                   choices=["prng", "hash", "hash1"],
+                   help="stochastic-rounding noise: the counter hash "
+                        "('hash') or its single-round form ('hash1'); "
+                        "'prng' is not ported")
+    p.add_argument("--conv_act_extra", type=int, default=1,
+                   help="extra bits for conv activations over --bits_a")
+    p.add_argument("--fused_bn", action="store_true")
+    p.add_argument("--act_dtype", type=str, default="f32",
+                   choices=["f32", "bf16"])
+    p.add_argument("--bn_residual_q16", action="store_true")
+    p.add_argument("--remat_bn", action="store_true")
+    p.add_argument("--initial_exponent_g", type=int, default=None,
+                   help="cold-start exponent of the gradient sites")
+    p.add_argument("--stem_s2d", action="store_true")
+    p.add_argument("--range_update_every", type=int, default=1,
+                   help="run the range controllers every K-th step")
+    p.add_argument("--bn_momentum", type=float, default=0.999,
+                   help="BN running-stats EMA momentum")
+    p.add_argument("--faithful_eval", action="store_true")
+    p.add_argument("--noise_shared_axis0", action="store_true")
+    p.add_argument("--reset_momentum_on_decay", action="store_true")
+    # training
+    p.add_argument("--dropout", type=float, default=0.5,
+                   help="dropout KEEP probability")
+    p.add_argument("--weight_decay", type=float, default=2e-4)
+    p.add_argument("--lr", type=float, default=1e-2)
+    p.add_argument("--lr_decay_factor", type=float, default=0.1)
+    p.add_argument("--lr_decay_epochs", type=int, nargs="*",
+                   default=[80, 120, 140])
+    p.add_argument("--warmup_epochs", type=int, default=0)
+    p.add_argument("--momentum", type=float, default=0.9)
+    p.add_argument("--batch_size", type=int, default=32)
+    p.add_argument("--n_epoch", type=int, default=160)
+    p.add_argument("--seed", type=int, default=0)
+    # data / scale
+    p.add_argument("--n_train", type=int, default=0)
+    p.add_argument("--n_test", type=int, default=0)
+    p.add_argument("--data_dir", type=str, default=None)
+    p.add_argument("--tfrecord_train", type=str, default=None)
+    p.add_argument("--tfrecord_val", type=str, default=None)
+    p.add_argument("--num_classes", type=int, default=None)
+    p.add_argument("--no_augment", action="store_true")
+    p.add_argument("--checkpoint_every", type=int, default=10)
+    p.add_argument("--resume", action="store_true",
+                   help="accepted; a run always resumes from the latest "
+                        "checkpoint under <exp_path>/ckpt")
+    p.add_argument("--profile_steps", type=int, default=0,
+                   help="write a torch.profiler trace of this many steps")
+    p.add_argument("--native_loader", action="store_true")
+    p.add_argument("--log_every", type=int, default=100,
+                   help="log train metrics every N batches")
+    p.add_argument("--scan_steps", type=int, default=0)
+    p.add_argument("--data_parallel", action="store_true")
+    p.add_argument("--debug_nans", action="store_true")
+    p.add_argument("--lowbit_allreduce", action="store_true")
+    p.add_argument("--lowbit_wire", type=str, default=None,
+                   choices=["int16", "int8"])
+    p.add_argument("--gradient_buffer", action="store_true")
+    return p
+
+
+def refusals(args) -> List[str]:
+    """Why the port cannot run this command line: one message per flag
+    value, each naming the ROADMAP item that ports it."""
+    out = []
+    if args.model in NOT_PORTED:
+        out.append(f"--model {args.model} is not ported (ROADMAP queue 1 "
+                   f"item 6); the port has {sorted(MODEL_REGISTRY)}")
+    if args.noise_mode == "prng":
+        out.append("--noise_mode prng (main.py's default: jax.random "
+                   "threefry noise) is not ported (ROADMAP queue 1 item 2); "
+                   "pass --noise_mode hash")
+    bw = args.bits_w if args.bits_w is not None else args.bits
+    ba = args.bits_a if args.bits_a is not None else args.bits
+    bg = args.bits_g if args.bits_g is not None else args.bits
+    if bw >= 32 and ba >= 32 and bg >= 32:
+        out.append(f"--bits {args.bits}: the fp32 passthrough runs "
+                   f"engine='sim', which is not ported (ROADMAP queue 1 "
+                   f"item 4)")
+    elif (bw > 8 or ba > 8 or bg > 8
+          or ba + args.conv_act_extra > 9):
+        out.append(f"bit-widths w{bw} a{ba} g{bg} (conv activations "
+                   f"a{ba + args.conv_act_extra}) need lbt_tpu's float "
+                   f"fallback, which is not ported (ROADMAP queue 1 item 4): "
+                   f"the int8 engine takes w, a, g <= 8 and conv "
+                   f"activations <= 9 bits")
+    if args.engine in ("sim", "sim_bf16"):
+        out.append(f"--engine {args.engine} is not ported (ROADMAP queue 1 "
+                   f"item 4); the port runs int8 (and pallas as its alias)")
+    for flag, item in (("fused_bn", "queue 1 item 5"),
+                       ("bn_residual_q16", "queue 1 item 13, not to port"),
+                       ("remat_bn", "queue 1 item 13, not to port"),
+                       ("stem_s2d", "queue 1 item 4"),
+                       ("noise_shared_axis0", "queue 1 item 2"),
+                       ("native_loader", "queue 1 item 9"),
+                       ("data_parallel", "queue 1 item 12"),
+                       ("lowbit_allreduce", "queue 1 item 12"),
+                       ("gradient_buffer", "queue 1 item 5"),
+                       ("debug_nans", "queue 1 item 9")):
+        if getattr(args, flag):
+            out.append(f"--{flag} is not ported (ROADMAP {item})")
+    if args.act_dtype != "f32":
+        out.append(f"--act_dtype {args.act_dtype} is not ported (ROADMAP "
+                   f"queue 1 item 5)")
+    for flag in ("data_dir", "tfrecord_train", "tfrecord_val",
+                 "lowbit_wire"):
+        if getattr(args, flag) is not None:
+            item = "12" if flag == "lowbit_wire" else "9"
+            out.append(f"--{flag} {getattr(args, flag)} is not ported "
+                       f"(ROADMAP queue 1 item {item})")
+    if args.scan_steps > 1:
+        out.append(f"--scan_steps {args.scan_steps}: the scanned block is "
+                   f"not to be ported (ROADMAP queue 1 item 13)")
+    return out
+
+
+def main(argv: Optional[List[str]] = None) -> Trainer:
+    """Run the experiment; returns the finished :class:`Trainer`."""
+    p = build_parser()
+    args = p.parse_args(argv)
+    for name in ("bits", "bits_w", "bits_a", "bits_g"):
+        v = getattr(args, name)
+        if v is not None and not (1 <= v <= 32):
+            _fail(f"--{name} must be in 1..32 (32 = fp32 passthrough), "
+                    f"got {v}")
+    refused = refusals(args)
+    if refused:
+        _fail("the PyTorch port cannot run this command line:\n  "
+                + "\n  ".join(refused))
+    device = torch.device(args.device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        _fail(f"--device {args.device}: no CUDA device is available "
+                f"(pass --device cpu to train on the CPU)")
+
+    exp = args.exp_path or os.path.join(
+        "experiments",
+        datetime.datetime.now().strftime("%m-%d-%H%M%S") + "-" + args.model)
+    os.makedirs(exp, exist_ok=True)
+    logger = get_logger(os.path.join(exp, "experiment.log"))
+    logger.info("Start of experiment: %s",
+                json.dumps(vars(args), sort_keys=True))
+
+    bits = args.bits
+    cfg = QuantConfig(
+        bits_w=args.bits_w if args.bits_w is not None else bits,
+        bits_a=args.bits_a if args.bits_a is not None else bits,
+        bits_b=args.bits_w if args.bits_w is not None else bits,
+        bits_g=args.bits_g if args.bits_g is not None else bits,
+        conv_act_extra=args.conv_act_extra,
+        target_overflow_rate=args.target_overflow_rate,
+        stochastic=not args.deterministic_rounding,
+        noise_mode=args.noise_mode,
+        engine=args.engine,
+        bn_momentum=args.bn_momentum,
+        faithful_eval=args.faithful_eval,
+        range_update_every=args.range_update_every,
+        initial_exponent_g=args.initial_exponent_g,
+    )
+    tc = TrainConfig(
+        lr=args.lr, momentum=args.momentum,
+        weight_decay=args.weight_decay, batch_size=args.batch_size,
+        n_epoch=args.n_epoch, lr_decay_factor=args.lr_decay_factor,
+        lr_decay_epochs=tuple(args.lr_decay_epochs),
+        warmup_epochs=args.warmup_epochs,
+        dropout_keep=args.dropout,
+        reset_momentum_on_decay=args.reset_momentum_on_decay,
+        seed=args.seed,
+        log_every=args.log_every,
+        checkpoint_every_epochs=args.checkpoint_every,
+        checkpoint_dir=os.path.join(exp, "ckpt"),
+    )
+    model = build_model(args.model, cfg, dropout_keep=args.dropout,
+                        weight_decay=args.weight_decay)
+    ds_name = MODEL_DATASET[args.model]
+    data = load_dataset(ds_name, n_train=args.n_train, n_test=args.n_test)
+    if data["synthetic"]:
+        logger.warning("dataset %s not found locally - SYNTHETIC data",
+                       ds_name)
+    augment = None if args.no_augment else make_augment(ds_name)
+
+    # Trainer.train() resumes from checkpoint_dir when it holds one
+    trainer = Trainer(model, tc, data, augment=augment, logger=logger,
+                      logdir=exp, profile_steps=args.profile_steps,
+                      device=device)
+    final = trainer.train()
+    logger.info("End of experiment: final test acc %.4f loss %.4f",
+                final["accuracy"], final["loss"])
+    trainer.metrics.close()
+    return trainer
+
+
+if __name__ == "__main__":
+    main()

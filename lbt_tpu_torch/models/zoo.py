@@ -1,6 +1,6 @@
 """Model zoo (PyTorch port of ``lbt_tpu/models/zoo.py``): the CIFAR
-ResNets (the reference's dropout and gradient-buffer options are not
-ported).  The other ``lbt_tpu`` models are not ported yet."""
+ResNets (the gradient-buffer option is not ported).  The other
+``lbt_tpu`` models are not ported yet."""
 
 from __future__ import annotations
 
@@ -24,13 +24,20 @@ def _res_stage(cfg, name, cin, channels, num_blocks, stride, weight_decay):
 
 
 def cifar10_resnet(cfg: QuantConfig, depth: int = 20,
-                   weight_decay: float = 0.0,
-                   num_classes: int = 10) -> Model:
+                   dropout_keep: float = 0.5, weight_decay: float = 0.0,
+                   num_classes: int = 10,
+                   gradient_buffer_batch: int = 0) -> Model:
     """CIFAR ResNet-{20,32,44,56}: 3x3x16 bias-free stem + BN + ReLU,
     three stages of basic blocks at 16/32/64 channels (strides 1/2/2), 8x8
     avgpool and a bias-free 64->num_classes head.  ``weight_decay`` is
     every conv's, dense's and BN gamma's in-gradient L2 coefficient.
+    ``dropout_keep`` is accepted and unused, as in ``lbt_tpu`` (the CIFAR
+    ResNets have no dropout); ``gradient_buffer_batch > 0`` is not ported.
     Parameters are zero until :meth:`Model.init`."""
+    if gradient_buffer_batch > 0:
+        raise NotImplementedError(
+            "gradient_buffer_batch: GradientBuffer is not ported (ROADMAP "
+            "queue 1 item 5)")
     if (depth - 2) % 6:
         raise ValueError(f"bad CIFAR resnet depth {depth}")
     n = (depth - 2) // 6
@@ -61,12 +68,15 @@ MODEL_REGISTRY: Dict[str, Callable] = {
 }
 
 # lbt_tpu's other registry entries, not ported yet
-_NOT_PORTED = ("PI_MNIST", "MNIST", "CIFAR10", "CIFAR10_VGG",
-               "VGG16_CIFAR100", "Imagenet_Resnet18", "Imagenet_Resnet50")
+NOT_PORTED = ("PI_MNIST", "MNIST", "CIFAR10", "CIFAR10_VGG",
+              "VGG16_CIFAR100", "Imagenet_Resnet18", "Imagenet_Resnet50")
+
+# dataset each model trains on (lbt_tpu's MODEL_DATASET)
+MODEL_DATASET: Dict[str, str] = {name: "cifar10" for name in MODEL_REGISTRY}
 
 
 def build_model(name: str, cfg: QuantConfig, **kw) -> Model:
-    if name in _NOT_PORTED:
+    if name in NOT_PORTED:
         raise NotImplementedError(f"model {name!r} is not ported yet")
     if name not in MODEL_REGISTRY:
         raise ValueError(

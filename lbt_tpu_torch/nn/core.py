@@ -261,6 +261,18 @@ def walk(root: Layer) -> List[Layer]:
     return out
 
 
+def layer_paths(root: Layer, prefix: str = "") -> List[Tuple[str, Layer]]:
+    """``(path, layer)`` for every layer under ``root`` (excluded) in uid
+    order; the path joins child names with ``/``, as the layer's keys in
+    ``lbt_tpu``'s params / qstate trees."""
+    out = []
+    for child in root.sublayers():
+        path = f"{prefix}{child.name}"
+        out.append((path, child))
+        out += layer_paths(child, path + "/")
+    return out
+
+
 def make_sinks(root: Layer, device=None) -> Dict[int, torch.Tensor]:
     """A fresh zero stat sink (``requires_grad``) for every layer under
     ``root`` whose barrier writes one, keyed by uid."""

@@ -1,4 +1,5 @@
-"""The single-device train step (PyTorch port of ``lbt_tpu/train/step.py``).
+"""The single-device train and eval steps (PyTorch port of
+``lbt_tpu/train/step.py``).
 
 One call runs, eagerly on the model's device: the forward with the range
 controllers (new exponents and BN statistics staged aside), the backward
@@ -67,3 +68,27 @@ def make_train_step(model: Model, tc: TrainConfig) -> Callable:
         return {"loss": loss.detach(), "accuracy": acc.detach()}
 
     return train_step
+
+
+def make_eval_step(model: Model, faithful_eval: bool = False) -> Callable:
+    """``eval_step(model, x, y, key) -> {'loss', 'accuracy', 'count'}``
+    (loss and accuracy 0-d device tensors, count the batch size).
+
+    ``key`` is raw threefry key data used as the call's key as it is, not
+    folded with a step: the Trainer passes ``fold_in(base_key, 0xE7A1)``
+    for every batch, so the layers round stochastically in eval as
+    ``lbt_tpu``'s do.  ``faithful_eval`` reproduces the reference's eval
+    (batch-statistic BN, ``Ctx(train=True, update=False)``: no EMA, no
+    controllers), which also takes the fused conv + BN-input kernels.
+    State is never updated, and no autograd graph is built."""
+    n_uids = model.num_layers()
+
+    @torch.no_grad()
+    def eval_step(model: Model, x: torch.Tensor, y: torch.Tensor,
+                  key) -> Dict[str, torch.Tensor]:
+        ctx = Ctx(train=faithful_eval, key=np.asarray(key), update=False,
+                  n_uids=n_uids)
+        loss, acc = model.loss_and_acc(model.apply(x, ctx), y)
+        return {"loss": loss, "accuracy": acc, "count": x.shape[0]}
+
+    return eval_step

@@ -12,14 +12,17 @@ import torch
 
 from lbt_tpu_torch import convert
 from lbt_tpu_torch.config import QuantConfig, TrainConfig
-from lbt_tpu_torch.dfxp.keys import base_key
+from lbt_tpu_torch.data.pipeline import device_prefetch
+from lbt_tpu_torch.dfxp.keys import base_key, fold_in
 from lbt_tpu_torch.dfxp.quantize import multiplier
 from lbt_tpu_torch.models import cifar10_resnet
 from lbt_tpu_torch.nn.core import Ctx
+from lbt_tpu_torch.nn.norm import sqrt_f32
 from lbt_tpu_torch.ops import qops
 from lbt_tpu_torch.ops.kernels import conv_fused, gemm, quant
 from lbt_tpu_torch.train.optim import momentum_init
-from lbt_tpu_torch.train.step import make_train_step
+from lbt_tpu_torch.train.step import make_eval_step, make_train_step
+from lbt_tpu_torch.train.trainer import Trainer
 
 pytestmark = pytest.mark.cuda
 
@@ -207,6 +210,101 @@ def _trained(dev, steps=2):
         y = torch.from_numpy(rng.integers(0, 10, (4,))).to(dev)
         losses.append(step(model, vel, x, y, i, 1e-2, base_key(3))["loss"])
     return convert.to_jax_numpy(model, vel), losses
+
+
+def test_device_prefetch_to_cuda_keeps_bytes_and_order(dev):
+    """50 batches through the pinned side-stream copies arrive in order
+    with their bytes, and each step on the consumer's stream reads them
+    after their copy."""
+    rng = np.random.default_rng(0)
+    src = [(rng.normal(0, 1, (64, 32, 32, 3)).astype(np.float32),
+            rng.integers(0, 10, (64,)).astype(np.int32)) for _ in range(50)]
+    got = []
+    for x, y in device_prefetch(iter(src), device=dev):
+        assert x.device.type == "cuda" and y.dtype == torch.int32
+        got.append((x * 1.0, y + 0))  # a kernel on the consumer's stream
+    assert len(got) == 50
+    for (x, y), (gx, gy) in zip(src, got):
+        assert np.array_equal(gx.cpu().numpy(), x)
+        assert np.array_equal(gy.cpu().numpy(), y)
+
+
+def test_checkpoint_card_cpu_round_trip(dev, tmp_path):
+    """A checkpoint written from the card restores on the CPU, and one
+    written there restores on the card, bit for bit."""
+    cfg = QuantConfig.uniform(8, noise_mode="hash")
+    tc = TrainConfig(checkpoint_dir=str(tmp_path / "a"))
+    data = {"train": (np.zeros((4, 32, 32, 3), np.float32),
+                      np.zeros(4, np.int32))}
+    card = Trainer(cifar10_resnet(cfg, 8), tc, data, device=dev)
+    g = torch.Generator(device=dev).manual_seed(1)
+    for v in card.velocity.values():
+        v.normal_(generator=g)
+    card.step, card.epoch = 7, 2
+    card.save()
+    cpu = Trainer(cifar10_resnet(cfg, 8), tc, data, device="cpu")
+    assert cpu.maybe_restore() and cpu.step == 7 and cpu.epoch == 2
+    want = {**card.model.net.state_dict(), **card.velocity}
+    got = {**cpu.model.net.state_dict(), **cpu.velocity}
+    for k, v in want.items():
+        assert got[k].device.type == "cpu" and torch.equal(got[k], v.cpu())
+    cpu.save(str(tmp_path / "b"))
+    back = Trainer(cifar10_resnet(cfg, 8),
+                   TrainConfig(checkpoint_dir=str(tmp_path / "b")), data,
+                   device=dev)
+    assert back.maybe_restore()
+    for k, v in {**back.model.net.state_dict(), **back.velocity}.items():
+        assert v.device.type == "cuda" and torch.equal(v, want[k])
+
+
+def test_trainer_keeps_a_card_model_on_the_card(dev):
+    """A model built on the card and given to ``Trainer`` with no device
+    stays there, and its step and eval launch the kernels."""
+    cfg = QuantConfig.uniform(8, noise_mode="hash")
+    model = cifar10_resnet(cfg, 8).to(dev)
+    rng = np.random.default_rng(0)
+    data = {"train": (rng.normal(0, 1, (8, 32, 32, 3)).astype(np.float32),
+                      rng.integers(0, 10, (8,)).astype(np.int32)),
+            "test": (rng.normal(0, 1, (8, 32, 32, 3)).astype(np.float32),
+                     rng.integers(0, 10, (8,)).astype(np.int32))}
+    tr = Trainer(model, TrainConfig(batch_size=4, eval_batch_size=4), data)
+    assert tr.device.type == "cuda" and model.device.type == "cuda"
+    assert all(v.device.type == "cuda" for v in tr.velocity.values())
+    quant.quantize_codes.launches = gemm.int8_matmul.launches = 0
+    conv_fused.conv3x3_fused.launches = 0
+    tr.train_epoch(0)
+    assert conv_fused.conv3x3_fused.launches > 0
+    n = gemm.int8_matmul.launches
+    tr.evaluate()
+    assert gemm.int8_matmul.launches > n and quant.quantize_codes.launches
+
+
+def test_bn_sqrt_card_equals_cpu(dev):
+    """BN's root is the same f32 on the card and on the CPU (``torch.sqrt``
+    of f32 is not: the CPU's is one ulp off near ties)."""
+    v = torch.from_numpy(np.random.default_rng(0).uniform(
+        0.01, 1e4, 1_000_000).astype(np.float32))
+    v[0] = 75.14901733398438
+    assert torch.equal(sqrt_f32(v.to(dev)).cpu(), sqrt_f32(v))
+
+
+@pytest.mark.parametrize("faithful", [False, True])
+def test_eval_step_card_matches_cpu(dev, faithful):
+    cfg = QuantConfig.uniform(8, noise_mode="hash", faithful_eval=faithful)
+    rng = np.random.default_rng(2)
+    x = torch.from_numpy(rng.normal(0, 1, (32, 32, 32, 3)).astype(
+        np.float32))
+    y = torch.from_numpy(rng.integers(0, 10, (32,)))
+    out = []
+    for d in (torch.device("cpu"), dev):
+        model = cifar10_resnet(cfg, 20).init(
+            torch.Generator().manual_seed(0)).to(d)
+        step = make_eval_step(model, faithful_eval=faithful)
+        m = step(model, x.to(d), y.to(d), fold_in(base_key(3), 0xE7A1))
+        out.append((m["loss"].item(), m["accuracy"].item()))
+    (closs, cacc), (gloss, gacc) = out
+    np.testing.assert_allclose(gloss, closs, rtol=1e-5)
+    assert gacc == cacc
 
 
 def test_train_step_card_matches_cpu(dev):

@@ -142,14 +142,19 @@ def test_wrappers_refuse_devices_without_a_kernel():
 
 
 def test_port_imports_no_jax():
-    """The port, and chip_smoke.py's own imports and walk of the serving
-    path, load no JAX, and nothing of ``lbt_tpu``: the card's machine has
-    no JAX, and the port owns its config."""
+    """The port (its trainer, data, checkpoint, logging and CLI included),
+    and chip_smoke.py's own imports and walk of the serving path, load no
+    JAX, and nothing of ``lbt_tpu``: the card's machine has no JAX, and
+    the port owns its config."""
     code = (
         "import sys, torch\n"
         "import lbt_tpu_torch\n"
         "from lbt_tpu_torch.infer import Predictor\n"
         "from lbt_tpu_torch import convert\n"
+        "import lbt_tpu_torch.main, lbt_tpu_torch.train.trainer\n"
+        "import lbt_tpu_torch.data.datasets, lbt_tpu_torch.data.pipeline\n"
+        "import lbt_tpu_torch.train.checkpoint, lbt_tpu_torch.utils.tb\n"
+        "import lbt_tpu_torch.utils.logging, lbt_tpu_torch.utils.profiling\n"
         "import chip_smoke\n"
         "qmod, qops, build, gemm, quant = chip_smoke.port_modules()\n"
         "m = chip_smoke.build_resnet20(0)\n"
