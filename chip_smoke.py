@@ -11,7 +11,10 @@ Phases; each raises on failure and the script then exits non-zero:
 1. device  needs CUDA; prints the card's name and power limit; TF32 off.
 2. build   builds K2 and kernels #4/#5 (one nvcc per source, started
            together, sm_90a) and compiles K1 (Triton) from the sources in
-           the checkout; prints the seconds each took.
+           the checkout; prints the seconds each took and each CUDA
+           kernel's registers, shared memory and spills (ptxas -v) and
+           its count of IMMA (int8 tensor-core) instructions in the SASS
+           ("not available" without cuobjdump).
 3. K1      quantize kernel vs its plain PyTorch version on the card,
            bitwise, at every quantize shape of the serving path (batch
            128) and at odd sizes; bits 8 and 9; deterministic and both
@@ -35,7 +38,15 @@ Phases; each raises on failure and the script then exits non-zero:
            of K1 (with its min/max output), K2 (both forms) and #4/#5.
 7. K1-stats, K2-train, fused  each of those calls' shapes: the kernel vs
            its plain version, bitwise (codes, min/max, int64 sums,
-           moments), timed as in 3-4, per training step.
+           moments), timed as in 3-4, per training step, beside each
+           call's roofline bound (``ops.kernels.work``: bytes over 3.35
+           TB/s or ops over the peak of their type, whichever is larger)
+           and one PyTorch call's time on the same inputs where one
+           computes the same function: ``torch._int_mm`` for K2 (its X^T.g
+           form one call per 2**16-row chunk; shapes it refuses padded to
+           the nearest it takes, and the row says so); for #4/#5 cuDNN's
+           fp16 channels-last ``conv2d`` of the same codes, the conv alone
+           (``conv_lib_ms``); none for K1.
 8. train   ResNet-20 at batch 128, weights from seed 0, data from a numpy
            seed: 4 steps through the kernels (every launch counter reset
            just before and required to rise) and the same 4 steps through
@@ -43,7 +54,9 @@ Phases; each raises on failure and the script then exits non-zero:
            deterministic algorithms: losses finite and equal, parameters,
            velocity, exponents and BN state equal (tolerance 0).  The
            first step's loss must match the CPU route at rtol 1e-5.  Then
-           ms per step of both routes in turns and a profiler window.
+           ms per step of both routes in turns and a profiler window, in
+           which #4/#5 must have made one device launch for each call of
+           their wrappers (and run no other kernel of theirs).
 9. trainer ``python -m lbt_tpu_torch.main``'s ``main`` in-process, the
            user's entry point: ResNet-20 at batch 128, 2560 synthetic
            CIFAR images (20 steps an epoch), 2 epochs with an LR decay at
@@ -59,8 +72,8 @@ Phases; each raises on failure and the script then exits non-zero:
            Logs and metrics stay under experiments/smoke_trainer.
 
 Prints the card, then one JSON line of kernels (launches from the trainer
-phase), then, last, one JSON line
-``{"ok": true, "device": {...}}``.
+phase; ms, plain_ms, bound_ms and library_ms a training step), then, last,
+one JSON line ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
@@ -154,17 +167,112 @@ def device_ms(fn, sets, reps: int = 20, replays: int = 5) -> float:
     return start.elapsed_time(end) / (n * replays)
 
 
-def _timings(fn, plain_fn, args, nbytes: int) -> dict:
+def _timings(fn, plain_fn, args, nbytes: int, work=None, lib=None) -> dict:
+    """Device ms of ``fn`` and of ``plain_fn``; eager ms of both;
+    ``work``'s bound; ``lib = (fn, args, note)``'s device ms."""
     sets = rotating_inputs(args, nbytes)
-    return {"ms": device_ms(fn, sets), "plain_ms": device_ms(plain_fn, sets),
-            "eager_ms": eager_ms(fn, sets),
-            "plain_eager_ms": eager_ms(plain_fn, sets),
-            "input_copies": len(sets)}
+    out = {"ms": device_ms(fn, sets)}
+    out.update(plain_ms=device_ms(plain_fn, sets),
+               eager_ms=eager_ms(fn, sets),
+               plain_eager_ms=eager_ms(plain_fn, sets),
+               input_copies=len(sets))
+    if work is not None:
+        out.update(bytes=work.bytes, ops=work.ops, bytes_ms=work.bytes_ms,
+                   ops_ms=work.ops_ms, bound_ms=work.bound_ms,
+                   bound_by=work.bound_by)
+    if lib is not None:
+        lib_fn, lib_args, note = lib
+        try:
+            out["lib_ms"] = device_ms(lib_fn, rotating_inputs(lib_args,
+                                                              nbytes))
+        except RuntimeError as e:  # a yardstick only: say why it is missing
+            out["lib_ms"], note = None, f"failed: {str(e)[:160]}"
+        out["lib_note"] = note
+    return out
 
 
 def _per_forward(rows) -> dict:
-    return {k: sum(r["calls"] * r[k] for r in rows)
-            for k in ("ms", "plain_ms", "eager_ms", "plain_eager_ms")}
+    """Per forward / step: each time key summed over the rows (calls x
+    per-call value; None where a row lacks it), the launches, and what
+    bounds the sum."""
+    out = {}
+    for k in ("ms", "plain_ms", "eager_ms", "plain_eager_ms", "bound_ms",
+              "lib_ms"):
+        vals = [r.get(k) for r in rows]
+        out[k] = (None if not rows or any(v is None for v in vals)
+                  else sum(r["calls"] * v for r, v in zip(rows, vals)))
+    out["launches"] = sum(r["calls"] for r in rows)
+    if out["bound_ms"] is not None:
+        by_bytes = sum(r["calls"] * r["bytes_ms"] for r in rows)
+        by_ops = sum(r["calls"] * r["ops_ms"] for r in rows)
+        out["bound_by"] = "bytes" if by_bytes >= by_ops else "operations"
+    return out
+
+
+def _pad_to(t, shape):
+    """``t`` zero-padded at the end of each dim to ``shape``."""
+    if tuple(t.shape) == tuple(shape):
+        return t
+    out = t.new_zeros(shape)
+    out[tuple(slice(0, n) for n in t.shape)] = t
+    return out
+
+
+def _int_mm_shape(m: int, k: int, n: int) -> tuple:
+    """The nearest shape ``torch._int_mm`` takes: M > 16, K and N
+    multiples of 8."""
+    return max(m, 17), -(-k // 8) * 8, -(-n // 8) * 8
+
+
+def lib_gemm(a, b):
+    """``(fn, args, note)``: ``torch._int_mm(a, b)`` (int32 out; K2's f32
+    scale is not in it), on operands padded where it needs that."""
+    (m, k), n = a.shape, b.shape[1]
+    mp, kp, np_ = _int_mm_shape(m, k, n)
+    note = (None if (mp, kp, np_) == (m, k, n)
+            else f"padded to M{mp} K{kp} N{np_}")
+    return (torch._int_mm, (_pad_to(a, (mp, kp)), _pad_to(b, (kp, np_))),
+            note)
+
+
+def lib_gemm_tn(a, b, chunk: int):
+    """``(fn, args, note)``: ``torch._int_mm(a_c^T, b_c)`` for each
+    ``chunk``-row slice of K, as K2's X^T.g form sums them, each A^T
+    chunk copied row-major outside the timed call (the layout cuBLASLt's
+    int8 path takes); the int64 sum of the chunks is left out."""
+    (k, m), n = a.shape, b.shape[1]
+    ops, padded = [], False
+    for k0 in range(0, k, chunk):
+        ac, bc = a[k0:k0 + chunk], b[k0:k0 + chunk]
+        mp, kp, np_ = _int_mm_shape(m, ac.shape[0], n)
+        padded |= (mp, kp, np_) != (m, ac.shape[0], n)
+        ops += [_pad_to(ac, (kp, mp)).t().contiguous(),
+                _pad_to(bc, (kp, np_))]
+    note = "A^T copied outside the call" + (
+        "; padded to the nearest legal shape" if padded else "")
+
+    def fn(*xs):
+        return [torch._int_mm(x, y) for x, y in zip(xs[0::2], xs[1::2])]
+    return fn, tuple(ops), note
+
+
+def lib_conv(xc, wc, strides, pads):
+    """``(fn, args, note)``: cuDNN's fp16 ``conv2d`` of the same codes,
+    channels-last, the conv alone (the DFXP epilogue is not in it);
+    asymmetric padding applied to the input outside the call."""
+    import torch.nn.functional as F
+    x = xc.to(torch.float16).permute(0, 3, 1, 2)
+    w = wc.to(torch.float16).permute(3, 0, 1, 2).contiguous().permute(
+        0, 3, 1, 2)
+    (pt, pb), (pl, pr) = pads
+    note = "conv only"
+    if (pt, pl) != (pb, pr):
+        x = F.pad(x, (pl, pr, pt, pb)).contiguous(
+            memory_format=torch.channels_last)
+        pt = pl = 0
+        note += "; input padded outside the call"
+    return (lambda x, w: F.conv2d(x, w, stride=tuple(strides),
+                                  padding=(pt, pl)), (x, w), note)
 
 
 def phase_device() -> dict:
@@ -183,10 +291,11 @@ def phase_device() -> dict:
 
 
 def phase_build(quant, gemm, build) -> dict:
-    """nvcc for each CUDA source, all started together, then Triton."""
-    def timed(fn):
+    """nvcc for each CUDA source, all started together, then Triton; each
+    kernel's ptxas and SASS report."""
+    def timed(fn, *args):
         t0 = time.perf_counter()
-        fn()
+        fn(*args)
         return time.perf_counter() - t0
 
     t0 = time.perf_counter()
@@ -206,8 +315,30 @@ def phase_build(quant, gemm, build) -> dict:
     k1_s = time.perf_counter() - t0
     print(f"build: nvcc K2 {k2_s:.1f} s and #4/#5 {fused_s:.1f} s in "
           f"parallel ({nvcc_s:.1f} s), K1 triton {k1_s:.1f} s", flush=True)
+    kernels = {}
+    for name, src in (("int8_gemm", "int8_gemm.cu"),
+                      ("conv_fused", "conv_fused.cu")):
+        lib = build.build_library(name, [src])
+        try:
+            imma = build.sass_counts(lib)
+        except (OSError, subprocess.CalledProcessError) as e:
+            print(f"  {src}: cuobjdump failed ({e}); IMMA count not "
+                  f"available")
+            imma = None
+        for k, v in sorted(build.ptxas_report(lib).items()):
+            v = {**v, "imma": None if imma is None else imma.get(k)}
+            kernels[build.short_name(k)] = v
+            print(f"  {build.short_name(k)}: {v['registers']} registers, "
+                  f"{v['smem']} B static smem, spills "
+                  f"{v.get('spill_stores')}/{v.get('spill_loads')} B, IMMA "
+                  f"{'not available' if v['imma'] is None else v['imma']}")
+    counted = [v["imma"] for v in kernels.values() if v["imma"] is not None]
+    check(all(counted), "a K2 or #4/#5 kernel has no IMMA instruction")
+    print(f"build: IMMA in each of the {len(counted)} K2 and #4/#5 kernels "
+          f"counted ({len(kernels) - len(counted)} not available)",
+          flush=True)
     return {"k2_nvcc_s": k2_s, "fused_nvcc_s": fused_s, "nvcc_s": nvcc_s,
-            "k1_triton_s": k1_s}
+            "k1_triton_s": k1_s, "kernels": kernels}
 
 
 def record_path_calls(model, x, qmod, qops, quant, gemm):
@@ -283,6 +414,7 @@ def phase_k1(quant, k1_calls) -> dict:
 
 
 def phase_k2(gemm, k2_calls) -> dict:
+    from lbt_tpu_torch.ops.kernels import work
     gen = torch.Generator().manual_seed(SEED + 2)
     err, rows = 0.0, []
     for (m, k, n, scaled), count in sorted(k2_calls.items()):
@@ -304,7 +436,8 @@ def phase_k2(gemm, k2_calls) -> dict:
         nbytes = m * k + k * n + m * n * 4
         row = {"m": m, "k": k, "n": n, "scaled": scaled, "calls": count,
                **_timings(gemm.int8_matmul, gemm.int8_matmul_plain, args,
-                          nbytes)}
+                          nbytes, work.gemm_work(m, k, n, scaled),
+                          lib_gemm(a, b))}
         row["int8_tops"] = 2 * m * k * n / row["ms"] / 1e9
         row["gb_per_s"] = nbytes / row["ms"] / 1e6
         rows.append(row)
@@ -312,7 +445,7 @@ def phase_k2(gemm, k2_calls) -> dict:
         print(f"  K2 [{r['m']},{r['k']}]x[{r['k']},{r['n']}] "
               f"{'f32' if r['scaled'] else 'i32'} x{r['calls']}: device "
               f"{r['ms'] * 1e3:.1f} us (plain {r['plain_ms'] * 1e3:.1f}), "
-              f"{r['gb_per_s']:.0f} GB/s")
+              f"{r['gb_per_s']:.0f} GB/s; {_extras(r)}")
     tot = _per_forward(rows)
     print(f"K2: {len(rows)} path shapes bitwise equal; per forward, device "
           f"{tot['ms']:.4f} ms (plain {tot['plain_ms']:.4f}), launched "
@@ -577,15 +710,35 @@ def record_train_calls(qmod, qops, quant, gemm, fused):
     return k1, k2, tn, conv
 
 
+def _us(v) -> str:
+    return "n/a" if v is None else f"{v * 1e3:.2f} us"
+
+
+def _extras(r) -> str:
+    """Bound and library times of a row, where measured."""
+    out = [f"bound {_us(r.get('bound_ms'))} ({r.get('bound_by')})"]
+    if "lib_ms" in r:
+        out.append(f"library {_us(r['lib_ms'])}"
+                   + (f" ({r['lib_note']})" if r.get("lib_note") else ""))
+    return ", ".join(out)
+
+
+def _ms(v) -> str:
+    return "n/a" if v is None else f"{v:.4f}"
+
+
 def _print_rows(tag, rows, label):
     for r in rows:
         print(f"  {tag} {label(r)} x{r['calls']}: device "
-              f"{r['ms'] * 1e3:.1f} us (plain {r['plain_ms'] * 1e3:.1f})")
+              f"{r['ms'] * 1e3:.2f} us (plain {r['plain_ms'] * 1e3:.1f}); "
+              f"{_extras(r)}")
     tot = _per_forward(rows)
-    print(f"{tag}: {len(rows)} path shapes bitwise equal; per step, device "
-          f"{tot['ms']:.4f} ms (plain {tot['plain_ms']:.4f}), launched "
-          f"eagerly {tot['eager_ms']:.4f} ms (plain "
-          f"{tot['plain_eager_ms']:.4f})", flush=True)
+    print(f"{tag}: {len(rows)} path shapes bitwise equal; per step "
+          f"({tot['launches']} launches), device {tot['ms']:.4f} ms (plain "
+          f"{tot['plain_ms']:.4f}, bound {_ms(tot['bound_ms'])} by "
+          f"{tot.get('bound_by')}, library {_ms(tot['lib_ms'])}), launched "
+          f"eagerly {tot['eager_ms']:.4f} ms "
+          f"(plain {tot['plain_eager_ms']:.4f})", flush=True)
     return tot
 
 
@@ -599,6 +752,7 @@ def phase_k1_train(quant, k1_calls) -> dict:
     rounding mode and its min/max output, bitwise against the plain
     version; timed per shape."""
     from lbt_tpu_torch.dfxp.quantize import multiplier
+    from lbt_tpu_torch.ops.kernels import work
     gen = torch.Generator().manual_seed(SEED + 4)
     err, rows = 0.0, []
     for (shape, bits, seeded, light, stats), count in sorted(
@@ -625,7 +779,8 @@ def phase_k1_train(quant, k1_calls) -> dict:
                                                   stats),
                 lambda x, m: quant.quantize_codes_plain(x, bits, m, seed,
                                                         light, stats),
-                (x, mult), x.numel() * (4 + code_bytes))})
+                (x, mult), x.numel() * (4 + code_bytes),
+                work.quantize_work(x.numel(), code_bytes, stats))})
     tot = _print_rows("K1-stats", rows, lambda r: f"{r['shape']} b{r['bits']}"
                       f"{' s' if r['seeded'] else ''}"
                       f"{' mm' if r['stats'] else ''}")
@@ -636,6 +791,7 @@ def phase_k2_train(gemm, k2_calls, tn_calls) -> dict:
     """K2's forward form at the step's dx / dense shapes and its X^T.g
     form at every dW shape (split-9 planes, the head), bitwise against
     the plain versions; timed per shape."""
+    from lbt_tpu_torch.ops.kernels import work
     gen = torch.Generator().manual_seed(SEED + 5)
     err, rows = 0.0, []
     inv = torch.tensor([2.0 ** -15], device="cuda")
@@ -652,7 +808,9 @@ def phase_k2_train(gemm, k2_calls, tn_calls) -> dict:
               f"K2 differs from its plain version at M={m} K={k} N={n}")
         rows.append({"form": "AB", "m": m, "k": k, "n": n, "calls": count,
                      **_timings(gemm.int8_matmul, gemm.int8_matmul_plain,
-                                args, m * k + k * n + m * n * 4)})
+                                args, m * k + k * n + m * n * 4,
+                                work.gemm_work(m, k, n, scaled),
+                                lib_gemm(a, b))})
     for (k, m, n), count in sorted(tn_calls.items()):
         a = torch.randint(-128, 128, (k, m), generator=gen,
                           dtype=torch.int8).cuda()
@@ -666,16 +824,27 @@ def phase_k2_train(gemm, k2_calls, tn_calls) -> dict:
         rows.append({"form": "ATB", "m": m, "k": k, "n": n, "calls": count,
                      **_timings(gemm.int8_matmul_tn,
                                 gemm.int8_matmul_tn_plain, (a, b),
-                                k * (m + n) + m * n * 8)})
+                                k * (m + n) + m * n * 8,
+                                work.gemm_tn_work(k, m, n),
+                                lib_gemm_tn(a, b, gemm.K_CHUNK))})
     tot = _print_rows("K2-train", rows, lambda r: f"{r['form']} M{r['m']} "
                       f"K{r['k']} N{r['n']}")
-    return {"max_abs_err": err, **tot, "shapes": rows}
+    forms = {f: _per_forward([r for r in rows if r["form"] == f])
+             for f in ("AB", "ATB")}
+    for f, t in forms.items():
+        print(f"K2-train {f}: per step ({t['launches']} launches) device "
+              f"{t['ms']:.4f} ms, plain {t['plain_ms']:.4f}, bound "
+              f"{_ms(t['bound_ms'])} ({t.get('bound_by')}), library "
+              f"{_ms(t['lib_ms'])}",
+              flush=True)
+    return {"max_abs_err": err, **tot, "forms": forms, "shapes": rows}
 
 
 def phase_fused(fused, conv_calls) -> dict:
     """#4 and #5 at every conv -> BN shape of the step (batch 128):
     codes (deterministic, and stochastic with the path's hash), moments
     and min/max equal to the plain version's; timed per shape."""
+    from lbt_tpu_torch.ops.kernels import work
     gen = torch.Generator().manual_seed(SEED + 6)
     out = {}
     for kind in ("conv3x3_fused", "conv1x1_fused"):
@@ -713,11 +882,16 @@ def phase_fused(fused, conv_calls) -> dict:
                          **_timings(lambda x, w: fn(x, w, inv, mult, **kw),
                                     lambda x, w: fused.conv_fused_plain(
                                         x, w, inv, mult, **kw),
-                                    (xc, wc), nbytes)})
+                                    (xc, wc), nbytes,
+                                    work.conv_fused_work(
+                                        xshape, xc.element_size(), wshape,
+                                        strides, pads),
+                                    lib_conv(xc, wc, strides, pads))})
         for r in rows:
             macs = math.prod(r["w"]) * r["x"][0] * r["x"][1] * r["x"][2] / (
                 r["strides"][0] * r["strides"][1])
             r["int_tops"] = 2 * macs / r["ms"] / 1e9
+        # lib_ms here is cuDNN's conv alone (lib_note "conv only")
         tot = _print_rows(kind, rows, lambda r: f"x{r['x']} w{r['w']} "
                           f"s{r['strides'][0]}")
         out[kind] = {"max_abs_err": err, **tot, "shapes": rows}
@@ -739,6 +913,29 @@ def _kernel_device_ms(rows, n_steps) -> dict:
     return {k: sum(r["device_ms"] for r in rows
                    if any(n in r["name"] for n in ns)) / n_steps
             for k, ns in names.items()}
+
+
+def one_launch_a_call(rows, calls) -> None:
+    """#4/#5 in a profiler window: as many ``conv_fused_kernel`` launches
+    of each kind as calls of its wrapper, and no second kernel of their
+    library (the old design's ``minmax_decode_kernel``).  Fails where the
+    profiler saw no device time, which would leave it unmeasured."""
+    check(bool(rows), "the train profile saw no device kernels: #4/#5's "
+          "launches a call cannot be counted")
+    got = {kind: sum(r["calls"] for r in rows
+                     if any(n in r["name"] for n in names))
+           for kind, names in (("conv3x3", ("conv_fused_kernel<3",
+                                            "conv_fused_kernelILi3")),
+                               ("conv1x1", ("conv_fused_kernel<1",
+                                            "conv_fused_kernelILi1")))}
+    extra = [r["name"] for r in rows if "minmax_decode" in r["name"]]
+    for kind, n in got.items():
+        check(n == calls[kind] > 0 and not extra,
+              f"{kind}: {n} kernel launches for {calls[kind]} calls "
+              f"(other kernels: {extra})")
+    print(f"fused: one device launch a call ({got['conv3x3']} #4 and "
+          f"{got['conv1x1']} #5 launches for as many wrapper calls)",
+          flush=True)
 
 
 def phase_train(qmod, qops, quant, gemm, fused) -> dict:
@@ -823,6 +1020,7 @@ def _phase_train(qmod, qops, quant, gemm, fused) -> dict:
           flush=True)
 
     from torch.profiler import ProfilerActivity, profile
+    before = train_counters(quant, gemm, fused)
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
@@ -839,6 +1037,9 @@ def _phase_train(qmod, qops, quant, gemm, fused) -> dict:
     rows.sort(key=lambda r: -r["device_ms"])
     busy = sum(r["device_ms"] for r in rows) if rows else None
     in_path = _kernel_device_ms(rows, 2) if rows else None
+    calls = {k: v - before[k] for k, v in
+             train_counters(quant, gemm, fused).items()}
+    one_launch_a_call(rows, calls)
     prof_out = {"wall_ms": wall_ms, "device_ms": busy,
                 "busy_share": busy / wall_ms if rows else None,
                 "launches_per_step": sum(r["calls"] for r in rows) / 2,
@@ -1013,37 +1214,42 @@ def port_modules():
 
 def kernel_lines(report) -> list:
     """The four kernels: launches from the trainer's counted run,
-    errors from every comparison, device and plain ms per training step
-    at the path's shapes (operands out of L2)."""
+    errors from every comparison; device, plain, bound and library ms per
+    training step at the path's shapes (operands out of L2).  #4/#5 have
+    no library call that computes their function: ``conv_library_ms`` is
+    cuDNN's conv alone."""
     k1, k2, fused = report["k1_train"], report["k2_train"], report["fused"]
     launches = report["trainer"]["launches"]
+
+    def times(t, library=True):
+        return {"ms": t["ms"], "plain_ms": t["plain_ms"],
+                "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
+                "library_ms": t["lib_ms"] if library else None}
+
+    c3, c1 = fused["conv3x3_fused"], fused["conv1x1_fused"]
     return [
         {"name": "k1_quantize", "route": "triton",
          "source": "lbt_tpu_torch/ops/kernels/quant_triton.py",
          "replaces": "lbt_tpu/ops/pallas/quant_kernels.py:126",
          "launches": launches["k1"],
          "max_abs_err": max(report["k1"]["max_abs_err"], k1["max_abs_err"]),
-         "ms": k1["ms"], "plain_ms": k1["plain_ms"]},
+         **times(k1, library=False)},
         {"name": "k2_int8_gemm", "route": "cuda",
          "source": "lbt_tpu_torch/csrc/int8_gemm.cu",
          "replaces": "lbt_tpu/ops/pallas/quant_kernels.py:187",
          "launches": launches["k2"] + launches["k2_tn"],
          "max_abs_err": max(report["k2"]["max_abs_err"], k2["max_abs_err"]),
-         "ms": k2["ms"], "plain_ms": k2["plain_ms"]},
+         **times(k2)},
         {"name": "conv3x3_fused", "route": "cuda",
          "source": "lbt_tpu_torch/csrc/conv_fused.cu",
          "replaces": "lbt_tpu/ops/pallas/conv_kernels.py:170",
-         "launches": launches["conv3x3"],
-         "max_abs_err": fused["conv3x3_fused"]["max_abs_err"],
-         "ms": fused["conv3x3_fused"]["ms"],
-         "plain_ms": fused["conv3x3_fused"]["plain_ms"]},
+         "launches": launches["conv3x3"], "max_abs_err": c3["max_abs_err"],
+         **times(c3, library=False), "conv_library_ms": c3["lib_ms"]},
         {"name": "conv1x1_fused", "route": "cuda",
          "source": "lbt_tpu_torch/csrc/conv_fused.cu",
          "replaces": "lbt_tpu/ops/pallas/conv1x1_kernels.py:146",
-         "launches": launches["conv1x1"],
-         "max_abs_err": fused["conv1x1_fused"]["max_abs_err"],
-         "ms": fused["conv1x1_fused"]["ms"],
-         "plain_ms": fused["conv1x1_fused"]["plain_ms"]},
+         "launches": launches["conv1x1"], "max_abs_err": c1["max_abs_err"],
+         **times(c1, library=False), "conv_library_ms": c1["lib_ms"]},
     ]
 
 

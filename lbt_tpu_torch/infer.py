@@ -1,5 +1,5 @@
 """Serving (PyTorch port of ``lbt_tpu/infer.py``): a predict function and a
-``Predictor`` handle on an explicit device.
+``Predictor`` handle, on the card unless asked for the CPU.
 
 The serving forward runs the integer engine with running BN statistics,
 deterministic round-half-even quantization and no state updates
@@ -16,6 +16,7 @@ import torch
 from lbt_tpu_torch.convert import from_jax_numpy
 from lbt_tpu_torch.nn.core import Ctx
 from lbt_tpu_torch.nn.model import Model
+from lbt_tpu_torch.utils.device import resolve_device
 
 
 def make_predict_fn(model: Model, return_probs: bool = False):
@@ -36,9 +37,10 @@ def make_predict_fn(model: Model, return_probs: bool = False):
 class Predictor:
     """Serving handle.  ``params`` / ``qstate``, when given, are
     ``lbt_tpu``'s trees as numpy arrays and are loaded into ``model``;
-    the model then moves to ``device``.
+    the model then moves to ``device``: the card by default (raising
+    without one), the CPU only when ``device="cpu"``.
 
-    >>> p = Predictor(model, params, qstate, device="cuda")
+    >>> p = Predictor(model, params, qstate)
     >>> labels = p(batch)
     """
 
@@ -48,8 +50,7 @@ class Predictor:
             raise ValueError("give both params and qstate, or neither")
         if params is not None:
             from_jax_numpy(model, params, qstate)
-        if device is not None:
-            model.to(device)
+        model.to(resolve_device(device))
         self.model = model
         self.device = model.device
         self._fn = make_predict_fn(model)

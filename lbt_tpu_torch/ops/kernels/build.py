@@ -6,7 +6,10 @@ with ``ctypes`` — no PyTorch headers, so a build takes seconds.  Builds
 happen at first use into ``lbt_tpu_torch/_build/`` (listed in
 ``.gitignore``), named by a hash of the sources and flags, so a changed
 source rebuilds and an unchanged one loads the cached library.  Triton's
-own cache is pointed at the same directory.
+own cache is pointed at the same directory.  ``ptxas`` reports each
+kernel's registers, shared memory and spills (``-Xptxas -v``) into a
+``.ptxas.txt`` file beside the library; :func:`ptxas_report` reads it and
+:func:`sass_counts` counts instructions in the library's SASS.
 """
 
 from __future__ import annotations
@@ -15,6 +18,7 @@ import ctypes
 import functools
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import tempfile
@@ -25,7 +29,7 @@ CSRC_DIR = PKG_DIR / "csrc"
 BUILD_DIR = PKG_DIR / "_build"
 
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC")
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 
 def nvcc_path() -> str:
@@ -43,12 +47,13 @@ def nvcc_path() -> str:
     raise RuntimeError("nvcc not found: set CUDA_HOME or put nvcc on PATH")
 
 
-def build_library(name: str, sources, extra_flags=()) -> Path:
-    """Compile ``sources`` (file names under ``csrc/``) into
+def build_library(name: str, sources, extra_flags=(),
+                  csrc: Path = CSRC_DIR) -> Path:
+    """Compile ``sources`` (file names under ``csrc``) into
     ``_build/lib<name>-<hash>.so`` unless that file exists; return it."""
     flags = NVCC_FLAGS + tuple(extra_flags)
     h = hashlib.sha256(" ".join(flags).encode())
-    paths = [CSRC_DIR / s for s in sources]
+    paths = [Path(csrc) / s for s in sources]
     for p in paths:
         h.update(p.name.encode())
         h.update(p.read_bytes())
@@ -66,6 +71,7 @@ def build_library(name: str, sources, extra_flags=()) -> Path:
             raise RuntimeError(
                 f"nvcc failed building {name} ({proc.returncode}):\n"
                 f"{proc.stdout}{proc.stderr}")
+        lib.with_suffix(".ptxas.txt").write_text(proc.stdout + proc.stderr)
         os.replace(tmp, lib)
     finally:
         if os.path.exists(tmp):
@@ -74,9 +80,10 @@ def build_library(name: str, sources, extra_flags=()) -> Path:
 
 
 @functools.cache
-def int8_gemm_library() -> ctypes.CDLL:
-    """K2 (``csrc/int8_gemm.cu``), built on first use."""
-    lib = ctypes.CDLL(str(build_library("int8_gemm", ["int8_gemm.cu"])))
+def int8_gemm_library(csrc: Path = CSRC_DIR) -> ctypes.CDLL:
+    """K2 (``int8_gemm.cu`` under ``csrc``), built on first use."""
+    lib = ctypes.CDLL(str(build_library("int8_gemm", ["int8_gemm.cu"],
+                                        csrc=csrc)))
     fn = lib.lbt_int8_gemm
     fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
                    ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
@@ -90,9 +97,11 @@ def int8_gemm_library() -> ctypes.CDLL:
 
 
 @functools.cache
-def conv_fused_library() -> ctypes.CDLL:
-    """Kernels #4 and #5 (``csrc/conv_fused.cu``), built on first use."""
-    lib = ctypes.CDLL(str(build_library("conv_fused", ["conv_fused.cu"])))
+def conv_fused_library(csrc: Path = CSRC_DIR) -> ctypes.CDLL:
+    """Kernels #4 and #5 (``conv_fused.cu`` under ``csrc``), built on
+    first use."""
+    lib = ctypes.CDLL(str(build_library("conv_fused", ["conv_fused.cu"],
+                                        csrc=csrc)))
     for name in ("lbt_conv3x3_fused", "lbt_conv1x1_fused"):
         fn = getattr(lib, name)
         fn.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p,
@@ -102,6 +111,63 @@ def conv_fused_library() -> ctypes.CDLL:
                        ctypes.POINTER(ctypes.c_int), ctypes.c_void_p]
         fn.restype = ctypes.c_int
     return lib
+
+
+def ptxas_report(lib: Path) -> dict:
+    """``{kernel: {"registers", "smem", "spill_stores", "spill_loads"}}``
+    from the ``-Xptxas -v`` log of ``lib`` (mangled kernel names)."""
+    out, name = {}, None
+    path = Path(lib).with_suffix(".ptxas.txt")
+    for line in path.read_text().splitlines() if path.exists() else ():
+        m = re.search(r"(?:Compiling entry function|Function properties "
+                      r"for) '?([\w$]+)'?", line)
+        if m:
+            name = m.group(1)
+            out.setdefault(name, {})
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m and name:
+            out[name].update(spill_stores=int(m.group(1)),
+                             spill_loads=int(m.group(2)))
+        m = re.search(r"Used (\d+) registers(?:.*?(\d+) bytes smem)?", line)
+        if m and name:
+            out[name].update(registers=int(m.group(1)),
+                             smem=int(m.group(2) or 0))
+    return {k: v for k, v in out.items() if "registers" in v}
+
+
+def sass_counts(lib: Path, opcode: str = "IMMA"):
+    """``{kernel: number of ``opcode`` instructions}`` in ``lib``'s SASS,
+    from ``cuobjdump`` beside ``nvcc``; None where there is no
+    ``cuobjdump``."""
+    tool = Path(nvcc_path()).with_name("cuobjdump")
+    if not tool.is_file():
+        return None
+    sass = subprocess.run([str(tool), "-sass", str(lib)], capture_output=True,
+                          text=True, check=True).stdout
+    out, name = {}, None
+    for line in sass.splitlines():
+        m = re.match(r"\s*Function : (\S+)", line)
+        if m:
+            name = m.group(1)
+            out[name] = 0
+        elif name and re.search(rf"\b{opcode}\b", line):
+            out[name] += 1
+    return out
+
+
+def short_name(mangled: str) -> str:
+    """``kernel<args>`` of a mangled kernel name, through ``c++filt``
+    where there is one (the mangled name otherwise)."""
+    tool = shutil.which("c++filt")
+    if tool is None:
+        return mangled
+    name = subprocess.run([tool, mangled], capture_output=True, text=True
+                          ).stdout.strip() or mangled
+    name = re.sub(r"^void |\(anonymous namespace\)::|\(.*\)$", "", name)
+    return re.sub(r"\s+", "", name.replace("signed char", "int8")
+                  .replace("short", "int16"))
 
 
 def use_triton_cache_dir() -> None:

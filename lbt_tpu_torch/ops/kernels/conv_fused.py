@@ -7,9 +7,13 @@ From a conv's input codes and weight codes they return the codes of the
 conv output quantized at the next site, the per-channel sum and sum of
 squares of those codes, and the min / max of the f32 conv output, which
 never reaches device memory.  The kernels are CUDA C++ in
-``lbt_tpu_torch/csrc/conv_fused.cu`` (its header says what bounds them and
-how the design answers that), built by ``build.py`` and called through
-``ctypes`` on PyTorch's current stream.
+``lbt_tpu_torch/csrc/conv_fused.cu``: an implicit GEMM on the int8 tensor
+cores (``mma.sync`` m16n8k32), 16-byte ``cp.async`` gathers of each tap's
+NHWC rows, 9-bit codes split into int8 planes as fragments are read, one
+launch a call (the last block decodes the min / max).  Its header says
+what bounds it (the bytes of the input codes and the output codes), how
+the design answers that and what it measured.  Built by ``build.py`` and
+called through ``ctypes`` on PyTorch's current stream.
 
 :func:`conv3x3_fused` and :func:`conv1x1_fused` are the wrappers: a CPU
 tensor takes the plain PyTorch version :func:`conv_fused_plain` (im2col,
@@ -87,8 +91,9 @@ def _launch(entry: str, xc, wc, inv_scale, mult_out, strides, pads,
     ho, wo = out_hw(h, w, (kh, kw), strides, pads)
     codes = torch.empty((b, ho, wo, cout), dtype=torch.int8,
                         device=xc.device)
-    # [sum q; sum q^2] per channel, then one slot of min / max keys
-    moments = torch.zeros(2 * cout + 1, dtype=torch.int64, device=xc.device)
+    # [sum q; sum q^2] per channel, then a slot of min / max keys and one
+    # of the blocks' ticket counter (the last block decodes the keys)
+    moments = torch.zeros(2 * cout + 2, dtype=torch.int64, device=xc.device)
     minmax = torch.empty(2, dtype=torch.float32, device=xc.device)
     dims = (ctypes.c_int * 11)(b, h, w, cin, ho, wo, cout, strides[0],
                                strides[1], pads[0][0], pads[1][0])
@@ -127,8 +132,10 @@ def _fused(ksize, entry, counter, xc, wc, inv_scale, mult_out, strides,
 def conv3x3_fused(xc, wc, inv_scale, mult_out, *, strides, pads,
                   bits_out: int = 8, seed: Optional[int] = None,
                   light: bool = False):
-    """#4: 3x3 conv of int8/int16 codes (any stride and padding) with the
-    epilogue; ``(codes, moments, minmax)`` as :func:`conv_fused_plain`.
+    """#4: 3x3 conv of int8 or 9-bit int16 codes (any stride and padding)
+    with the epilogue; ``(codes, moments, minmax)`` as
+    :func:`conv_fused_plain`.  int16 codes must lie in [-256, 255]: the
+    kernel contracts them as split-9 int8 planes.
     ``seed=None`` rounds half-to-even, an int seed stochastically with
     the counter hash (``light`` = ``hash1``)."""
     return _fused((3, 3), "lbt_conv3x3_fused", conv3x3_fused, xc, wc,

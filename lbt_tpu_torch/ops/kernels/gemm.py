@@ -2,10 +2,14 @@
 
 Replaces ``matmul_int8_pallas`` (``lbt_tpu/ops/pallas/quant_kernels.py``,
 ``_mm_int8_kernel``).  The kernel is CUDA C++ in
-``lbt_tpu_torch/csrc/int8_gemm.cu``; its header says what bounds it on the
-H100 and how the design answers that.  It is built with ``nvcc`` for
-``sm_90a`` at first use (``build.py``) and called through ``ctypes`` on
-PyTorch's current stream.
+``lbt_tpu_torch/csrc/int8_gemm.cu``: ``mma.sync`` m16n8k32 int8 tensor-core
+tiles fed by a ``cp.async`` pipeline of 16-byte copies, ragged edges
+zero-filled in shared memory; the ``X^T . g`` form takes its fragments
+with ``ldmatrix .trans`` and adds its split-K partials with coalesced
+int64 atomics.  Its header says what bounds it on the H100 (the operands'
+bytes), how the design answers that and what it measured.  It is built
+with ``nvcc`` for ``sm_90a`` at first use (``build.py``) and called
+through ``ctypes`` on PyTorch's current stream.
 
 :func:`int8_matmul` is the wrapper: a CPU tensor takes the plain PyTorch
 version :func:`int8_matmul_plain`; a CUDA tensor launches the kernel.

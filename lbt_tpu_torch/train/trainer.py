@@ -31,6 +31,7 @@ from lbt_tpu_torch.nn.model import Model
 from lbt_tpu_torch.train import checkpoint as ckpt
 from lbt_tpu_torch.train.optim import momentum_init, piecewise_lr
 from lbt_tpu_torch.train.step import make_eval_step, make_train_step
+from lbt_tpu_torch.utils.device import resolve_device
 from lbt_tpu_torch.utils.logging import MetricsWriter, get_logger
 from lbt_tpu_torch.utils.profiling import StepProfiler
 
@@ -41,7 +42,8 @@ DATA_KEY_FOLD = 0xA11CE
 
 
 class Trainer:
-    """``lbt_tpu``'s Trainer on one ``device`` (default: the model's).
+    """``lbt_tpu``'s Trainer on one ``device``: the card by default
+    (raising without one), the CPU only when ``device="cpu"``.
     ``dataset`` holds ``'train'`` / ``'test'`` numpy ``(x, y)`` pairs, or
     ``'train_iter'(epoch, batch_size)`` / ``'test_iter'(batch_size)``
     callables yielding numpy batches.  ``augment`` is ``(key, x) -> x``
@@ -70,10 +72,7 @@ class Trainer:
         self.tc = tc
         self.dataset = dataset
         self.augment = augment
-        # the model stays where the caller built it unless ``device``
-        # names another
-        self.device = torch.device(device if device is not None
-                                   else model.device)
+        self.device = resolve_device(device)
         self.logger = logger or get_logger(
             f"{logdir}/experiment.log" if logdir else None)
         self.metrics = MetricsWriter(logdir)

@@ -60,7 +60,8 @@ def test_k1_matches_plain(dev, bits, mode, shape):
 
 @pytest.mark.parametrize("mkn", [(1, 1, 1), (130, 100, 70), (64, 27, 16),
                                  (128, 64, 10), (513, 33, 17),
-                                 (1000, 576, 64), (77, 16, 32)])
+                                 (1000, 576, 64), (77, 16, 32), (128, 10, 64),
+                                 (200, 63, 16)])
 @pytest.mark.parametrize("scaled", [False, True])
 def test_k2_matches_plain(dev, mkn, scaled):
     m, k, n = mkn
@@ -259,7 +260,8 @@ def test_checkpoint_card_cpu_round_trip(dev, tmp_path):
 
 def test_trainer_keeps_a_card_model_on_the_card(dev):
     """A model built on the card and given to ``Trainer`` with no device
-    stays there, and its step and eval launch the kernels."""
+    stays there (the default is the card), and its step and eval launch
+    the kernels."""
     cfg = QuantConfig.uniform(8, noise_mode="hash")
     model = cifar10_resnet(cfg, 8).to(dev)
     rng = np.random.default_rng(0)
@@ -327,3 +329,121 @@ def test_train_step_card_matches_cpu(dev):
 
     for a, b in ((gp, cp), (gq, cq), (gv, cv)):
         cmp(a, b)
+
+
+# the redesigned kernels at the edges of their tiles and pipelines
+
+@pytest.mark.parametrize("m", [1, 17, 131072])
+@pytest.mark.parametrize("n", [10, 16, 32, 64])
+@pytest.mark.parametrize("k", [27, 144, 576])
+def test_k2_tensor_core_shapes(dev, m, n, k):
+    """K = 27 (unaligned rows, one k32 step), 144 (not a multiple of the
+    64-byte stage) and 576; N = 10 (ragged n8 tile) to 64; M from one
+    row to stage 1's 131072: both outputs bitwise."""
+    g = torch.Generator().manual_seed(m * n + k)
+    a = torch.randint(-128, 128, (m, k), generator=g, dtype=torch.int8)
+    b = torch.randint(-128, 128, (k, n), generator=g, dtype=torch.int8)
+    a, b = a.to(dev), b.to(dev)
+    for inv in (None, torch.tensor([2.0 ** -15], device=dev)):
+        got = gemm.int8_matmul(a, b, inv)
+        torch.cuda.synchronize()
+        assert torch.equal(got, gemm.int8_matmul_plain(a, b, inv))
+
+
+@pytest.mark.parametrize("k", [2 ** 16 - 1, 2 ** 16, 2 ** 16 + 33])
+@pytest.mark.parametrize("mn", [(144, 16), (27, 10), (576, 64), (130, 70)])
+def test_k2_tn_chunk_boundaries(dev, k, mn):
+    """The X^T.g form's split-K chunks (at most 2**16 rows each) around
+    one chunk's end, with the (-128)(-128) extremes in every row; rows
+    staged 16 bytes at a time (144, 16, 576, 64), as one flat range (27,
+    10) and a word at a time (130, 70), each into the permuted output."""
+    m, n = mn
+    g = torch.Generator().manual_seed(k + m)
+    a = torch.randint(-128, 128, (k, m), generator=g, dtype=torch.int8)
+    b = torch.randint(-128, 128, (k, n), generator=g, dtype=torch.int8)
+    a[:, 0] = -128
+    b[:, 0] = -128
+    a, b = a.to(dev), b.to(dev)
+    got = gemm.int8_matmul_tn(a, b)
+    torch.cuda.synchronize()
+    assert torch.equal(got, gemm.int8_matmul_tn_plain(a, b))
+    assert got[0, 0].item() == k * 2 ** 14
+
+
+# (x shape, HWIO, stride, padding): the stem (Cin = 3) at strides 1 and 2,
+# stride 2 with SAME and explicit padding, a width that is not a multiple
+# of the 64-pixel tile
+SPLIT9_SHAPES = [((4, 32, 32, 3), (3, 3, 3, 16), 1, "SAME"),
+                 ((2, 9, 37, 3), (3, 3, 3, 16), 2, ((0, 1), (1, 1))),
+                 ((4, 32, 32, 16), (3, 3, 16, 32), 2, "SAME"),
+                 ((4, 32, 32, 16), (3, 3, 16, 32), 2, ((1, 1), (0, 2))),
+                 ((2, 9, 37, 16), (3, 3, 16, 16), 1, "SAME"),
+                 ((2, 8, 8, 64), (3, 3, 64, 64), 1, "SAME")]
+
+
+@pytest.mark.parametrize("codes", ["-256", "255", "-1", "mixed"])
+@pytest.mark.parametrize("case", range(len(SPLIT9_SHAPES)))
+def test_conv_fused_split9_extremes(dev, case, codes):
+    """#4 on 9-bit codes at the split-9 extremes (h = -128, 127, -1 with
+    l = 0 or 1), against weights at -128 and 127 too, both roundings."""
+    xshape, wshape, s, padding = SPLIT9_SHAPES[case]
+    g = torch.Generator().manual_seed(case)
+    if codes == "mixed":
+        pick = torch.tensor([-256, 255, -1, 0, 1], dtype=torch.int16)
+        xc = pick[torch.randint(0, 5, xshape, generator=g)]
+    else:
+        xc = torch.full(xshape, int(codes), dtype=torch.int16)
+    wc = torch.randint(-128, 128, wshape, generator=g, dtype=torch.int8)
+    wc.view(-1)[:2] = torch.tensor([-128, 127], dtype=torch.int8)
+    xc, wc = xc.to(dev), wc.to(dev)
+    inv = torch.tensor([2.0 ** -18], device=dev)
+    mult = torch.tensor([2.0 ** -1], device=dev)
+    pads = (qops.conv_pads(padding, xshape[1:3], wshape[:2], (s, s))
+            if padding == "SAME" else padding)
+    for seed in (None, 0xBADC0DE + case):
+        kw = dict(strides=(s, s), pads=pads, seed=seed)
+        got = conv_fused.conv3x3_fused(xc, wc, inv, mult, **kw)
+        torch.cuda.synchronize()
+        want = conv_fused.conv_fused_plain(xc, wc, inv, mult, **kw)
+        for a, b in zip(got, want):
+            assert a.dtype == b.dtype and torch.equal(a, b)
+
+
+@pytest.mark.parametrize("xdtype", [torch.int8, torch.int16])
+@pytest.mark.parametrize("xshape,wshape", [((128, 32, 32, 16), (1, 1, 16, 32)),
+                                           ((128, 16, 16, 32), (1, 1, 32, 64))])
+def test_conv1x1_fused_at_the_shortcut_shapes(dev, xshape, wshape, xdtype):
+    """#5 at ResNet-20's two stride-2 shortcuts, batch 128."""
+    g = torch.Generator().manual_seed(wshape[3])
+    lim = 256 if xdtype == torch.int16 else 128
+    xc = torch.randint(-lim, lim, xshape, generator=g, dtype=xdtype).to(dev)
+    wc = torch.randint(-128, 128, wshape, generator=g,
+                       dtype=torch.int8).to(dev)
+    inv = torch.tensor([2.0 ** -13], device=dev)
+    mult = torch.tensor([2.0 ** -1], device=dev)
+    kw = dict(strides=(2, 2), pads=((0, 0), (0, 0)), seed=0x51DE)
+    before = conv_fused.conv1x1_fused.launches
+    got = conv_fused.conv1x1_fused(xc, wc, inv, mult, **kw)
+    torch.cuda.synchronize()
+    assert conv_fused.conv1x1_fused.launches == before + 1
+    want = conv_fused.conv_fused_plain(xc, wc, inv, mult, **kw)
+    for a, b in zip(got, want):
+        assert a.dtype == b.dtype and torch.equal(a, b)
+
+
+def test_entry_points_default_to_the_card(dev):
+    """``Predictor`` and ``Trainer`` given a model built on the CPU and no
+    device move it to the card and run there."""
+    from lbt_tpu_torch.infer import Predictor
+    cfg = QuantConfig.uniform(8, noise_mode="hash")
+    rng = np.random.default_rng(0)
+    x = rng.normal(0, 1, (4, 32, 32, 3)).astype(np.float32)
+    p = Predictor(cifar10_resnet(cfg, 8))
+    assert p.device == torch.device("cuda", 0)
+    assert p(x).device == torch.device("cuda", 0)
+    data = {"train": (x, rng.integers(0, 10, (4,)).astype(np.int32)),
+            "test": (x, rng.integers(0, 10, (4,)).astype(np.int32))}
+    tr = Trainer(cifar10_resnet(cfg, 8),
+                 TrainConfig(batch_size=4, eval_batch_size=4), data)
+    assert tr.model.device == torch.device("cuda", 0)
+    assert all(v.device.type == "cuda" for v in tr.velocity.values())

@@ -15,6 +15,7 @@ lbt_tpu on the CPU, with CIFAR ResNet-8 under
 
 import contextlib
 import json
+import math
 import os
 import pathlib
 import signal
@@ -89,7 +90,8 @@ def _pair(cfgs, tcs, data, weights=None):
     params, qstate = weights or (_numpy(jtr.params), _numpy(jtr.qstate))
     jtr.params = jax.tree.map(jnp.asarray, params)
     jtr.qstate = jax.tree.map(jnp.asarray, qstate)
-    ttr = Trainer(cifar10_resnet(tcfg, 8, weight_decay=WD), ttc, data)
+    ttr = Trainer(cifar10_resnet(tcfg, 8, weight_decay=WD), ttc, data,
+                  device="cpu")
     convert.from_jax_numpy(ttr.model, params, qstate)
     return jtr, ttr, params, qstate
 
@@ -298,7 +300,7 @@ def test_trainer_feed_matches_lbt_tpu():
     jtr = JTrainer(jax_resnet(_configs()[0], 8), jconfig.TrainConfig(**kw),
                    data)
     ttr = Trainer(cifar10_resnet(_configs()[1], 8),
-                  tconfig.TrainConfig(**kw), data)
+                  tconfig.TrainConfig(**kw), data, device="cpu")
     jtr.velocity = jax.tree.map(jnp.ones_like, jtr.velocity)
     for v in ttr.velocity.values():
         v.fill_(1.0)
@@ -377,7 +379,7 @@ def _port_trainer(ckpt_dir, n_epoch, seed=2):
                              weight_decay=WD)
     return Trainer(cifar10_resnet(cfg, 8, weight_decay=WD), tc,
                    load_dataset("cifar10", n_train=12, n_test=8),
-                   augment=make_augment("cifar10"))
+                   augment=make_augment("cifar10"), device="cpu")
 
 
 def _state(tr):
@@ -470,7 +472,8 @@ class SlowTrainer(Trainer):
         return super().evaluate()
 
 
-tr = SlowTrainer(model, tc, {"train": (x, y), "test": (x[:100], y[:100])})
+tr = SlowTrainer(model, tc, {"train": (x, y), "test": (x[:100], y[:100])},
+                 device="cpu")
 ev = tr.train()
 torch.save({"net": tr.model.net.state_dict(), "velocity": tr.velocity,
             "step": tr.step, "eval": ev}, out)
@@ -582,7 +585,32 @@ def test_trainer_refuses_what_it_cannot_run(tc_kw, trainer_kw, item):
     cfg = tconfig.QuantConfig.uniform(8, noise_mode="hash")
     with pytest.raises(NotImplementedError, match=f"ROADMAP queue 1 {item}"):
         Trainer(cifar10_resnet(cfg, 8), tconfig.TrainConfig(**tc_kw), {},
-                **trainer_kw)
+                device="cpu", **trainer_kw)
+
+
+def test_entry_points_default_to_the_card(monkeypatch):
+    """``Predictor`` and ``Trainer`` run on the card unless given
+    ``device="cpu"``: without a card the default raises, naming the CPU
+    option; with ``device="cpu"`` they run there."""
+    from lbt_tpu_torch.infer import Predictor
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    cfg = tconfig.QuantConfig.uniform(8, noise_mode="hash")
+    rng = np.random.default_rng(0)
+    x = rng.normal(0, 1, (4, 32, 32, 3)).astype(np.float32)
+    data = {"train": (x, rng.integers(0, 10, (4,)).astype(np.int32)),
+            "test": (x, rng.integers(0, 10, (4,)).astype(np.int32))}
+    tc = tconfig.TrainConfig(batch_size=4, eval_batch_size=4)
+    with pytest.raises(RuntimeError, match='device="cpu"'):
+        Predictor(cifar10_resnet(cfg, 8))
+    with pytest.raises(RuntimeError, match='device="cpu"'):
+        Trainer(cifar10_resnet(cfg, 8), tc, data)
+    with pytest.raises(RuntimeError, match='device="cpu"'):
+        Trainer(cifar10_resnet(cfg, 8), tc, data, device="cuda:0")
+    labels = Predictor(cifar10_resnet(cfg, 8), device="cpu")(x)
+    assert labels.shape == (4,) and labels.device.type == "cpu"
+    tr = Trainer(cifar10_resnet(cfg, 8), tc, data, device="cpu")
+    assert tr.device.type == "cpu" and tr.model.device.type == "cpu"
+    assert math.isfinite(tr.evaluate()["loss"])
 
 
 def test_cli_refuses_cuda_without_a_card(tmp_path, capsys):
