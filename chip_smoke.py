@@ -9,16 +9,19 @@ Run from the root of a checkout, on a machine with one CUDA card:
 Phases; each raises on failure and the script then exits non-zero:
 
 1. device  needs CUDA; prints the card's name and power limit; TF32 off.
-2. build   builds K2 and kernels #4/#5 (one nvcc per source, started
-           together, sm_90a) and compiles K1 (Triton) from the sources in
-           the checkout; prints the seconds each took and each CUDA
-           kernel's registers, shared memory and spills (ptxas -v) and
+2. build   builds K1, K2 and kernels #4/#5 from the sources in the
+           checkout (one nvcc per source, started together, sm_90a);
+           prints the seconds each took and each kernel's registers,
+           shared memory and spills (ptxas -v) and, for K2 and #4/#5,
            its count of IMMA (int8 tensor-core) instructions in the SASS
            ("not available" without cuobjdump).
 3. K1      quantize kernel vs its plain PyTorch version on the card,
-           bitwise, at every quantize shape of the serving path (batch
+           bitwise (codes and the multiplier it builds from the
+           exponent), at every quantize shape of the serving path (batch
            128) and at odd sizes; bits 8 and 9; deterministic and both
-           counter-hash stochastic modes.
+           counter-hash stochastic modes.  Its library yardstick is
+           ``torch.quantize_per_tensor(x, 1/mult, 0, qint8)`` for the
+           path's 8-bit calls, which must give the same codes.
 4. K2      int8 GEMM vs its plain version, bitwise, at every GEMM shape
            of the serving path (each conv's im2col product, the head).
            K1 and K2 are timed per shape from CUDA graphs that rotate
@@ -46,7 +49,8 @@ Phases; each raises on failure and the script then exits non-zero:
            form one call per 2**16-row chunk; shapes it refuses padded to
            the nearest it takes, and the row says so); for #4/#5 cuDNN's
            fp16 channels-last ``conv2d`` of the same codes, the conv alone
-           (``conv_lib_ms``); none for K1.
+           (``conv_lib_ms``); none for the step's K1 calls, stochastic or
+           9-bit.
 8. train   ResNet-20 at batch 128, weights from seed 0, data from a numpy
            seed: 4 steps through the kernels (every launch counter reset
            just before and required to rise) and the same 4 steps through
@@ -55,8 +59,10 @@ Phases; each raises on failure and the script then exits non-zero:
            velocity, exponents and BN state equal (tolerance 0).  The
            first step's loss must match the CPU route at rtol 1e-5.  Then
            ms per step of both routes in turns and a profiler window, in
-           which #4/#5 must have made one device launch for each call of
-           their wrappers (and run no other kernel of theirs).
+           which K1 and #4/#5 must have made one device launch for each
+           call of their wrappers (and run no other kernel of theirs);
+           device launches a step, beside the count measured before K1
+           took the multiplier and the min/max into its one launch.
 9. trainer ``python -m lbt_tpu_torch.main``'s ``main`` in-process, the
            user's entry point: ResNet-20 at batch 128, 2560 synthetic
            CIFAR images (20 steps an epoch), 2 epochs with an LR decay at
@@ -106,6 +112,10 @@ BATCH = 128
 N_REQUESTS = 8
 SEED = 0
 TOL = dict(rtol=1e-5, atol=1e-5)
+# device launches a training step and a serving request with the Triton K1
+# (two launches a call with min/max) and the multiplier built in torch ops
+# at every quantize site (PERF.md section 5)
+LAUNCHES_BEFORE = {"step": 11343, "request": 1845}
 
 
 def check(cond: bool, msg: str) -> None:
@@ -144,7 +154,9 @@ def device_ms(fn, sets, reps: int = 20, replays: int = 5) -> float:
     """Mean device time per call of ``fn(*set)`` in ms: calls cycling
     over the input ``sets`` captured in one CUDA graph and replayed, so
     host launch cost drops out, and (by :func:`rotating_inputs`) the
-    operands of each call were last touched four L2 sizes earlier."""
+    operands of each call were last touched four L2 sizes earlier.  The
+    warm-up runs on the capturing stream, so per-stream scratch (K1's
+    ticket) exists before the capture."""
     side = torch.cuda.Stream()
     side.wait_stream(torch.cuda.current_stream())
     with torch.cuda.stream(side):
@@ -153,7 +165,7 @@ def device_ms(fn, sets, reps: int = 20, replays: int = 5) -> float:
     torch.cuda.current_stream().wait_stream(side)
     n = max(reps, len(sets))
     graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph):
+    with torch.cuda.graph(graph, stream=side):
         for i in range(n):
             fn(*sets[i % len(sets)])
     graph.replay()
@@ -290,55 +302,60 @@ def phase_device() -> dict:
             "torch": torch.__version__, "cuda": torch.version.cuda}
 
 
-def phase_build(quant, gemm, build) -> dict:
-    """nvcc for each CUDA source, all started together, then Triton; each
-    kernel's ptxas and SASS report."""
-    def timed(fn, *args):
+CUDA_SOURCES = (("k1", "quantize", "quantize.cu", "quantize_library"),
+                ("k2", "int8_gemm", "int8_gemm.cu", "int8_gemm_library"),
+                ("fused", "conv_fused", "conv_fused.cu",
+                 "conv_fused_library"))
+
+
+def phase_build(build) -> dict:
+    """nvcc for each CUDA source, all started together; each kernel's
+    ptxas report, and the SASS's IMMA count for the int8 tensor-core
+    kernels (K2, #4/#5)."""
+    def timed(fn):
         t0 = time.perf_counter()
-        fn(*args)
+        fn()
         return time.perf_counter() - t0
 
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(2) as pool:
-        k2 = pool.submit(timed, build.int8_gemm_library)
-        fused = pool.submit(timed, build.conv_fused_library)
-        k2_s, fused_s = k2.result(), fused.result()
+    with ThreadPoolExecutor(len(CUDA_SOURCES)) as pool:
+        futures = {tag: pool.submit(timed, getattr(build, loader))
+                   for tag, _, _, loader in CUDA_SOURCES}
+        secs = {tag: f.result() for tag, f in futures.items()}
     nvcc_s = time.perf_counter() - t0
-    t0 = time.perf_counter()
-    x = torch.zeros(4, device="cuda")
-    mult = torch.ones((), device="cuda")
-    for bits in (8, 9):
-        for seed, light in ((None, False), (1, False), (1, True)):
-            for stats in (False, True):
-                quant.quantize_codes(x, bits, mult, seed, light, stats)
-    torch.cuda.synchronize()
-    k1_s = time.perf_counter() - t0
-    print(f"build: nvcc K2 {k2_s:.1f} s and #4/#5 {fused_s:.1f} s in "
-          f"parallel ({nvcc_s:.1f} s), K1 triton {k1_s:.1f} s", flush=True)
-    kernels = {}
-    for name, src in (("int8_gemm", "int8_gemm.cu"),
-                      ("conv_fused", "conv_fused.cu")):
+    print(f"build: nvcc K1 {secs['k1']:.1f} s, K2 {secs['k2']:.1f} s and "
+          f"#4/#5 {secs['fused']:.1f} s in parallel ({nvcc_s:.1f} s)",
+          flush=True)
+    kernels, tensor_core = {}, []
+    for tag, name, src, _ in CUDA_SOURCES:
         lib = build.build_library(name, [src])
-        try:
-            imma = build.sass_counts(lib)
-        except (OSError, subprocess.CalledProcessError) as e:
-            print(f"  {src}: cuobjdump failed ({e}); IMMA count not "
-                  f"available")
-            imma = None
+        imma = None
+        if tag != "k1":
+            try:
+                imma = build.sass_counts(lib)
+            except (OSError, subprocess.CalledProcessError) as e:
+                print(f"  {src}: cuobjdump failed ({e}); IMMA count not "
+                      f"available")
         for k, v in sorted(build.ptxas_report(lib).items()):
             v = {**v, "imma": None if imma is None else imma.get(k)}
             kernels[build.short_name(k)] = v
+            if tag != "k1":
+                tensor_core.append(v["imma"])
             print(f"  {build.short_name(k)}: {v['registers']} registers, "
                   f"{v['smem']} B static smem, spills "
-                  f"{v.get('spill_stores')}/{v.get('spill_loads')} B, IMMA "
-                  f"{'not available' if v['imma'] is None else v['imma']}")
-    counted = [v["imma"] for v in kernels.values() if v["imma"] is not None]
+                  f"{v.get('spill_stores')}/{v.get('spill_loads')} B"
+                  + ("" if tag == "k1" else ", IMMA " + (
+                      "not available" if v["imma"] is None
+                      else str(v["imma"]))))
+    counted = [v for v in tensor_core if v is not None]
     check(all(counted), "a K2 or #4/#5 kernel has no IMMA instruction")
+    check(any("k1_quantize_kernel" in k for k in kernels),
+          "ptxas reported no K1 kernel")
     print(f"build: IMMA in each of the {len(counted)} K2 and #4/#5 kernels "
-          f"counted ({len(kernels) - len(counted)} not available)",
+          f"counted ({len(tensor_core) - len(counted)} not available)",
           flush=True)
-    return {"k2_nvcc_s": k2_s, "fused_nvcc_s": fused_s, "nvcc_s": nvcc_s,
-            "k1_triton_s": k1_s, "kernels": kernels}
+    return {**{f"{tag}_nvcc_s": v for tag, v in secs.items()},
+            "nvcc_s": nvcc_s, "kernels": kernels}
 
 
 def record_path_calls(model, x, qmod, qops, quant, gemm):
@@ -347,9 +364,9 @@ def record_path_calls(model, x, qmod, qops, quant, gemm):
     from lbt_tpu_torch.nn.core import Ctx
     k1, k2 = collections.Counter(), collections.Counter()
 
-    def k1_rec(t, bits, mult, seed=None, light=False, stats=False):
+    def k1_rec(t, bits, exp, seed=None, light=False, stats=False):
         k1[(tuple(t.shape), bits)] += 1
-        return quant.quantize_codes(t, bits, mult, seed, light, stats)
+        return quant.quantize_codes(t, bits, exp, seed, light, stats)
 
     def k2_rec(a, b, inv=None):
         k2[(a.shape[0], a.shape[1], b.shape[1], inv is not None)] += 1
@@ -362,55 +379,89 @@ def record_path_calls(model, x, qmod, qops, quant, gemm):
     return k1, k2
 
 
+K1_EXP = 2
+
+
 def _k1_input(shape, bits, gen):
-    from lbt_tpu_torch.dfxp.quantize import multiplier
-    mult = multiplier(bits, 2)
+    """``(x, exp)`` on the card: normal draws with ties and both rails
+    after scaling at ``K1_EXP``, which a one-element int32 tensor holds."""
+    mult = 2.0 ** (bits - 1 - K1_EXP)
     x = torch.randn(shape, generator=gen) * 2
     ties = torch.tensor([0.5, -0.5, 2.5, -3.5, 1e9, -1e9]) / mult
     n = min(x.numel(), ties.numel())
     x.view(-1)[:n] = ties[:n]
-    return x.cuda(), mult.cuda()
+    return x.cuda(), torch.tensor(K1_EXP, dtype=torch.int32, device="cuda")
+
+
+def _equal_outputs(got, want) -> bool:
+    return all(g.dtype == w.dtype and g.shape == w.shape
+               and torch.equal(g, w) for g, w in zip(got, want))
+
+
+def lib_quantize(x, exp, bits):
+    """``(fn, args, note)``: ``torch.quantize_per_tensor(x, 1/mult, 0,
+    qint8)``, whose codes equal K1's deterministic 8-bit codes (clip then
+    round half-to-even is round then clamp at 8 bits), or None where it
+    computes another function (9-bit codes)."""
+    if bits != 8:
+        return None
+    scale = 2.0 ** -(bits - 1 - int(exp.item()))
+    return (lambda x: torch.quantize_per_tensor(x, scale, 0, torch.qint8),
+            (x,), "qint8, scale 1/mult")
 
 
 def phase_k1(quant, k1_calls) -> dict:
+    """K1 at every quantize call of the serving forward and at odd sizes:
+    codes and multiplier bitwise against the plain version; each path
+    shape timed beside its bound and, for 8-bit codes, the library's
+    quantize, whose codes must be K1's."""
+    from lbt_tpu_torch.ops.kernels import work
     gen = torch.Generator().manual_seed(SEED + 1)
     shapes = {s for s, _ in k1_calls}
     shapes |= {(1,), (4097,), (3, 5, 7), (BATCH, 32, 32, 16)}
     err, n_cmp = 0.0, 0
     for shape in sorted(shapes):
         for bits in (8, 9):
-            x, mult = _k1_input(shape, bits, gen)
+            x, exp = _k1_input(shape, bits, gen)
             for seed, light in ((None, False), (0x9E3779B9, False),
                                 (0x2545F491, True)):
-                got = quant.quantize_codes(x, bits, mult, seed, light)
-                want = quant.quantize_codes_plain(x, bits, mult, seed, light)
+                got = quant.quantize_codes(x, bits, exp, seed, light)
+                want = quant.quantize_codes_plain(x, bits, exp, seed, light)
                 torch.cuda.synchronize()
-                check(got.dtype == want.dtype,
-                      f"K1 dtype {got.dtype} != {want.dtype}")
-                d = (got.to(torch.float64) - want.to(torch.float64)).abs()
-                err = max(err, d.max().item() if d.numel() else 0.0)
-                check(torch.equal(got, want),
+                err = max(err, _max_err(got[0], want[0]))
+                check(_equal_outputs(got, want),
                       f"K1 differs from its plain version at {shape} "
                       f"bits={bits} seed={seed} light={light}")
                 n_cmp += 1
     rows = []
     for (shape, bits), count in sorted(k1_calls.items()):
-        x, mult = _k1_input(shape, bits, gen)
+        x, exp = _k1_input(shape, bits, gen)
         code_bytes = torch.empty((), dtype=quant.code_dtype(bits)).element_size()
+        lib = lib_quantize(x, exp, bits)
+        if lib is not None:
+            codes = lib[0](x).int_repr()
+            check(torch.equal(codes, quant.quantize_codes(x, bits, exp)[0]),
+                  f"torch.quantize_per_tensor's codes differ from K1's at "
+                  f"{shape}")
         rows.append({"shape": list(shape), "bits": bits, "calls": count,
                      **_timings(
-                         lambda x, m: quant.quantize_codes(x, bits, m),
-                         lambda x, m: quant.quantize_codes_plain(x, bits, m),
-                         (x, mult), x.numel() * (4 + code_bytes))})
-    for r in rows:
-        print(f"  K1 {r['shape']} bits {r['bits']} x{r['calls']}: device "
-              f"{r['ms'] * 1e3:.1f} us (plain {r['plain_ms'] * 1e3:.1f})")
-    tot = _per_forward(rows)
-    print(f"K1: {n_cmp} comparisons bitwise equal; per forward, device "
-          f"{tot['ms']:.4f} ms (plain {tot['plain_ms']:.4f}), launched "
-          f"eagerly {tot['eager_ms']:.4f} ms (plain "
-          f"{tot['plain_eager_ms']:.4f})", flush=True)
-    return {"max_abs_err": err, "comparisons": n_cmp, **tot, "shapes": rows}
+                         lambda x, e: quant.quantize_codes(x, bits, e),
+                         lambda x, e: quant.quantize_codes_plain(x, bits, e),
+                         (x, exp), x.numel() * (4 + code_bytes),
+                         work.quantize_work(x.numel(), code_bytes, False),
+                         lib)})
+    tot = _print_rows("K1", rows, lambda r: f"{r['shape']} b{r['bits']}",
+                      per="forward")
+    lib_rows = [r for r in rows if r.get("lib_ms") is not None]
+    lib8 = {"ms": sum(r["calls"] * r["ms"] for r in lib_rows),
+            "lib_ms": sum(r["calls"] * r["lib_ms"] for r in lib_rows),
+            "calls": sum(r["calls"] for r in lib_rows)}
+    print(f"K1: {n_cmp} comparisons bitwise equal; the forward's "
+          f"{lib8['calls']} 8-bit calls take {lib8['ms']:.4f} ms, "
+          f"torch.quantize_per_tensor {lib8['lib_ms']:.4f} ms on them",
+          flush=True)
+    return {"max_abs_err": err, "comparisons": n_cmp, **tot,
+            "library_8bit": lib8, "shapes": rows}
 
 
 def phase_k2(gemm, k2_calls) -> dict:
@@ -590,7 +641,7 @@ def phase_profile(predictor, x) -> dict:
     busy = sum(r["device_ms"] for r in rows) if rows else None
     in_path = {k: sum(r["device_ms"] for r in rows if name in r["name"])
                / 2 if rows else None
-               for k, name in (("k1", "_quant_kernel"),
+               for k, name in (("k1", "k1_quantize_kernel"),
                                ("k2", "int8_gemm_kernel"))}
     out = {"wall_ms": wall_ms, "device_ms": busy,
            "busy_share": busy / wall_ms if rows else None,
@@ -598,7 +649,9 @@ def phase_profile(predictor, x) -> dict:
            "kernel_ms_per_request": in_path, "top": rows[:15]}
     print(f"profile: 2 requests, wall {wall_ms:.2f} ms, device kernels "
           f"{busy} ms; per request in the path, K1 {in_path['k1']} ms, "
-          f"K2 {in_path['k2']} ms", flush=True)
+          f"K2 {in_path['k2']} ms; {out['launches_per_request']} device "
+          f"launches a request ({LAUNCHES_BEFORE['request']} before)",
+          flush=True)
     return out
 
 
@@ -669,10 +722,10 @@ def record_train_calls(qmod, qops, quant, gemm, fused):
     W shape, strides, pads, seeded, light) of #4/#5."""
     k1, k2, tn, conv = (collections.Counter() for _ in range(4))
 
-    def k1_rec(t, bits, mult, seed=None, light=False, stats=False):
+    def k1_rec(t, bits, exp, seed=None, light=False, stats=False):
         k1[(tuple(t.shape), bits, seed is not None, bool(light),
             bool(stats))] += 1
-        return quant.quantize_codes(t, bits, mult, seed, light, stats)
+        return quant.quantize_codes(t, bits, exp, seed, light, stats)
 
     def k2_rec(a, b, inv=None):
         k2[(a.shape[0], a.shape[1], b.shape[1], inv is not None)] += 1
@@ -727,13 +780,13 @@ def _ms(v) -> str:
     return "n/a" if v is None else f"{v:.4f}"
 
 
-def _print_rows(tag, rows, label):
+def _print_rows(tag, rows, label, per="step"):
     for r in rows:
         print(f"  {tag} {label(r)} x{r['calls']}: device "
               f"{r['ms'] * 1e3:.2f} us (plain {r['plain_ms'] * 1e3:.1f}); "
               f"{_extras(r)}")
     tot = _per_forward(rows)
-    print(f"{tag}: {len(rows)} path shapes bitwise equal; per step "
+    print(f"{tag}: {len(rows)} path shapes bitwise equal; per {per} "
           f"({tot['launches']} launches), device {tot['ms']:.4f} ms (plain "
           f"{tot['plain_ms']:.4f}, bound {_ms(tot['bound_ms'])} by "
           f"{tot.get('bound_by')}, library {_ms(tot['lib_ms'])}), launched "
@@ -750,36 +803,34 @@ def _max_err(got, want) -> float:
 def phase_k1_train(quant, k1_calls) -> dict:
     """K1 at every quantize call of the training step, with the path's
     rounding mode and its min/max output, bitwise against the plain
-    version; timed per shape."""
-    from lbt_tpu_torch.dfxp.quantize import multiplier
+    version (codes, multiplier, min/max); timed per shape."""
     from lbt_tpu_torch.ops.kernels import work
     gen = torch.Generator().manual_seed(SEED + 4)
     err, rows = 0.0, []
+    exp = torch.tensor(1, dtype=torch.int32, device="cuda")
     for (shape, bits, seeded, light, stats), count in sorted(
             k1_calls.items()):
         x = (torch.randn(shape, generator=gen) * 2).cuda()
-        mult = multiplier(bits, 1).cuda()
         seed = 0x5DEECE66 if seeded else None
         for s in (None, seed):
-            got = quant.quantize_codes(x, bits, mult, s, light, True)
-            want = quant.quantize_codes_plain(x, bits, mult, s, light, True)
+            got = quant.quantize_codes(x, bits, exp, s, light, True)
+            want = quant.quantize_codes_plain(x, bits, exp, s, light, True)
             torch.cuda.synchronize()
-            for g, w in zip(got, want):
-                err = max(err, _max_err(g, w))
-                check(g.dtype == w.dtype and torch.equal(g, w),
-                      f"K1 (stats) differs from its plain version at "
-                      f"{shape} bits={bits} seed={s} light={light}")
+            err = max(err, max(_max_err(g, w) for g, w in zip(got, want)))
+            check(_equal_outputs(got, want),
+                  f"K1 (stats) differs from its plain version at "
+                  f"{shape} bits={bits} seed={s} light={light}")
         code_bytes = torch.empty((), dtype=quant.code_dtype(bits)) \
             .element_size()
         rows.append({
             "shape": list(shape), "bits": bits, "seeded": seeded,
             "stats": stats, "calls": count,
             **_timings(
-                lambda x, m: quant.quantize_codes(x, bits, m, seed, light,
+                lambda x, e: quant.quantize_codes(x, bits, e, seed, light,
                                                   stats),
-                lambda x, m: quant.quantize_codes_plain(x, bits, m, seed,
+                lambda x, e: quant.quantize_codes_plain(x, bits, e, seed,
                                                         light, stats),
-                (x, mult), x.numel() * (4 + code_bytes),
+                (x, exp), x.numel() * (4 + code_bytes),
                 work.quantize_work(x.numel(), code_bytes, stats))})
     tot = _print_rows("K1-stats", rows, lambda r: f"{r['shape']} b{r['bits']}"
                       f"{' s' if r['seeded'] else ''}"
@@ -906,7 +957,7 @@ def _state(model, velocity) -> dict:
 
 
 def _kernel_device_ms(rows, n_steps) -> dict:
-    names = {"k1": ("_quant_kernel", "_minmax_kernel"),
+    names = {"k1": ("k1_quantize_kernel",),
              "k2": ("int8_gemm_kernel", "int8_gemm_tn_kernel"),
              "conv3x3": ("conv_fused_kernel<3", "conv_fused_kernelILi3"),
              "conv1x1": ("conv_fused_kernel<1", "conv_fused_kernelILi1")}
@@ -916,26 +967,29 @@ def _kernel_device_ms(rows, n_steps) -> dict:
 
 
 def one_launch_a_call(rows, calls) -> None:
-    """#4/#5 in a profiler window: as many ``conv_fused_kernel`` launches
-    of each kind as calls of its wrapper, and no second kernel of their
-    library (the old design's ``minmax_decode_kernel``).  Fails where the
+    """K1 and #4/#5 in a profiler window: as many ``k1_quantize_kernel``
+    and ``conv_fused_kernel`` launches of each kind as calls of its
+    wrapper, and no second kernel of theirs (the old designs'
+    ``_minmax_kernel`` and ``minmax_decode_kernel``).  Fails where the
     profiler saw no device time, which would leave it unmeasured."""
-    check(bool(rows), "the train profile saw no device kernels: #4/#5's "
-          "launches a call cannot be counted")
+    check(bool(rows), "the train profile saw no device kernels: the "
+          "launches a call of K1 and #4/#5 cannot be counted")
     got = {kind: sum(r["calls"] for r in rows
                      if any(n in r["name"] for n in names))
-           for kind, names in (("conv3x3", ("conv_fused_kernel<3",
+           for kind, names in (("k1", ("k1_quantize_kernel",)),
+                               ("conv3x3", ("conv_fused_kernel<3",
                                             "conv_fused_kernelILi3")),
                                ("conv1x1", ("conv_fused_kernel<1",
                                             "conv_fused_kernelILi1")))}
-    extra = [r["name"] for r in rows if "minmax_decode" in r["name"]]
+    extra = [r["name"] for r in rows
+             if "minmax_decode" in r["name"] or "_minmax_kernel" in r["name"]]
     for kind, n in got.items():
         check(n == calls[kind] > 0 and not extra,
               f"{kind}: {n} kernel launches for {calls[kind]} calls "
               f"(other kernels: {extra})")
-    print(f"fused: one device launch a call ({got['conv3x3']} #4 and "
-          f"{got['conv1x1']} #5 launches for as many wrapper calls)",
-          flush=True)
+    print(f"K1 and fused: one device launch a call ({got['k1']} K1, "
+          f"{got['conv3x3']} #4 and {got['conv1x1']} #5 launches for as "
+          f"many wrapper calls)", flush=True)
 
 
 def phase_train(qmod, qops, quant, gemm, fused) -> dict:
@@ -1046,7 +1100,8 @@ def _phase_train(qmod, qops, quant, gemm, fused) -> dict:
                 "kernel_ms_per_step": in_path, "top": rows[:20]}
     print(f"train profile: 2 steps, wall {wall_ms:.2f} ms, device kernels "
           f"{busy} ms (busy share {prof_out['busy_share']}); per step in "
-          f"the path {in_path}", flush=True)
+          f"the path {in_path}; {prof_out['launches_per_step']} device "
+          f"launches a step ({LAUNCHES_BEFORE['step']} before)", flush=True)
     return {"launches": launches, "losses": losses,
             "plain_losses": plain_losses, "cpu_first_loss": cpu_loss,
             "ms_per_step": med, "samples_ms": samples,
@@ -1215,9 +1270,11 @@ def port_modules():
 def kernel_lines(report) -> list:
     """The four kernels: launches from the trainer's counted run,
     errors from every comparison; device, plain, bound and library ms per
-    training step at the path's shapes (operands out of L2).  #4/#5 have
-    no library call that computes their function: ``conv_library_ms`` is
-    cuDNN's conv alone."""
+    training step at the path's shapes (operands out of L2).  The step's
+    K1 calls are stochastic or 9-bit, which no library call computes
+    (``serve_8bit`` holds the serving forward's 8-bit calls beside
+    ``torch.quantize_per_tensor``); #4/#5 have no library call that
+    computes their function: ``conv_library_ms`` is cuDNN's conv alone."""
     k1, k2, fused = report["k1_train"], report["k2_train"], report["fused"]
     launches = report["trainer"]["launches"]
 
@@ -1228,12 +1285,13 @@ def kernel_lines(report) -> list:
 
     c3, c1 = fused["conv3x3_fused"], fused["conv1x1_fused"]
     return [
-        {"name": "k1_quantize", "route": "triton",
-         "source": "lbt_tpu_torch/ops/kernels/quant_triton.py",
+        {"name": "k1_quantize", "route": "cuda",
+         "source": "lbt_tpu_torch/csrc/quantize.cu",
          "replaces": "lbt_tpu/ops/pallas/quant_kernels.py:126",
          "launches": launches["k1"],
          "max_abs_err": max(report["k1"]["max_abs_err"], k1["max_abs_err"]),
-         **times(k1, library=False)},
+         **times(k1, library=False),
+         "serve_8bit": report["k1"]["library_8bit"]},
         {"name": "k2_int8_gemm", "route": "cuda",
          "source": "lbt_tpu_torch/csrc/int8_gemm.cu",
          "replaces": "lbt_tpu/ops/pallas/quant_kernels.py:187",
@@ -1270,7 +1328,7 @@ def main(argv=None) -> int:
     from lbt_tpu_torch.ops.kernels import conv_fused
 
     report = {"device": phase_device()}
-    report["build"] = phase_build(quant, gemm, build)
+    report["build"] = phase_build(build)
     probe = build_resnet20(SEED).to("cuda")
     x = torch.from_numpy(np.random.default_rng(SEED + 3).normal(
         0, 1, (BATCH, 32, 32, 3)).astype(np.float32)).cuda()

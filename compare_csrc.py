@@ -1,25 +1,37 @@
 #!/usr/bin/env python3
 """Time K2 and #4/#5 built from another version of their CUDA sources
 beside this checkout's, at every call shape of ResNet-20's serving forward
-and training step (batch 128), in one run on one CUDA card.
+and training step (batch 128), in one run on one CUDA card; with
+``--old-k1``, also the Triton K1 of a version that had one beside this
+checkout's CUDA K1.
 
     mkdir -p lbt_tpu_torch/_build/old
-    git archive <commit> lbt_tpu_torch/csrc | tar -x -C lbt_tpu_torch/_build/old
+    git archive <commit> lbt_tpu_torch/csrc \\
+        [lbt_tpu_torch/ops/kernels/quant_triton.py] \\
+        | tar -x -C lbt_tpu_torch/_build/old
     python3 compare_csrc.py lbt_tpu_torch/_build/old/lbt_tpu_torch/csrc \\
+        [--old-k1 lbt_tpu_torch/_build/old/lbt_tpu_torch/ops/kernels/quant_triton.py] \\
         [--out chiprun_out/compare.json]
 
-The other sources must keep the C interface of ``ops/kernels/build.py``.
-Each shape is timed as ``chip_smoke.py`` times its kernels (one CUDA graph
-replayed over input copies that overflow L2), in turns: new, old, old, new.
-Both versions must equal the plain version bitwise.  Prints each shape and
-the totals a serving forward and a training step (calls x ms), old and new.
+The other sources must keep the C interface of ``ops/kernels/build.py``;
+the Triton K1 is loaded by file path and needs ``triton``.  It takes the
+multiplier, which the old path built from the exponent in torch ops at
+every site: its rows give the kernel alone (``old_ms``) and the site as
+the old path ran it, those ops included (``old_site_ms``).  Each shape is
+timed as ``chip_smoke.py`` times its kernels (one CUDA graph replayed over
+input copies that overflow L2), in turns: new, old, old, new (K1: new,
+old, site, site, old, new).  Both
+versions must equal the plain version bitwise.  Prints each shape and the
+totals a serving forward and a training step (calls x ms), old and new.
 """
 
 from __future__ import annotations
 
 import argparse
 import collections
+import importlib.util
 import json
+import os
 import sys
 from pathlib import Path
 from unittest import mock
@@ -67,6 +79,88 @@ def _cases(gemm, fused, serve_k2, k2, tn, conv, gen):
                * xshape[1] * xshape[2] // (strides[0] * strides[1]))
 
 
+def load_triton_k1(path: Path, build):
+    """The module of another version's Triton K1, by file path.  Its
+    import asked ``build`` to point Triton's cache into ``_build/``; the
+    cache goes there here, whether or not ``build`` still offers that."""
+    os.environ.setdefault("TRITON_CACHE_DIR", str(build.BUILD_DIR / "triton"))
+    spec = importlib.util.spec_from_file_location("triton_k1", path)
+    mod = importlib.util.module_from_spec(spec)
+    with mock.patch.object(build, "use_triton_cache_dir", lambda: None,
+                           create=True):
+        spec.loader.exec_module(mod)
+    return mod
+
+
+def _k1_cases(quant, old, serve_k1, train_k1, gen):
+    """``(group, label, calls, fn, old_fn, site_fn, plain_fn, args,
+    nbytes)`` for every K1 call shape: ``fn`` takes the exponent,
+    ``old_fn`` the multiplier made beforehand, ``site_fn`` makes it from
+    the exponent first, as the old path's ``quantize_int`` did."""
+    exp = torch.tensor(1, dtype=torch.int32, device="cuda")
+    calls = [("K1 serve", (shape, bits, False, False, False), n)
+             for (shape, bits), n in serve_k1.items()]
+    calls += [("K1 train", key, n) for key, n in train_k1.items()]
+    for group, (shape, bits, seeded, light, stats), count in sorted(calls):
+        x = (torch.randn(shape, generator=gen) * 2).cuda()
+        seed = 0x5DEECE66 if seeded else None
+        dtype = quant.code_dtype(bits)
+
+        def old_fn(x, e, m, bits=bits, seed=seed, light=light, stats=stats,
+                   dtype=dtype):
+            codes = torch.empty(x.shape, dtype=dtype, device=x.device)
+            minmax = x.new_empty(2) if stats else None
+            old.launch(x, m, codes, bits, seed, light, minmax)
+            return (codes, minmax) if stats else (codes,)
+
+        def site_fn(x, e, m, old_fn=old_fn, bits=bits):
+            return old_fn(x, e, quant.multiplier(bits, e))
+
+        def new_fn(x, e, m, bits=bits, seed=seed, light=light, stats=stats):
+            return quant.quantize_codes(x, bits, e, seed, light, stats)
+
+        def plain_fn(x, e, m, bits=bits, seed=seed, light=light,
+                     stats=stats):
+            return quant.quantize_codes_plain(x, bits, e, seed, light, stats)
+
+        label = (f"{list(shape)} b{bits}{' s' if seeded else ''}"
+                 f"{' mm' if stats else ''}")
+        yield (group, label, count, new_fn, old_fn, site_fn, plain_fn,
+               (x, exp, quant.multiplier(bits, exp)),
+               x.numel() * (4 + torch.empty((), dtype=dtype).element_size()))
+
+
+def compare_k1(quant, old, serve_k1, train_k1, gen, rows, totals) -> None:
+    """Each K1 call shape: both versions against the plain one (the old
+    kernel's codes and min/max; the new one's multiplier too), then timed
+    new, old, site, site, old, new."""
+    for (group, label, calls, fn, old_fn, site_fn, plain_fn, xs,
+         nbytes) in _k1_cases(quant, old, serve_k1, train_k1, gen):
+        want = plain_fn(*xs)
+        cs.check(_equal(fn(*xs), want), f"{group} {label}: new != plain")
+        old_want = (want[0], want[2]) if len(want) == 3 else want[:1]
+        cs.check(_equal(old_fn(*xs), old_want),
+                 f"{group} {label}: old != plain")
+        sets = cs.rotating_inputs(xs, nbytes)
+        new_ms = [cs.device_ms(fn, sets)]
+        old_ms = [cs.device_ms(old_fn, sets)]
+        site_ms = [cs.device_ms(site_fn, sets), cs.device_ms(site_fn, sets)]
+        old_ms.append(cs.device_ms(old_fn, sets))
+        new_ms.append(cs.device_ms(fn, sets))
+        row = {"group": group, "shape": label, "calls": calls,
+               "ms": sum(new_ms) / 2, "old_ms": sum(old_ms) / 2,
+               "old_site_ms": sum(site_ms) / 2}
+        rows.append(row)
+        tot = totals[group]
+        tot[0] += calls * row["ms"]
+        tot[1] += calls * row["old_ms"]
+        tot[2] += calls
+        tot[3] += calls * row["old_site_ms"]
+        print(f"  {group} {label} x{calls}: new {row['ms'] * 1e3:.2f} us, "
+              f"old {row['old_ms'] * 1e3:.2f} us (with the multiplier's "
+              f"ops {row['old_site_ms'] * 1e3:.2f})", flush=True)
+
+
 def _equal(got, want) -> bool:
     got = got if isinstance(got, tuple) else (got,)
     want = want if isinstance(want, tuple) else (want,)
@@ -76,6 +170,8 @@ def _equal(got, want) -> bool:
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("csrc", type=Path, help="the other lbt_tpu_torch/csrc")
+    ap.add_argument("--old-k1", type=Path, default=None,
+                    help="the other version's ops/kernels/quant_triton.py")
     ap.add_argument("--out", type=Path, default=None)
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
@@ -93,11 +189,15 @@ def main(argv=None) -> int:
     probe = cs.build_resnet20(cs.SEED).to("cuda")
     x = torch.from_numpy(np.random.default_rng(cs.SEED + 3).normal(
         0, 1, (cs.BATCH, 32, 32, 3)).astype(np.float32)).cuda()
-    _, serve_k2 = cs.record_path_calls(probe, x, qmod, qops, quant, gemm)
-    _, k2, tn, conv = cs.record_train_calls(qmod, qops, quant, gemm,
-                                            conv_fused)
-    rows, totals = [], collections.defaultdict(lambda: [0.0, 0.0, 0])
+    serve_k1, serve_k2 = cs.record_path_calls(probe, x, qmod, qops, quant,
+                                              gemm)
+    k1, k2, tn, conv = cs.record_train_calls(qmod, qops, quant, gemm,
+                                             conv_fused)
+    rows, totals = [], collections.defaultdict(lambda: [0.0, 0.0, 0, 0.0])
     gen = torch.Generator().manual_seed(cs.SEED + 7)
+    if args.old_k1 is not None:
+        compare_k1(quant, load_triton_k1(args.old_k1.resolve(), build),
+                   serve_k1, k1, gen, rows, totals)
     for group, label, calls, fn, plain_fn, xs, nbytes in _cases(
             gemm, conv_fused, serve_k2, k2, tn, conv, gen):
         want = plain_fn(*xs)
@@ -118,11 +218,14 @@ def main(argv=None) -> int:
         tot[2] += calls
         print(f"  {group} {label} x{calls}: new {row['ms'] * 1e3:.2f} us, "
               f"old {row['old_ms'] * 1e3:.2f} us", flush=True)
-    summary = {g: {"ms": t[0], "old_ms": t[1], "calls": t[2]}
+    summary = {g: {"ms": t[0], "old_ms": t[1], "calls": t[2],
+                   **({"old_site_ms": t[3]} if g.startswith("K1") else {})}
                for g, t in totals.items()}
     for g, t in summary.items():
-        print(f"{g}: {t['calls']} calls, old {t['old_ms']:.4f} ms -> new "
-              f"{t['ms']:.4f} ms ({card})", flush=True)
+        site = (f" ({t['old_site_ms']:.4f} with the multiplier's ops)"
+                if "old_site_ms" in t else "")
+        print(f"{g}: {t['calls']} calls, old {t['old_ms']:.4f} ms{site} -> "
+              f"new {t['ms']:.4f} ms ({card})", flush=True)
     if args.out is not None:
         args.out.parent.mkdir(parents=True, exist_ok=True)
         args.out.write_text(json.dumps({"card": card, "totals": summary,

@@ -79,6 +79,8 @@
 #include <cstdint>
 #include <cuda_runtime.h>
 
+#include "dfxp.cuh"
+
 namespace {
 
 constexpr int kWarps = 4;
@@ -109,27 +111,6 @@ struct Args {
   int stochastic, light, vec;
   float limit;
 };
-
-// float -> uint32 whose unsigned order is the float order (no NaN)
-__device__ __forceinline__ unsigned int ordered_key(float f) {
-  const unsigned int u = __float_as_uint(f);
-  return (u & 0x80000000u) ? ~u : (u | 0x80000000u);
-}
-
-__device__ __forceinline__ float key_float(unsigned int k) {
-  return __uint_as_float((k & 0x80000000u) ? (k & 0x7FFFFFFFu) : ~k);
-}
-
-__device__ __forceinline__ float hash_uniform(unsigned int idx,
-                                              unsigned int seed, int light) {
-  unsigned int h = idx ^ seed;
-  if (!light) h ^= h >> 16;
-  h *= 0x7FEB352Du;
-  h ^= h >> 15;
-  h *= 0x846CA68Bu;
-  if (!light) h ^= h >> 16;
-  return __uint2float_rn(h >> 8) * 5.9604644775390625e-08f;  // 2^-24
-}
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));

@@ -22,11 +22,12 @@ and statistics stay device tensors: a controller step needs no host sync.
 from __future__ import annotations
 
 import math
-from typing import Optional, Sequence, Tuple, Union
+from typing import Optional, Sequence, Tuple
 
 import torch
 
-from lbt_tpu_torch.ops.kernels.quant import (code_dtype, hash_uniform_flat,
+from lbt_tpu_torch.ops.kernels.quant import (Exp, code_dtype,
+                                             hash_uniform_flat, multiplier,
                                              quantize_codes)
 
 __all__ = ["EXP_MIN", "code_dtype", "dequantize", "hash_uniform",
@@ -37,23 +38,9 @@ __all__ = ["EXP_MIN", "code_dtype", "dequantize", "hash_uniform",
 # Below this exponent the f32 multiplier 2**(bits-1-exp) would overflow.
 EXP_MIN = -110
 
-Exp = Union[int, torch.Tensor]
 KeyData = Sequence[int]
 
 _HASH_BACKENDS = {"xla_hash": False, "xla_hash1": True}
-
-
-def multiplier(bits: int, exp: Exp, device=None) -> torch.Tensor:
-    """``2**(bits-1-exp)`` as an exact f32 scalar tensor.
-
-    Built from the IEEE-754 bit pattern, so it is exact on every device
-    for ``-126 <= bits-1-exp <= 127`` (every exponent the controller can
-    reach, ``EXP_MIN <= exp <= bits-1``), and ``inf`` above that range, as
-    ``jnp.ldexp`` gives."""
-    exp = torch.as_tensor(exp, device=device).to(torch.int32)
-    e = (bits - 1) - exp
-    pow2 = ((e.clamp(-126, 127) + 127) << 23).view(torch.float32)
-    return torch.where(e > 127, math.inf, pow2)
 
 
 def key_seed(key: KeyData) -> int:
@@ -108,13 +95,9 @@ def quantize_int(
     ``x * multiplier`` from the same K1 pass."""
     if bits >= 32:
         raise ValueError("quantize_int needs bits < 32")
-    mult = multiplier(bits, exp, x.device)
     seed, light = noise_seed(key, stochastic, backend)
     x = x.to(torch.float32).contiguous()
-    out = quantize_codes(x, bits, mult, seed, light=light, stats=stats)
-    if stats:
-        return out[0], mult, out[1]
-    return out, mult
+    return quantize_codes(x, bits, exp, seed, light=light, stats=stats)
 
 
 def dequantize(codes: torch.Tensor, mult: torch.Tensor) -> torch.Tensor:

@@ -4,12 +4,13 @@ CUDA C++ sources under ``lbt_tpu_torch/csrc`` are compiled with ``nvcc``
 for ``sm_90a`` into a shared library with a plain C interface and loaded
 with ``ctypes`` — no PyTorch headers, so a build takes seconds.  Builds
 happen at first use into ``lbt_tpu_torch/_build/`` (listed in
-``.gitignore``), named by a hash of the sources and flags, so a changed
-source rebuilds and an unchanged one loads the cached library.  Triton's
-own cache is pointed at the same directory.  ``ptxas`` reports each
-kernel's registers, shared memory and spills (``-Xptxas -v``) into a
-``.ptxas.txt`` file beside the library; :func:`ptxas_report` reads it and
-:func:`sass_counts` counts instructions in the library's SASS.
+``.gitignore``), named by a hash of the sources, the headers beside them
+and the flags, so a changed source rebuilds and an unchanged one loads the
+cached library.  ``ptxas`` reports each kernel's registers, shared memory
+and spills (``-Xptxas -v``) into a ``.ptxas.txt`` file beside the library;
+:func:`ptxas_report` reads it and :func:`sass_counts` counts instructions
+in the library's SASS.  No flag enables fast math: K1 relies on subnormal
+inputs surviving.
 """
 
 from __future__ import annotations
@@ -50,11 +51,12 @@ def nvcc_path() -> str:
 def build_library(name: str, sources, extra_flags=(),
                   csrc: Path = CSRC_DIR) -> Path:
     """Compile ``sources`` (file names under ``csrc``) into
-    ``_build/lib<name>-<hash>.so`` unless that file exists; return it."""
+    ``_build/lib<name>-<hash>.so`` unless that file exists; return it.
+    The hash covers the flags, the sources and every header in ``csrc``."""
     flags = NVCC_FLAGS + tuple(extra_flags)
     h = hashlib.sha256(" ".join(flags).encode())
     paths = [Path(csrc) / s for s in sources]
-    for p in paths:
+    for p in paths + sorted(Path(csrc).glob("*.cuh")):
         h.update(p.name.encode())
         h.update(p.read_bytes())
     lib = BUILD_DIR / f"lib{name}-{h.hexdigest()[:16]}.so"
@@ -92,6 +94,21 @@ def int8_gemm_library(csrc: Path = CSRC_DIR) -> ctypes.CDLL:
     fn = lib.lbt_int8_gemm_tn
     fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
                    ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    return lib
+
+
+@functools.cache
+def quantize_library(csrc: Path = CSRC_DIR) -> ctypes.CDLL:
+    """K1 (``quantize.cu`` under ``csrc``), built on first use."""
+    lib = ctypes.CDLL(str(build_library("quantize", ["quantize.cu"],
+                                        csrc=csrc)))
+    fn = lib.lbt_quantize
+    fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
+                   ctypes.c_ulonglong, ctypes.c_void_p, ctypes.c_void_p,
+                   ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
+                   ctypes.c_int, ctypes.c_uint32, ctypes.c_int,
+                   ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return lib
 
@@ -169,8 +186,3 @@ def short_name(mangled: str) -> str:
     return re.sub(r"\s+", "", name.replace("signed char", "int8")
                   .replace("short", "int16"))
 
-
-def use_triton_cache_dir() -> None:
-    """Point Triton's kernel cache into ``_build/`` unless the caller
-    chose one with ``TRITON_CACHE_DIR``; call before importing triton."""
-    os.environ.setdefault("TRITON_CACHE_DIR", str(BUILD_DIR / "triton"))

@@ -29,7 +29,7 @@ from typing import Optional, Tuple
 import torch
 
 from lbt_tpu_torch.ops.im2col import Pads, im2col, out_hw
-from lbt_tpu_torch.ops.kernels.quant import quantize_codes_plain
+from lbt_tpu_torch.ops.kernels.quant import round_codes
 
 _CODE_DTYPES = (torch.int8, torch.int16)
 
@@ -50,7 +50,7 @@ def conv_fused_plain(xc: torch.Tensor, wc: torch.Tensor,
                torch.int32)
     y = acc.to(torch.float32) * inv_scale
     minmax = torch.stack([y.amin(), y.amax()])
-    codes = quantize_codes_plain(y, bits_out, mult_out, seed, light)
+    codes = round_codes(y * mult_out, bits_out, seed, light)
     c64 = codes.to(torch.int64)
     moments = torch.stack([c64.sum(0), (c64 * c64).sum(0)])
     return codes.view(b, ho, wo, cout), moments, minmax

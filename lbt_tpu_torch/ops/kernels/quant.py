@@ -6,31 +6,30 @@ tensor by the power-of-two multiplier ``2**(bits-1-exp)``, clip to
 ``[-2**(bits-1), 2**(bits-1)-1]`` and round — half-to-even when
 deterministic, ``floor(scaled + u)`` with ``u`` in [0, 1) when stochastic.
 
-On the H100 this is one elementwise pass bound by bytes (4 in, 1-4 out per
-element, a handful of ALU ops), so the kernel is a Triton 1-D block loop
-over the contiguous flat tensor (``quant_triton.py``): no tiling to think
-about, loads and stores as wide as Triton makes them.  Two choices follow
-the TPU kernel's design note: the multiplier is computed outside the kernel
-exactly (:func:`lbt_tpu_torch.dfxp.quantize.multiplier`) and read from a
-one-element device tensor, so no host sync is needed; and the TPU's
-hardware PRNG is replaced by the counter hash of ``lbt_tpu``'s
-``xla_hash`` / ``xla_hash1`` paths (``dfxp/quantize.py:_hash_uniform``)
-over the row-major flat index, so stochastic codes match ``lbt_tpu``
-bit for bit.
-
-For the range controllers the same pass can also emit ``[min, max]`` of the
-scaled tensor ``x * mult`` (``stats=True``), which is all that
-``overflow_stats`` needs at a zero target rate: each block writes its pair
-and a one-block second pass reduces them, so the result does not depend on
-the order blocks run in.
+The kernel is CUDA C++ (``lbt_tpu_torch/csrc/quantize.cu``), one launch a
+call.  It takes the site's exponent, builds the multiplier inside from its
+IEEE-754 bits (exact, as :func:`multiplier` builds it here) and writes it
+out beside the codes; on request (``stats=True``) it also gives the
+``[min, max]`` of the scaled tensor ``x * mult``, all that
+``overflow_stats`` needs at a zero target rate, reduced across blocks in
+the same launch (a ticket in a per-stream scratch tells the last block).
+The TPU's hardware PRNG is replaced by the counter hash of ``lbt_tpu``'s
+``xla_hash`` / ``xla_hash1`` paths over the row-major flat index
+(:func:`hash_uniform_flat`), so stochastic codes match ``lbt_tpu`` bit for
+bit.  The source's header says what bounds the kernel (bytes) and how its
+design answers.  Built by ``build.py`` and called through ``ctypes`` on
+PyTorch's current stream.
 
 :func:`quantize_codes` is the wrapper: a CPU tensor takes the plain PyTorch
-version :func:`quantize_codes_plain`; a CUDA tensor launches the kernel.
+version :func:`quantize_codes_plain`; a CUDA tensor launches the kernel or
+raises.
 """
 
 from __future__ import annotations
 
-from typing import Optional
+import functools
+import math
+from typing import Optional, Union
 
 import torch
 
@@ -39,6 +38,10 @@ _INV24 = 2.0 ** -24
 # lowbias32 / multiply-xorshift constants of lbt_tpu's counter hash
 _HASH_M1 = 0x7FEB352D
 _HASH_M2 = 0x846CA68B
+# the kernel's grid: at most this many blocks of 256 threads an SM
+BLOCKS_PER_SM = 4
+
+Exp = Union[int, torch.Tensor]
 
 
 def code_dtype(bits: int) -> torch.dtype:
@@ -48,6 +51,19 @@ def code_dtype(bits: int) -> torch.dtype:
     if bits <= 16:
         return torch.int16
     return torch.int32
+
+
+def multiplier(bits: int, exp: Exp, device=None) -> torch.Tensor:
+    """``2**(bits-1-exp)`` as an exact f32 scalar tensor.
+
+    Built from the IEEE-754 bit pattern, so it is exact on every device
+    for ``-126 <= bits-1-exp <= 127`` (every exponent the controller can
+    reach, ``EXP_MIN <= exp <= bits-1``), and ``inf`` above that range, as
+    ``jnp.ldexp`` gives.  The kernel builds the same bits."""
+    exp = torch.as_tensor(exp, device=device).to(torch.int32)
+    e = (bits - 1) - exp
+    pow2 = ((e.clamp(-126, 127) + 127) << 23).view(torch.float32)
+    return torch.where(e > 127, math.inf, pow2)
 
 
 def _mul32(h: torch.Tensor, c: int) -> torch.Tensor:
@@ -76,61 +92,133 @@ def hash_uniform_flat(seed: int, n: int, light: bool,
     return (x >> 8).to(torch.float32) * _INV24
 
 
-def quantize_codes_plain(x: torch.Tensor, bits: int, mult: torch.Tensor,
-                         seed: Optional[int] = None, light: bool = False,
-                         stats: bool = False):
-    """Plain PyTorch version of K1 (any device)."""
+def round_codes(scaled: torch.Tensor, bits: int, seed: Optional[int] = None,
+                light: bool = False) -> torch.Tensor:
+    """Codes of an already scaled f32 tensor ``x * mult``: clipped, then
+    rounded half-to-even (``seed=None``) or as ``floor(scaled + u)`` with
+    the counter-hash noise over the flat index (any device)."""
     limit = float(2 ** (bits - 1))
-    scaled = x * mult
     if seed is None:
         codes = torch.round(torch.clamp(scaled, -limit, limit - 1))
     else:
-        u = hash_uniform_flat(seed, x.numel(), light, x.device)
+        u = hash_uniform_flat(seed, scaled.numel(), light, scaled.device)
         codes = torch.floor(
-            torch.clamp(scaled + u.view(x.shape), -limit, limit - 1))
-    codes = codes.to(code_dtype(bits))
+            torch.clamp(scaled + u.view(scaled.shape), -limit, limit - 1))
+    return codes.to(code_dtype(bits))
+
+
+def quantize_codes_plain(x: torch.Tensor, bits: int, exp: Exp,
+                         seed: Optional[int] = None, light: bool = False,
+                         stats: bool = False):
+    """Plain PyTorch version of K1 (any device): ``(codes, mult)`` or
+    ``(codes, mult, minmax)``."""
+    mult = multiplier(bits, exp, x.device)
+    scaled = x * mult.reshape(())
+    codes = round_codes(scaled, bits, seed, light)
     if stats:
-        return codes, torch.stack([scaled.amin(), scaled.amax()])
-    return codes
+        return codes, mult, torch.stack([scaled.amin(), scaled.amax()])
+    return codes, mult
 
 
-def quantize_codes(x: torch.Tensor, bits: int, mult: torch.Tensor,
+@functools.cache
+def _max_blocks(index: int) -> int:
+    props = torch.cuda.get_device_properties(index)
+    return props.multi_processor_count * BLOCKS_PER_SM
+
+
+@functools.cache
+def _const_exp(device: torch.device, value: int) -> torch.Tensor:
+    """A Python-int exponent as a one-element int32 on ``device``, made
+    once (never written: the wrapper only hands out its pointer)."""
+    return torch.tensor(value, dtype=torch.int32, device=device)
+
+
+# (device index, stream) -> int32 [SCRATCH_WORDS]: the min/max keys and the
+# ticket counter (``csrc/quantize.cu``), which every call leaves at 0
+SCRATCH_WORDS = 64
+_SCRATCH: dict = {}
+
+
+def _scratch(device: torch.device, stream: int) -> torch.Tensor:
+    """The min/max reduction's scratch for the current stream, zeroed when
+    first made and then cached, so two streams never share a ticket and a
+    call needs no fill.  A call captured into a CUDA graph on a stream
+    that has made no eager call gets a scratch of its own, zeroed inside
+    the graph and not kept (warm up on the capturing stream, as PyTorch's
+    graph capture asks, and the graph holds one launch a call)."""
+    key = (device.index, stream)
+    buf = _SCRATCH.get(key)
+    if buf is None:
+        buf = torch.zeros(SCRATCH_WORDS, dtype=torch.int32, device=device)
+        if not torch.cuda.is_current_stream_capturing():
+            _SCRATCH[key] = buf
+    return buf
+
+
+def _launch(x: torch.Tensor, bits: int, exp: Exp, seed: Optional[int],
+            light: bool, stats: bool):
+    dev = x.device
+    with torch.cuda.device(dev):
+        if isinstance(exp, torch.Tensor):
+            e = exp.to(device=dev, dtype=torch.int32)
+        else:
+            e = _const_exp(dev, int(exp))
+        codes = torch.empty(x.shape, dtype=code_dtype(bits), device=dev)
+        mult = torch.empty(e.shape, dtype=torch.float32, device=dev)
+        minmax = torch.empty(2, dtype=torch.float32, device=dev) \
+            if stats else None
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        scratch = _scratch(dev, stream) if stats else None
+        from lbt_tpu_torch.ops.kernels.build import quantize_library
+        rc = quantize_library().lbt_quantize(
+            x.data_ptr(), codes.data_ptr(), codes.element_size(), x.numel(),
+            e.data_ptr(), mult.data_ptr(),
+            None if minmax is None else minmax.data_ptr(),
+            None if scratch is None else scratch.data_ptr(),
+            _max_blocks(dev.index), bits,
+            0 if seed is None else seed & _MASK32,
+            0 if seed is None else (2 if light else 1), stream)
+    if rc != 0:
+        raise RuntimeError(f"K1 launch failed: cudaError {rc} at "
+                           f"{tuple(x.shape)} bits={bits}")
+    return (codes, mult, minmax) if stats else (codes, mult)
+
+
+def quantize_codes(x: torch.Tensor, bits: int, exp: Exp,
                    seed: Optional[int] = None, light: bool = False,
                    stats: bool = False):
     """DFXP codes of ``x`` (f32, contiguous, any shape) in
-    :func:`code_dtype` of ``bits``.
+    :func:`code_dtype` of ``bits``, at the exponent ``exp``.
 
-    ``mult`` is the one-element f32 multiplier on ``x``'s device.
-    ``seed=None`` rounds half-to-even; an int seed selects stochastic
-    rounding with the counter-hash noise (``light`` = ``hash1``).
-    ``stats=True`` returns ``(codes, minmax)`` with ``minmax`` the f32
-    ``[min, max]`` of ``x * mult`` (``x`` must not be empty)."""
+    ``exp`` is a one-element int32 tensor on ``x``'s device (another
+    integer tensor is converted there) or a Python int.  Returns
+    ``(codes, mult)``, ``mult`` the f32 multiplier ``2**(bits-1-exp)`` in
+    ``exp``'s shape.  ``seed=None`` rounds half-to-even; an int seed
+    selects stochastic rounding with the counter-hash noise (``light`` =
+    ``hash1``).  ``stats=True`` returns ``(codes, mult, minmax)`` with
+    ``minmax`` the f32 ``[min, max]`` of ``x * mult`` (``x`` must not be
+    empty)."""
     if not 1 <= bits < 32:
         raise ValueError(f"bits={bits} outside 1..31")
     if x.dtype != torch.float32 or not x.is_contiguous():
         raise ValueError(
             f"x must be contiguous float32, got {x.dtype} "
             f"contiguous={x.is_contiguous()}")
-    if (mult.dtype != torch.float32 or mult.numel() != 1
-            or mult.device != x.device):
-        raise ValueError(
-            f"mult must be one float32 element on {x.device}, got "
-            f"{mult.dtype} x{mult.numel()} on {mult.device}")
+    if isinstance(exp, torch.Tensor) and (
+            exp.numel() != 1 or exp.is_floating_point()):
+        raise ValueError(f"exp must be one integer, got {exp.dtype} "
+                         f"x{exp.numel()}")
     if x.numel() >= 2 ** 32:
         raise ValueError("the hash counter covers at most 2**32 elements")
     if stats and not x.numel():
         raise ValueError("min / max of an empty tensor")
     if x.device.type == "cpu":
-        return quantize_codes_plain(x, bits, mult, seed, light, stats)
+        return quantize_codes_plain(x, bits, exp, seed, light, stats)
     if x.device.type != "cuda":
         raise ValueError(f"no K1 kernel for device {x.device}")
-    out = torch.empty(x.shape, dtype=code_dtype(bits), device=x.device)
-    minmax = x.new_empty(2) if stats else None
-    if x.numel():
-        from lbt_tpu_torch.ops.kernels import quant_triton
-        quant_triton.launch(x, mult, out, bits, seed, light, minmax)
-        quantize_codes.launches += 1
-    return (out, minmax) if stats else out
+    out = _launch(x, bits, exp, seed, light, stats)
+    quantize_codes.launches += 1
+    return out
 
 
 quantize_codes.launches = 0

@@ -47,9 +47,9 @@ class Work:
 
 
 def quantize_work(numel: int, code_bytes: int, stats: bool) -> Work:
-    """K1: f32 in, codes out, the multiplier in, [min, max] out on
-    request."""
-    return Work(numel * (4 + code_bytes) + 4 + (8 if stats else 0),
+    """K1: f32 in, codes out, the int32 exponent in, the f32 multiplier
+    out, [min, max] out on request."""
+    return Work(numel * (4 + code_bytes) + 4 + 4 + (8 if stats else 0),
                 5 * numel, F32_OPS_PER_S)
 
 

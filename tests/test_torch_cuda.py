@@ -14,7 +14,7 @@ from lbt_tpu_torch import convert
 from lbt_tpu_torch.config import QuantConfig, TrainConfig
 from lbt_tpu_torch.data.pipeline import device_prefetch
 from lbt_tpu_torch.dfxp.keys import base_key, fold_in
-from lbt_tpu_torch.dfxp.quantize import multiplier
+from lbt_tpu_torch.dfxp.quantize import EXP_MIN
 from lbt_tpu_torch.models import cifar10_resnet
 from lbt_tpu_torch.nn.core import Ctx
 from lbt_tpu_torch.nn.norm import sqrt_f32
@@ -36,26 +36,35 @@ def dev():
     return torch.device("cuda")
 
 
-@pytest.mark.parametrize("bits", [4, 8, 9, 16])
+def _same(got, want):
+    """K1's outputs (codes, multiplier[, min/max]) equal, dtypes too."""
+    assert len(got) == len(want)
+    for a, b in zip(got, want):
+        assert a.dtype == b.dtype and a.shape == b.shape
+        assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("bits", [4, 8, 9, 16, 20])
 @pytest.mark.parametrize("mode", [None, "hash", "hash1"])
 @pytest.mark.parametrize("shape", [(1,), (4097,), (3, 5, 7),
                                    (2, 32, 32, 16)])
 def test_k1_matches_plain(dev, bits, mode, shape):
     g = torch.Generator().manual_seed(bits)
-    mult = multiplier(bits, 2)
+    mult = 2.0 ** (bits - 1 - 2)
     x = torch.randn(shape, generator=g) * 2
     # ties at +-0.5 and 2.5 after scaling, and a value past the rail
     x.view(-1)[:4] = (torch.tensor([0.5, -0.5, 2.5, 1e9]) / mult)[:x.numel()]
-    x, mult = x.to(dev), mult.to(dev)
+    x = x.to(dev)
+    exp = torch.tensor(2, dtype=torch.int32, device=dev)
     seed = None if mode is None else 0x9E3779B9 + bits
     before = quant.quantize_codes.launches
-    got = quant.quantize_codes(x, bits, mult, seed, light=mode == "hash1")
+    got = quant.quantize_codes(x, bits, exp, seed, light=mode == "hash1")
     torch.cuda.synchronize()
     assert quant.quantize_codes.launches == before + 1
-    want = quant.quantize_codes_plain(x, bits, mult, seed,
+    want = quant.quantize_codes_plain(x, bits, exp, seed,
                                       light=mode == "hash1")
-    assert got.dtype == want.dtype == quant.code_dtype(bits)
-    assert torch.equal(got, want)
+    assert got[0].dtype == quant.code_dtype(bits)
+    _same(got, want)
 
 
 @pytest.mark.parametrize("mkn", [(1, 1, 1), (130, 100, 70), (64, 27, 16),
@@ -124,14 +133,200 @@ def test_resnet20_card_matches_cpu(dev):
 def test_k1_stats_matches_plain(dev, bits, mode, shape):
     g = torch.Generator().manual_seed(bits + len(shape))
     x = (torch.randn(shape, generator=g) * 3).to(dev)
-    mult = multiplier(bits, 1).to(dev)
     seed = None if mode is None else 0x1234567 + bits
-    codes, mm = quant.quantize_codes(x, bits, mult, seed, stats=True)
-    want, want_mm = quant.quantize_codes_plain(x, bits, mult, seed,
-                                               stats=True)
+    got = quant.quantize_codes(x, bits, 1, seed, stats=True)
+    want = quant.quantize_codes_plain(x, bits, 1, seed, stats=True)
     torch.cuda.synchronize()
-    assert torch.equal(codes, want)
-    assert torch.equal(mm, want_mm)
+    _same(got, want)
+
+
+# every K1 shape of ResNet-20's serving forward and training step at
+# batch 128: activations and cotangents, the head, weights, BN vectors
+K1_PATH_SHAPES = [(128, 32, 32, 3), (128, 32, 32, 16), (128, 16, 16, 32),
+                  (128, 8, 8, 64), (128, 64), (128, 10), (3, 3, 3, 16),
+                  (3, 3, 16, 16), (3, 3, 16, 32), (3, 3, 32, 32),
+                  (3, 3, 32, 64), (3, 3, 64, 64), (1, 1, 16, 32),
+                  (1, 1, 32, 64), (64, 10), (16,), (32,), (64,), (10,)]
+# odd sizes: one element, the vector path's tail (3, 4095, 4097), a prime
+K1_ODD_SIZES = [(1,), (3,), (4095,), (4097,), (1000003,)]
+
+
+@pytest.mark.parametrize("stats", [False, True])
+@pytest.mark.parametrize("mode", [None, "hash", "hash1"])
+@pytest.mark.parametrize("bits", [8, 9])
+@pytest.mark.parametrize("shape", K1_PATH_SHAPES + K1_ODD_SIZES)
+def test_k1_every_path_shape(dev, shape, bits, mode, stats):
+    """Codes, multiplier and min/max bitwise at every path shape and odd
+    size, both code widths, every rounding, with and without statistics,
+    one launch a call."""
+    g = torch.Generator().manual_seed(len(shape) * 31 + shape[0])
+    x = (torch.randn(shape, generator=g) * 3).to(dev)
+    exp = torch.tensor(1, dtype=torch.int32, device=dev)
+    seed = None if mode is None else 0xA5A5F00D ^ shape[0]
+    before = quant.quantize_codes.launches
+    got = quant.quantize_codes(x, bits, exp, seed, mode == "hash1", stats)
+    torch.cuda.synchronize()
+    assert quant.quantize_codes.launches == before + 1
+    _same(got, quant.quantize_codes_plain(x, bits, exp, seed,
+                                          mode == "hash1", stats))
+
+
+@pytest.mark.parametrize("offset", [1, 2, 3])
+@pytest.mark.parametrize("mode", [None, "hash"])
+def test_k1_misaligned_view(dev, offset, mode):
+    """A contiguous view that starts 4-12 bytes past a 16-byte boundary
+    takes the scalar path: same codes at the same flat index."""
+    g = torch.Generator().manual_seed(offset)
+    buf = (torch.randn(300007, generator=g) * 5).to(dev)
+    x = buf[offset:]
+    assert x.is_contiguous() and x.data_ptr() % 16
+    seed = None if mode is None else 77
+    got = quant.quantize_codes(x, 9, 3, seed, stats=True)
+    torch.cuda.synchronize()
+    _same(got, quant.quantize_codes_plain(x, 9, 3, seed, stats=True))
+
+
+@pytest.mark.parametrize("bits", [8, 9, 16])
+def test_k1_subnormal_inputs_at_exp_min(dev, bits):
+    """At the controller's lowest exponent the multiplier is 2**(bits-1+110):
+    subnormal inputs land on codes that flush-to-zero would lose."""
+    v = torch.tensor([1e-45, -1e-45, 1e-40, -3e-39, 1.1754942e-38,
+                      5.877e-39, 0.0, -0.0], dtype=torch.float32)
+    x = v.repeat(5000)[:39999].contiguous().to(dev)
+    assert (x.abs() < 1.1754944e-38).all()
+    for seed in (None, 5):
+        got = quant.quantize_codes(x, bits, EXP_MIN, seed, stats=True)
+        want = quant.quantize_codes_plain(x, bits, EXP_MIN, seed,
+                                          stats=True)
+        torch.cuda.synchronize()
+        _same(got, want)
+        # flushed to zero, min and max would be 0 and the noise alone
+        # would decide every stochastic code
+        assert got[2][0].item() < 0 < got[2][1].item()
+
+
+@pytest.mark.parametrize("mode", [None, "hash"])
+def test_k1_infinite_inputs(dev, mode):
+    """+-inf clip to the rails; min / max report them."""
+    g = torch.Generator().manual_seed(3)
+    x = torch.randn(70001, generator=g)
+    x[::97] = float("inf")
+    x[5::89] = -float("inf")
+    x = x.to(dev)
+    seed = None if mode is None else 123
+    got = quant.quantize_codes(x, 8, 0, seed, stats=True)
+    torch.cuda.synchronize()
+    _same(got, quant.quantize_codes_plain(x, 8, 0, seed, stats=True))
+    assert got[2].tolist() == [-float("inf"), float("inf")]
+
+
+def test_k1_exponents_build_the_multiplier(dev):
+    """Every exponent from EXP_MIN to bits-1, and the first whose
+    multiplier is inf: the kernel's multiplier is the plain version's."""
+    x = torch.linspace(-3, 3, 9000, device=dev)
+    for bits in (8, 9):
+        for e in [*range(EXP_MIN, bits), bits - 1 - 128]:
+            exp = torch.tensor([e], dtype=torch.int32, device=dev)
+            got = quant.quantize_codes(x, bits, exp)
+            _same(got, quant.quantize_codes_plain(x, bits, exp))
+            assert got[1].shape == (1,)
+
+
+def test_k1_graph_replays_reset_the_ticket(dev):
+    """100 replays of a captured multi-block K1 with min/max, each on
+    fresh data, give the plain version's codes and min/max: the ticket
+    counter is back at 0 after every call.  A capture on a stream with no
+    eager call (its own scratch, zeroed inside the graph) too."""
+    g = torch.Generator().manual_seed(0)
+    x = torch.randn(128, 16, 16, 32, generator=g).to(dev)
+    exp = torch.tensor(2, dtype=torch.int32, device=dev)
+    for warm in (True, False):
+        side = torch.cuda.Stream()
+        side.wait_stream(torch.cuda.current_stream())
+        if warm:
+            with torch.cuda.stream(side):
+                quant.quantize_codes(x, 8, exp, 9, stats=True)
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph, stream=side):
+            out = quant.quantize_codes(x, 8, exp, 9, stats=True)
+        for i in range(100):
+            x.copy_(torch.randn(x.shape, generator=g) * (1 + i % 7))
+            graph.replay()
+            torch.cuda.synchronize()
+            _same(out, quant.quantize_codes_plain(x, 8, exp, 9, stats=True))
+    got = quant.quantize_codes(x, 8, exp, 9, stats=True)
+    _same(got, quant.quantize_codes_plain(x, 8, exp, 9, stats=True))
+
+
+def test_k1_two_streams_at_once(dev):
+    """Multi-block calls with min/max on two streams at once, each stream
+    with its own ticket: every result is the plain version's."""
+    g = torch.Generator().manual_seed(1)
+    xs = [(torch.randn(128, 32, 32, 16, generator=g) * (i + 1)).to(dev)
+          for i in range(2)]
+    streams = [torch.cuda.Stream() for _ in xs]
+    for s in streams:
+        s.wait_stream(torch.cuda.current_stream())
+    outs = [[], []]
+    for rep in range(20):
+        for i, (x, s) in enumerate(zip(xs, streams)):
+            with torch.cuda.stream(s):
+                outs[i].append(quant.quantize_codes(x, 9, 1, rep,
+                                                    stats=True))
+    torch.cuda.synchronize()
+    for i, x in enumerate(xs):
+        for rep, got in enumerate(outs[i]):
+            _same(got, quant.quantize_codes_plain(x, 9, 1, rep, stats=True))
+
+
+@pytest.mark.parametrize("mode", ["hash", "hash1"])
+def test_k1_stochastic_codes_are_unbiased(dev, mode):
+    """E[floor(s + u)] = s: over 256 seeds the mean code of each of 4096
+    fixed values s (off-grid, inside the rails) lies within 6 standard
+    deviations of s, sd <= 1/(2 sqrt(256)) = 1/32 of a code, and the mean
+    over all of them within 6 sd of the mean, sd <= 1/(2 sqrt(256 * 4096))
+    (rounding errors of distinct elements and seeds taken as independent)."""
+    rng = np.random.default_rng(4)
+    scaled = rng.uniform(-100, 100, 4096)
+    x = torch.from_numpy((scaled / 32).astype(np.float32)).to(dev)
+    s = x.double() * 32
+    acc = torch.zeros_like(s)
+    seeds = rng.integers(0, 2 ** 32, 256)
+    for seed in seeds:
+        acc += quant.quantize_codes(x, 8, 2, int(seed), mode == "hash1")[0]
+    err = acc / len(seeds) - s
+    assert err.abs().max().item() < 6 / 32
+    assert abs(err.mean().item()) < 6 / (2 * (256 * 4096) ** 0.5)
+
+
+def test_fused_stochastic_codes_are_unbiased(dev):
+    """#4/#5's stochastic epilogue on the card: over 256 seeds the mean
+    code of each conv output lies within 6 sd of y*mult (sd <= 1/32 of a
+    code), their mean error within 6 sd of 0 (sd <= 1/(2 sqrt(256 n)))."""
+    g = torch.Generator().manual_seed(2)
+    xc = torch.randint(-8, 8, (2, 8, 8, 32), generator=g,
+                       dtype=torch.int8).to(dev)
+    rng = np.random.default_rng(5)
+    inv = torch.tensor([1.0 / 64], device=dev)
+    mult = torch.tensor([4.0], device=dev)
+    for wshape in ((1, 1, 32, 32), (3, 3, 32, 32)):
+        wc = torch.randint(-2, 3, wshape, generator=g,
+                           dtype=torch.int8).to(dev)
+        fused = (conv_fused.conv3x3_fused if wshape[0] == 3
+                 else conv_fused.conv1x1_fused)
+        pads = qops.conv_pads("SAME", (8, 8), wshape[:2], (1, 1))
+        patches = qops.im2col(xc, wshape[:2], (1, 1), pads).double()
+        scaled = (patches @ wc.reshape(-1, 32).double()) * (4.0 / 64)
+        assert scaled.abs().max().item() < 127
+        acc = torch.zeros_like(scaled)
+        seeds = rng.integers(0, 2 ** 32, 256)
+        for seed in seeds:
+            codes = fused(xc, wc, inv, mult, strides=(1, 1), pads=pads,
+                          seed=int(seed))[0]
+            acc += codes.reshape(scaled.shape)
+        err = acc / len(seeds) - scaled
+        assert err.abs().max().item() < 6 / 32
+        assert abs(err.mean().item()) < 6 / (2 * (256 * err.numel()) ** 0.5)
 
 
 @pytest.mark.parametrize("kmn", [(1, 1, 1), (128, 64, 10), (300, 27, 16),

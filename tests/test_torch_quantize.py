@@ -85,11 +85,28 @@ def test_k1_plain_matches_quantize_pallas(bits, shape):
     with pltpu.force_tpu_interpret_mode():
         want, want_mult = quantize_pallas(jnp.asarray(x), bits,
                                           jnp.int32(2), stochastic=False)
-    mult = tq.multiplier(bits, 2)
-    got = quant.quantize_codes(torch.from_numpy(x), bits, mult)
+    got, mult = quant.quantize_codes(torch.from_numpy(x), bits, 2)
     np.testing.assert_array_equal(got.numpy().astype(np.int32),
                                   np.asarray(want, np.int32))
     assert float(mult) == float(want_mult)
+
+
+@pytest.mark.parametrize("bits", range(2, 17))
+def test_k1_plain_multiplier_matches_lbt_tpu(bits):
+    """K1 builds the multiplier from the exponent it is given: its plain
+    version's equals ``lbt_tpu``'s ``multiplier`` bit for bit at every
+    exponent the controller reaches and at the first whose multiplier
+    passes 2**127 (inf), from a device tensor or a Python int alike."""
+    exps = [*range(jq.EXP_MIN, bits), bits - 1 - 128]
+    want = np.asarray(jq.multiplier(bits, jnp.asarray(exps, jnp.int32)))
+    assert np.isinf(want[-1])
+    x = torch.zeros(3)
+    for exp, w in zip(exps, want):
+        for e in (exp, torch.tensor(exp, dtype=torch.int32)):
+            codes, mult = quant.quantize_codes(x, bits, e)
+            assert mult.dtype == torch.float32 and mult.shape == ()
+            assert mult.numpy().tobytes() == w.tobytes(), (bits, exp)
+            assert codes.dtype == quant.code_dtype(bits)
 
 
 _KEYS = [(0, 0), (1, 2), (0xDEADBEEF, 0x12345678), (0xFFFFFFFF, 0x80000001)]
@@ -135,7 +152,7 @@ def test_wrappers_refuse_devices_without_a_kernel():
     launch a kernel or raise."""
     x = torch.empty(8, device="meta")
     with pytest.raises(ValueError, match="no K1 kernel"):
-        quant.quantize_codes(x, 8, torch.ones((), device="meta"))
+        quant.quantize_codes(x, 8, 2)
     a = torch.empty(4, 4, dtype=torch.int8, device="meta")
     with pytest.raises(ValueError, match="no K2 kernel"):
         gemm.int8_matmul(a, a)
