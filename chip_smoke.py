@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
 """Smoke run of lbt_tpu_torch on one NVIDIA GPU: serve and train DFXP-INT8
-ResNet-20, the last through the port's Trainer and CLI.
+ResNet-20, the last through the port's Trainer and CLI, then train and
+serve the bench headline, ResNet-50 at 224 px and batch 128.
 
 Run from the root of a checkout, on a machine with one CUDA card:
 
@@ -76,10 +77,29 @@ Phases; each raises on failure and the script then exits non-zero:
            as on the card (rtol 1e-5).  Prints epoch 2's img/s, the input
            stall share, eval ms per batch, checkpoint save / restore ms.
            Logs and metrics stay under experiments/smoke_trainer.
+10. resnet50  ``Imagenet_Resnet50`` at full width and depth, 224 px,
+           batch 128, weights from a seed, seeded images with labels in
+           0..999, under ``bench.py``'s headline (uniform(8, int8, hash1),
+           fused BN, controllers every 8th step, bf16 carriers, 8-bit conv
+           activations), deterministic algorithms on, TF32 off.  Gate: 3
+           steps (controllers on, off, off) through the kernels, every
+           launch counter reset just before and each required to rise,
+           equal to the same 3 steps through the plain versions in every
+           tensor (tolerance 0); the first loss at batch 8 equal to the CPU
+           route's at rtol 1e-5.  Then 8 timed steps at the bench's
+           cadence (median ms, img/s, ``max_memory_allocated``), a 2-step
+           profile (busy share, device launches a step, one launch a K1
+           and #4/#5 call), and every kernel at the step's shapes as in 7
+           (calls of a step weighted 1/8 controllers-on, 7/8 off; fewer
+           repetitions; no library time for K2's X^T.g form).  Serving: a
+           ``Predictor`` at batch 128, K1 and K2 launched, logits and
+           labels of the kernel route equal to the plain route's; ms a
+           request of both routes.  Prints the phase's seconds.
 
 Prints the card, then one JSON line of kernels (launches from the trainer
-phase; ms, plain_ms, bound_ms and library_ms a training step), then, last,
-one JSON line ``{"ok": true, "device": {...}}``.
+phase; ms, plain_ms, bound_ms and library_ms a training step; the same
+keys under ``resnet50`` for the headline's path), then, last, one JSON
+line ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
@@ -87,6 +107,7 @@ from __future__ import annotations
 import argparse
 import collections
 import contextlib
+import dataclasses
 import json
 import logging
 import math
@@ -179,15 +200,26 @@ def device_ms(fn, sets, reps: int = 20, replays: int = 5) -> float:
     return start.elapsed_time(end) / (n * replays)
 
 
-def _timings(fn, plain_fn, args, nbytes: int, work=None, lib=None) -> dict:
-    """Device ms of ``fn`` and of ``plain_fn``; eager ms of both;
-    ``work``'s bound; ``lib = (fn, args, note)``'s device ms."""
+# calls captured and graph replays of each timing: (kernel, plain,
+# library); ``FAST_REPS`` for the ResNet-50 shapes, whose plain versions
+# (float64 GEMMs of GB-sized im2cols) take up to a second a call
+REPS = ((20, 5), (20, 5), (20, 5))
+FAST_REPS = ((10, 3), (1, 1), (4, 2))
+
+
+def _timings(fn, plain_fn, args, nbytes: int, work=None, lib=None,
+             reps=REPS) -> dict:
+    """Device ms of ``fn`` and of ``plain_fn``; eager ms of both (not
+    with ``FAST_REPS``); ``work``'s bound; ``lib = (fn, args, note)``'s
+    device ms."""
     sets = rotating_inputs(args, nbytes)
-    out = {"ms": device_ms(fn, sets)}
-    out.update(plain_ms=device_ms(plain_fn, sets),
-               eager_ms=eager_ms(fn, sets),
-               plain_eager_ms=eager_ms(plain_fn, sets),
-               input_copies=len(sets))
+    out = {"ms": device_ms(fn, sets, *reps[0]),
+           "plain_ms": device_ms(plain_fn, sets if reps is REPS
+                                 else sets[:1], *reps[1]),
+           "input_copies": len(sets)}
+    if reps is REPS:
+        out.update(eager_ms=eager_ms(fn, sets),
+                   plain_eager_ms=eager_ms(plain_fn, sets))
     if work is not None:
         out.update(bytes=work.bytes, ops=work.ops, bytes_ms=work.bytes_ms,
                    ops_ms=work.ops_ms, bound_ms=work.bound_ms,
@@ -196,7 +228,8 @@ def _timings(fn, plain_fn, args, nbytes: int, work=None, lib=None) -> dict:
         lib_fn, lib_args, note = lib
         try:
             out["lib_ms"] = device_ms(lib_fn, rotating_inputs(lib_args,
-                                                              nbytes))
+                                                              nbytes),
+                                      *reps[2])
         except RuntimeError as e:  # a yardstick only: say why it is missing
             out["lib_ms"], note = None, f"failed: {str(e)[:160]}"
         out["lib_note"] = note
@@ -715,38 +748,48 @@ def reset_counters(quant, gemm, fused) -> None:
         fn.launches = 0
 
 
-def record_train_calls(qmod, qops, quant, gemm, fused):
-    """One training step at batch 128 on the card with every kernel call
+def record_train_calls(qmod, qops, quant, gemm, fused, model=None,
+                       batch=None, steps=((0, 1.0),)):
+    """Training steps at batch 128 on the card with every kernel call
     recorded: (shape, bits, seeded, light, stats) of K1; (M, K, N,
     scaled) of K2; (K, M, N) of its X^T.g form; (kind, x shape, x dtype,
-    W shape, strides, pads, seeded, light) of #4/#5."""
+    W shape, strides, pads, seeded, light, round_bf16) of #4/#5.  Each of
+    ``steps`` is ``(step index, weight)``: a call counts ``weight`` times,
+    so a cadence's gated-on and gated-off steps average into calls a step.
+    ResNet-20 and one step of ``train_batches`` unless ``model`` and
+    ``batch`` are given."""
     k1, k2, tn, conv = (collections.Counter() for _ in range(4))
+    weight = [1.0]
 
     def k1_rec(t, bits, exp, seed=None, light=False, stats=False):
         k1[(tuple(t.shape), bits, seed is not None, bool(light),
-            bool(stats))] += 1
+            bool(stats))] += weight[0]
         return quant.quantize_codes(t, bits, exp, seed, light, stats)
 
     def k2_rec(a, b, inv=None):
-        k2[(a.shape[0], a.shape[1], b.shape[1], inv is not None)] += 1
+        k2[(a.shape[0], a.shape[1], b.shape[1], inv is not None)] += \
+            weight[0]
         return gemm.int8_matmul(a, b, inv)
 
     def tn_rec(a, b):
-        tn[(a.shape[0], a.shape[1], b.shape[1])] += 1
+        tn[(a.shape[0], a.shape[1], b.shape[1])] += weight[0]
         return gemm.int8_matmul_tn(a, b)
 
     def conv_rec(kind):
         def rec(xc, wc, inv, mult, *, strides, pads, bits_out=8, seed=None,
-                light=False):
+                light=False, round_bf16=False):
             conv[(kind, tuple(xc.shape), str(xc.dtype), tuple(wc.shape),
                   tuple(strides), tuple(pads), seed is not None,
-                  bool(light))] += 1
+                  bool(light), bool(round_bf16))] += weight[0]
             return getattr(fused, kind)(xc, wc, inv, mult, strides=strides,
                                         pads=pads, bits_out=bits_out,
-                                        seed=seed, light=light)
+                                        seed=seed, light=light,
+                                        round_bf16=round_bf16)
         return rec
 
-    model = build_train_model(SEED).to("cuda")
+    if model is None:
+        model = build_train_model(SEED).to("cuda")
+        batch = train_batches(1)[0]
     _, run = make_trainer(model)
     with mock.patch.object(qmod, "quantize_codes", k1_rec), \
             mock.patch.object(qops, "int8_matmul", k2_rec), \
@@ -755,11 +798,13 @@ def record_train_calls(qmod, qops, quant, gemm, fused):
                               conv_rec("conv3x3_fused")), \
             mock.patch.object(qops, "conv1x1_fused",
                               conv_rec("conv1x1_fused")):
-        run(0, train_batches(1)[0])
+        for i, w in steps:
+            weight[0] = w
+            run(i, batch)
     torch.cuda.synchronize()
-    print(f"train shapes: one step makes {sum(k1.values())} K1, "
-          f"{sum(k2.values())} K2, {sum(tn.values())} K2 X^T.g, "
-          f"{sum(conv.values())} fused conv calls", flush=True)
+    print(f"train shapes: a step makes {sum(k1.values()):g} K1, "
+          f"{sum(k2.values()):g} K2, {sum(tn.values()):g} K2 X^T.g, "
+          f"{sum(conv.values()):g} fused conv calls", flush=True)
     return k1, k2, tn, conv
 
 
@@ -782,16 +827,16 @@ def _ms(v) -> str:
 
 def _print_rows(tag, rows, label, per="step"):
     for r in rows:
-        print(f"  {tag} {label(r)} x{r['calls']}: device "
+        print(f"  {tag} {label(r)} x{r['calls']:g}: device "
               f"{r['ms'] * 1e3:.2f} us (plain {r['plain_ms'] * 1e3:.1f}); "
               f"{_extras(r)}")
     tot = _per_forward(rows)
     print(f"{tag}: {len(rows)} path shapes bitwise equal; per {per} "
-          f"({tot['launches']} launches), device {tot['ms']:.4f} ms (plain "
+          f"({tot['launches']:g} launches), device {tot['ms']:.4f} ms (plain "
           f"{tot['plain_ms']:.4f}, bound {_ms(tot['bound_ms'])} by "
           f"{tot.get('bound_by')}, library {_ms(tot['lib_ms'])}), launched "
-          f"eagerly {tot['eager_ms']:.4f} ms "
-          f"(plain {tot['plain_eager_ms']:.4f})", flush=True)
+          f"eagerly {_ms(tot['eager_ms'])} ms "
+          f"(plain {_ms(tot['plain_eager_ms'])})", flush=True)
     return tot
 
 
@@ -800,7 +845,7 @@ def _max_err(got, want) -> float:
     return d.max().item() if d.numel() else 0.0
 
 
-def phase_k1_train(quant, k1_calls) -> dict:
+def phase_k1_train(quant, k1_calls, reps=REPS, tag="K1-stats") -> dict:
     """K1 at every quantize call of the training step, with the path's
     rounding mode and its min/max output, bitwise against the plain
     version (codes, multiplier, min/max); timed per shape."""
@@ -831,17 +876,21 @@ def phase_k1_train(quant, k1_calls) -> dict:
                 lambda x, e: quant.quantize_codes_plain(x, bits, e, seed,
                                                         light, stats),
                 (x, exp), x.numel() * (4 + code_bytes),
-                work.quantize_work(x.numel(), code_bytes, stats))})
-    tot = _print_rows("K1-stats", rows, lambda r: f"{r['shape']} b{r['bits']}"
+                work.quantize_work(x.numel(), code_bytes, stats),
+                reps=reps)})
+    tot = _print_rows(tag, rows, lambda r: f"{r['shape']} b{r['bits']}"
                       f"{' s' if r['seeded'] else ''}"
                       f"{' mm' if r['stats'] else ''}")
     return {"max_abs_err": err, **tot, "shapes": rows}
 
 
-def phase_k2_train(gemm, k2_calls, tn_calls) -> dict:
+def phase_k2_train(gemm, k2_calls, tn_calls, reps=REPS, tn_library=True,
+                   tag="K2-train") -> dict:
     """K2's forward form at the step's dx / dense shapes and its X^T.g
     form at every dW shape (split-9 planes, the head), bitwise against
-    the plain versions; timed per shape."""
+    the plain versions; timed per shape.  ``tn_library=False`` leaves
+    out the X^T.g form's library time (one ``torch._int_mm`` per
+    2**16-row chunk: hundreds of ms a call at ResNet-50's stem)."""
     from lbt_tpu_torch.ops.kernels import work
     gen = torch.Generator().manual_seed(SEED + 5)
     err, rows = 0.0, []
@@ -861,7 +910,7 @@ def phase_k2_train(gemm, k2_calls, tn_calls) -> dict:
                      **_timings(gemm.int8_matmul, gemm.int8_matmul_plain,
                                 args, m * k + k * n + m * n * 4,
                                 work.gemm_work(m, k, n, scaled),
-                                lib_gemm(a, b))})
+                                lib_gemm(a, b), reps)})
     for (k, m, n), count in sorted(tn_calls.items()):
         a = torch.randint(-128, 128, (k, m), generator=gen,
                           dtype=torch.int8).cuda()
@@ -877,13 +926,14 @@ def phase_k2_train(gemm, k2_calls, tn_calls) -> dict:
                                 gemm.int8_matmul_tn_plain, (a, b),
                                 k * (m + n) + m * n * 8,
                                 work.gemm_tn_work(k, m, n),
-                                lib_gemm_tn(a, b, gemm.K_CHUNK))})
-    tot = _print_rows("K2-train", rows, lambda r: f"{r['form']} M{r['m']} "
+                                lib_gemm_tn(a, b, gemm.K_CHUNK)
+                                if tn_library else None, reps)})
+    tot = _print_rows(tag, rows, lambda r: f"{r['form']} M{r['m']} "
                       f"K{r['k']} N{r['n']}")
     forms = {f: _per_forward([r for r in rows if r["form"] == f])
              for f in ("AB", "ATB")}
     for f, t in forms.items():
-        print(f"K2-train {f}: per step ({t['launches']} launches) device "
+        print(f"{tag} {f}: per step ({t['launches']:g} launches) device "
               f"{t['ms']:.4f} ms, plain {t['plain_ms']:.4f}, bound "
               f"{_ms(t['bound_ms'])} ({t.get('bound_by')}), library "
               f"{_ms(t['lib_ms'])}",
@@ -891,7 +941,7 @@ def phase_k2_train(gemm, k2_calls, tn_calls) -> dict:
     return {"max_abs_err": err, **tot, "forms": forms, "shapes": rows}
 
 
-def phase_fused(fused, conv_calls) -> dict:
+def phase_fused(fused, conv_calls, reps=REPS) -> dict:
     """#4 and #5 at every conv -> BN shape of the step (batch 128):
     codes (deterministic, and stochastic with the path's hash), moments
     and min/max equal to the plain version's; timed per shape."""
@@ -901,7 +951,8 @@ def phase_fused(fused, conv_calls) -> dict:
     for kind in ("conv3x3_fused", "conv1x1_fused"):
         err, rows = 0.0, []
         for key, count in sorted(conv_calls.items()):
-            k, xshape, xdtype, wshape, strides, pads, seeded, light = key
+            (k, xshape, xdtype, wshape, strides, pads, seeded, light,
+             rbf) = key
             if k != kind:
                 continue
             lim = 256 if xdtype == str(torch.int16) else 128
@@ -915,7 +966,8 @@ def phase_fused(fused, conv_calls) -> dict:
             seed = 0x2545F491 if seeded else None
             fn = getattr(fused, kind)
             for s in (None, seed):
-                kw = dict(strides=strides, pads=pads, seed=s, light=light)
+                kw = dict(strides=strides, pads=pads, seed=s, light=light,
+                          round_bf16=rbf)
                 got = fn(xc, wc, inv, mult, **kw)
                 want = fused.conv_fused_plain(xc, wc, inv, mult, **kw)
                 torch.cuda.synchronize()
@@ -924,7 +976,8 @@ def phase_fused(fused, conv_calls) -> dict:
                     check(g.dtype == w.dtype and torch.equal(g, w),
                           f"{kind} differs from its plain version at "
                           f"x {xshape} w {wshape} seed={s}")
-            kw = dict(strides=strides, pads=pads, seed=seed, light=light)
+            kw = dict(strides=strides, pads=pads, seed=seed, light=light,
+                      round_bf16=rbf)
             nbytes = xc.numel() * xc.element_size() + math.prod(
                 got[0].shape)
             rows.append({"x": list(xshape), "x_dtype": xdtype,
@@ -937,7 +990,8 @@ def phase_fused(fused, conv_calls) -> dict:
                                     work.conv_fused_work(
                                         xshape, xc.element_size(), wshape,
                                         strides, pads),
-                                    lib_conv(xc, wc, strides, pads))})
+                                    lib_conv(xc, wc, strides, pads),
+                                    reps)})
         for r in rows:
             macs = math.prod(r["w"]) * r["x"][0] * r["x"][1] * r["x"][2] / (
                 r["strides"][0] * r["strides"][1])
@@ -990,6 +1044,32 @@ def one_launch_a_call(rows, calls) -> None:
     print(f"K1 and fused: one device launch a call ({got['k1']} K1, "
           f"{got['conv3x3']} #4 and {got['conv1x1']} #5 launches for as "
           f"many wrapper calls)", flush=True)
+
+
+def _profile_steps(run, batches, first_step: int) -> dict:
+    """Device time by kernel over two steps, the device's busy share,
+    device launches a step and each kernel's device ms a step."""
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for i, b in enumerate(batches[:2]):
+            run(first_step + i, b)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    rows = [{"name": ev.key[:120], "calls": ev.count,
+             "device_ms": ev.self_device_time_total / 1e3}
+            for ev in prof.key_averages()
+            if ev.device_type == torch.autograd.DeviceType.CUDA
+            and ev.self_device_time_total > 0]
+    rows.sort(key=lambda r: -r["device_ms"])
+    busy = sum(r["device_ms"] for r in rows) if rows else None
+    return {"wall_ms": wall_ms, "device_ms": busy,
+            "busy_share": busy / wall_ms if rows else None,
+            "launches_per_step": sum(r["calls"] for r in rows) / 2,
+            "kernel_ms_per_step": _kernel_device_ms(rows, 2) if rows
+            else None, "top": rows[:20], "rows": rows}
 
 
 def phase_train(qmod, qops, quant, gemm, fused) -> dict:
@@ -1073,31 +1153,13 @@ def _phase_train(qmod, qops, quant, gemm, fused) -> dict:
           f"{med['kernel']:.3f}, plain route {med['plain']:.3f}",
           flush=True)
 
-    from torch.profiler import ProfilerActivity, profile
     before = train_counters(quant, gemm, fused)
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        for b in batches[:2]:
-            card_run(step_no["kernel"], b)
-            step_no["kernel"] += 1
-        torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - t0) * 1e3
-    rows = [{"name": ev.key[:120], "calls": ev.count,
-             "device_ms": ev.self_device_time_total / 1e3}
-            for ev in prof.key_averages()
-            if ev.device_type == torch.autograd.DeviceType.CUDA
-            and ev.self_device_time_total > 0]
-    rows.sort(key=lambda r: -r["device_ms"])
-    busy = sum(r["device_ms"] for r in rows) if rows else None
-    in_path = _kernel_device_ms(rows, 2) if rows else None
+    prof_out = _profile_steps(card_run, batches, step_no["kernel"])
     calls = {k: v - before[k] for k, v in
              train_counters(quant, gemm, fused).items()}
-    one_launch_a_call(rows, calls)
-    prof_out = {"wall_ms": wall_ms, "device_ms": busy,
-                "busy_share": busy / wall_ms if rows else None,
-                "launches_per_step": sum(r["calls"] for r in rows) / 2,
-                "kernel_ms_per_step": in_path, "top": rows[:20]}
+    one_launch_a_call(prof_out.pop("rows"), calls)
+    wall_ms, busy = prof_out["wall_ms"], prof_out["device_ms"]
+    in_path = prof_out["kernel_ms_per_step"]
     print(f"train profile: 2 steps, wall {wall_ms:.2f} ms, device kernels "
           f"{busy} ms (busy share {prof_out['busy_share']}); per step in "
           f"the path {in_path}; {prof_out['launches_per_step']} device "
@@ -1246,6 +1308,227 @@ def phase_trainer(quant, gemm, fused, card: str, device: str = "cuda"
     return out
 
 
+# ---------------------------------------------------------------------------
+# resnet50: the bench headline, ResNet-50 / 224 at batch 128
+# ---------------------------------------------------------------------------
+
+R50_IMAGE = 224
+R50_CLASSES = 1000
+R50_GATE_STEPS = 3      # kernel route vs plain route, bitwise
+R50_TIMED_STEPS = 8     # at the bench's cadence, after the gate's steps
+R50_CPU_BATCH = 8       # the first loss against the CPU route
+R50_REQUESTS = 4
+
+
+def r50_config():
+    """``bench.py``'s headline: uniform(8, int8, hash1) with fused BN,
+    controllers every 8th step, bf16 carriers, 8-bit conv activations;
+    ``range_update_warmup_steps=0`` so the gate's steps run both cadence
+    branches (step 0 on, 1-2 off)."""
+    from lbt_tpu_torch.config import QuantConfig
+    return dataclasses.replace(
+        QuantConfig.uniform(8, engine="int8", noise_mode="hash1"),
+        fused_bn=True, range_update_every=8, act_dtype="bf16",
+        conv_act_extra=0, range_update_warmup_steps=0)
+
+
+def build_resnet50(seed: int, serve: bool = False):
+    """``Imagenet_Resnet50`` at full width and depth under the headline
+    config, weights from ``seed``, the default recipe's weight decay;
+    for serving, BN running statistics, gamma and beta randomized."""
+    from lbt_tpu_torch.config import TrainConfig
+    from lbt_tpu_torch.models import build_model
+    from lbt_tpu_torch.nn.norm import FusedBatchNorm
+    gen = torch.Generator().manual_seed(seed)
+    model = build_model("Imagenet_Resnet50", r50_config(),
+                        num_classes=R50_CLASSES, image_size=R50_IMAGE,
+                        weight_decay=TrainConfig().weight_decay).init(gen)
+    if serve:
+        with torch.no_grad():
+            for layer in model.net.modules():
+                if isinstance(layer, FusedBatchNorm):
+                    layer.mean.normal_(0.0, 0.5, generator=gen)
+                    layer.var.uniform_(0.5, 2.0, generator=gen)
+                    layer.gamma.uniform_(0.5, 1.5, generator=gen)
+                    layer.beta.normal_(0.0, 0.3, generator=gen)
+    return model
+
+
+def r50_batches(n: int) -> list:
+    """``n`` seeded batches of 128 224x224x3 images, labels in 0..999."""
+    rng = np.random.default_rng(SEED + 50)
+    return [(torch.from_numpy(rng.standard_normal(
+                (BATCH, R50_IMAGE, R50_IMAGE, 3), dtype=np.float32)),
+             torch.from_numpy(rng.integers(0, R50_CLASSES, (BATCH,))))
+            for _ in range(n)]
+
+
+def phase_resnet50(qmod, qops, quant, gemm, fused) -> dict:
+    """The bench headline on the card: train (gate, time, profile, the
+    kernels at its shapes), then serve."""
+    t0 = time.perf_counter()
+    torch.use_deterministic_algorithms(True)
+    try:
+        out = _r50_train(qmod, qops, quant, gemm, fused)
+    finally:
+        torch.use_deterministic_algorithms(False)
+    torch.cuda.empty_cache()
+    for tag, fn, args in (
+            ("k1", phase_k1_train, (quant, out.pop("k1_calls"), FAST_REPS,
+                                    "R50 K1")),
+            ("k2", phase_k2_train, (gemm, out.pop("k2_calls"),
+                                    out.pop("tn_calls"), FAST_REPS, False,
+                                    "R50 K2")),
+            ("fused", phase_fused, (fused, out.pop("conv_calls"),
+                                    FAST_REPS))):
+        out[tag] = fn(*args)
+    out["serve"] = _r50_serve(qmod, qops, quant, gemm)
+    out["seconds"] = time.perf_counter() - t0
+    print(f"resnet50: phase took {out['seconds']:.1f} s", flush=True)
+    return out
+
+
+def _r50_train(qmod, qops, quant, gemm, fused) -> dict:
+    batches = r50_batches(R50_GATE_STEPS)
+    # the calls of a step at the bench's cadence: one step in 8 with the
+    # controllers on (step 0), seven with them off (step 1)
+    probe = build_resnet50(SEED).to("cuda")
+    k1, k2, tn, conv = record_train_calls(
+        qmod, qops, quant, gemm, fused, probe, batches[0],
+        steps=((0, 1 / 8), (1, 7 / 8)))
+    del probe
+
+    card = build_resnet50(SEED).to("cuda")
+    card_vel, card_run = make_trainer(card)
+    reset_counters(quant, gemm, fused)
+    losses = [card_run(i, b) for i, b in enumerate(batches)]
+    torch.cuda.synchronize()
+    launches = train_counters(quant, gemm, fused)
+    print(f"resnet50 train: {R50_GATE_STEPS} steps of {BATCH} at "
+          f"{R50_IMAGE} px through the kernels; launches {launches}",
+          flush=True)
+    for k, v in launches.items():
+        check(v > 0, f"{k} never launched on ResNet-50's training path")
+    losses = [x.item() for x in losses]
+    check(all(math.isfinite(x) for x in losses), f"losses {losses}")
+
+    plain = build_resnet50(SEED).to("cuda")
+    plain_vel, plain_run = make_trainer(plain)
+    with plain_route(qmod, qops, quant, gemm):
+        plain_losses = [plain_run(i, b).item()
+                        for i, b in enumerate(batches)]
+    torch.cuda.synchronize()
+    check(train_counters(quant, gemm, fused) == launches,
+          "the plain route launched a kernel")
+    check(plain_losses == losses,
+          f"losses differ: kernels {losses}, plain {plain_losses}")
+    got, want = _state(card, card_vel), _state(plain, plain_vel)
+    diff = [k for k in want if not torch.equal(got[k], want[k])]
+    check(not diff, f"ResNet-50's kernel and plain routes differ in "
+          f"{diff[:5]} ({len(diff)} tensors)")
+    print(f"resnet50 train: losses {losses}; kernel and plain routes equal "
+          f"in all {len(got)} tensors (tolerance 0)", flush=True)
+    del plain, plain_vel, plain_run, got, want
+
+    small = [(x[:R50_CPU_BATCH], y[:R50_CPU_BATCH]) for x, y in batches[:1]]
+    first = build_resnet50(SEED).to("cuda")
+    card_first = make_trainer(first)[1](0, small[0]).item()
+    del first
+    cpu_first = make_trainer(build_resnet50(SEED))[1](0, small[0]).item()
+    check(math.isclose(card_first, cpu_first, rel_tol=1e-5),
+          f"first loss at batch {R50_CPU_BATCH}: card {card_first}, CPU "
+          f"{cpu_first}")
+    print(f"resnet50 train: first loss at batch {R50_CPU_BATCH} on the "
+          f"card {card_first}, CPU route {cpu_first}", flush=True)
+
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    times, step = [], R50_GATE_STEPS
+    for i in range(R50_TIMED_STEPS):
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        card_run(step, batches[i % len(batches)])
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t1) * 1e3)
+        step += 1
+    peak = torch.cuda.max_memory_allocated()
+    med = statistics.median(times)
+    print(f"resnet50 train: median {med:.3f} ms a step of {BATCH} over "
+          f"{R50_TIMED_STEPS} steps (steps {R50_GATE_STEPS}-{step - 1}, "
+          f"cadence 8), {BATCH / med * 1e3:.1f} img/s; peak memory "
+          f"{peak / 2 ** 30:.2f} GiB", flush=True)
+
+    before = train_counters(quant, gemm, fused)
+    prof = _profile_steps(card_run, batches, step)
+    calls = {k: v - before[k] for k, v in
+             train_counters(quant, gemm, fused).items()}
+    one_launch_a_call(prof.pop("rows"), calls)
+    print(f"resnet50 profile: 2 steps, wall {prof['wall_ms']:.2f} ms, "
+          f"device kernels {prof['device_ms']} ms (busy share "
+          f"{prof['busy_share']}); per step {prof['kernel_ms_per_step']}; "
+          f"{prof['launches_per_step']} device launches a step", flush=True)
+    return {"launches": launches, "losses": losses,
+            "plain_losses": plain_losses, "first_loss_card": card_first,
+            "first_loss_cpu": cpu_first, "ms_per_step": med,
+            "img_per_s": BATCH / med * 1e3, "samples_ms": times,
+            "max_memory_allocated": peak, "profile": prof,
+            "k1_calls": k1, "k2_calls": k2, "tn_calls": tn,
+            "conv_calls": conv}
+
+
+def _r50_serve(qmod, qops, quant, gemm) -> dict:
+    """``Predictor`` at batch 128, ResNet-50 with random weights and BN
+    statistics: K1 and K2 launch (counts reset just before), logits of
+    the kernel route equal the plain route's bitwise, labels too; ms a
+    request of both routes in turns."""
+    from lbt_tpu_torch.infer import Predictor
+    from lbt_tpu_torch.nn.core import Ctx
+    rng = np.random.default_rng(SEED + 51)
+    requests = [rng.standard_normal((BATCH, R50_IMAGE, R50_IMAGE, 3),
+                                    dtype=np.float32)
+                for _ in range(R50_REQUESTS)]
+    model = build_resnet50(SEED + 1, serve=True)
+    predictor = Predictor(model, device="cuda")
+    predictor(requests[0])
+    torch.cuda.synchronize()
+    quant.quantize_codes.launches = gemm.int8_matmul.launches = 0
+    labels = [predictor(x).cpu() for x in requests]
+    launches = {"k1": quant.quantize_codes.launches,
+                "k2": gemm.int8_matmul.launches}
+    check(launches["k1"] > 0 and launches["k2"] > 0,
+          f"ResNet-50 serving launched {launches}")
+    ctx = Ctx(train=False, update=False)
+    with torch.inference_mode():
+        for x, lab in zip(requests, labels):
+            x = torch.from_numpy(x).cuda()
+            got = model.apply(x, ctx)
+            with plain_route(qmod, qops, quant, gemm):
+                want = model.apply(x, ctx)
+            check(got.shape == (BATCH, R50_CLASSES)
+                  and bool(torch.isfinite(got.float()).all()),
+                  f"bad ResNet-50 logits {tuple(got.shape)}")
+            check(torch.equal(got, want), "ResNet-50 serving: kernel and "
+                  "plain routes give other logits")
+            check(torch.equal(lab, want.argmax(-1).cpu()),
+                  "ResNet-50 serving: labels differ from the plain route")
+    samples = {"kernel": [], "plain": []}
+    for route in ("kernel", "plain", "plain", "kernel"):
+        with (plain_route(qmod, qops, quant, gemm) if route == "plain"
+              else contextlib.nullcontext()):
+            for x in requests[:2]:
+                torch.cuda.synchronize()
+                t1 = time.perf_counter()
+                predictor(x).cpu()
+                samples[route].append((time.perf_counter() - t1) * 1e3)
+    med = {r: statistics.median(v) for r, v in samples.items()}
+    print(f"resnet50 serve: {R50_REQUESTS} requests of {BATCH}, launches "
+          f"{launches}; logits and labels equal to the plain route; median "
+          f"ms a request: kernel route {med['kernel']:.3f}, plain route "
+          f"{med['plain']:.3f}", flush=True)
+    return {"launches": launches, "ms_per_request": med,
+            "samples_ms": samples}
+
+
 def port_modules():
     """Import every module of the port that this script drives and check
     that none of them loaded JAX, which the card's machine does not have,
@@ -1274,40 +1557,61 @@ def kernel_lines(report) -> list:
     K1 calls are stochastic or 9-bit, which no library call computes
     (``serve_8bit`` holds the serving forward's 8-bit calls beside
     ``torch.quantize_per_tensor``); #4/#5 have no library call that
-    computes their function: ``conv_library_ms`` is cuDNN's conv alone."""
+    computes their function: ``conv_library_ms`` is cuDNN's conv alone.
+    ``resnet50`` holds the same keys for the headline's path: launches of
+    its 3 counted training steps, ms a step at its shapes and cadence."""
     k1, k2, fused = report["k1_train"], report["k2_train"], report["fused"]
     launches = report["trainer"]["launches"]
+    r50 = report["resnet50"]
+    r50_launches = r50["launches"]
 
     def times(t, library=True):
         return {"ms": t["ms"], "plain_ms": t["plain_ms"],
                 "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
                 "library_ms": t["lib_ms"] if library else None}
 
+    def at_r50(t, n, library=True, **extra):
+        return {"launches": n, "max_abs_err": t["max_abs_err"],
+                **times(t, library), **extra}
+
     c3, c1 = fused["conv3x3_fused"], fused["conv1x1_fused"]
+    r3, r1 = r50["fused"]["conv3x3_fused"], r50["fused"]["conv1x1_fused"]
     return [
         {"name": "k1_quantize", "route": "cuda",
          "source": "lbt_tpu_torch/csrc/quantize.cu",
          "replaces": "lbt_tpu/ops/pallas/quant_kernels.py:126",
          "launches": launches["k1"],
-         "max_abs_err": max(report["k1"]["max_abs_err"], k1["max_abs_err"]),
+         "max_abs_err": max(report["k1"]["max_abs_err"], k1["max_abs_err"],
+                            r50["k1"]["max_abs_err"]),
          **times(k1, library=False),
-         "serve_8bit": report["k1"]["library_8bit"]},
+         "serve_8bit": report["k1"]["library_8bit"],
+         "resnet50": at_r50(r50["k1"], r50_launches["k1"], False)},
         {"name": "k2_int8_gemm", "route": "cuda",
          "source": "lbt_tpu_torch/csrc/int8_gemm.cu",
          "replaces": "lbt_tpu/ops/pallas/quant_kernels.py:187",
          "launches": launches["k2"] + launches["k2_tn"],
-         "max_abs_err": max(report["k2"]["max_abs_err"], k2["max_abs_err"]),
-         **times(k2)},
+         "max_abs_err": max(report["k2"]["max_abs_err"], k2["max_abs_err"],
+                            r50["k2"]["max_abs_err"]),
+         **times(k2),
+         "resnet50": at_r50(r50["k2"], r50_launches["k2"]
+                            + r50_launches["k2_tn"],
+                            forms=r50["k2"]["forms"])},
         {"name": "conv3x3_fused", "route": "cuda",
          "source": "lbt_tpu_torch/csrc/conv_fused.cu",
          "replaces": "lbt_tpu/ops/pallas/conv_kernels.py:170",
-         "launches": launches["conv3x3"], "max_abs_err": c3["max_abs_err"],
-         **times(c3, library=False), "conv_library_ms": c3["lib_ms"]},
+         "launches": launches["conv3x3"],
+         "max_abs_err": max(c3["max_abs_err"], r3["max_abs_err"]),
+         **times(c3, library=False), "conv_library_ms": c3["lib_ms"],
+         "resnet50": at_r50(r3, r50_launches["conv3x3"], False,
+                            conv_library_ms=r3["lib_ms"])},
         {"name": "conv1x1_fused", "route": "cuda",
          "source": "lbt_tpu_torch/csrc/conv_fused.cu",
          "replaces": "lbt_tpu/ops/pallas/conv1x1_kernels.py:146",
-         "launches": launches["conv1x1"], "max_abs_err": c1["max_abs_err"],
-         **times(c1, library=False), "conv_library_ms": c1["lib_ms"]},
+         "launches": launches["conv1x1"],
+         "max_abs_err": max(c1["max_abs_err"], r1["max_abs_err"]),
+         **times(c1, library=False), "conv_library_ms": c1["lib_ms"],
+         "resnet50": at_r50(r1, r50_launches["conv1x1"], False,
+                            conv_library_ms=r1["lib_ms"])},
     ]
 
 
@@ -1348,6 +1652,7 @@ def main(argv=None) -> int:
     report["train"] = phase_train(qmod, qops, quant, gemm, conv_fused)
     report["trainer"] = phase_trainer(quant, gemm, conv_fused,
                                       report["device"]["nvidia_smi"])
+    report["resnet50"] = phase_resnet50(qmod, qops, quant, gemm, conv_fused)
 
     kernels = kernel_lines(report)
     report["kernels"] = kernels

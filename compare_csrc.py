@@ -13,7 +13,9 @@ checkout's CUDA K1.
         [--old-k1 lbt_tpu_torch/_build/old/lbt_tpu_torch/ops/kernels/quant_triton.py] \\
         [--out chiprun_out/compare.json]
 
-The other sources must keep the C interface of ``ops/kernels/build.py``;
+The other sources must keep the C interface of ``ops/kernels/build.py``
+(#4/#5's entry points take a ``round_bf16`` argument; sources from
+before it was added refuse the call with cudaErrorInvalidValue);
 the Triton K1 is loaded by file path and needs ``triton``.  It takes the
 multiplier, which the old path built from the exponent in torch ops at
 every site: its rows give the kernel alone (``old_ms``) and the site as
@@ -63,11 +65,11 @@ def _cases(gemm, fused, serve_k2, k2, tn, conv, gen):
                k * (m + n) + 8 * m * n)
     mult = torch.tensor([2.0 ** -2], device="cuda")
     for key, count in sorted(conv.items()):
-        kind, xshape, xdtype, wshape, strides, pads, seeded, light = key
+        kind, xshape, xdtype, wshape, strides, pads, seeded, light, rbf = key
         wide = xdtype == str(torch.int16)
         xc = _codes(xshape, 256 if wide else 128, gen,
                     torch.int16 if wide else torch.int8)
-        kw = dict(strides=strides, pads=pads, light=light,
+        kw = dict(strides=strides, pads=pads, light=light, round_bf16=rbf,
                   seed=0x2545F491 if seeded else None)
         yield (kind, f"x{list(xshape)} w{list(wshape)} s{strides[0]}", count,
                lambda x, w, fn=getattr(fused, kind), kw=kw: fn(

@@ -132,7 +132,7 @@ class TrainConfig:
 _ENGINES = ("int8", "pallas")
 
 # QuantConfig flags whose code paths are not ported yet (value != default)
-_NOT_PORTED_FLAGS = ("fused_bn", "remat_bn", "bn_residual_q16", "stem_s2d",
+_NOT_PORTED_FLAGS = ("remat_bn", "bn_residual_q16", "stem_s2d",
                      "noise_shared_axis0")
 
 
@@ -148,13 +148,10 @@ def check_supported(cfg: QuantConfig) -> QuantConfig:
     for flag in _NOT_PORTED_FLAGS:
         if getattr(cfg, flag):
             raise NotImplementedError(f"QuantConfig.{flag} is not ported")
-    carrier_dtype(cfg)
     return cfg
 
 
 def carrier_dtype(cfg: QuantConfig) -> torch.dtype:
-    """torch dtype of inter-layer activations (``QuantConfig.act_dtype``)."""
-    if cfg.act_dtype != "f32":
-        raise NotImplementedError(
-            f"act_dtype={cfg.act_dtype!r} is not ported")
-    return torch.float32
+    """torch dtype of inter-layer activations (``QuantConfig.act_dtype``):
+    every quantized layer computes in f32 and casts its output to this."""
+    return torch.bfloat16 if cfg.act_dtype == "bf16" else torch.float32

@@ -8,6 +8,8 @@
 // (int8, HWIO) it computes, without writing the f32 conv output:
 //   acc     = conv(x, w), exact in int32 (|x*w| <= 2^15, K <= 9*Cin)
 //   y       = (float)acc * inv_scale              (inv_scale = 1/(mx*mw))
+//           , rounded to bfloat16 (nearest, ties to even) on request: the
+//             value a bf16 carrier between the conv and the BN site holds
 //   minmax  = [min y, max y]                      (the BN site's controller)
 //   q       = floor(clip(y*mult + u, -L, L-1))    (stochastic, u = hash)
 //           | rint(clip(y*mult, -L, L-1))         (deterministic)
@@ -18,9 +20,10 @@
 // backend='xla_hash') at that site, not a TPU hardware stream.
 //
 // Widened past the TPU kernels' asserts (C, K multiples of 128, stride 1)
-// to every conv of ResNet-20: Cin = 3..64, Cout = 16..64 (any Cout, in
-// 64-wide tiles), strides 1 and 2, SAME or explicit padding, any W.  The
-// 1x1 kernel is the same template with one tap.
+// to every conv -> BN of ResNet-20 and ResNet-50: Cin = 3..2048, Cout =
+// 16..2048 (any Cout, in 64-wide tiles), K up to 4608 (weight panels of
+// 1024 K), strides 1 and 2, SAME or explicit padding, any W.  The 1x1
+// kernel is the same template with one tap.
 //
 // What bounds it on an H100: the TPU kernel kept the conv output out of
 // HBM; so does this one.  A call reads the input codes once and writes
@@ -108,7 +111,7 @@ struct Args {
   const float* mult;
   int b, h, w, cin, ho, wo, cout, sh, sw, ph, pw;
   unsigned int seed;
-  int stochastic, light, vec;
+  int stochastic, light, round_bf16, vec;
   float limit;
 };
 
@@ -140,6 +143,13 @@ __device__ __forceinline__ void mma_s8(int (&c)[4], uint32_t a0, uint32_t a1,
       "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
       : "+r"(c[0]), "+r"(c[1]), "+r"(c[2]), "+r"(c[3])
       : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "r"(b0), "r"(b1));
+}
+
+// the bfloat16 nearest to finite v, ties to even, as a float (inf stays
+// inf): PyTorch's float -> bfloat16 conversion
+__device__ __forceinline__ float bf16_rn(float v) {
+  const unsigned int u = __float_as_uint(v);
+  return __uint_as_float((u + 0x7FFFu + ((u >> 16) & 1u)) & 0xFFFF0000u);
 }
 
 // four int16 codes (two words) -> their split-9 planes as int8 words
@@ -377,7 +387,8 @@ __global__ void __launch_bounds__(kThreads) conv_fused_kernel(Args p) {
       for (int e = 0; e < 2; ++e) {
         const int k = n0 + 8 * j + 2 * t + e;
         if (k >= p.cout) continue;
-        const float y = __fmul_rn(__int2float_rn(acc[j][2 * h + e]), inv);
+        float y = __fmul_rn(__int2float_rn(acc[j][2 * h + e]), inv);
+        if (p.round_bf16) y = bf16_rn(y);
         lo = fminf(lo, y);
         hi = fmaxf(hi, y);
         const float scaled = __fmul_rn(y, mult);
@@ -453,8 +464,11 @@ cudaError_t launch_ct(const Args& a, cudaStream_t stream) {
   const int ktot = KH * KW * a.cin;
   const int panel = min(kPanel, (ktot + BK - 1) / BK * BK);
   const int smem = CT * (panel + kPad) + kStages * kBM * row_bytes<XT, BK>();
+  // the kernel's static shared memory: pixel coordinates, channel sums,
+  // min/max keys
+  constexpr int kStatic = (3 * kBM + 2 * CT + 2) * 4;
   auto kern = conv_fused_kernel<KH, KW, CT, BK, XT>;
-  if (smem > 48 * 1024) {
+  if (smem + kStatic > 48 * 1024) {
     cudaError_t err = cudaFuncSetAttribute(
         kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
     if (err != cudaSuccess) return err;
@@ -489,7 +503,7 @@ template <int KH, int KW>
 int entry(const void* x, int x_int16, const void* w, void* codes,
           void* moments, void* minmax, const void* inv_scale,
           const void* mult, unsigned int seed, int stochastic, int light,
-          int bits_out, const int* dims, void* stream) {
+          int round_bf16, int bits_out, const int* dims, void* stream) {
   // dims: b, h, w, cin, ho, wo, cout, sh, sw, ph, pw
   Args a;
   a.x = x;
@@ -505,6 +519,7 @@ int entry(const void* x, int x_int16, const void* w, void* codes,
   a.seed = seed;
   a.stochastic = stochastic;
   a.light = light;
+  a.round_bf16 = round_bf16;
   a.vec = a.cin % 16 == 0 && reinterpret_cast<uintptr_t>(x) % 16 == 0;
   if (a.b < 1 || a.ho < 1 || a.wo < 1 || a.cin < 1 || a.cout < 1 ||
       bits_out < 1 || bits_out > 8 ||
@@ -523,22 +538,27 @@ int entry(const void* x, int x_int16, const void* w, void* codes,
 // w: int8 HWIO codes; codes: int8 [b, ho, wo, cout] out; moments: int64
 // [2*cout + 2], zeroed by the caller ([sum q; sum q^2], then one slot of
 // min/max keys and one of the blocks' ticket counter); minmax: float [2]
-// out; inv_scale, mult: one float each on the device.  One launch; returns
-// cudaGetLastError() after it.
+// out; inv_scale, mult: one float each on the device; round_bf16 != 0
+// rounds the conv output to bfloat16 before min/max and the quantize.  One
+// launch; returns cudaGetLastError() after it.
 extern "C" int lbt_conv3x3_fused(const void* x, int x_int16, const void* w,
                                  void* codes, void* moments, void* minmax,
                                  const void* inv_scale, const void* mult,
                                  unsigned int seed, int stochastic, int light,
-                                 int bits_out, const int* dims, void* stream) {
+                                 int round_bf16, int bits_out, const int* dims,
+                                 void* stream) {
   return entry<3, 3>(x, x_int16, w, codes, moments, minmax, inv_scale, mult,
-                     seed, stochastic, light, bits_out, dims, stream);
+                     seed, stochastic, light, round_bf16, bits_out, dims,
+                     stream);
 }
 
 extern "C" int lbt_conv1x1_fused(const void* x, int x_int16, const void* w,
                                  void* codes, void* moments, void* minmax,
                                  const void* inv_scale, const void* mult,
                                  unsigned int seed, int stochastic, int light,
-                                 int bits_out, const int* dims, void* stream) {
+                                 int round_bf16, int bits_out, const int* dims,
+                                 void* stream) {
   return entry<1, 1>(x, x_int16, w, codes, moments, minmax, inv_scale, mult,
-                     seed, stochastic, light, bits_out, dims, stream);
+                     seed, stochastic, light, round_bf16, bits_out, dims,
+                     stream);
 }

@@ -150,8 +150,7 @@ def refusals(args) -> List[str]:
     if args.engine in ("sim", "sim_bf16"):
         out.append(f"--engine {args.engine} is not ported (ROADMAP queue 1 "
                    f"item 4); the port runs int8 (and pallas as its alias)")
-    for flag, item in (("fused_bn", "queue 1 item 5"),
-                       ("bn_residual_q16", "queue 1 item 13, not to port"),
+    for flag, item in (("bn_residual_q16", "queue 1 item 13, not to port"),
                        ("remat_bn", "queue 1 item 13, not to port"),
                        ("stem_s2d", "queue 1 item 4"),
                        ("noise_shared_axis0", "queue 1 item 2"),
@@ -162,9 +161,6 @@ def refusals(args) -> List[str]:
                        ("debug_nans", "queue 1 item 9")):
         if getattr(args, flag):
             out.append(f"--{flag} is not ported (ROADMAP {item})")
-    if args.act_dtype != "f32":
-        out.append(f"--act_dtype {args.act_dtype} is not ported (ROADMAP "
-                   f"queue 1 item 5)")
     for flag in ("data_dir", "tfrecord_train", "tfrecord_val",
                  "lowbit_wire"):
         if getattr(args, flag) is not None:
@@ -214,9 +210,11 @@ def main(argv: Optional[List[str]] = None) -> Trainer:
         stochastic=not args.deterministic_rounding,
         noise_mode=args.noise_mode,
         engine=args.engine,
+        fused_bn=args.fused_bn,
         bn_momentum=args.bn_momentum,
         faithful_eval=args.faithful_eval,
         range_update_every=args.range_update_every,
+        act_dtype=args.act_dtype,
         initial_exponent_g=args.initial_exponent_g,
     )
     tc = TrainConfig(

@@ -1,25 +1,28 @@
 """Model zoo (PyTorch port of ``lbt_tpu/models/zoo.py``): the CIFAR
-ResNets (the gradient-buffer option is not ported).  The other
-``lbt_tpu`` models are not ported yet."""
+ResNets (the gradient-buffer option is not ported) and the ImageNet
+ResNets (the space-to-depth stem is not ported).  The other ``lbt_tpu``
+models are not ported yet."""
 
 from __future__ import annotations
 
 from typing import Callable, Dict
 
 from lbt_tpu_torch.config import QuantConfig
-from lbt_tpu_torch.nn.blocks import ResidualBlock
-from lbt_tpu_torch.nn.layers import AvgPool, Conv2d, Dense, Flatten, ReLU
+from lbt_tpu_torch.nn.blocks import ResidualBlock, ResidualBottleneck
+from lbt_tpu_torch.nn.layers import (AvgPool, Conv2d, Dense, Flatten,
+                                     MaxPool, ReLU)
 from lbt_tpu_torch.nn.model import Model
 from lbt_tpu_torch.nn.norm import BatchNorm
 
 
-def _res_stage(cfg, name, cin, channels, num_blocks, stride, weight_decay):
+def _res_stage(cfg, name, block_cls, cin, channels, num_blocks, stride,
+               weight_decay):
     blocks = []
     for i in range(1, 1 + num_blocks):
-        blocks.append(ResidualBlock(
+        blocks.append(block_cls(
             f"{name}-{i}", cfg, cin, channels,
             stride=stride if i == 1 else 1, weight_decay=weight_decay))
-        cin = channels * ResidualBlock.expansion
+        cin = channels * block_cls.expansion
     return blocks, cin
 
 
@@ -49,8 +52,8 @@ def cifar10_resnet(cfg: QuantConfig, depth: int = 20,
     ]
     cin = 16
     for channels, stride in ((16, 1), (32, 2), (64, 2)):
-        stage, cin = _res_stage(cfg, f"block{channels}", cin, channels, n,
-                                stride, weight_decay)
+        stage, cin = _res_stage(cfg, f"block{channels}", ResidualBlock,
+                                cin, channels, n, stride, weight_decay)
         layers += stage
     layers += [
         AvgPool(ksize=(8, 8), strides=(1, 1), padding="VALID"),
@@ -62,17 +65,69 @@ def cifar10_resnet(cfg: QuantConfig, depth: int = 20,
                  num_classes=num_classes, cfg=cfg)
 
 
+_IMAGENET_STAGES = {
+    18: (ResidualBlock, (2, 2, 2, 2)),
+    34: (ResidualBlock, (3, 4, 6, 3)),
+    50: (ResidualBottleneck, (3, 4, 6, 3)),
+    101: (ResidualBottleneck, (3, 4, 23, 3)),
+}
+
+
+def imagenet_resnet(cfg: QuantConfig, depth: int = 50,
+                    weight_decay: float = 0.0, num_classes: int = 1000,
+                    image_size: int = 224,
+                    dropout_keep: float = 1.0) -> Model:
+    """ImageNet ResNet-{18,34,50,101}: 7x7/2 bias-free stem + BN + ReLU,
+    3x3/2 SAME max pool, four stages at 64/128/256/512 channels (basic
+    blocks or bottlenecks; strides 1/2/2/2), global average pool and a
+    dense head with bias.  ``dropout_keep`` is accepted and unused, as in
+    ``lbt_tpu``; ``cfg.stem_s2d`` (the space-to-depth stem) is not ported
+    and raises in ``check_supported``.  Parameters are zero until
+    :meth:`Model.init`."""
+    del dropout_keep
+    block_cls, stage_sizes = _IMAGENET_STAGES[depth]
+    layers = [
+        Conv2d("conv1", cfg, (7, 7, 3, 64), (2, 2), "SAME", use_bias=False,
+               weight_decay=weight_decay),
+        BatchNorm("conv1-bn", cfg, 64, weight_decay=weight_decay),
+        ReLU(),
+        MaxPool(ksize=(3, 3), strides=(2, 2), padding="SAME"),
+    ]
+    cin, feat = 64, image_size // 4
+    for i, (channels, blocks) in enumerate(zip((64, 128, 256, 512),
+                                               stage_sizes)):
+        stride = 1 if i == 0 else 2
+        stage, cin = _res_stage(cfg, f"stage{i + 1}", block_cls, cin,
+                                channels, blocks, stride, weight_decay)
+        layers += stage
+        feat = -(-feat // stride)
+    layers += [
+        AvgPool(ksize=(feat, feat), strides=(1, 1), padding="VALID"),
+        Flatten(),
+        Dense("softmax", cfg, cin, num_classes, weight_decay=weight_decay),
+    ]
+    return Model(f"imagenet_resnet{depth}", layers,
+                 input_shape=(image_size, image_size, 3),
+                 num_classes=num_classes, cfg=cfg)
+
+
 MODEL_REGISTRY: Dict[str, Callable] = {
-    f"CIFAR10_Resnet{d}": (lambda cfg, d=d, **kw: cifar10_resnet(cfg, d, **kw))
-    for d in (20, 32, 44, 56)
+    **{f"CIFAR10_Resnet{d}": (lambda cfg, d=d, **kw:
+                              cifar10_resnet(cfg, d, **kw))
+       for d in (20, 32, 44, 56)},
+    **{f"Imagenet_Resnet{d}": (lambda cfg, d=d, **kw:
+                               imagenet_resnet(cfg, d, **kw))
+       for d in (18, 50)},
 }
 
 # lbt_tpu's other registry entries, not ported yet
 NOT_PORTED = ("PI_MNIST", "MNIST", "CIFAR10", "CIFAR10_VGG",
-              "VGG16_CIFAR100", "Imagenet_Resnet18", "Imagenet_Resnet50")
+              "VGG16_CIFAR100")
 
 # dataset each model trains on (lbt_tpu's MODEL_DATASET)
-MODEL_DATASET: Dict[str, str] = {name: "cifar10" for name in MODEL_REGISTRY}
+MODEL_DATASET: Dict[str, str] = {
+    name: "imagenet" if name.startswith("Imagenet") else "cifar10"
+    for name in MODEL_REGISTRY}
 
 
 def build_model(name: str, cfg: QuantConfig, **kw) -> Model:

@@ -1,5 +1,6 @@
 """Residual blocks (PyTorch port of ``lbt_tpu/nn/blocks.py``):
-``relu(residual(x) + shortcut(x))``."""
+``relu(residual(x) + shortcut(x))``, the sum and the ReLU in the carrier
+dtype."""
 
 from __future__ import annotations
 
@@ -27,19 +28,20 @@ class ResidualBlock(Layer):
     def __init__(self, name: str, cfg: QuantConfig, in_channels: int,
                  channels: int, stride: int = 1, weight_decay: float = 0.0):
         super().__init__(name, cfg)
-        wd = weight_decay
-        self.residual = Sequential("residual", (
-            _conv_bn("conv1", cfg, (3, 3, in_channels, channels),
-                     (stride, stride), wd)
-            + [ReLU("relu1")]
-            + _conv_bn("conv2", cfg, (3, 3, channels, channels), (1, 1),
-                       wd)))
-        shortcut = []
-        if stride != 1 or in_channels != self.expansion * channels:
-            shortcut = _conv_bn(
-                "conv", cfg, (1, 1, in_channels, self.expansion * channels),
-                (stride, stride), wd)
-        self.shortcut = Sequential("shortcut", shortcut)
+        args = (cfg, in_channels, channels, stride, weight_decay)
+        self.residual = Sequential("residual", self._residual_layers(*args))
+        self.shortcut = Sequential("shortcut", self._shortcut_layers(*args))
+
+    def _residual_layers(self, cfg, cin, c, stride, wd):
+        return (_conv_bn("conv1", cfg, (3, 3, cin, c), (stride, stride), wd)
+                + [ReLU("relu1")]
+                + _conv_bn("conv2", cfg, (3, 3, c, c), (1, 1), wd))
+
+    def _shortcut_layers(self, cfg, cin, c, stride, wd):
+        if stride == 1 and cin == self.expansion * c:
+            return []
+        return _conv_bn("conv", cfg, (1, 1, cin, self.expansion * c),
+                        (stride, stride), wd)
 
     def sublayers(self):
         return (self.residual, self.shortcut)
@@ -48,3 +50,17 @@ class ResidualBlock(Layer):
         # where(s > 0, ...): the tie rule of lbt_tpu's join
         s = self.residual(x, ctx) + self.shortcut(x, ctx)
         return torch.where(s > 0, s, 0.0)
+
+
+class ResidualBottleneck(ResidualBlock):
+    """1x1 -> 3x3 (stride) -> 1x1 bottleneck, expansion 4."""
+
+    expansion = 4
+
+    def _residual_layers(self, cfg, cin, c, stride, wd):
+        return (_conv_bn("conv1", cfg, (1, 1, cin, c), (1, 1), wd)
+                + [ReLU("relu1")]
+                + _conv_bn("conv2", cfg, (3, 3, c, c), (stride, stride), wd)
+                + [ReLU("relu2")]
+                + _conv_bn("conv3", cfg, (1, 1, c, self.expansion * c),
+                           (1, 1), wd))

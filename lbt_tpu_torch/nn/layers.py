@@ -159,6 +159,82 @@ class ReLU(Layer):
         return torch.where(x > 0, x, 0.0)
 
 
+def _same_pads(size: int, k: int, s: int) -> Tuple[int, int]:
+    """TF-style SAME padding ``(lo, hi)`` of one dim: the extra on hi."""
+    total = max((-(-size // s) - 1) * s + k - size, 0)
+    return total // 2, total - total // 2
+
+
+class _MaxPool(torch.autograd.Function):
+    """Max over NHWC windows of ``x`` padded with ``-inf``.  The backward
+    sends each window's cotangent to its first maximum in row-major window
+    order, and an input position collects the windows that chose it in
+    row-major order of the windows, as ``lbt_tpu``'s ``reduce_window`` max
+    (select-and-scatter) does; sums of overlapping windows run in
+    ``x``'s dtype."""
+
+    @staticmethod
+    def forward(ctx, x, ksize, strides, pads):
+        (kh, kw), (sh, sw), ((pt, pb), (pl, pr)) = ksize, strides, pads
+        xp = torch.nn.functional.pad(x, (0, 0, pl, pr, pt, pb),
+                                     value=float("-inf"))
+        ho = (xp.shape[1] - kh) // sh + 1
+        wo = (xp.shape[2] - kw) // sw + 1
+
+        def tap(t):
+            i, j = divmod(t, kw)
+            return xp[:, i:i + sh * (ho - 1) + 1:sh,
+                      j:j + sw * (wo - 1) + 1:sw]
+
+        y = tap(0).clone()
+        arg = torch.zeros(y.shape, dtype=torch.uint8, device=x.device)
+        for t in range(1, kh * kw):
+            v = tap(t)
+            take = v > y   # strict: a tie keeps the earlier tap
+            y = torch.where(take, v, y)
+            arg.masked_fill_(take, t)
+        ctx.save_for_backward(arg)
+        ctx.geom = (tuple(x.shape), ksize, strides, pads, tuple(xp.shape))
+        return y
+
+    @staticmethod
+    def backward(ctx, g):
+        (arg,) = ctx.saved_tensors
+        shape, (kh, kw), (sh, sw), ((pt, _), (pl, _)), pshape = ctx.geom
+        ho, wo = g.shape[1:3]
+        dxp = g.new_zeros(pshape)
+        # taps from the last to the first: the windows an input position
+        # meets arrive in row-major order of the windows
+        for t in reversed(range(kh * kw)):
+            i, j = divmod(t, kw)
+            dxp[:, i:i + sh * (ho - 1) + 1:sh,
+                j:j + sw * (wo - 1) + 1:sw] += torch.where(arg == t, g, 0.0)
+        return (dxp[:, pt:pt + shape[1], pl:pl + shape[2]], None, None,
+                None)
+
+
+class MaxPool(Layer):
+    """Max pooling over NHWC windows, VALID or SAME (padded with -inf,
+    the extra row and column at the end, as TF's SAME)."""
+
+    def __init__(self, name: str = "", *, ksize: Tuple[int, int],
+                 strides: Tuple[int, int], padding: str = "VALID"):
+        super().__init__(name)
+        self.ksize = tuple(ksize)
+        self.strides = tuple(strides)
+        self.padding = padding.upper()
+        if self.padding not in ("VALID", "SAME"):
+            raise ValueError(f"bad padding {padding!r}")
+
+    def forward(self, x, ctx):
+        if self.padding == "SAME":
+            pads = tuple(_same_pads(n, k, s) for n, k, s in
+                         zip(x.shape[1:3], self.ksize, self.strides))
+        else:
+            pads = ((0, 0), (0, 0))
+        return _MaxPool.apply(x, self.ksize, self.strides, pads)
+
+
 class AvgPool(Layer):
     """Average pooling over NHWC windows, VALID padding: window sums at
     f32 divided by the window size."""

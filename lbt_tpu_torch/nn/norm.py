@@ -1,15 +1,16 @@
-"""Quantized batch normalization as statistics + affine halves
-(PyTorch port of the unfused ``BatchNorm`` in ``lbt_tpu/nn/norm.py``),
-serving and training.
+"""Quantized batch normalization (PyTorch port of ``lbt_tpu/nn/norm.py``),
+serving and training: the statistics + affine halves ``Normalization``
+and ``Rescale``, or with ``cfg.fused_bn`` the single-pass
+``FusedBatchNorm`` (one input quantize, one cotangent barrier).
 
-In training, ``Normalization`` takes the batch moments of its quantized
-input: the biased ``mean(xq)`` and ``mean(xq^2) - mean^2``, from exact
-integer sums of the codes (so the fused and unfused routes agree bit for
-bit; ``lbt_tpu`` reduces in f32, which can differ in the last bit), EMA-
-updates the running statistics with ``cfg.bn_momentum``, and normalizes
-through :class:`_BatchNormalize`, whose backward is the BN input gradient
-through the batch moments.  A ``BatchNorm`` that follows a conv runs the
-conv and its own input quantize in one kernel (#4 / #5) through
+In training, ``Normalization`` and ``FusedBatchNorm`` take the batch
+moments of their quantized input: the biased ``mean(xq)`` and ``mean(xq^2)
+- mean^2``, from exact integer sums of the codes (so the fused and unfused
+routes agree bit for bit; ``lbt_tpu`` reduces in f32, which can differ in
+the last bit), EMA-update the running statistics with ``cfg.bn_momentum``,
+and normalize through an ``autograd.Function`` whose backward is the
+gradient through the batch moments.  A ``BatchNorm`` that follows a conv
+runs the conv and its own input quantize in one kernel (#4 / #5) through
 :meth:`BatchNorm.forward_from`.
 """
 
@@ -81,6 +82,60 @@ class _BatchNormalize(torch.autograd.Function):
         return dx, None, None, None
 
 
+def _quantize_input(layer: Layer, x, ctx: Ctx):
+    """``(xq, codes, mult)`` of a BN layer's input site at ``bits_a``
+    (``xq`` carries the STE gradient to ``x``), staging the site's
+    controller step."""
+    cfg = layer.cfg
+    out = quantize_int(x, cfg.bits_a, layer.exp("x"),
+                       ctx.layer_key(layer.uid, SITE_X),
+                       stats=ctx.controls, **layer._qkw(ctx))
+    if ctx.controls:
+        layer._ctrl(ctx, "x", cfg.bits_a, x, out[2])
+    return straight_through(x, dequantize(out[0], out[1])), out[0], out[1]
+
+
+def _conv_input(layer: Layer, conv: Conv2d, x, ctx: Ctx):
+    """``conv`` and ``layer``'s input quantize fused (kernel #4 or #5):
+    :class:`~lbt_tpu_torch.ops.qops.BNInput`, with the conv's and the
+    input site's controller steps staged.  The conv's sink and barrier
+    are the conv's own; its output rounds to the conv's carrier dtype
+    before the quantize, as ``Conv2d`` casts it."""
+    cfg, ccfg = layer.cfg, conv.cfg
+    x = x.to(torch.float32)
+    r = qconv2d_bn_input(
+        x, conv.W, conv.exp("x"), conv.exp("w"), strides=conv.strides,
+        padding=conv.padding, bits_x=ccfg.bits_a_conv,
+        bits_w=ccfg.bits_w, bits_out=cfg.bits_a, exp_out=layer.exp("x"),
+        key_out=ctx.layer_key(layer.uid, SITE_X), bits_g=ccfg.bits_g,
+        exp_g=conv.exp("grad"), key_g=ctx.layer_key(conv.uid, SITE_G),
+        sink=ctx.sink(conv), key_x=ctx.layer_key(conv.uid, SITE_X),
+        key_w=ctx.layer_key(conv.uid, SITE_W),
+        target_overflow_rate=ccfg.target_overflow_rate,
+        gate=ctx.update_gate, stats=ctx.controls,
+        carrier=carrier_dtype(ccfg), **conv._qkw(ctx))
+    if ctx.controls:
+        conv._ctrl(ctx, "x", ccfg.bits_a_conv, x, r.minmax_x)
+        conv._ctrl(ctx, "w", ccfg.bits_w, conv.W, r.minmax_w)
+        # max(y * mult) == max(y) * mult: mult is a power of two
+        layer._ctrl(ctx, "x", cfg.bits_a, None, r.minmax * r.mult)
+    return r
+
+
+def _stage_ema(layer: Layer, ctx: Ctx, mean_b, var_b) -> None:
+    m = layer.cfg.bn_momentum
+    ctx.stage(layer.mean, m * layer.mean + (1 - m) * mean_b)
+    ctx.stage(layer.var, m * layer.var + (1 - m) * var_b)
+
+
+def _float_moments(xq):
+    """Biased batch ``(mean, var)`` of float ``xq`` (a 32-bit input site),
+    differentiated by autograd."""
+    axes = tuple(range(xq.dim() - 1))
+    mean = xq.mean(axes)
+    return mean, (xq * xq).mean(axes) - mean * mean
+
+
 class Normalization(Layer):
     """BN statistics half: quantize the input at ``bits_a`` and normalize,
     ``(xq - mean) / sqrt(var + eps)`` — the same operations in the same
@@ -105,41 +160,18 @@ class Normalization(Layer):
         self._reset_exps()
 
     def forward(self, x, ctx):
-        cfg = self.cfg
         x = x.to(torch.float32)
-        if cfg.bits_a >= 32:
+        if self.cfg.bits_a >= 32:
             return self._normalize(x, None, None, ctx)
-        key = ctx.layer_key(self.uid, SITE_X)
-        out = quantize_int(x, cfg.bits_a, self.exp("x"), key,
-                           stats=ctx.controls, **self._qkw(ctx))
-        if ctx.controls:
-            self._ctrl(ctx, "x", cfg.bits_a, x, out[2])
-        xq = straight_through(x, dequantize(out[0], out[1]))
-        moments = (code_moments(out[0]) if ctx.train or ctx.update
+        xq, codes, mult = _quantize_input(self, x, ctx)
+        moments = (code_moments(codes) if ctx.train or ctx.update
                    else None)
-        return self._normalize(xq, moments, out[1], ctx)
+        return self._normalize(xq, moments, mult, ctx)
 
     def forward_from_conv(self, conv: Conv2d, x, ctx: Ctx):
         """``conv`` then this layer, the conv and this layer's input
-        quantize fused (kernel #4 or #5): the conv's controllers, sink and
-        barrier are the conv's own."""
-        cfg, ccfg = self.cfg, conv.cfg
-        x = x.to(torch.float32)
-        r = qconv2d_bn_input(
-            x, conv.W, conv.exp("x"), conv.exp("w"), strides=conv.strides,
-            padding=conv.padding, bits_x=ccfg.bits_a_conv,
-            bits_w=ccfg.bits_w, bits_out=cfg.bits_a, exp_out=self.exp("x"),
-            key_out=ctx.layer_key(self.uid, SITE_X), bits_g=ccfg.bits_g,
-            exp_g=conv.exp("grad"), key_g=ctx.layer_key(conv.uid, SITE_G),
-            sink=ctx.sink(conv), key_x=ctx.layer_key(conv.uid, SITE_X),
-            key_w=ctx.layer_key(conv.uid, SITE_W),
-            target_overflow_rate=ccfg.target_overflow_rate,
-            gate=ctx.update_gate, stats=ctx.controls, **conv._qkw(ctx))
-        if ctx.controls:
-            conv._ctrl(ctx, "x", ccfg.bits_a_conv, x, r.minmax_x)
-            conv._ctrl(ctx, "w", ccfg.bits_w, conv.W, r.minmax_w)
-            # max(y * mult) == max(y) * mult: mult is a power of two
-            self._ctrl(ctx, "x", cfg.bits_a, None, r.minmax * r.mult)
+        quantize fused (kernel #4 or #5)."""
+        r = _conv_input(self, conv, x, ctx)
         return self._normalize(r.xq, r.moments, r.mult, ctx)
 
     def _normalize(self, xq, moments, mult, ctx: Ctx):
@@ -149,13 +181,9 @@ class Normalization(Layer):
                 n = xq.numel() // xq.shape[-1]
                 mean_b, var_b = batch_moments(moments, n, mult)
             else:  # bits_a = 32: float moments, differentiated by autograd
-                axes = tuple(range(xq.dim() - 1))
-                mean_b = xq.mean(axes)
-                var_b = (xq * xq).mean(axes) - mean_b * mean_b
+                mean_b, var_b = _float_moments(xq)
         if ctx.update:
-            m = cfg.bn_momentum
-            ctx.stage(self.mean, m * self.mean + (1 - m) * mean_b)
-            ctx.stage(self.var, m * self.var + (1 - m) * var_b)
+            _stage_ema(self, ctx, mean_b, var_b)
         if ctx.train and moments is not None:
             y = _BatchNormalize.apply(xq, mean_b, var_b, self.eps)
         elif ctx.train:
@@ -203,15 +231,125 @@ class Rescale(Layer):
         return barrier(self, xq * gq + bq, ctx).to(carrier_dtype(cfg))
 
 
-class BatchNorm(Sequential):
-    """Normalization + Rescale, as lbt_tpu's unfused ``BatchNorm``."""
+class _FusedNormalize(torch.autograd.Function):
+    """``(xq - mean) * (gq / sqrt(var + eps)) + bq``, ``lbt_tpu``'s
+    operation order, with ``mean``, ``var`` the batch moments of ``xq =
+    codes / mult`` over every axis but the last.  The backward is the
+    gradient through the moments and to ``gq`` and ``bq`` as ``lbt_tpu``'s
+    autodiff forms it (``r = gq / s``, ``s = sqrt(var + eps)``):
+    ``dbq = sum(g)``, ``dr = sum(g (xq - mean))``, ``dgq = dr / s``,
+    ``dvar = -dr gq s^-2 * 0.5/s``, ``dmean = -sum(g r) - 2 mean dvar``
+    and ``dxq = g r + dmean / N + (dvar / N) 2 xq``.  It saves the int8
+    codes, not the f32 ``xq``, and rebuilds ``xq`` from them."""
+
+    @staticmethod
+    def forward(ctx, xq, gq, bq, mean, var, codes, mult, eps):
+        s = sqrt_f32(var + eps)
+        ctx.save_for_backward(codes, mult, gq, mean, s)
+        return (xq - mean) * (gq / s) + bq
+
+    @staticmethod
+    def backward(ctx, g):
+        codes, mult, gq, mean, s = ctx.saved_tensors
+        xq = dequantize(codes, mult)
+        axes = tuple(range(xq.dim() - 1))
+        n = xq.numel() // xq.shape[-1]
+        gr = g * (gq / s)
+        d_r = (g * (xq - mean)).sum(axes)
+        d_var = ((-d_r) * gq * (1.0 / (s * s))) * (0.5 / s)
+        d_mean = -gr.sum(axes) - 2.0 * mean * d_var
+        dx = gr + (d_mean / n) + (d_var / n) * (2.0 * xq)
+        return dx, d_r / s, g.sum(axes), None, None, None, None, None
+
+
+class FusedBatchNorm(Layer):
+    """Single-pass BN (``lbt_tpu``'s ``FusedBatchNorm``, ``cfg.fused_bn``):
+    quantize the input once at ``bits_a``, normalize with batch (training)
+    or running moments, apply the affine with gamma and beta quantized at
+    ``bits_b``, ``(xq - mean) * (gq / sqrt(var + eps)) + bq``, and put one
+    cotangent barrier at the output.  Weight decay applies to gamma, not
+    beta."""
 
     def __init__(self, name: str, cfg: QuantConfig, num_features: int,
                  eps: float = 1e-5, weight_decay: float = 0.0):
-        super().__init__(name, [
-            Normalization("norm", cfg, num_features, eps),
-            Rescale("rescale", cfg, num_features, weight_decay),
+        super().__init__(name, cfg)
+        self.num_features = num_features
+        self.eps = eps
+        self.weight_decay = weight_decay
+        self.gamma = nn.Parameter(torch.ones(num_features))
+        self.beta = nn.Parameter(torch.zeros(num_features))
+        init = cfg.initial_exponent
+        self._register_exps([
+            ("x", cfg.bits_a, init),
+            ("gamma", cfg.bits_b, init),
+            ("beta", cfg.bits_b, init),
+            ("grad", cfg.bits_g, site_init_exp(cfg, "grad")),
         ])
+        self.register_buffer("mean", torch.zeros(num_features))
+        self.register_buffer("var", torch.ones(num_features))
+
+    def reset_parameters(self, generator):
+        with torch.no_grad():
+            self.gamma.fill_(1.0)
+            self.beta.zero_()
+        self.mean.zero_()
+        self.var.fill_(1.0)
+        self._reset_exps()
+
+    def own_decay(self):
+        return {"gamma": self.weight_decay, "beta": 0.0}
+
+    def forward(self, x, ctx):
+        x = x.to(torch.float32)
+        if self.cfg.bits_a >= 32:
+            return self._normalize(x, None, None, None, ctx)
+        xq, codes, mult = _quantize_input(self, x, ctx)
+        moments = (code_moments(codes) if ctx.train or ctx.update
+                   else None)
+        return self._normalize(xq, codes, moments, mult, ctx)
+
+    def forward_from_conv(self, conv: Conv2d, x, ctx: Ctx):
+        """``conv`` then this layer, the conv and this layer's input
+        quantize fused (kernel #4 or #5)."""
+        r = _conv_input(self, conv, x, ctx)
+        return self._normalize(r.xq, r.codes, r.moments, r.mult, ctx)
+
+    def _normalize(self, xq, codes, moments, mult, ctx: Ctx):
+        cfg = self.cfg
+        gq = self._quant(ctx, "gamma", self.gamma, cfg.bits_b, SITE_GAMMA)
+        bq = self._quant(ctx, "beta", self.beta, cfg.bits_b, SITE_BETA)
+        if ctx.train or ctx.update:
+            if moments is not None:
+                mean_b, var_b = batch_moments(
+                    moments, xq.numel() // xq.shape[-1], mult)
+            else:
+                mean_b, var_b = _float_moments(xq)
+        if ctx.update:
+            _stage_ema(self, ctx, mean_b, var_b)
+        if ctx.train and moments is not None:
+            y = _FusedNormalize.apply(xq, gq, bq, mean_b, var_b, codes,
+                                      mult, self.eps)
+        else:
+            mean, var = ((mean_b, var_b) if ctx.train
+                         else (self.mean, self.var))
+            y = (xq - mean) * (gq / sqrt_f32(var + self.eps)) + bq
+        return barrier(self, y, ctx).to(carrier_dtype(cfg))
+
+
+class BatchNorm(Sequential):
+    """Normalization + Rescale, as lbt_tpu's unfused ``BatchNorm``; with
+    ``cfg.fused_bn`` its one child is ``FusedBatchNorm("fused")``, as in
+    ``lbt_tpu``."""
+
+    def __init__(self, name: str, cfg: QuantConfig, num_features: int,
+                 eps: float = 1e-5, weight_decay: float = 0.0):
+        if cfg.fused_bn:
+            layers = [FusedBatchNorm("fused", cfg, num_features, eps,
+                                     weight_decay)]
+        else:
+            layers = [Normalization("norm", cfg, num_features, eps),
+                      Rescale("rescale", cfg, num_features, weight_decay)]
+        super().__init__(name, layers)
 
     def fuses_with(self, layer: Layer) -> bool:
         """Whether ``layer`` then this BN can run as one fused kernel: a
@@ -225,5 +363,5 @@ class BatchNorm(Sequential):
                 and fusable(layer.ksize, norm.cfg.bits_a))
 
     def forward_from(self, conv: Conv2d, x, ctx: Ctx):
-        norm, rescale = self.layers
-        return rescale(norm.forward_from_conv(conv, x, ctx), ctx)
+        y = self.layers[0].forward_from_conv(conv, x, ctx)
+        return y if len(self.layers) == 1 else self.layers[1](y, ctx)

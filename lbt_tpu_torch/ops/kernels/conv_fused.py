@@ -37,9 +37,13 @@ _CODE_DTYPES = (torch.int8, torch.int16)
 def conv_fused_plain(xc: torch.Tensor, wc: torch.Tensor,
                      inv_scale: torch.Tensor, mult_out: torch.Tensor, *,
                      strides: Tuple[int, int], pads: Pads, bits_out: int = 8,
-                     seed: Optional[int] = None, light: bool = False):
+                     seed: Optional[int] = None, light: bool = False,
+                     round_bf16: bool = False):
     """Plain PyTorch version of #4 / #5 (any device):
-    ``(codes [B,Ho,Wo,K] int8, moments [2,K] int64, minmax [2] f32)``."""
+    ``(codes [B,Ho,Wo,K] int8, moments [2,K] int64, minmax [2] f32)``.
+    ``round_bf16`` rounds the conv output to bfloat16 (nearest, ties to
+    even) before the min / max and the quantize, as a bf16 carrier between
+    the conv and the BN input site does."""
     b, h, w, _ = xc.shape
     kh, kw, cin, cout = wc.shape
     ho, wo = out_hw(h, w, (kh, kw), strides, pads)
@@ -49,6 +53,8 @@ def conv_fused_plain(xc: torch.Tensor, wc: torch.Tensor,
            @ wc.reshape(kh * kw * cin, cout).to(torch.float64)).to(
                torch.int32)
     y = acc.to(torch.float32) * inv_scale
+    if round_bf16:
+        y = y.to(torch.bfloat16).to(torch.float32)
     minmax = torch.stack([y.amin(), y.amax()])
     codes = round_codes(y * mult_out, bits_out, seed, light)
     c64 = codes.to(torch.int64)
@@ -85,7 +91,7 @@ def _check(xc, wc, inv_scale, mult_out, strides, pads, bits_out, ksize):
 
 
 def _launch(entry: str, xc, wc, inv_scale, mult_out, strides, pads,
-            bits_out, seed, light):
+            bits_out, seed, light, round_bf16):
     b, h, w, cin = xc.shape
     kh, kw, _, cout = wc.shape
     ho, wo = out_hw(h, w, (kh, kw), strides, pads)
@@ -105,7 +111,8 @@ def _launch(entry: str, xc, wc, inv_scale, mult_out, strides, pads,
                 codes.data_ptr(), moments.data_ptr(), minmax.data_ptr(),
                 inv_scale.data_ptr(), mult_out.data_ptr(),
                 0 if seed is None else seed & 0xFFFFFFFF,
-                int(seed is not None), int(light), bits_out, dims, stream)
+                int(seed is not None), int(light), int(round_bf16), bits_out,
+                dims, stream)
     if rc != 0:
         raise RuntimeError(f"{entry} launch failed: cudaError {rc} at x "
                            f"{tuple(xc.shape)} w {tuple(wc.shape)}")
@@ -113,42 +120,45 @@ def _launch(entry: str, xc, wc, inv_scale, mult_out, strides, pads,
 
 
 def _fused(ksize, entry, counter, xc, wc, inv_scale, mult_out, strides,
-           pads, bits_out, seed, light):
+           pads, bits_out, seed, light, round_bf16):
     strides = tuple(strides)
     pads = tuple(tuple(p) for p in pads)
     _check(xc, wc, inv_scale, mult_out, strides, pads, bits_out, ksize)
     if xc.device.type == "cpu":
         return conv_fused_plain(xc, wc, inv_scale, mult_out, strides=strides,
                                 pads=pads, bits_out=bits_out, seed=seed,
-                                light=light)
+                                light=light, round_bf16=round_bf16)
     if xc.device.type != "cuda":
         raise ValueError(f"no fused conv kernel for device {xc.device}")
     out = _launch(entry, xc, wc, inv_scale, mult_out, strides, pads,
-                  bits_out, seed, light)
+                  bits_out, seed, light, round_bf16)
     counter.launches += 1
     return out
 
 
 def conv3x3_fused(xc, wc, inv_scale, mult_out, *, strides, pads,
                   bits_out: int = 8, seed: Optional[int] = None,
-                  light: bool = False):
+                  light: bool = False, round_bf16: bool = False):
     """#4: 3x3 conv of int8 or 9-bit int16 codes (any stride and padding)
     with the epilogue; ``(codes, moments, minmax)`` as
     :func:`conv_fused_plain`.  int16 codes must lie in [-256, 255]: the
     kernel contracts them as split-9 int8 planes.
     ``seed=None`` rounds half-to-even, an int seed stochastically with
-    the counter hash (``light`` = ``hash1``)."""
+    the counter hash (``light`` = ``hash1``).  ``round_bf16`` as in
+    :func:`conv_fused_plain`."""
     return _fused((3, 3), "lbt_conv3x3_fused", conv3x3_fused, xc, wc,
-                  inv_scale, mult_out, strides, pads, bits_out, seed, light)
+                  inv_scale, mult_out, strides, pads, bits_out, seed, light,
+                  round_bf16)
 
 
 def conv1x1_fused(xc, wc, inv_scale, mult_out, *, strides, pads,
                   bits_out: int = 8, seed: Optional[int] = None,
-                  light: bool = False):
+                  light: bool = False, round_bf16: bool = False):
     """#5: 1x1 conv (rows gathered at the stride) with the same epilogue
     and contract as :func:`conv3x3_fused`."""
     return _fused((1, 1), "lbt_conv1x1_fused", conv1x1_fused, xc, wc,
-                  inv_scale, mult_out, strides, pads, bits_out, seed, light)
+                  inv_scale, mult_out, strides, pads, bits_out, seed, light,
+                  round_bf16)
 
 
 conv3x3_fused.launches = 0

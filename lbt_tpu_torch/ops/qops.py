@@ -252,26 +252,31 @@ class BNInput(NamedTuple):
 
 class _ConvBNInput(torch.autograd.Function):
     """Forward: kernel #4 / #5.  Backward: the BN input site's STE, the
-    conv's cotangent barrier (quantize + overflow stats into the conv's
-    sink) and the integer conv backward."""
+    carrier's rounding of the cotangent, the conv's cotangent barrier
+    (quantize + overflow stats into the conv's sink) and the integer conv
+    backward."""
 
     @staticmethod
     def forward(ctx, x, w, sink, xc, wc, mx, mw, mult_out, opts):
-        strides, pads, bits_out, seed, light, barrier = opts
+        strides, pads, bits_out, seed, light, carrier, barrier = opts
         ctx.save_for_backward(xc, wc, mx, mw)
         ctx.opts, ctx.has_sink = opts, sink is not None
         fused = conv3x3_fused if wc.shape[0] == 3 else conv1x1_fused
         codes, moments, minmax = fused(
             xc, wc, (1.0 / (mx * mw)).reshape(1), mult_out.reshape(1),
             strides=strides, pads=pads, bits_out=bits_out, seed=seed,
-            light=light)
+            light=light, round_bf16=carrier == torch.bfloat16)
         ctx.mark_non_differentiable(codes, moments, minmax)
         return dequantize(codes, mult_out), codes, moments, minmax
 
     @staticmethod
     def backward(ctx, g, *_):
         xc, wc, mx, mw = ctx.saved_tensors
-        strides, pads, _, _, _, (bits_g, exp_g, key_g, kw) = ctx.opts
+        strides, pads, _, _, _, carrier, (bits_g, exp_g, key_g, kw) = \
+            ctx.opts
+        # the cotangent crosses the carrier between the conv and the BN
+        # site, as the unfused route's two casts round it
+        g = g.to(carrier).to(torch.float32)
         gc, mg, stats = quantize_cotangent(g, bits_g, exp_g, key_g, **kw)
         dx, dw = _conv_backward(gc, mg, xc, wc, mx, mw, strides, pads,
                                 ctx.needs_input_grad[0],
@@ -294,17 +299,20 @@ def qconv2d_bn_input(
     key_w: Optional[KeyData] = None, stochastic: bool = False,
     backend: str = "xla_hash", target_overflow_rate: float = 0.0,
     gate: bool = True, stats: bool = False,
+    carrier: torch.dtype = torch.float32,
 ) -> BNInput:
     """A bias-free quantized conv followed by the next site's quantize at
     ``(bits_out, exp_out, key_out)``, in one kernel: the BN input's codes,
     moments and the conv output's min / max, without the f32 conv output.
 
-    Equals ``quantize_int(qconv2d(x, w, ...), bits_out, exp_out,
-    key_out)`` bit for bit.  In the backward the cotangent of ``xq``
-    passes the BN site's STE, then the conv's barrier at ``(bits_g,
-    exp_g, key_g)`` (statistics into ``sink``, or the hold sentinel when
-    ``gate`` is off), then the integer conv backward.  ``stats=True``
-    also returns the conv operands' ``[min, max]``."""
+    Equals ``quantize_int(qconv2d(x, w, ...).to(carrier), bits_out,
+    exp_out, key_out)`` bit for bit: with a bfloat16 ``carrier`` the conv
+    output is rounded to it first, and ``minmax`` is of the rounded
+    output.  In the backward the cotangent of ``xq`` passes the BN site's
+    STE, is rounded to ``carrier``, then passes the conv's barrier at
+    ``(bits_g, exp_g, key_g)`` (statistics into ``sink``, or the hold
+    sentinel when ``gate`` is off), then the integer conv backward.
+    ``stats=True`` also returns the conv operands' ``[min, max]``."""
     _check_widths(bits_x, bits_w, 9)
     if not fusable(w.shape, bits_out):
         raise NotImplementedError(
@@ -326,5 +334,5 @@ def qconv2d_bn_input(
                     gate=bool(gate)))
     xq, codes, moments, minmax = _ConvBNInput.apply(
         x, w, sink, xc, wc, mx, mw, mult_out,
-        (strides, pads, bits_out, seed, light, barrier))
+        (strides, pads, bits_out, seed, light, carrier, barrier))
     return BNInput(xq, codes, mult_out, moments, minmax, mm_x, mm_w)

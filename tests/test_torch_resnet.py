@@ -152,12 +152,21 @@ def test_converter_raises_on_mismatch():
 
 
 @pytest.mark.parametrize("kw", [
-    dict(engine="sim"), dict(engine="sim_bf16"), dict(fused_bn=True),
-    dict(act_dtype="bf16"), dict(remat_bn=True), dict(bn_residual_q16=True),
-    dict(noise_shared_axis0=True), dict(stem_s2d=True)])
+    dict(engine="sim"), dict(engine="sim_bf16"), dict(remat_bn=True),
+    dict(bn_residual_q16=True), dict(noise_shared_axis0=True),
+    dict(stem_s2d=True)])
 def test_unported_config_options_raise(kw):
     with pytest.raises(NotImplementedError):
         cifar10_resnet(QuantConfig.uniform(8, **kw), 20)
+
+
+def test_imagenet_resnet_refuses_the_s2d_stem():
+    """The space-to-depth stem of the ImageNet ResNets is not ported."""
+    from lbt_tpu_torch.models import imagenet_resnet
+    cfg = QuantConfig.uniform(8, fused_bn=True, act_dtype="bf16",
+                              stem_s2d=True)
+    with pytest.raises(NotImplementedError, match="stem_s2d"):
+        imagenet_resnet(cfg, 50)
 
 
 def test_registry_and_serving_only_context():

@@ -644,7 +644,7 @@ def test_step_profiler_writes_a_chrome_trace(tmp_path):
     ([], "--noise_mode prng"),
     (["--noise_mode", "hash", "--bits", "32"], "--bits 32"),
     (["--noise_mode", "hash", "--engine", "sim_bf16"], "--engine sim_bf16"),
-    (["--noise_mode", "hash", "--fused_bn"], "--fused_bn"),
+    (["--noise_mode", "hash", "--stem_s2d"], "--stem_s2d"),
     (["--noise_mode", "hash", "--scan_steps", "4"], "--scan_steps 4"),
     (["--noise_mode", "hash", "--data_parallel"], "--data_parallel"),
     (["--noise_mode", "hash", "--model", "MNIST"], "--model MNIST"),
