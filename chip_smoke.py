@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Smoke run of lbt_tpu_torch on one NVIDIA GPU: serve and train DFXP-INT8
-ResNet-20, the last through the port's Trainer and CLI, then train and
-serve the bench headline, ResNet-50 at 224 px and batch 128.
+ResNet-20, the last through the port's Trainer and CLI (main.py's defaults
+among its runs), then train and serve the bench headline, ResNet-50 at 224
+px and batch 128, and train the bench's baseline leg at the same size.
 
 Run from the root of a checkout, on a machine with one CUDA card:
 
@@ -9,7 +10,10 @@ Run from the root of a checkout, on a machine with one CUDA card:
 
 Phases; each raises on failure and the script then exits non-zero:
 
-1. device  needs CUDA; prints the card's name and power limit; TF32 off.
+1. device  needs CUDA; prints the card's name and power limit; TF32 off;
+           reads the SM count and maximum SM clock for the issue rate
+           (4 warp instructions an SM a clock) that bounds the noise's
+           integer work.
 2. build   builds K1, K2 and kernels #4/#5 from the sources in the
            checkout (one nvcc per source, started together, sm_90a);
            prints the seconds each took and each kernel's registers,
@@ -19,10 +23,14 @@ Phases; each raises on failure and the script then exits non-zero:
 3. K1      quantize kernel vs its plain PyTorch version on the card,
            bitwise (codes and the multiplier it builds from the
            exponent), at every quantize shape of the serving path (batch
-           128) and at odd sizes; bits 8 and 9; deterministic and both
-           counter-hash stochastic modes.  Its library yardstick is
+           128) and at odd sizes (n not a multiple of 4 among them); bits
+           8 and 9; deterministic, both counter-hash stochastic modes and
+           threefry (``noise_mode='prng'``), threefry and the hash also
+           drawn once along axis 0.  Its library yardstick is
            ``torch.quantize_per_tensor(x, 1/mult, 0, qint8)`` for the
-           path's 8-bit calls, which must give the same codes.
+           path's 8-bit calls, which must give the same codes; each path
+           shape is timed again with threefry noise, beside its bound
+           (by operations).
 4. K2      int8 GEMM vs its plain version, bitwise, at every GEMM shape
            of the serving path (each conv's im2col product, the head).
            K1 and K2 are timed per shape from CUDA graphs that rotate
@@ -42,7 +50,10 @@ Phases; each raises on failure and the script then exits non-zero:
            of K1 (with its min/max output), K2 (both forms) and #4/#5.
 7. K1-stats, K2-train, fused  each of those calls' shapes: the kernel vs
            its plain version, bitwise (codes, min/max, int64 sums,
-           moments), timed as in 3-4, per training step, beside each
+           moments; K1 and #4/#5 also with threefry noise), timed as in
+           3-4, per training step (K1 and #4/#5 again with threefry in
+           place of the hash: the step under main.py's default noise),
+           beside each
            call's roofline bound (``ops.kernels.work``: bytes over 3.35
            TB/s or ops over the peak of their type, whichever is larger)
            and one PyTorch call's time on the same inputs where one
@@ -76,6 +87,12 @@ Phases; each raises on failure and the script then exits non-zero:
            The first run's checkpoint, restored on the CPU, must evaluate
            as on the card (rtol 1e-5).  Prints epoch 2's img/s, the input
            stall share, eval ms per batch, checkpoint save / restore ms.
+           Then main.py's defaults: the same command line without
+           ``--noise_mode`` (``prng``, threefry), 1 epoch, every counter
+           reset just before; each kernel launched, K1 and #4/#5 in
+           threefry mode.  Then the FP32 arm (``--bits 32``, engine
+           ``sim``): 2 ResNet-20 steps on the card and on the CPU, losses
+           equal at rtol 1e-5.
            Logs and metrics stay under experiments/smoke_trainer.
 10. resnet50  ``Imagenet_Resnet50`` at full width and depth, 224 px,
            batch 128, weights from a seed, seeded images with labels in
@@ -91,15 +108,32 @@ Phases; each raises on failure and the script then exits non-zero:
            profile (busy share, device launches a step, one launch a K1
            and #4/#5 call), and every kernel at the step's shapes as in 7
            (calls of a step weighted 1/8 controllers-on, 7/8 off; fewer
-           repetitions; no library time for K2's X^T.g form).  Serving: a
+           repetitions; K2's X^T.g library calls once a shape).  Serving: a
            ``Predictor`` at batch 128, K1 and K2 launched, logits and
            labels of the kernel route equal to the plain route's; ms a
            request of both routes.  Prints the phase's seconds.
+11. baseline50  ``bench.py:305``'s baseline leg: ``Imagenet_Resnet50``
+           at 224 px, batch 128, under uniform(8, engine="sim_bf16",
+           noise_mode="prng") (f32 carriers, unfused BN, 9-bit conv
+           activations, controllers every step; K1 in threefry mode at
+           every site, bf16 contractions through cuDNN / cuBLAS),
+           deterministic algorithms on, TF32 off.  Gate: 2 steps through
+           the kernels (counters reset just before; every K1 call in
+           threefry mode) equal to the same 2 steps through the plain
+           versions in every tensor; the first loss at batch 8 equal to
+           the CPU route's at rtol 1e-5.  Then 8 timed steps (median ms,
+           img/s, ``max_memory_allocated``), a 2-step profile (busy share,
+           device launches a step, one launch a K1 call, K1's device ms a
+           step) and K1 at every call shape of the step against its bound.
+           Then the headline's img/s over this phase's: the port's first
+           reading of ``bench.py``'s ``vs_baseline``.
 
 Prints the card, then one JSON line of kernels (launches from the trainer
-phase; ms, plain_ms, bound_ms and library_ms a training step; the same
-keys under ``resnet50`` for the headline's path), then, last, one JSON
-line ``{"ok": true, "device": {...}}``.
+phase, the threefry rows' from its run of main.py's defaults; ms,
+plain_ms, bound_ms and library_ms a training step; the same keys under
+``resnet50`` for the headline's path and under ``baseline50`` for the
+baseline's K1), then, last, one JSON line ``{"ok": true, "device":
+{...}}``.
 """
 
 from __future__ import annotations
@@ -137,6 +171,31 @@ TOL = dict(rtol=1e-5, atol=1e-5)
 # (two launches a call with min/max) and the multiplier built in torch ops
 # at every quantize site (PERF.md section 5)
 LAUNCHES_BEFORE = {"step": 11343, "request": 1845}
+
+
+# what phase_device reads on the card: the issue rate the noise's
+# instructions are bounded by
+CARD = {}
+
+# the noise of a timed or compared call of each mode: fixed key words
+NOISE_K0, NOISE_K1 = 0x5DEECE66, 0x2545F491
+
+
+def noise_of(quant, mode: int, shape, shared: bool = False):
+    """The :class:`Noise` of ``mode`` (0: None) for a tensor of
+    ``shape``, drawn once along axis 0 with ``shared``."""
+    if not mode:
+        return None
+    inner = math.prod(shape[1:]) if shared else 0
+    return quant.Noise(mode, NOISE_K0, NOISE_K1, inner)
+
+
+def noise_key(noise) -> tuple:
+    """``(mode, shared)`` of a call's noise, as the recorders key it."""
+    return (0, False) if noise is None else (noise.mode, noise.inner > 0)
+
+
+MODE_NAMES = {0: "rn", 1: "hash", 2: "hash1", 3: "threefry"}
 
 
 def check(cond: bool, msg: str) -> None:
@@ -205,6 +264,9 @@ def device_ms(fn, sets, reps: int = 20, replays: int = 5) -> float:
 # (float64 GEMMs of GB-sized im2cols) take up to a second a call
 REPS = ((20, 5), (20, 5), (20, 5))
 FAST_REPS = ((10, 3), (1, 1), (4, 2))
+# ResNet-50's K2 shapes: the library's X^T.g calls (hundreds of ms at the
+# stem) captured and replayed once
+R50_K2_REPS = ((10, 3), (1, 1), (1, 1))
 
 
 def _timings(fn, plain_fn, args, nbytes: int, work=None, lib=None,
@@ -330,8 +392,21 @@ def phase_device() -> dict:
     print(card, flush=True)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    from lbt_tpu_torch.ops.kernels import work
+    clock_mhz = float(subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm",
+         "--format=csv,noheader,nounits"], capture_output=True, text=True,
+        check=True, timeout=60).stdout.strip().splitlines()[0])
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    CARD["issue_per_s"] = work.issue_rate(sms, clock_mhz * 1e6)
+    print(f"issue rate for the noise's bounds: {work.ISSUE_LANES_PER_SM} "
+          f"lanes x {sms} SMs x {clock_mhz:.0f} MHz (the card's maximum SM "
+          f"clock) = {CARD['issue_per_s'] / 1e12:.3f} T instructions/s",
+          flush=True)
     return {"nvidia_smi": card, "kind": torch.cuda.get_device_name(0),
-            "count": torch.cuda.device_count(),
+            "count": torch.cuda.device_count(), "sm_count": sms,
+            "sm_clock_max_mhz": clock_mhz,
+            "issue_per_s": CARD["issue_per_s"],
             "torch": torch.__version__, "cuda": torch.version.cuda}
 
 
@@ -397,9 +472,9 @@ def record_path_calls(model, x, qmod, qops, quant, gemm):
     from lbt_tpu_torch.nn.core import Ctx
     k1, k2 = collections.Counter(), collections.Counter()
 
-    def k1_rec(t, bits, exp, seed=None, light=False, stats=False):
+    def k1_rec(t, bits, exp, noise=None, stats=False):
         k1[(tuple(t.shape), bits)] += 1
-        return quant.quantize_codes(t, bits, exp, seed, light, stats)
+        return quant.quantize_codes(t, bits, exp, noise, stats)
 
     def k2_rec(a, b, inv=None):
         k2[(a.shape[0], a.shape[1], b.shape[1], inv is not None)] += 1
@@ -445,9 +520,12 @@ def lib_quantize(x, exp, bits):
 
 def phase_k1(quant, k1_calls) -> dict:
     """K1 at every quantize call of the serving forward and at odd sizes:
-    codes and multiplier bitwise against the plain version; each path
-    shape timed beside its bound and, for 8-bit codes, the library's
-    quantize, whose codes must be K1's."""
+    codes and multiplier bitwise against the plain version, rounding to
+    nearest and with each noise stream (the hashes and threefry, each
+    also drawn once along axis 0); each path shape timed beside its bound
+    and, for 8-bit codes, the library's quantize, whose codes must be
+    K1's; and again with threefry noise (the rounding of ``noise_mode=
+    'prng'``, which no library call computes)."""
     from lbt_tpu_torch.ops.kernels import work
     gen = torch.Generator().manual_seed(SEED + 1)
     shapes = {s for s, _ in k1_calls}
@@ -456,17 +534,19 @@ def phase_k1(quant, k1_calls) -> dict:
     for shape in sorted(shapes):
         for bits in (8, 9):
             x, exp = _k1_input(shape, bits, gen)
-            for seed, light in ((None, False), (0x9E3779B9, False),
-                                (0x2545F491, True)):
-                got = quant.quantize_codes(x, bits, exp, seed, light)
-                want = quant.quantize_codes_plain(x, bits, exp, seed, light)
+            for mode, shared in ((0, False), (1, False), (2, False),
+                                 (3, False), (3, True), (1, True)):
+                noise = noise_of(quant, mode, shape, shared)
+                got = quant.quantize_codes(x, bits, exp, noise)
+                want = quant.quantize_codes_plain(x, bits, exp, noise)
                 torch.cuda.synchronize()
                 err = max(err, _max_err(got[0], want[0]))
                 check(_equal_outputs(got, want),
                       f"K1 differs from its plain version at {shape} "
-                      f"bits={bits} seed={seed} light={light}")
+                      f"bits={bits} noise={noise}")
                 n_cmp += 1
-    rows = []
+    rows, tf_rows = [], []
+    rate = CARD["issue_per_s"]
     for (shape, bits), count in sorted(k1_calls.items()):
         x, exp = _k1_input(shape, bits, gen)
         code_bytes = torch.empty((), dtype=quant.code_dtype(bits)).element_size()
@@ -483,8 +563,20 @@ def phase_k1(quant, k1_calls) -> dict:
                          (x, exp), x.numel() * (4 + code_bytes),
                          work.quantize_work(x.numel(), code_bytes, False),
                          lib)})
+        tf = noise_of(quant, 3, shape)
+        tf_rows.append({"shape": list(shape), "bits": bits, "calls": count,
+                        **_timings(
+                            lambda x, e: quant.quantize_codes(x, bits, e, tf),
+                            lambda x, e: quant.quantize_codes_plain(
+                                x, bits, e, tf),
+                            (x, exp), x.numel() * (4 + code_bytes),
+                            work.quantize_work(x.numel(), code_bytes, False,
+                                               3, rate))})
     tot = _print_rows("K1", rows, lambda r: f"{r['shape']} b{r['bits']}",
                       per="forward")
+    tf_tot = _print_rows("K1 threefry", tf_rows,
+                         lambda r: f"{r['shape']} b{r['bits']}",
+                         per="forward")
     lib_rows = [r for r in rows if r.get("lib_ms") is not None]
     lib8 = {"ms": sum(r["calls"] * r["ms"] for r in lib_rows),
             "lib_ms": sum(r["calls"] * r["lib_ms"] for r in lib_rows),
@@ -494,7 +586,8 @@ def phase_k1(quant, k1_calls) -> dict:
           f"torch.quantize_per_tensor {lib8['lib_ms']:.4f} ms on them",
           flush=True)
     return {"max_abs_err": err, "comparisons": n_cmp, **tot,
-            "library_8bit": lib8, "shapes": rows}
+            "library_8bit": lib8, "shapes": rows,
+            "threefry": {**tf_tot, "shapes": tf_rows}}
 
 
 def phase_k2(gemm, k2_calls) -> dict:
@@ -742,18 +835,30 @@ def train_counters(quant, gemm, fused) -> dict:
             "conv1x1": fused.conv1x1_fused.launches}
 
 
+def threefry_counters(quant, fused) -> dict:
+    """The launches in threefry mode of K1, #4 and #5."""
+    return {"k1": quant.quantize_codes.launches_by_mode[3],
+            "conv3x3": fused.conv3x3_fused.launches_by_mode[3],
+            "conv1x1": fused.conv1x1_fused.launches_by_mode[3]}
+
+
 def reset_counters(quant, gemm, fused) -> None:
     for fn in (quant.quantize_codes, gemm.int8_matmul, gemm.int8_matmul_tn,
                fused.conv3x3_fused, fused.conv1x1_fused):
         fn.launches = 0
+    for fn in (quant.quantize_codes, fused.conv3x3_fused,
+               fused.conv1x1_fused):
+        fn.launches_by_mode = [0, 0, 0, 0]
 
 
 def record_train_calls(qmod, qops, quant, gemm, fused, model=None,
                        batch=None, steps=((0, 1.0),)):
     """Training steps at batch 128 on the card with every kernel call
-    recorded: (shape, bits, seeded, light, stats) of K1; (M, K, N,
+    recorded: (shape, bits, noise mode, shared, stats) of K1; (M, K, N,
     scaled) of K2; (K, M, N) of its X^T.g form; (kind, x shape, x dtype,
-    W shape, strides, pads, seeded, light, round_bf16) of #4/#5.  Each of
+    W shape, strides, pads, noise mode, shared, round_bf16) of #4/#5
+    (noise mode 0 rounds to nearest; shared: drawn once along axis 0).
+    Each of
     ``steps`` is ``(step index, weight)``: a call counts ``weight`` times,
     so a cadence's gated-on and gated-off steps average into calls a step.
     ResNet-20 and one step of ``train_batches`` unless ``model`` and
@@ -761,10 +866,10 @@ def record_train_calls(qmod, qops, quant, gemm, fused, model=None,
     k1, k2, tn, conv = (collections.Counter() for _ in range(4))
     weight = [1.0]
 
-    def k1_rec(t, bits, exp, seed=None, light=False, stats=False):
-        k1[(tuple(t.shape), bits, seed is not None, bool(light),
-            bool(stats))] += weight[0]
-        return quant.quantize_codes(t, bits, exp, seed, light, stats)
+    def k1_rec(t, bits, exp, noise=None, stats=False):
+        k1[(tuple(t.shape), bits, *noise_key(noise), bool(stats))] += \
+            weight[0]
+        return quant.quantize_codes(t, bits, exp, noise, stats)
 
     def k2_rec(a, b, inv=None):
         k2[(a.shape[0], a.shape[1], b.shape[1], inv is not None)] += \
@@ -776,15 +881,14 @@ def record_train_calls(qmod, qops, quant, gemm, fused, model=None,
         return gemm.int8_matmul_tn(a, b)
 
     def conv_rec(kind):
-        def rec(xc, wc, inv, mult, *, strides, pads, bits_out=8, seed=None,
-                light=False, round_bf16=False):
+        def rec(xc, wc, inv, mult, *, strides, pads, bits_out=8,
+                noise=None, round_bf16=False):
             conv[(kind, tuple(xc.shape), str(xc.dtype), tuple(wc.shape),
-                  tuple(strides), tuple(pads), seed is not None,
-                  bool(light), bool(round_bf16))] += weight[0]
+                  tuple(strides), tuple(pads), *noise_key(noise),
+                  bool(round_bf16))] += weight[0]
             return getattr(fused, kind)(xc, wc, inv, mult, strides=strides,
                                         pads=pads, bits_out=bits_out,
-                                        seed=seed, light=light,
-                                        round_bf16=round_bf16)
+                                        noise=noise, round_bf16=round_bf16)
         return rec
 
     if model is None:
@@ -845,52 +949,71 @@ def _max_err(got, want) -> float:
     return d.max().item() if d.numel() else 0.0
 
 
-def phase_k1_train(quant, k1_calls, reps=REPS, tag="K1-stats") -> dict:
+def phase_k1_train(quant, k1_calls, reps=REPS, tag="K1-stats",
+                   threefry_twins=False) -> dict:
     """K1 at every quantize call of the training step, with the path's
     rounding mode and its min/max output, bitwise against the plain
-    version (codes, multiplier, min/max); timed per shape."""
+    version (codes, multiplier, min/max), and again with threefry noise;
+    timed per shape.  ``threefry_twins`` also times each stochastic call
+    with threefry noise in place of its hash (``threefry`` in the result:
+    the step under ``noise_mode='prng'``)."""
     from lbt_tpu_torch.ops.kernels import work
     gen = torch.Generator().manual_seed(SEED + 4)
-    err, rows = 0.0, []
+    err, rows, tf_rows = 0.0, [], []
+    rate = CARD["issue_per_s"]
     exp = torch.tensor(1, dtype=torch.int32, device="cuda")
-    for (shape, bits, seeded, light, stats), count in sorted(
+
+    def row(x, bits, mode, shared, stats, count):
+        noise = noise_of(quant, mode, x.shape, shared)
+        code_bytes = torch.empty((), dtype=quant.code_dtype(bits)) \
+            .element_size()
+        return {
+            "shape": list(x.shape), "bits": bits, "mode": MODE_NAMES[mode],
+            "shared": shared, "stats": stats, "calls": count,
+            **_timings(
+                lambda x, e: quant.quantize_codes(x, bits, e, noise, stats),
+                lambda x, e: quant.quantize_codes_plain(x, bits, e, noise,
+                                                        stats),
+                (x, exp), x.numel() * (4 + code_bytes),
+                work.quantize_work(x.numel(), code_bytes, stats, mode, rate),
+                reps=reps)}
+
+    for (shape, bits, mode, shared, stats), count in sorted(
             k1_calls.items()):
         x = (torch.randn(shape, generator=gen) * 2).cuda()
-        seed = 0x5DEECE66 if seeded else None
-        for s in (None, seed):
-            got = quant.quantize_codes(x, bits, exp, s, light, True)
-            want = quant.quantize_codes_plain(x, bits, exp, s, light, True)
+        for m in sorted({0, mode, 3}):
+            noise = noise_of(quant, m, shape, shared)
+            got = quant.quantize_codes(x, bits, exp, noise, True)
+            want = quant.quantize_codes_plain(x, bits, exp, noise, True)
             torch.cuda.synchronize()
             err = max(err, max(_max_err(g, w) for g, w in zip(got, want)))
             check(_equal_outputs(got, want),
                   f"K1 (stats) differs from its plain version at "
-                  f"{shape} bits={bits} seed={s} light={light}")
-        code_bytes = torch.empty((), dtype=quant.code_dtype(bits)) \
-            .element_size()
-        rows.append({
-            "shape": list(shape), "bits": bits, "seeded": seeded,
-            "stats": stats, "calls": count,
-            **_timings(
-                lambda x, e: quant.quantize_codes(x, bits, e, seed, light,
-                                                  stats),
-                lambda x, e: quant.quantize_codes_plain(x, bits, e, seed,
-                                                        light, stats),
-                (x, exp), x.numel() * (4 + code_bytes),
-                work.quantize_work(x.numel(), code_bytes, stats),
-                reps=reps)})
-    tot = _print_rows(tag, rows, lambda r: f"{r['shape']} b{r['bits']}"
-                      f"{' s' if r['seeded'] else ''}"
-                      f"{' mm' if r['stats'] else ''}")
-    return {"max_abs_err": err, **tot, "shapes": rows}
+                  f"{shape} bits={bits} noise={noise}")
+        rows.append(row(x, bits, mode, shared, stats, count))
+        if threefry_twins and mode:
+            tf_rows.append(row(x, bits, 3, shared, stats, count))
+
+    def label(r):
+        return (f"{r['shape']} b{r['bits']} {r['mode']}"
+                f"{' shared' if r['shared'] else ''}"
+                f"{' mm' if r['stats'] else ''}")
+
+    out = {"max_abs_err": err, **_print_rows(tag, rows, label),
+           "shapes": rows}
+    if tf_rows:
+        out["threefry"] = {**_print_rows(f"{tag} threefry", tf_rows, label),
+                           "shapes": tf_rows}
+    return out
 
 
-def phase_k2_train(gemm, k2_calls, tn_calls, reps=REPS, tn_library=True,
+def phase_k2_train(gemm, k2_calls, tn_calls, reps=REPS,
                    tag="K2-train") -> dict:
     """K2's forward form at the step's dx / dense shapes and its X^T.g
     form at every dW shape (split-9 planes, the head), bitwise against
-    the plain versions; timed per shape.  ``tn_library=False`` leaves
-    out the X^T.g form's library time (one ``torch._int_mm`` per
-    2**16-row chunk: hundreds of ms a call at ResNet-50's stem)."""
+    the plain versions; timed per shape.  The X^T.g form's library time
+    is one ``torch._int_mm`` per 2**16-row chunk (hundreds of ms a call
+    at ResNet-50's stem: ``R50_K2_REPS`` times it once a shape)."""
     from lbt_tpu_torch.ops.kernels import work
     gen = torch.Generator().manual_seed(SEED + 5)
     err, rows = 0.0, []
@@ -926,8 +1049,7 @@ def phase_k2_train(gemm, k2_calls, tn_calls, reps=REPS, tn_library=True,
                                 gemm.int8_matmul_tn_plain, (a, b),
                                 k * (m + n) + m * n * 8,
                                 work.gemm_tn_work(k, m, n),
-                                lib_gemm_tn(a, b, gemm.K_CHUNK)
-                                if tn_library else None, reps)})
+                                lib_gemm_tn(a, b, gemm.K_CHUNK), reps)})
     tot = _print_rows(tag, rows, lambda r: f"{r['form']} M{r['m']} "
                       f"K{r['k']} N{r['n']}")
     forms = {f: _per_forward([r for r in rows if r["form"] == f])
@@ -941,17 +1063,23 @@ def phase_k2_train(gemm, k2_calls, tn_calls, reps=REPS, tn_library=True,
     return {"max_abs_err": err, **tot, "forms": forms, "shapes": rows}
 
 
-def phase_fused(fused, conv_calls, reps=REPS) -> dict:
+def phase_fused(fused, conv_calls, reps=REPS, threefry_twins=False
+                ) -> dict:
     """#4 and #5 at every conv -> BN shape of the step (batch 128):
-    codes (deterministic, and stochastic with the path's hash), moments
-    and min/max equal to the plain version's; timed per shape."""
-    from lbt_tpu_torch.ops.kernels import work
+    codes (deterministic, stochastic with the path's noise, and with
+    threefry noise), moments and min/max equal to the plain version's;
+    timed per shape, and with ``threefry_twins`` again with threefry noise
+    in place of the path's hash (``threefry`` in each kind's result)."""
+    from lbt_tpu_torch.ops.im2col import out_hw
+    from lbt_tpu_torch.ops.kernels import quant, work
     gen = torch.Generator().manual_seed(SEED + 6)
+    rate = CARD["issue_per_s"]
     out = {}
     for kind in ("conv3x3_fused", "conv1x1_fused"):
-        err, rows = 0.0, []
+        err, rows, tf_rows = 0.0, [], []
+        fn = getattr(fused, kind)
         for key, count in sorted(conv_calls.items()):
-            (k, xshape, xdtype, wshape, strides, pads, seeded, light,
+            (k, xshape, xdtype, wshape, strides, pads, mode, shared,
              rbf) = key
             if k != kind:
                 continue
@@ -963,11 +1091,11 @@ def phase_fused(fused, conv_calls, reps=REPS) -> dict:
                                dtype=torch.int8).cuda()
             inv = torch.tensor([2.0 ** -14], device="cuda")
             mult = torch.tensor([2.0 ** -2], device="cuda")
-            seed = 0x2545F491 if seeded else None
-            fn = getattr(fused, kind)
-            for s in (None, seed):
-                kw = dict(strides=strides, pads=pads, seed=s, light=light,
-                          round_bf16=rbf)
+            yshape = (xshape[0], *out_hw(xshape[1], xshape[2], wshape[:2],
+                                         strides, pads), wshape[3])
+            for m in sorted({0, mode, 3}):
+                kw = dict(strides=strides, pads=pads, round_bf16=rbf,
+                          noise=noise_of(quant, m, yshape, shared))
                 got = fn(xc, wc, inv, mult, **kw)
                 want = fused.conv_fused_plain(xc, wc, inv, mult, **kw)
                 torch.cuda.synchronize()
@@ -975,31 +1103,41 @@ def phase_fused(fused, conv_calls, reps=REPS) -> dict:
                     err = max(err, _max_err(g, w))
                     check(g.dtype == w.dtype and torch.equal(g, w),
                           f"{kind} differs from its plain version at "
-                          f"x {xshape} w {wshape} seed={s}")
-            kw = dict(strides=strides, pads=pads, seed=seed, light=light,
-                      round_bf16=rbf)
-            nbytes = xc.numel() * xc.element_size() + math.prod(
-                got[0].shape)
-            rows.append({"x": list(xshape), "x_dtype": xdtype,
-                         "w": list(wshape), "strides": list(strides),
-                         "calls": count,
-                         **_timings(lambda x, w: fn(x, w, inv, mult, **kw),
-                                    lambda x, w: fused.conv_fused_plain(
-                                        x, w, inv, mult, **kw),
-                                    (xc, wc), nbytes,
-                                    work.conv_fused_work(
-                                        xshape, xc.element_size(), wshape,
-                                        strides, pads),
-                                    lib_conv(xc, wc, strides, pads),
-                                    reps)})
-        for r in rows:
+                          f"x {xshape} w {wshape} noise={kw['noise']}")
+            nbytes = xc.numel() * xc.element_size() + math.prod(yshape)
+
+            def row(m):
+                kw = dict(strides=strides, pads=pads, round_bf16=rbf,
+                          noise=noise_of(quant, m, yshape, shared))
+                return {"x": list(xshape), "x_dtype": xdtype,
+                        "w": list(wshape), "strides": list(strides),
+                        "mode": MODE_NAMES[m], "calls": count,
+                        **_timings(lambda x, w: fn(x, w, inv, mult, **kw),
+                                   lambda x, w: fused.conv_fused_plain(
+                                       x, w, inv, mult, **kw),
+                                   (xc, wc), nbytes,
+                                   work.conv_fused_work(
+                                       xshape, xc.element_size(), wshape,
+                                       strides, pads, m, rate),
+                                   lib_conv(xc, wc, strides, pads), reps)}
+            rows.append(row(mode))
+            if threefry_twins and mode:
+                tf_rows.append(row(3))
+        for r in rows + tf_rows:
             macs = math.prod(r["w"]) * r["x"][0] * r["x"][1] * r["x"][2] / (
                 r["strides"][0] * r["strides"][1])
             r["int_tops"] = 2 * macs / r["ms"] / 1e9
+
+        def label(r):
+            return f"x{r['x']} w{r['w']} s{r['strides'][0]} {r['mode']}"
+
         # lib_ms here is cuDNN's conv alone (lib_note "conv only")
-        tot = _print_rows(kind, rows, lambda r: f"x{r['x']} w{r['w']} "
-                          f"s{r['strides'][0]}")
-        out[kind] = {"max_abs_err": err, **tot, "shapes": rows}
+        out[kind] = {"max_abs_err": err, **_print_rows(kind, rows, label),
+                     "shapes": rows}
+        if tf_rows:
+            out[kind]["threefry"] = {
+                **_print_rows(f"{kind} threefry", tf_rows, label),
+                "shapes": tf_rows}
     return out
 
 
@@ -1020,12 +1158,14 @@ def _kernel_device_ms(rows, n_steps) -> dict:
             for k, ns in names.items()}
 
 
-def one_launch_a_call(rows, calls) -> None:
+def one_launch_a_call(rows, calls, required=("k1", "conv3x3", "conv1x1")
+                      ) -> None:
     """K1 and #4/#5 in a profiler window: as many ``k1_quantize_kernel``
     and ``conv_fused_kernel`` launches of each kind as calls of its
     wrapper, and no second kernel of theirs (the old designs'
-    ``_minmax_kernel`` and ``minmax_decode_kernel``).  Fails where the
-    profiler saw no device time, which would leave it unmeasured."""
+    ``_minmax_kernel`` and ``minmax_decode_kernel``); each kind in
+    ``required`` called at least once.  Fails where the profiler saw no
+    device time, which would leave it unmeasured."""
     check(bool(rows), "the train profile saw no device kernels: the "
           "launches a call of K1 and #4/#5 cannot be counted")
     got = {kind: sum(r["calls"] for r in rows
@@ -1038,7 +1178,8 @@ def one_launch_a_call(rows, calls) -> None:
     extra = [r["name"] for r in rows
              if "minmax_decode" in r["name"] or "_minmax_kernel" in r["name"]]
     for kind, n in got.items():
-        check(n == calls[kind] > 0 and not extra,
+        check(n == calls[kind] and (n > 0 or kind not in required)
+              and not extra,
               f"{kind}: {n} kernel launches for {calls[kind]} calls "
               f"(other kernels: {extra})")
     print(f"K1 and fused: one device launch a call ({got['k1']} K1, "
@@ -1293,7 +1434,10 @@ def phase_trainer(quant, gemm, fused, card: str, device: str = "cuda"
     for d in ("a/ckpt", "b/ckpt", "timing"):
         shutil.rmtree(TRAINER_DIR / d, ignore_errors=True)
 
+    defaults = _trainer_defaults(quant, gemm, fused, device)
+    fp32 = _trainer_fp32(device)
     out = {"launches": launches, "losses": losses, "test_accuracy": accs,
+           "defaults": defaults, "fp32": fp32,
            "final_eval": final, "cpu_final_eval": cpu_final,
            "epoch2": epoch2, "epoch2_img_per_s": img_s,
            "input_stall_frac": stalls, "eval_ms_per_batch":
@@ -1306,6 +1450,68 @@ def phase_trainer(quant, gemm, fused, card: str, device: str = "cuda"
           f"{run.tc.eval_batch_size}, checkpoint save {save_ms:.1f} ms, "
           f"restore {restore_ms:.1f} ms ({card})", flush=True)
     return out
+
+
+def _trainer_defaults(quant, gemm, fused, device: str) -> dict:
+    """The trainer's command line without ``--noise_mode``: main.py's
+    default ``prng`` noise, ResNet-20 under the int8 engine (main.py's
+    defaults but for the run's size), 1 epoch, every launch counter reset
+    just before; K1, K2's two forms, #4 and #5 must each have launched,
+    K1 and #4/#5 in threefry mode."""
+    from lbt_tpu_torch.main import main as train_main
+    argv = [a for a in TRAINER_ARGV if a not in ("--noise_mode", "hash")]
+    check(len(argv) == len(TRAINER_ARGV) - 2, "TRAINER_ARGV changed shape")
+    reset_counters(quant, gemm, fused)
+    run, run_ms = _sync_ms(lambda: train_main(
+        argv + ["--device", device, "--n_epoch", "1", "--exp_path",
+                str(TRAINER_DIR / "defaults")]))
+    launches = train_counters(quant, gemm, fused)
+    threefry = threefry_counters(quant, fused)
+    check(run.model.cfg.noise_mode == "prng", "the run's noise is not prng")
+    for k, v in {**launches, **threefry}.items():
+        check(v > 0, f"{k} never launched on the defaults' path")
+    rows = _rows(TRAINER_DIR / "defaults" / "metrics.jsonl")
+    losses = [r["train/loss"] for r in rows if "train/loss" in r]
+    check(losses and all(math.isfinite(x) for x in losses),
+          f"logged losses {losses}")
+    epoch = run.epoch_time
+    img_s = epoch["images"] / epoch["seconds"]
+    print(f"trainer defaults (no --noise_mode: prng, threefry): 1 epoch in "
+          f"{run_ms / 1e3:.1f} s, {img_s:.1f} img/s, losses {losses}; "
+          f"launches {launches}, in threefry mode {threefry}", flush=True)
+    shutil.rmtree(TRAINER_DIR / "defaults" / "ckpt", ignore_errors=True)
+    return {"launches": launches, "threefry_launches": threefry,
+            "losses": losses, "img_per_s": img_s, "run_s": run_ms / 1e3}
+
+
+FP32_STEPS = 2
+
+
+def _trainer_fp32(device: str) -> dict:
+    """``--bits 32`` (the FP32 arm: QuantConfig.fp32(), engine 'sim'),
+    ResNet-20 at batch 128: ``FP32_STEPS`` steps on ``device`` and on the
+    CPU from the same weights and batches; each loss equal at rtol
+    1e-5."""
+    from lbt_tpu_torch.config import TrainConfig
+    from lbt_tpu_torch.main import build_parser, quant_config
+    from lbt_tpu_torch.models import build_model
+    cfg = quant_config(build_parser().parse_args(["--bits", "32"]))
+    check(cfg.engine == "sim" and cfg.bits_w == 32, f"--bits 32 gave {cfg}")
+    batches = train_batches(FP32_STEPS)
+    losses = {}
+    for where in (device, "cpu"):
+        model = build_model("CIFAR10_Resnet20", cfg,
+                            weight_decay=TrainConfig().weight_decay)
+        model = model.init(torch.Generator().manual_seed(SEED)).to(where)
+        run = make_trainer(model)[1]
+        losses[where] = [run(i, b).item() for i, b in enumerate(batches)]
+    for a, b in zip(losses[device], losses["cpu"]):
+        check(math.isfinite(a) and math.isclose(a, b, rel_tol=1e-5),
+              f"--bits 32 losses: {device} {losses[device]}, CPU "
+              f"{losses['cpu']}")
+    print(f"trainer --bits 32 (fp32, sim): {FP32_STEPS} steps, losses on "
+          f"{device} {losses[device]}, CPU {losses['cpu']}", flush=True)
+    return {"losses": losses[device], "cpu_losses": losses["cpu"]}
 
 
 # ---------------------------------------------------------------------------
@@ -1377,7 +1583,7 @@ def phase_resnet50(qmod, qops, quant, gemm, fused) -> dict:
             ("k1", phase_k1_train, (quant, out.pop("k1_calls"), FAST_REPS,
                                     "R50 K1")),
             ("k2", phase_k2_train, (gemm, out.pop("k2_calls"),
-                                    out.pop("tn_calls"), FAST_REPS, False,
+                                    out.pop("tn_calls"), R50_K2_REPS,
                                     "R50 K2")),
             ("fused", phase_fused, (fused, out.pop("conv_calls"),
                                     FAST_REPS))):
@@ -1389,30 +1595,50 @@ def phase_resnet50(qmod, qops, quant, gemm, fused) -> dict:
 
 
 def _r50_train(qmod, qops, quant, gemm, fused) -> dict:
-    batches = r50_batches(R50_GATE_STEPS)
+    def launched(launches, threefry):
+        for k, v in launches.items():
+            check(v > 0, f"{k} never launched on ResNet-50's training path")
+
     # the calls of a step at the bench's cadence: one step in 8 with the
     # controllers on (step 0), seven with them off (step 1)
-    probe = build_resnet50(SEED).to("cuda")
+    return train_leg("resnet50", build_resnet50, R50_GATE_STEPS,
+                     R50_TIMED_STEPS, (qmod, qops, quant, gemm, fused),
+                     launched, ((0, 1 / 8), (1, 7 / 8)),
+                     ("k1", "conv3x3", "conv1x1"))
+
+
+def train_leg(tag, build, gate_steps, timed_steps, modules, launched,
+              record_steps, required) -> dict:
+    """One ResNet-50 training leg at 224 px and batch 128 from ``build``'s
+    model: its kernel calls recorded (``record_steps``), ``gate_steps``
+    steps through the kernels (every counter reset just before;
+    ``launched(launches, threefry_launches)`` checks them) equal to the
+    same steps through the plain versions in every tensor, the first loss
+    at batch ``R50_CPU_BATCH`` equal to the CPU route's at rtol 1e-5,
+    ``timed_steps`` timed steps with the peak memory, and a 2-step profile
+    (one launch a K1 and #4/#5 call; the kinds in ``required`` called)."""
+    qmod, qops, quant, gemm, fused = modules
+    batches = r50_batches(gate_steps)
+    probe = build(SEED).to("cuda")
     k1, k2, tn, conv = record_train_calls(
         qmod, qops, quant, gemm, fused, probe, batches[0],
-        steps=((0, 1 / 8), (1, 7 / 8)))
+        steps=record_steps)
     del probe
 
-    card = build_resnet50(SEED).to("cuda")
+    card = build(SEED).to("cuda")
     card_vel, card_run = make_trainer(card)
     reset_counters(quant, gemm, fused)
-    losses = [card_run(i, b) for i, b in enumerate(batches)]
+    losses = [card_run(i, b).item() for i, b in enumerate(batches)]
     torch.cuda.synchronize()
     launches = train_counters(quant, gemm, fused)
-    print(f"resnet50 train: {R50_GATE_STEPS} steps of {BATCH} at "
-          f"{R50_IMAGE} px through the kernels; launches {launches}",
-          flush=True)
-    for k, v in launches.items():
-        check(v > 0, f"{k} never launched on ResNet-50's training path")
-    losses = [x.item() for x in losses]
+    threefry = threefry_counters(quant, fused)
+    print(f"{tag} train: {gate_steps} steps of {BATCH} at {R50_IMAGE} px "
+          f"through the kernels; launches {launches}, in threefry mode "
+          f"{threefry}", flush=True)
+    launched(launches, threefry)
     check(all(math.isfinite(x) for x in losses), f"losses {losses}")
 
-    plain = build_resnet50(SEED).to("cuda")
+    plain = build(SEED).to("cuda")
     plain_vel, plain_run = make_trainer(plain)
     with plain_route(qmod, qops, quant, gemm):
         plain_losses = [plain_run(i, b).item()
@@ -1424,27 +1650,25 @@ def _r50_train(qmod, qops, quant, gemm, fused) -> dict:
           f"losses differ: kernels {losses}, plain {plain_losses}")
     got, want = _state(card, card_vel), _state(plain, plain_vel)
     diff = [k for k in want if not torch.equal(got[k], want[k])]
-    check(not diff, f"ResNet-50's kernel and plain routes differ in "
+    check(not diff, f"{tag}: the kernel and plain routes differ in "
           f"{diff[:5]} ({len(diff)} tensors)")
-    print(f"resnet50 train: losses {losses}; kernel and plain routes equal "
+    print(f"{tag} train: losses {losses}; kernel and plain routes equal "
           f"in all {len(got)} tensors (tolerance 0)", flush=True)
     del plain, plain_vel, plain_run, got, want
 
-    small = [(x[:R50_CPU_BATCH], y[:R50_CPU_BATCH]) for x, y in batches[:1]]
-    first = build_resnet50(SEED).to("cuda")
-    card_first = make_trainer(first)[1](0, small[0]).item()
-    del first
-    cpu_first = make_trainer(build_resnet50(SEED))[1](0, small[0]).item()
+    small = (batches[0][0][:R50_CPU_BATCH], batches[0][1][:R50_CPU_BATCH])
+    card_first = first_loss(build(SEED).to("cuda"), small)
+    cpu_first = first_loss(build(SEED), small)
     check(math.isclose(card_first, cpu_first, rel_tol=1e-5),
           f"first loss at batch {R50_CPU_BATCH}: card {card_first}, CPU "
           f"{cpu_first}")
-    print(f"resnet50 train: first loss at batch {R50_CPU_BATCH} on the "
-          f"card {card_first}, CPU route {cpu_first}", flush=True)
+    print(f"{tag} train: first loss at batch {R50_CPU_BATCH} on the card "
+          f"{card_first}, CPU route {cpu_first}", flush=True)
 
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
-    times, step = [], R50_GATE_STEPS
-    for i in range(R50_TIMED_STEPS):
+    times, step = [], gate_steps
+    for i in range(timed_steps):
         torch.cuda.synchronize()
         t1 = time.perf_counter()
         card_run(step, batches[i % len(batches)])
@@ -1453,27 +1677,27 @@ def _r50_train(qmod, qops, quant, gemm, fused) -> dict:
         step += 1
     peak = torch.cuda.max_memory_allocated()
     med = statistics.median(times)
-    print(f"resnet50 train: median {med:.3f} ms a step of {BATCH} over "
-          f"{R50_TIMED_STEPS} steps (steps {R50_GATE_STEPS}-{step - 1}, "
-          f"cadence 8), {BATCH / med * 1e3:.1f} img/s; peak memory "
+    print(f"{tag} train: median {med:.3f} ms a step of {BATCH} over "
+          f"{timed_steps} steps (steps {gate_steps}-{step - 1}), "
+          f"{BATCH / med * 1e3:.1f} img/s; peak memory "
           f"{peak / 2 ** 30:.2f} GiB", flush=True)
 
     before = train_counters(quant, gemm, fused)
     prof = _profile_steps(card_run, batches, step)
     calls = {k: v - before[k] for k, v in
              train_counters(quant, gemm, fused).items()}
-    one_launch_a_call(prof.pop("rows"), calls)
-    print(f"resnet50 profile: 2 steps, wall {prof['wall_ms']:.2f} ms, "
+    one_launch_a_call(prof.pop("rows"), calls, required)
+    print(f"{tag} profile: 2 steps, wall {prof['wall_ms']:.2f} ms, "
           f"device kernels {prof['device_ms']} ms (busy share "
           f"{prof['busy_share']}); per step {prof['kernel_ms_per_step']}; "
           f"{prof['launches_per_step']} device launches a step", flush=True)
-    return {"launches": launches, "losses": losses,
-            "plain_losses": plain_losses, "first_loss_card": card_first,
-            "first_loss_cpu": cpu_first, "ms_per_step": med,
-            "img_per_s": BATCH / med * 1e3, "samples_ms": times,
-            "max_memory_allocated": peak, "profile": prof,
-            "k1_calls": k1, "k2_calls": k2, "tn_calls": tn,
-            "conv_calls": conv}
+    return {"launches": launches, "threefry_launches": threefry,
+            "losses": losses, "plain_losses": plain_losses,
+            "first_loss_card": card_first, "first_loss_cpu": cpu_first,
+            "ms_per_step": med, "img_per_s": BATCH / med * 1e3,
+            "samples_ms": times, "max_memory_allocated": peak,
+            "profile": prof, "k1_calls": k1, "k2_calls": k2,
+            "tn_calls": tn, "conv_calls": conv}
 
 
 def _r50_serve(qmod, qops, quant, gemm) -> dict:
@@ -1529,6 +1753,84 @@ def _r50_serve(qmod, qops, quant, gemm) -> dict:
             "samples_ms": samples}
 
 
+# ---------------------------------------------------------------------------
+# baseline50: bench.py's baseline leg, ResNet-50 / 224 at batch 128 under
+# sim_bf16 with prng noise
+# ---------------------------------------------------------------------------
+
+B50_GATE_STEPS = 2      # kernel route vs plain route, bitwise
+B50_TIMED_STEPS = 8
+
+
+def b50_config():
+    """``bench.py:305``'s baseline: ``uniform(8, engine="sim_bf16",
+    noise_mode="prng")``: f32 carriers, unfused BN, 9-bit conv
+    activations, the controllers every step; K1 in threefry mode at every
+    site, the contractions in bf16 through cuDNN / cuBLAS."""
+    from lbt_tpu_torch.config import QuantConfig
+    return QuantConfig.uniform(8, engine="sim_bf16", noise_mode="prng")
+
+
+def build_baseline50(seed: int):
+    """``Imagenet_Resnet50`` at full width and depth under the baseline
+    config, weights from ``seed``, the default recipe's weight decay."""
+    from lbt_tpu_torch.config import TrainConfig
+    from lbt_tpu_torch.models import build_model
+    return build_model("Imagenet_Resnet50", b50_config(),
+                       num_classes=R50_CLASSES, image_size=R50_IMAGE,
+                       weight_decay=TrainConfig().weight_decay).init(
+                           torch.Generator().manual_seed(seed))
+
+
+def first_loss(model, batch) -> float:
+    """The loss of step 0's forward on ``batch``: the train step's
+    context and key, no backward."""
+    from lbt_tpu_torch.dfxp.keys import base_key, fold_in
+    from lbt_tpu_torch.nn.core import Ctx
+    x, y = (t.to(model.device) for t in batch)
+    ctx = Ctx(train=True, key=fold_in(base_key(TRAIN_KEY_SEED), 0),
+              update=True, sinks=model.make_sinks(),
+              n_uids=model.num_layers())
+    with torch.no_grad():
+        return model.loss_and_acc(model.apply(x, ctx), y)[0].item()
+
+
+def phase_baseline50(qmod, qops, quant, gemm, fused) -> dict:
+    """The bench's baseline leg on the card: gate, time, profile, then K1
+    at its step's shapes against its bound."""
+    t0 = time.perf_counter()
+    torch.use_deterministic_algorithms(True)
+    try:
+        out = _b50_train(qmod, qops, quant, gemm, fused)
+    finally:
+        torch.use_deterministic_algorithms(False)
+    torch.cuda.empty_cache()
+    out["k1"] = phase_k1_train(quant, out.pop("k1_calls"), FAST_REPS,
+                               "B50 K1")
+    k1_dev = out["profile"]["kernel_ms_per_step"]["k1"]
+    print(f"baseline50: K1 {k1_dev:.3f} ms of device time a step in the "
+          f"profile ({out['k1']['ms']:.3f} replayed out of L2) against a "
+          f"bound of {out['k1']['bound_ms']:.3f} ms by "
+          f"{out['k1']['bound_by']}", flush=True)
+    out["seconds"] = time.perf_counter() - t0
+    print(f"baseline50: phase took {out['seconds']:.1f} s", flush=True)
+    return out
+
+
+def _b50_train(qmod, qops, quant, gemm, fused) -> dict:
+    def launched(launches, threefry):
+        check(launches["k1"] > 0 and threefry["k1"] == launches["k1"],
+              "K1 did not launch in threefry mode at every call of the "
+              "baseline's path")
+
+    out = train_leg("baseline50", build_baseline50, B50_GATE_STEPS,
+                    B50_TIMED_STEPS, (qmod, qops, quant, gemm, fused),
+                    launched, ((0, 1.0),), ("k1",))
+    for k in ("k2_calls", "tn_calls", "conv_calls"):
+        check(not out.pop(k), f"the baseline's path made {k}")
+    return out
+
+
 def port_modules():
     """Import every module of the port that this script drives and check
     that none of them loaded JAX, which the card's machine does not have,
@@ -1576,7 +1878,32 @@ def kernel_lines(report) -> list:
 
     c3, c1 = fused["conv3x3_fused"], fused["conv1x1_fused"]
     r3, r1 = r50["fused"]["conv3x3_fused"], r50["fused"]["conv1x1_fused"]
-    return [
+    tf = report["trainer"]["defaults"]["threefry_launches"]
+    b50 = report["baseline50"]
+    threefry = [
+        {"name": "k1_quantize_threefry", "route": "cuda",
+         "source": "lbt_tpu_torch/csrc/quantize.cu",
+         "replaces": "lbt_tpu/ops/pallas/quant_kernels.py:126",
+         "launches": tf["k1"],
+         "max_abs_err": max(report["k1"]["max_abs_err"], k1["max_abs_err"],
+                            b50["k1"]["max_abs_err"]),
+         **times(k1["threefry"], library=False),
+         "baseline50": at_r50(b50["k1"], b50["threefry_launches"]["k1"],
+                              False)},
+        {"name": "conv3x3_fused_threefry", "route": "cuda",
+         "source": "lbt_tpu_torch/csrc/conv_fused.cu",
+         "replaces": "lbt_tpu/ops/pallas/conv_kernels.py:170",
+         "launches": tf["conv3x3"], "max_abs_err": c3["max_abs_err"],
+         **times(c3["threefry"], library=False),
+         "conv_library_ms": c3["threefry"]["lib_ms"]},
+        {"name": "conv1x1_fused_threefry", "route": "cuda",
+         "source": "lbt_tpu_torch/csrc/conv_fused.cu",
+         "replaces": "lbt_tpu/ops/pallas/conv1x1_kernels.py:146",
+         "launches": tf["conv1x1"], "max_abs_err": c1["max_abs_err"],
+         **times(c1["threefry"], library=False),
+         "conv_library_ms": c1["threefry"]["lib_ms"]},
+    ]
+    return threefry + [
         {"name": "k1_quantize", "route": "cuda",
          "source": "lbt_tpu_torch/csrc/quantize.cu",
          "replaces": "lbt_tpu/ops/pallas/quant_kernels.py:126",
@@ -1646,13 +1973,22 @@ def main(argv=None) -> int:
 
     k1_t, k2_t, tn_t, conv_t = record_train_calls(qmod, qops, quant, gemm,
                                                   conv_fused)
-    report["k1_train"] = phase_k1_train(quant, k1_t)
+    report["k1_train"] = phase_k1_train(quant, k1_t, threefry_twins=True)
     report["k2_train"] = phase_k2_train(gemm, k2_t, tn_t)
-    report["fused"] = phase_fused(conv_fused, conv_t)
+    report["fused"] = phase_fused(conv_fused, conv_t, threefry_twins=True)
     report["train"] = phase_train(qmod, qops, quant, gemm, conv_fused)
     report["trainer"] = phase_trainer(quant, gemm, conv_fused,
                                       report["device"]["nvidia_smi"])
     report["resnet50"] = phase_resnet50(qmod, qops, quant, gemm, conv_fused)
+    report["baseline50"] = phase_baseline50(qmod, qops, quant, gemm,
+                                            conv_fused)
+    report["vs_baseline"] = (report["resnet50"]["img_per_s"]
+                             / report["baseline50"]["img_per_s"])
+    print(f"vs_baseline (bench.py's ratio, the port's first reading): the "
+          f"headline's {report['resnet50']['img_per_s']:.1f} img/s (phase "
+          f"resnet50) over the baseline's "
+          f"{report['baseline50']['img_per_s']:.1f} (phase baseline50) = "
+          f"{report['vs_baseline']:.3f}", flush=True)
 
     kernels = kernel_lines(report)
     report["kernels"] = kernels

@@ -1,28 +1,33 @@
 #!/usr/bin/env python3
-"""Time K2 and #4/#5 built from another version of their CUDA sources
+"""Time K1, K2 and #4/#5 built from another version of their CUDA sources
 beside this checkout's, at every call shape of ResNet-20's serving forward
-and training step (batch 128), in one run on one CUDA card; with
-``--old-k1``, also the Triton K1 of a version that had one beside this
-checkout's CUDA K1.
+and training step (batch 128), or of the bench headline's ResNet-50
+training step (``--resnet50``: 224 px, batch 128, its controllers' 1-in-8
+cadence), in one run on one CUDA card; with ``--old-k1``, also the Triton
+K1 of a version that had one beside this checkout's CUDA K1.
 
     mkdir -p lbt_tpu_torch/_build/old
     git archive <commit> lbt_tpu_torch/csrc \\
         [lbt_tpu_torch/ops/kernels/quant_triton.py] \\
         | tar -x -C lbt_tpu_torch/_build/old
     python3 compare_csrc.py lbt_tpu_torch/_build/old/lbt_tpu_torch/csrc \\
+        [--pre-threefry] [--resnet50] [--kernels k1,fused] \\
         [--old-k1 lbt_tpu_torch/_build/old/lbt_tpu_torch/ops/kernels/quant_triton.py] \\
         [--out chiprun_out/compare.json]
 
-The other sources must keep the C interface of ``ops/kernels/build.py``
-(#4/#5's entry points take a ``round_bf16`` argument; sources from
-before it was added refuse the call with cudaErrorInvalidValue);
-the Triton K1 is loaded by file path and needs ``triton``.  It takes the
+The other sources must keep the C interface of ``ops/kernels/build.py``,
+or with ``--pre-threefry`` the one before threefry noise was added (K1
+took a seed and a mode, #4/#5 a seed and two flags): then only the
+hashes' calls with an unshared draw are timed, which that interface
+takes.  The CUDA K1 is compared where the other sources have
+``quantize.cu``.  The Triton K1 is loaded by file path and needs
+``triton``.  It takes the
 multiplier, which the old path built from the exponent in torch ops at
 every site: its rows give the kernel alone (``old_ms``) and the site as
 the old path ran it, those ops included (``old_site_ms``).  Each shape is
 timed as ``chip_smoke.py`` times its kernels (one CUDA graph replayed over
-input copies that overflow L2), in turns: new, old, old, new (K1: new,
-old, site, site, old, new).  Both
+input copies that overflow L2), in turns: new, old, old, new (Triton K1:
+new, old, site, site, old, new).  Both
 versions must equal the plain version bitwise.  Prints each shape and the
 totals a serving forward and a training step (calls x ms), old and new.
 """
@@ -31,6 +36,7 @@ from __future__ import annotations
 
 import argparse
 import collections
+import ctypes
 import importlib.util
 import json
 import os
@@ -48,9 +54,85 @@ def _codes(shape, lim, gen, dtype=torch.int8):
     return torch.randint(-lim, lim, shape, generator=gen, dtype=dtype).cuda()
 
 
-def _cases(gemm, fused, serve_k2, k2, tn, conv, gen):
+def _pre_threefry(build, csrc: Path) -> dict:
+    """The K1 and #4/#5 libraries of ``csrc``, sources from before
+    threefry noise, behind this checkout's C interface: K1's
+    ``lbt_quantize`` took ``(seed, mode)`` and #4/#5's entry points
+    ``(seed, stochastic, light)`` where this checkout's take ``(k0, k1,
+    inner, mode)``; a threefry or shared draw raises."""
+    def unshared_hash(k1, inner, mode):
+        if mode == 3 or inner:
+            raise ValueError("sources from before threefry draw the "
+                             "hashes unshared only")
+
+    out = {}
+    k1_lib = ctypes.CDLL(str(build.build_library(
+        "quantize", ["quantize.cu"], csrc=csrc)))
+    fn = k1_lib["lbt_quantize"]
+    fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
+                   ctypes.c_ulonglong, ctypes.c_void_p, ctypes.c_void_p,
+                   ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
+                   ctypes.c_int, ctypes.c_uint32, ctypes.c_int,
+                   ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+
+    def lbt_quantize(*a, fn=fn):
+        *head, seed, k1, inner, mode, stream = a
+        unshared_hash(k1, inner, mode)
+        return fn(*head, seed, mode, stream)
+
+    out["quantize_library"] = type("K1", (), {
+        "lbt_quantize": staticmethod(lbt_quantize)})
+    conv_lib = ctypes.CDLL(str(build.build_library(
+        "conv_fused", ["conv_fused.cu"], csrc=csrc)))
+    entries = {}
+    for name in ("lbt_conv3x3_fused", "lbt_conv1x1_fused"):
+        fn = conv_lib[name]
+        fn.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p,
+                       ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+                       ctypes.c_void_p, ctypes.c_void_p, ctypes.c_uint32,
+                       ctypes.c_int, ctypes.c_int, ctypes.c_int,
+                       ctypes.c_int, ctypes.POINTER(ctypes.c_int),
+                       ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+
+        def entry(*a, fn=fn):
+            (k0, k1, inner, mode), tail = a[8:12], a[12:]
+            unshared_hash(k1, inner, mode)
+            return fn(*a[:8], k0, int(mode != 0), int(mode == 2), *tail)
+
+        entries[name] = staticmethod(entry)
+    out["conv_fused_library"] = type("Fused", (), entries)
+    return out
+
+
+def _k1_cuda_cases(quant, k1, gen, pre_threefry):
     """``(group, label, calls, fn, plain_fn, args, nbytes)`` for every
-    K2 and #4/#5 call shape."""
+    K1 training call shape (the hashes' unshared calls only with
+    ``pre_threefry``)."""
+    exp = torch.tensor(1, dtype=torch.int32, device="cuda")
+    for (shape, bits, mode, shared, stats), count in sorted(k1.items()):
+        if pre_threefry and (mode == 3 or shared):
+            continue
+        x = (torch.randn(shape, generator=gen) * 2).cuda()
+        noise = cs.noise_of(quant, mode, shape, shared)
+        dtype = quant.code_dtype(bits)
+        yield ("K1 CUDA train",
+               f"{list(shape)} b{bits} {cs.MODE_NAMES[mode]}"
+               f"{' shared' if shared else ''}{' mm' if stats else ''}",
+               count,
+               lambda x, e, bits=bits, noise=noise, stats=stats:
+                   quant.quantize_codes(x, bits, e, noise, stats),
+               lambda x, e, bits=bits, noise=noise, stats=stats:
+                   quant.quantize_codes_plain(x, bits, e, noise, stats),
+               (x, exp),
+               x.numel() * (4 + torch.empty((), dtype=dtype).element_size()))
+
+
+def _cases(gemm, fused, serve_k2, k2, tn, conv, gen, pre_threefry):
+    """``(group, label, calls, fn, plain_fn, args, nbytes)`` for every
+    K2 and #4/#5 call shape (#4/#5's hash calls with an unshared draw
+    only with ``pre_threefry``)."""
     inv = torch.tensor([2.0 ** -15], device="cuda")
     for group, calls in (("serve AB", serve_k2), ("train AB", k2)):
         for (m, k, n, scaled), count in sorted(calls.items()):
@@ -64,14 +146,21 @@ def _cases(gemm, fused, serve_k2, k2, tn, conv, gen):
                (_codes((k, m), 128, gen), _codes((k, n), 128, gen)),
                k * (m + n) + 8 * m * n)
     mult = torch.tensor([2.0 ** -2], device="cuda")
+    from lbt_tpu_torch.ops.im2col import out_hw
+    from lbt_tpu_torch.ops.kernels import quant
     for key, count in sorted(conv.items()):
-        kind, xshape, xdtype, wshape, strides, pads, seeded, light, rbf = key
+        kind, xshape, xdtype, wshape, strides, pads, mode, shared, rbf = key
+        if pre_threefry and (mode == 3 or shared):
+            continue
         wide = xdtype == str(torch.int16)
         xc = _codes(xshape, 256 if wide else 128, gen,
                     torch.int16 if wide else torch.int8)
-        kw = dict(strides=strides, pads=pads, light=light, round_bf16=rbf,
-                  seed=0x2545F491 if seeded else None)
-        yield (kind, f"x{list(xshape)} w{list(wshape)} s{strides[0]}", count,
+        yshape = (xshape[0], *out_hw(xshape[1], xshape[2], wshape[:2],
+                                     strides, pads), wshape[3])
+        kw = dict(strides=strides, pads=pads, round_bf16=rbf,
+                  noise=cs.noise_of(quant, mode, yshape, shared))
+        yield (kind, f"x{list(xshape)} w{list(wshape)} s{strides[0]} "
+               f"{cs.MODE_NAMES[mode]}{' shared' if shared else ''}", count,
                lambda x, w, fn=getattr(fused, kind), kw=kw: fn(
                    x, w, inv, mult, **kw),
                lambda x, w, kw=kw: fused.conv_fused_plain(x, w, inv, mult,
@@ -100,12 +189,16 @@ def _k1_cases(quant, old, serve_k1, train_k1, gen):
     ``old_fn`` the multiplier made beforehand, ``site_fn`` makes it from
     the exponent first, as the old path's ``quantize_int`` did."""
     exp = torch.tensor(1, dtype=torch.int32, device="cuda")
-    calls = [("K1 serve", (shape, bits, False, False, False), n)
+    calls = [("K1 serve", (shape, bits, 0, False, False), n)
              for (shape, bits), n in serve_k1.items()]
-    calls += [("K1 train", key, n) for key, n in train_k1.items()]
-    for group, (shape, bits, seeded, light, stats), count in sorted(calls):
+    # the Triton K1 drew the hashes only
+    calls += [("K1 train", key, n) for key, n in train_k1.items()
+              if key[2] in (0, 1, 2) and not key[3]]
+    for group, (shape, bits, mode, _, stats), count in sorted(calls):
         x = (torch.randn(shape, generator=gen) * 2).cuda()
-        seed = 0x5DEECE66 if seeded else None
+        noise = cs.noise_of(quant, mode, shape)
+        seed = None if noise is None else noise.k0
+        light = mode == 2
         dtype = quant.code_dtype(bits)
 
         def old_fn(x, e, m, bits=bits, seed=seed, light=light, stats=stats,
@@ -118,14 +211,13 @@ def _k1_cases(quant, old, serve_k1, train_k1, gen):
         def site_fn(x, e, m, old_fn=old_fn, bits=bits):
             return old_fn(x, e, quant.multiplier(bits, e))
 
-        def new_fn(x, e, m, bits=bits, seed=seed, light=light, stats=stats):
-            return quant.quantize_codes(x, bits, e, seed, light, stats)
+        def new_fn(x, e, m, bits=bits, noise=noise, stats=stats):
+            return quant.quantize_codes(x, bits, e, noise, stats)
 
-        def plain_fn(x, e, m, bits=bits, seed=seed, light=light,
-                     stats=stats):
-            return quant.quantize_codes_plain(x, bits, e, seed, light, stats)
+        def plain_fn(x, e, m, bits=bits, noise=noise, stats=stats):
+            return quant.quantize_codes_plain(x, bits, e, noise, stats)
 
-        label = (f"{list(shape)} b{bits}{' s' if seeded else ''}"
+        label = (f"{list(shape)} b{bits}{' s' if mode else ''}"
                  f"{' mm' if stats else ''}")
         yield (group, label, count, new_fn, old_fn, site_fn, plain_fn,
                (x, exp, quant.multiplier(bits, exp)),
@@ -172,36 +264,64 @@ def _equal(got, want) -> bool:
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("csrc", type=Path, help="the other lbt_tpu_torch/csrc")
+    ap.add_argument("--pre-threefry", action="store_true",
+                    help="the other sources have the C interface from "
+                         "before threefry noise")
+    ap.add_argument("--resnet50", action="store_true",
+                    help="the bench headline's ResNet-50 training shapes")
+    ap.add_argument("--kernels", default="k1,k2,fused",
+                    help="which of k1, k2, fused to compare")
     ap.add_argument("--old-k1", type=Path, default=None,
                     help="the other version's ops/kernels/quant_triton.py")
     ap.add_argument("--out", type=Path, default=None)
     args = ap.parse_args(argv)
+    kinds = set(args.kernels.split(","))
     if not torch.cuda.is_available():
         print("compare_csrc: no CUDA device", file=sys.stderr)
         return 1
     qmod, qops, build, gemm, quant = cs.port_modules()
     from lbt_tpu_torch.ops.kernels import conv_fused
     card = cs.phase_device()["nvidia_smi"]
-    old_libs = dict(int8_gemm_library=build.int8_gemm_library(
-                        args.csrc.resolve()),
-                    conv_fused_library=build.conv_fused_library(
-                        args.csrc.resolve()))
+    csrc = args.csrc.resolve()
+    old_libs = dict(int8_gemm_library=build.int8_gemm_library(csrc))
+    if args.pre_threefry:
+        old_libs.update(_pre_threefry(build, csrc))
+    else:
+        old_libs["conv_fused_library"] = build.conv_fused_library(csrc)
+        if (csrc / "quantize.cu").exists():
+            old_libs["quantize_library"] = build.quantize_library(csrc)
     old = {k: (lambda lib=lib: lib) for k, lib in old_libs.items()}
 
-    probe = cs.build_resnet20(cs.SEED).to("cuda")
-    x = torch.from_numpy(np.random.default_rng(cs.SEED + 3).normal(
-        0, 1, (cs.BATCH, 32, 32, 3)).astype(np.float32)).cuda()
-    serve_k1, serve_k2 = cs.record_path_calls(probe, x, qmod, qops, quant,
-                                              gemm)
-    k1, k2, tn, conv = cs.record_train_calls(qmod, qops, quant, gemm,
-                                             conv_fused)
+    if args.resnet50:
+        serve_k1, serve_k2 = {}, {}
+        probe = cs.build_resnet50(cs.SEED).to("cuda")
+        k1, k2, tn, conv = cs.record_train_calls(
+            qmod, qops, quant, gemm, conv_fused, probe,
+            cs.r50_batches(1)[0], steps=((0, 1 / 8), (1, 7 / 8)))
+        del probe
+        torch.cuda.empty_cache()
+    else:
+        probe = cs.build_resnet20(cs.SEED).to("cuda")
+        x = torch.from_numpy(np.random.default_rng(cs.SEED + 3).normal(
+            0, 1, (cs.BATCH, 32, 32, 3)).astype(np.float32)).cuda()
+        serve_k1, serve_k2 = cs.record_path_calls(probe, x, qmod, qops,
+                                                  quant, gemm)
+        k1, k2, tn, conv = cs.record_train_calls(qmod, qops, quant, gemm,
+                                                 conv_fused)
     rows, totals = [], collections.defaultdict(lambda: [0.0, 0.0, 0, 0.0])
     gen = torch.Generator().manual_seed(cs.SEED + 7)
     if args.old_k1 is not None:
         compare_k1(quant, load_triton_k1(args.old_k1.resolve(), build),
                    serve_k1, k1, gen, rows, totals)
-    for group, label, calls, fn, plain_fn, xs, nbytes in _cases(
-            gemm, conv_fused, serve_k2, k2, tn, conv, gen):
+    cases = []
+    if "k1" in kinds and "quantize_library" in old_libs:
+        cases.append(_k1_cuda_cases(quant, k1, gen, args.pre_threefry))
+    cases.append(_cases(
+        gemm, conv_fused, serve_k2 if "k2" in kinds else {},
+        k2 if "k2" in kinds else {}, tn if "k2" in kinds else {},
+        conv if "fused" in kinds else {}, gen, args.pre_threefry))
+    for group, label, calls, fn, plain_fn, xs, nbytes in (
+            c for group in cases for c in group):
         want = plain_fn(*xs)
         cs.check(_equal(fn(*xs), want), f"{group} {label}: new != plain")
         with mock.patch.multiple(build, **old):
@@ -218,16 +338,17 @@ def main(argv=None) -> int:
         tot[0] += calls * row["ms"]
         tot[1] += calls * row["old_ms"]
         tot[2] += calls
-        print(f"  {group} {label} x{calls}: new {row['ms'] * 1e3:.2f} us, "
+        print(f"  {group} {label} x{calls:g}: new {row['ms'] * 1e3:.2f} us, "
               f"old {row['old_ms'] * 1e3:.2f} us", flush=True)
     summary = {g: {"ms": t[0], "old_ms": t[1], "calls": t[2],
-                   **({"old_site_ms": t[3]} if g.startswith("K1") else {})}
+                   **({"old_site_ms": t[3]} if g in ("K1 serve", "K1 train")
+                      else {})}
                for g, t in totals.items()}
     for g, t in summary.items():
         site = (f" ({t['old_site_ms']:.4f} with the multiplier's ops)"
                 if "old_site_ms" in t else "")
-        print(f"{g}: {t['calls']} calls, old {t['old_ms']:.4f} ms{site} -> "
-              f"new {t['ms']:.4f} ms ({card})", flush=True)
+        print(f"{g}: {t['calls']:g} calls, old {t['old_ms']:.4f} ms{site} "
+              f"-> new {t['ms']:.4f} ms ({card})", flush=True)
     if args.out is not None:
         args.out.parent.mkdir(parents=True, exist_ok=True)
         args.out.write_text(json.dumps({"card": card, "totals": summary,

@@ -2,14 +2,16 @@
 
 A second package beside ``lbt_tpu`` (the JAX reference, which it never
 imports).  Module paths mirror ``lbt_tpu``'s.  The port serves the CIFAR
-ResNets under the integer engine (``infer.Predictor``) and trains them one
-step at a time on one device (``train.step.make_train_step``);
-``models.zoo`` builds them and ``convert`` carries ``lbt_tpu``'s trees in
-and out.  The hot ops are hand-written CUDA C++ kernels (``csrc/``,
-wrapped in ``ops/kernels``): K1, DFXP quantize with min/max, one launch a
-call; K2, an int8 GEMM with a split-K ``X^T.g`` form; #4 / #5, 3x3 and 1x1
-convs fused with the next BatchNorm input's quantize and moments.  Each
-has a plain PyTorch version that CPU tensors take.
+and ImageNet ResNets (``infer.Predictor``) and trains them one step at a
+time on one device (``train.step.make_train_step``, the CLI
+``python -m lbt_tpu_torch.main``) under the integer engine or the float
+simulation (``sim`` / ``sim_bf16``), with any of ``lbt_tpu``'s noise
+streams; ``models.zoo`` builds them and ``convert`` carries ``lbt_tpu``'s
+trees in and out.  The hot ops are hand-written CUDA C++ kernels
+(``csrc/``, wrapped in ``ops/kernels``): K1, DFXP quantize with min/max,
+one launch a call; K2, an int8 GEMM with a split-K ``X^T.g`` form; #4 /
+#5, 3x3 and 1x1 convs fused with the next BatchNorm input's quantize and
+moments.  Each has a plain PyTorch version that CPU tensors take.
 """
 
 __version__ = "0.2.0"

@@ -7,10 +7,11 @@ The JAX-typed ``QuantConfig.carrier_dtype`` property has no counterpart:
 :func:`carrier_dtype` gives the torch dtype.  Field comments are short;
 ``lbt_tpu/config.py`` documents each knob in full.
 
-The port runs the integer engine only: ``engine='int8'``, with
-``'pallas'`` accepted as an alias of the same hand-written kernel route
-(its stochastic noise is the counter hash of ``noise_mode``, not a TPU
-hardware stream).  Options that later ports cover raise
+The port runs every engine: ``'int8'`` (the hand-written kernels),
+``'pallas'`` as an alias of the same route (its stochastic noise is the
+stream of ``noise_mode``, not a TPU hardware stream), and the float
+simulation ``'sim'`` / ``'sim_bf16'``.  Options that are not ported
+(``remat_bn``, ``bn_residual_q16``, the ``unsafe_rbg`` key) raise
 ``NotImplementedError`` from :func:`check_supported` instead of silently
 running something else.
 """
@@ -22,7 +23,8 @@ from typing import Optional, Tuple
 
 import torch
 
-__all__ = ["QuantConfig", "TrainConfig", "carrier_dtype", "check_supported"]
+__all__ = ["INT_ENGINES", "QuantConfig", "TrainConfig", "carrier_dtype",
+           "check_supported"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -129,25 +131,25 @@ class TrainConfig:
     scan_steps: int = 0
 
 
-_ENGINES = ("int8", "pallas")
+# engines whose contractions run on integer codes through the kernels
+INT_ENGINES = ("int8", "pallas")
 
-# QuantConfig flags whose code paths are not ported yet (value != default)
-_NOT_PORTED_FLAGS = ("remat_bn", "bn_residual_q16", "stem_s2d",
-                     "noise_shared_axis0")
+# QuantConfig flags not to be ported (ROADMAP queue 1 item 13)
+_NOT_PORTED_FLAGS = ("remat_bn", "bn_residual_q16")
 
 
 def check_supported(cfg: QuantConfig) -> QuantConfig:
-    """Raise ``NotImplementedError`` for a configuration the port cannot
-    run yet; return ``cfg`` unchanged otherwise.  ``conv9_split`` is
+    """Raise ``NotImplementedError`` for a configuration the port does
+    not run; return ``cfg`` unchanged otherwise.  ``conv9_split`` is
     accepted: the port's 9-bit conv contractions are split-9 always, and
     bit-identical to the unsplit form."""
-    if cfg.engine not in _ENGINES:
-        raise NotImplementedError(
-            f"engine {cfg.engine!r} is not ported; the port runs "
-            f"{_ENGINES}")
     for flag in _NOT_PORTED_FLAGS:
         if getattr(cfg, flag):
             raise NotImplementedError(f"QuantConfig.{flag} is not ported")
+    if cfg.noise_impl != "threefry2x32":
+        raise NotImplementedError(
+            f"noise_impl={cfg.noise_impl!r} (the TPU's hardware PRNG key) "
+            f"is not ported; keys are threefry2x32")
     return cfg
 
 

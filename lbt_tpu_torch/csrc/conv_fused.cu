@@ -11,13 +11,20 @@
 //           , rounded to bfloat16 (nearest, ties to even) on request: the
 //             value a bf16 carrier between the conv and the BN site holds
 //   minmax  = [min y, max y]                      (the BN site's controller)
-//   q       = floor(clip(y*mult + u, -L, L-1))    (stochastic, u = hash)
+//   q       = floor(clip(y*mult + u, -L, L-1))    (stochastic, u noise)
 //           | rint(clip(y*mult, -L, L-1))         (deterministic)
 //   moments = [sum q, sum q^2] per output channel, exact in int64
-// The noise u is lbt_tpu's counter hash (lowbias32, or one multiply-
-// xorshift round for hash1) of the flat NHWC output index xor the BN
-// site's seed, so the codes equal lbt_tpu's quantize_int(conv(x, w),
-// backend='xla_hash') at that site, not a TPU hardware stream.
+// The noise u is one of lbt_tpu's streams (dfxp.cuh) at the flat NHWC
+// output index (modulo inner for a draw shared along axis 0): its counter
+// hash (lowbias32, or one multiply-xorshift round for hash1) xor the BN
+// site's seed, or jax.random.uniform's threefry under the site's key.  So
+// the codes equal lbt_tpu's quantize_int(conv(x, w), backend='xla_hash' /
+// 'xla_hash1' / 'xla') at that site, not a TPU hardware stream.  Threefry
+// adds at least 69 integer instructions an output element to the
+// epilogue; its kernels are template instances of their own (TF), since
+// inlined beside the hash it cost the other modes registers and spills
+// (#4 and #5 took 6-11% longer at ResNet-50's shapes).  A shared draw
+// costs an unshared one a subtraction an element.
 //
 // Widened past the TPU kernels' asserts (C, K multiples of 128, stride 1)
 // to every conv -> BN of ResNet-20 and ResNet-50: Cin = 3..2048, Cout =
@@ -110,8 +117,8 @@ struct Args {
   const float* inv_scale;
   const float* mult;
   int b, h, w, cin, ho, wo, cout, sh, sw, ph, pw;
-  unsigned int seed;
-  int stochastic, light, round_bf16, vec;
+  unsigned int k0, k1, inner;  // the noise's key words, shared counter
+  int mode, round_bf16, vec;     // mode 0 rounds half to even
   float limit;
 };
 
@@ -209,7 +216,7 @@ __device__ __forceinline__ void stage_w_t(unsigned char* dst, int stride,
   }
 }
 
-template <int KH, int KW, int CT, int BK, typename XT>
+template <int KH, int KW, int CT, int BK, typename XT, bool TF>
 __global__ void __launch_bounds__(kThreads) conv_fused_kernel(Args p) {
   constexpr int kE = sizeof(XT);
   constexpr int kRow = row_bytes<XT, BK>();
@@ -381,6 +388,12 @@ __global__ void __launch_bounds__(kThreads) conv_fused_kernel(Args p) {
   for (int h = 0; h < 2; ++h) {
     const int64_t pix = pix0 + warp * 16 + g + 8 * h;
     if (pix >= npix) continue;
+    // the noise's counter: idx, or with a draw shared along axis 0 idx %
+    // inner, which is idx less the first index of pix's image (inner =
+    // ho*wo*cout); the test and the division run once a pixel
+    const unsigned int coff =
+        p.inner ? static_cast<unsigned int>(pix / (p.ho * p.wo)) * p.inner
+                : 0u;
 #pragma unroll
     for (int j = 0; j < CT / 8; ++j) {
 #pragma unroll
@@ -394,9 +407,10 @@ __global__ void __launch_bounds__(kThreads) conv_fused_kernel(Args p) {
         const float scaled = __fmul_rn(y, mult);
         const int64_t idx = pix * p.cout + k;
         float v;
-        if (p.stochastic) {
-          const float u = hash_uniform(static_cast<unsigned int>(idx),
-                                       p.seed, p.light);
+        if (p.mode) {
+          const unsigned int c = static_cast<unsigned int>(idx) - coff;
+          const float u = TF ? threefry_uniform(p.k0, p.k1, c)
+                             : hash_uniform(c, p.k0, p.mode == 2);
           v = floorf(fminf(fmaxf(__fadd_rn(scaled, u), -p.limit),
                            p.limit - 1.0f));
         } else {
@@ -459,7 +473,7 @@ __global__ void __launch_bounds__(kThreads) conv_fused_kernel(Args p) {
 
 constexpr int kTargetBlocks = 2 * 132;  // two blocks for each of 132 SMs
 
-template <int KH, int KW, int CT, int BK, typename XT>
+template <int KH, int KW, int CT, int BK, typename XT, bool TF>
 cudaError_t launch_ct(const Args& a, cudaStream_t stream) {
   const int ktot = KH * KW * a.cin;
   const int panel = min(kPanel, (ktot + BK - 1) / BK * BK);
@@ -467,7 +481,7 @@ cudaError_t launch_ct(const Args& a, cudaStream_t stream) {
   // the kernel's static shared memory: pixel coordinates, channel sums,
   // min/max keys
   constexpr int kStatic = (3 * kBM + 2 * CT + 2) * 4;
-  auto kern = conv_fused_kernel<KH, KW, CT, BK, XT>;
+  auto kern = conv_fused_kernel<KH, KW, CT, BK, XT, TF>;
   if (smem + kStatic > 48 * 1024) {
     cudaError_t err = cudaFuncSetAttribute(
         kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
@@ -481,7 +495,7 @@ cudaError_t launch_ct(const Args& a, cudaStream_t stream) {
 }
 
 
-template <int KH, int KW, typename XT>
+template <int KH, int KW, typename XT, bool TF>
 cudaError_t launch(const Args& a, cudaStream_t stream) {
   // the Cout tile: the layer's width, narrowed until the grid fills the card
   const int64_t mt = (static_cast<int64_t>(a.b) * a.ho * a.wo + kBM - 1) / kBM;
@@ -490,20 +504,21 @@ cudaError_t launch(const Args& a, cudaStream_t stream) {
   // 32-deep K stages where K is short (the stem's 27, stage 1's 144, the
   // shortcuts' 16 and 32): less zero padding past K
   if (KH * KW * a.cin <= 160) {
-    if (ct == 16) return launch_ct<KH, KW, 16, 32, XT>(a, stream);
-    if (ct == 32) return launch_ct<KH, KW, 32, 32, XT>(a, stream);
-    return launch_ct<KH, KW, 64, 32, XT>(a, stream);
+    if (ct == 16) return launch_ct<KH, KW, 16, 32, XT, TF>(a, stream);
+    if (ct == 32) return launch_ct<KH, KW, 32, 32, XT, TF>(a, stream);
+    return launch_ct<KH, KW, 64, 32, XT, TF>(a, stream);
   }
-  if (ct == 16) return launch_ct<KH, KW, 16, 64, XT>(a, stream);
-  if (ct == 32) return launch_ct<KH, KW, 32, 64, XT>(a, stream);
-  return launch_ct<KH, KW, 64, 64, XT>(a, stream);
+  if (ct == 16) return launch_ct<KH, KW, 16, 64, XT, TF>(a, stream);
+  if (ct == 32) return launch_ct<KH, KW, 32, 64, XT, TF>(a, stream);
+  return launch_ct<KH, KW, 64, 64, XT, TF>(a, stream);
 }
 
 template <int KH, int KW>
 int entry(const void* x, int x_int16, const void* w, void* codes,
           void* moments, void* minmax, const void* inv_scale,
-          const void* mult, unsigned int seed, int stochastic, int light,
-          int round_bf16, int bits_out, const int* dims, void* stream) {
+          const void* mult, unsigned int k0, unsigned int k1,
+          unsigned int inner, int mode, int round_bf16, int bits_out,
+          const int* dims, void* stream) {
   // dims: b, h, w, cin, ho, wo, cout, sh, sw, ph, pw
   Args a;
   a.x = x;
@@ -516,19 +531,28 @@ int entry(const void* x, int x_int16, const void* w, void* codes,
   a.b = dims[0]; a.h = dims[1]; a.w = dims[2]; a.cin = dims[3];
   a.ho = dims[4]; a.wo = dims[5]; a.cout = dims[6];
   a.sh = dims[7]; a.sw = dims[8]; a.ph = dims[9]; a.pw = dims[10];
-  a.seed = seed;
-  a.stochastic = stochastic;
-  a.light = light;
+  a.k0 = k0;
+  a.k1 = k1;
+  a.inner = inner;
+  a.mode = mode;
   a.round_bf16 = round_bf16;
   a.vec = a.cin % 16 == 0 && reinterpret_cast<uintptr_t>(x) % 16 == 0;
   if (a.b < 1 || a.ho < 1 || a.wo < 1 || a.cin < 1 || a.cout < 1 ||
-      bits_out < 1 || bits_out > 8 ||
+      bits_out < 1 || bits_out > 8 || mode < 0 || mode > 3 ||
+      (inner != 0 &&
+       static_cast<int64_t>(inner) !=
+           static_cast<int64_t>(a.ho) * a.wo * a.cout) ||
       static_cast<int64_t>(a.b) * a.ho * a.wo > INT32_MAX)
     return static_cast<int>(cudaErrorInvalidValue);
   a.limit = static_cast<float>(1 << (bits_out - 1));
   auto st = static_cast<cudaStream_t>(stream);
-  cudaError_t err = x_int16 ? launch<KH, KW, int16_t>(a, st)
-                            : launch<KH, KW, int8_t>(a, st);
+  cudaError_t err;
+  if (mode == 3)
+    err = x_int16 ? launch<KH, KW, int16_t, true>(a, st)
+                  : launch<KH, KW, int8_t, true>(a, st);
+  else
+    err = x_int16 ? launch<KH, KW, int16_t, false>(a, st)
+                  : launch<KH, KW, int8_t, false>(a, st);
   return static_cast<int>(err);
 }
 
@@ -538,27 +562,30 @@ int entry(const void* x, int x_int16, const void* w, void* codes,
 // w: int8 HWIO codes; codes: int8 [b, ho, wo, cout] out; moments: int64
 // [2*cout + 2], zeroed by the caller ([sum q; sum q^2], then one slot of
 // min/max keys and one of the blocks' ticket counter); minmax: float [2]
-// out; inv_scale, mult: one float each on the device; round_bf16 != 0
-// rounds the conv output to bfloat16 before min/max and the quantize.  One
-// launch; returns cudaGetLastError() after it.
+// out; inv_scale, mult: one float each on the device; mode 0 rounds half
+// to even, 1-3 stochastically (hash, hash1, threefry; dfxp.cuh) with the
+// key words k0 (the hashes' seed) and k1, at the counter idx % inner when
+// inner > 0 (which must then be ho*wo*cout); round_bf16 != 0 rounds the conv output to bfloat16 before
+// min/max and the quantize.  One launch; returns cudaGetLastError() after
+// it.
 extern "C" int lbt_conv3x3_fused(const void* x, int x_int16, const void* w,
                                  void* codes, void* moments, void* minmax,
                                  const void* inv_scale, const void* mult,
-                                 unsigned int seed, int stochastic, int light,
-                                 int round_bf16, int bits_out, const int* dims,
-                                 void* stream) {
+                                 unsigned int k0, unsigned int k1,
+                                 unsigned int inner, int mode, int round_bf16,
+                                 int bits_out, const int* dims, void* stream) {
   return entry<3, 3>(x, x_int16, w, codes, moments, minmax, inv_scale, mult,
-                     seed, stochastic, light, round_bf16, bits_out, dims,
+                     k0, k1, inner, mode, round_bf16, bits_out, dims,
                      stream);
 }
 
 extern "C" int lbt_conv1x1_fused(const void* x, int x_int16, const void* w,
                                  void* codes, void* moments, void* minmax,
                                  const void* inv_scale, const void* mult,
-                                 unsigned int seed, int stochastic, int light,
-                                 int round_bf16, int bits_out, const int* dims,
-                                 void* stream) {
+                                 unsigned int k0, unsigned int k1,
+                                 unsigned int inner, int mode, int round_bf16,
+                                 int bits_out, const int* dims, void* stream) {
   return entry<1, 1>(x, x_int16, w, codes, moments, minmax, inv_scale, mult,
-                     seed, stochastic, light, round_bf16, bits_out, dims,
+                     k0, k1, inner, mode, round_bf16, bits_out, dims,
                      stream);
 }

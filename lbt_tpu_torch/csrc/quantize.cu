@@ -9,11 +9,15 @@
 //           | floor(clip(x_i*mult + u_i, -L, L-1))     stochastic
 //   minmax  = [min_i x_i*mult, max_i x_i*mult]         on request
 // with L = 2^(bits-1), codes int8 (bits <= 8), int16 (<= 16) or int32.
-// The noise u_i is lbt_tpu's counter hash (lowbias32, or one multiply-
-// xorshift round for hash1) of i ^ seed, its top 24 bits times 2^-24, all
-// in 32-bit integer lanes, so the codes equal lbt_tpu's quantize_int with
-// backend='xla_hash' / 'xla_hash1' (and ops/kernels/quant.py's plain
-// version) bit for bit.
+// The noise u_i is one of lbt_tpu's three streams, drawn at the counter
+// c_i = i (or i % inner for a draw shared along axis 0, inner =
+// prod(shape[1:])): its counter hash (lowbias32, or one multiply-xorshift
+// round for hash1) of c_i ^ seed, the top 24 bits times 2^-24; or
+// jax.random.uniform's threefry (mode 3: Threefry-2x32 of the counter
+// (0, c_i) under the site key (seed, k1), the two words xored, 23 bits of
+// mantissa).  All in 32-bit integer lanes, so the codes equal lbt_tpu's
+// quantize_int with backend='xla_hash' / 'xla_hash1' / 'xla' (and
+// ops/kernels/quant.py's plain version) bit for bit.
 //
 // The multiplier: the TPU kernel built it outside (an in-kernel exp2 is a
 // VPU polynomial there).  Here it is an integer shift into the exponent
@@ -22,10 +26,17 @@
 // in registers from the exponent; block 0 stores it.  No host sync, no
 // extra launch, none of the small torch ops a site used to build it with.
 //
-// What bounds it on an H100: bytes.  4 B in and 1-4 B out an element for a
-// few f32 and ~10 integer operations: a stage-1 activation of ResNet-20 at
-// batch 128 (2,097,152 elements, int16 codes) moves 12.6 MB, 3.8 us at
-// 3.35 TB/s (ops/kernels/work.py).  The design:
+// What bounds it on an H100: bytes under the hashes, integer issue under
+// threefry.  4 B in and 1-4 B out an element for a few f32 and ~10
+// integer operations: a stage-1 activation of ResNet-20 at batch 128
+// (2,097,152 elements, int16 codes) moves 12.6 MB, 3.8 us at 3.35 TB/s
+// (ops/kernels/work.py).  Threefry adds at least 69 integer instructions
+// an element: at the SMs' issue rate (4 warp instructions an SM a clock)
+// that is more than the bytes' time, so mode 3 is bound by operations.
+// Each mode, and each with its draw shared along axis 0 (a modulo an
+// element), is a template instance of its own, so modes 0-2 unshared
+// compile as they did before threefry.
+// The design:
 //   * 256 threads a block, each with two float4 loads in flight before
 //     any arithmetic (32 registers, so 8 blocks fit an SM and its warps
 //     hide the hash's integer work under each other's loads),
@@ -89,7 +100,9 @@ struct Args {
   unsigned int* keys;   // [~key(min), key(max)] of a multi-block call
   unsigned int* ticket;
   unsigned long long n;
-  unsigned int seed;
+  unsigned int seed;   // the hashes' seed, or threefry's first key word
+  unsigned int k1;     // threefry's second key word
+  unsigned int inner;  // the counter is i % inner in a SHARED instance
   int bits;
   int vec;       // x 16-byte and codes 4-code aligned
   float lo, hi;  // -L and L-1, as the plain version's f32 clamp bounds
@@ -122,11 +135,12 @@ __device__ __forceinline__ float mult_of(int exp, int bits) {
                  : __int_as_float((max(e, -126) + 127) << 23);
 }
 
-// MODE 0: round half to even; 1: floor(+hash); 2: floor(+hash1).  Codes
+// MODE 0: round half to even; 1: floor(+hash); 2: floor(+hash1);
+// 3: floor(+threefry); SHARED: the noise at i % inner.  Codes
 // of at most 16 bits (|v| <= 2^15) round by the magic-number addition in
 // round-to-nearest or round-down mode, on the FP32 pipe; int32 codes
 // through the conversion unit.
-template <typename T, int MODE>
+template <typename T, int MODE, bool SHARED>
 __device__ __forceinline__ T code_of(float scaled, unsigned int idx,
                                      const Args& p) {
   float v;
@@ -136,7 +150,8 @@ __device__ __forceinline__ T code_of(float scaled, unsigned int idx,
     return static_cast<T>(__float_as_int(__fadd_rn(v, kMagic)) -
                           __float_as_int(kMagic));
   }
-  const float u = hash_uniform(idx, p.seed, MODE == 2);
+  const float u = noise_uniform(MODE, noise_index<SHARED>(idx, p.inner),
+                                p.seed, p.k1);
   v = fminf(fmaxf(__fadd_rn(scaled, u), p.lo), p.hi);
   if (sizeof(T) == 4) return static_cast<T>(__float2int_rd(v));
   return static_cast<T>(__float_as_int(__fadd_rd(v, kMagic)) -
@@ -220,7 +235,7 @@ __device__ __forceinline__ void finish_minmax(unsigned int ticket,
   *p.ticket = 0u;
 }
 
-template <typename T, int MODE, bool STATS>
+template <typename T, int MODE, bool SHARED, bool STATS>
 __global__ void __launch_bounds__(kThreads) k1_quantize_kernel(Args p) {
   float lo = __uint_as_float(0x7F800000u);  // +inf
   float hi = __uint_as_float(0xFF800000u);  // -inf
@@ -241,7 +256,7 @@ __global__ void __launch_bounds__(kThreads) k1_quantize_kernel(Args p) {
       lo = fminf(lo, s);
       hi = fmaxf(hi, s);
     }
-    out[i] = code_of<T, MODE>(s, static_cast<unsigned int>(i), p);
+    out[i] = code_of<T, MODE, SHARED>(s, static_cast<unsigned int>(i), p);
   }
 
   // the vector loop; the block's last pass draws the min/max ticket
@@ -281,10 +296,10 @@ __global__ void __launch_bounds__(kThreads) k1_quantize_kernel(Args p) {
       const unsigned int k = b + j * kThreads;
       if (k >= nvec) break;
       V c;
-      c.x = code_of<T, MODE>(v[j].x, 4 * k, p);
-      c.y = code_of<T, MODE>(v[j].y, 4 * k + 1, p);
-      c.z = code_of<T, MODE>(v[j].z, 4 * k + 2, p);
-      c.w = code_of<T, MODE>(v[j].w, 4 * k + 3, p);
+      c.x = code_of<T, MODE, SHARED>(v[j].x, 4 * k, p);
+      c.y = code_of<T, MODE, SHARED>(v[j].y, 4 * k + 1, p);
+      c.z = code_of<T, MODE, SHARED>(v[j].z, 4 * k + 2, p);
+      c.w = code_of<T, MODE, SHARED>(v[j].w, 4 * k + 3, p);
       o4[k] = c;
     }
   }
@@ -296,22 +311,32 @@ __global__ void __launch_bounds__(kThreads) k1_quantize_kernel(Args p) {
   }
 }
 
-template <typename T, int MODE>
+template <typename T, int MODE, bool SHARED>
 cudaError_t launch_mode(const Args& a, bool stats, int grid,
                         cudaStream_t stream) {
   if (stats)
-    k1_quantize_kernel<T, MODE, true><<<grid, kThreads, 0, stream>>>(a);
+    k1_quantize_kernel<T, MODE, SHARED, true>
+        <<<grid, kThreads, 0, stream>>>(a);
   else
-    k1_quantize_kernel<T, MODE, false><<<grid, kThreads, 0, stream>>>(a);
+    k1_quantize_kernel<T, MODE, SHARED, false>
+        <<<grid, kThreads, 0, stream>>>(a);
   return cudaGetLastError();
+}
+
+template <typename T, int MODE>
+cudaError_t launch_noise(const Args& a, bool stats, int grid,
+                         cudaStream_t stream) {
+  return a.inner ? launch_mode<T, MODE, true>(a, stats, grid, stream)
+                 : launch_mode<T, MODE, false>(a, stats, grid, stream);
 }
 
 template <typename T>
 cudaError_t launch(const Args& a, int mode, bool stats, int grid,
                    cudaStream_t stream) {
-  if (mode == 1) return launch_mode<T, 1>(a, stats, grid, stream);
-  if (mode == 2) return launch_mode<T, 2>(a, stats, grid, stream);
-  return launch_mode<T, 0>(a, stats, grid, stream);
+  if (mode == 1) return launch_noise<T, 1>(a, stats, grid, stream);
+  if (mode == 2) return launch_noise<T, 2>(a, stats, grid, stream);
+  if (mode == 3) return launch_noise<T, 3>(a, stats, grid, stream);
+  return launch_mode<T, 0, false>(a, stats, grid, stream);
 }
 
 }  // namespace
@@ -322,16 +347,19 @@ cudaError_t launch(const Args& a, int mode, bool stats, int grid,
 // statistics; scratch (with minmax): kScratchWords uint32, zero before
 // the first call (each call leaves it so): the two keys, and the ticket
 // counter a cache line further; mode 0 rounds half to even, 1 and 2
-// stochastically with the hash and hash1 noise of seed.  One launch of at
-// most max_blocks blocks on stream; returns cudaGetLastError() after it.
+// stochastically with the hash and hash1 noise of seed, 3 with the
+// threefry uniforms of the key (seed, k1); inner > 0 draws the noise at
+// the counter i % inner.  One launch of at most max_blocks blocks on
+// stream; returns cudaGetLastError() after it.
 extern "C" int lbt_quantize(const void* x, void* codes, int code_bytes,
                             unsigned long long n, const void* exp,
                             void* mult, void* minmax, void* scratch,
                             int max_blocks, int bits, unsigned int seed,
-                            int mode, void* stream) {
+                            unsigned int k1, unsigned int inner, int mode,
+                            void* stream) {
   const int want_bytes = bits <= 8 ? 1 : (bits <= 16 ? 2 : 4);
   if (bits < 1 || bits > 31 || code_bytes != want_bytes || mode < 0 ||
-      mode > 2 || max_blocks < 1 || n >= (1ull << 32) ||
+      mode > 3 || max_blocks < 1 || n >= (1ull << 32) ||
       (minmax != nullptr && (scratch == nullptr || n == 0)))
     return static_cast<int>(cudaErrorInvalidValue);
   Args a;
@@ -344,6 +372,8 @@ extern "C" int lbt_quantize(const void* x, void* codes, int code_bytes,
   a.ticket = a.keys == nullptr ? nullptr : a.keys + kScratchWords / 2;
   a.n = n;
   a.seed = seed;
+  a.k1 = k1;
+  a.inner = inner;
   a.bits = bits;
   a.vec = reinterpret_cast<uintptr_t>(x) % 16 == 0 &&
           reinterpret_cast<uintptr_t>(codes) % (4 * code_bytes) == 0;

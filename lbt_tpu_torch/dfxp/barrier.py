@@ -38,14 +38,16 @@ def make_sink(device=None) -> torch.Tensor:
 
 def quantize_cotangent(g: torch.Tensor, bits: int, exp: Exp,
                        key: Optional[KeyData], *, stochastic: bool,
-                       backend: str, target_overflow_rate: float = 0.0,
+                       backend: str, noise_shared_axis0: bool = False,
+                       target_overflow_rate: float = 0.0,
                        gate: bool = True):
     """``(codes, multiplier, stats)`` of a cotangent: its DFXP codes and
     the overflow statistics of ``g`` at ``exp`` (the hold sentinel when
     ``gate`` is off)."""
     with_mm = gate and target_overflow_rate == 0.0
     out = quantize_int(g, bits, exp, key, stochastic=stochastic,
-                       backend=backend, stats=with_mm)
+                       backend=backend,
+                       noise_shared_axis0=noise_shared_axis0, stats=with_mm)
     if with_mm:
         stats = overflow_indicators(out[2], bits)
     elif gate:
@@ -80,7 +82,8 @@ def grad_quant_barrier(
     key: Optional[KeyData] = None,
     *,
     stochastic: bool = False,
-    backend: str = "xla_hash",
+    backend: str = "xla",
+    noise_shared_axis0: bool = False,
     target_overflow_rate: float = 0.0,
     gate: bool = True,
 ) -> torch.Tensor:
@@ -92,5 +95,6 @@ def grad_quant_barrier(
     if bits >= 32 or not x.requires_grad:
         return x
     kw = dict(stochastic=stochastic, backend=backend,
+              noise_shared_axis0=noise_shared_axis0,
               target_overflow_rate=target_overflow_rate, gate=bool(gate))
     return _Barrier.apply(x, sink, exp, (bits, key, kw))

@@ -4,7 +4,9 @@ Stochastic rounding in ``lbt_tpu`` draws its noise from a key per site and
 step: ``step_key = fold_in(base_key, step)`` (``train/step.py``) and
 ``site_key = fold_in(fold_in(step_key, uid), site)`` (``nn/core.py``,
 ``Ctx.layer_key``).  The counter hash then seeds from the site key's two
-words (:func:`lbt_tpu_torch.dfxp.quantize.key_seed`).  Reproducing the
+words (:func:`lbt_tpu_torch.dfxp.quantize.key_seed`), and the ``prng``
+noise is the same cipher of each element's index under the site key
+(``ops/kernels/quant.py:threefry_uniform_flat``).  Reproducing the
 chain bit for bit here is what makes the port's stochastic codes equal to
 ``lbt_tpu``'s.
 

@@ -7,9 +7,12 @@ codes clipped to ``[-2**(bits-1), 2**(bits-1)-1]``, rounded half-to-even
 ``bits >= 32`` is an exact passthrough.
 
 Codes come from kernel K1 (:mod:`lbt_tpu_torch.ops.kernels.quant`).
-Stochastic noise is the ``hash`` / ``hash1`` counter hash of ``lbt_tpu``
-(``backend='xla_hash'`` / ``'xla_hash1'``), seeded from a key's raw data
-exactly as ``lbt_tpu`` seeds it, so codes match bit for bit.
+Stochastic noise is one of ``lbt_tpu``'s three XLA streams, drawn from a
+key's raw data exactly as ``lbt_tpu`` draws it, so codes match bit for
+bit: ``jax.random.uniform``'s threefry (``backend='xla'``, ``noise_mode=
+'prng'``) or the ``hash`` / ``hash1`` counter hash (``'xla_hash'`` /
+``'xla_hash1'``), each per element or, with ``noise_shared_axis0``, one
+draw of ``shape[1:]`` shared along axis 0 (:func:`noise_spec`).
 
 For training: the straight-through estimator (:func:`straight_through`,
 :func:`quantize_ste`), the overflow statistics the range controllers read
@@ -22,16 +25,17 @@ and statistics stay device tensors: a controller step needs no host sync.
 from __future__ import annotations
 
 import math
-from typing import Optional, Sequence, Tuple
+from typing import Optional, Sequence
 
 import torch
 
-from lbt_tpu_torch.ops.kernels.quant import (Exp, code_dtype,
+from lbt_tpu_torch.ops.kernels.quant import (HASH, HASH1, THREEFRY, Exp,
+                                             Noise, code_dtype,
                                              hash_uniform_flat, multiplier,
                                              quantize_codes)
 
-__all__ = ["EXP_MIN", "code_dtype", "dequantize", "hash_uniform",
-           "key_seed", "multiplier", "noise_seed", "overflow_indicators",
+__all__ = ["EXP_MIN", "Noise", "code_dtype", "dequantize", "hash_uniform",
+           "key_seed", "multiplier", "noise_spec", "overflow_indicators",
            "overflow_rates", "overflow_stats", "quantize", "quantize_int",
            "quantize_ste", "straight_through", "update_exponent"]
 
@@ -40,7 +44,10 @@ EXP_MIN = -110
 
 KeyData = Sequence[int]
 
-_HASH_BACKENDS = {"xla_hash": False, "xla_hash1": True}
+# lbt_tpu's quantize backends and the noise stream each draws ('pallas'
+# off a TPU falls back to 'xla' there)
+_BACKEND_MODES = {"xla": THREEFRY, "pallas": THREEFRY, "xla_hash": HASH,
+                  "xla_hash1": HASH1}
 
 
 def key_seed(key: KeyData) -> int:
@@ -60,19 +67,28 @@ def hash_uniform(key: KeyData, shape, light: bool = False,
         tuple(shape))
 
 
-def noise_seed(key: Optional[KeyData], stochastic: bool,
-               backend: str) -> Tuple[Optional[int], bool]:
-    """``(seed, light)`` of the counter-hash noise for a quantize site:
-    ``seed`` None rounds to nearest; ``light`` selects ``hash1``."""
+def noise_spec(key: Optional[KeyData], stochastic: bool, backend: str,
+               shape: Sequence[int],
+               shared_axis0: bool = False) -> Optional[Noise]:
+    """The :class:`Noise` of a quantize site of ``shape``, or None to
+    round to nearest.  ``backend`` is ``lbt_tpu``'s: ``'xla'`` draws
+    ``jax.random.uniform``'s threefry under the key, ``'xla_hash'`` /
+    ``'xla_hash1'`` the counter hash seeded by :func:`key_seed`.
+    ``shared_axis0`` draws ``shape[1:]`` once and broadcasts it along axis
+    0 (``lbt_tpu``'s ``_noise``; a 0-d shape draws per element)."""
     if not stochastic:
-        return None, False
+        return None
     if key is None:
         raise ValueError("stochastic quantization requires a PRNG key")
-    if backend not in _HASH_BACKENDS:
-        raise NotImplementedError(
-            f"stochastic backend {backend!r} is not ported; the port "
-            f"draws noise from {sorted(_HASH_BACKENDS)}")
-    return key_seed(key), _HASH_BACKENDS[backend]
+    if backend not in _BACKEND_MODES:
+        raise ValueError(f"unknown quantize backend {backend!r}; the port "
+                         f"draws noise for {sorted(_BACKEND_MODES)}")
+    mode = _BACKEND_MODES[backend]
+    inner = math.prod(shape[1:]) if shared_axis0 and len(shape) else 0
+    k0, k1 = (int(v) & 0xFFFFFFFF for v in key)
+    if mode == THREEFRY:
+        return Noise(mode, k0, k1, inner)
+    return Noise(mode, key_seed(key), 0, inner)
 
 
 def quantize_int(
@@ -82,22 +98,24 @@ def quantize_int(
     key: Optional[KeyData] = None,
     *,
     stochastic: bool = False,
-    backend: str = "xla_hash",
+    backend: str = "xla",
+    noise_shared_axis0: bool = False,
     stats: bool = False,
 ):
     """Quantize to integer codes: ``(codes, multiplier)`` with
     ``dequantized = codes / multiplier`` and codes in :func:`code_dtype`.
 
     ``key`` is raw key data (two uint32 words); stochastic rounding
-    draws the counter-hash noise of ``backend`` (``'xla_hash'`` or
-    ``'xla_hash1'``).  ``bits`` must be < 32.  ``stats=True`` returns
-    ``(codes, multiplier, minmax)``, ``minmax`` the f32 ``[min, max]`` of
-    ``x * multiplier`` from the same K1 pass."""
+    draws the noise of ``backend`` (``'xla'``, ``'xla_hash'`` or
+    ``'xla_hash1'``, :func:`noise_spec`), shared along axis 0 with
+    ``noise_shared_axis0``.  ``bits`` must be < 32.  ``stats=True``
+    returns ``(codes, multiplier, minmax)``, ``minmax`` the f32 ``[min,
+    max]`` of ``x * multiplier`` from the same K1 pass."""
     if bits >= 32:
         raise ValueError("quantize_int needs bits < 32")
-    seed, light = noise_seed(key, stochastic, backend)
+    noise = noise_spec(key, stochastic, backend, x.shape, noise_shared_axis0)
     x = x.to(torch.float32).contiguous()
-    return quantize_codes(x, bits, exp, seed, light=light, stats=stats)
+    return quantize_codes(x, bits, exp, noise, stats=stats)
 
 
 def dequantize(codes: torch.Tensor, mult: torch.Tensor) -> torch.Tensor:
@@ -111,14 +129,16 @@ def quantize(
     key: Optional[KeyData] = None,
     *,
     stochastic: bool = False,
-    backend: str = "xla_hash",
+    backend: str = "xla",
+    noise_shared_axis0: bool = False,
 ) -> torch.Tensor:
     """Fake-quantize: quantize then dequantize (``bits >= 32`` passes
     ``x`` through)."""
     if bits >= 32:
         return x
     codes, mult = quantize_int(x, bits, exp, key, stochastic=stochastic,
-                               backend=backend)
+                               backend=backend,
+                               noise_shared_axis0=noise_shared_axis0)
     return dequantize(codes, mult)
 
 
@@ -154,7 +174,8 @@ def quantize_ste(
     key: Optional[KeyData] = None,
     *,
     stochastic: bool = False,
-    backend: str = "xla_hash",
+    backend: str = "xla",
+    noise_shared_axis0: bool = False,
     stats: bool = False,
 ):
     """Fake-quantize with a straight-through gradient.  ``stats=True``
@@ -164,7 +185,8 @@ def quantize_ste(
             raise ValueError("no statistics of a passthrough site")
         return x
     out = quantize_int(x, bits, exp, key, stochastic=stochastic,
-                       backend=backend, stats=stats)
+                       backend=backend,
+                       noise_shared_axis0=noise_shared_axis0, stats=stats)
     xq = straight_through(x, dequantize(out[0], out[1]))
     return (xq, out[2]) if stats else xq
 

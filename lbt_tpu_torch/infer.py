@@ -1,7 +1,7 @@
 """Serving (PyTorch port of ``lbt_tpu/infer.py``): a predict function and a
 ``Predictor`` handle, on the card unless asked for the CPU.
 
-The serving forward runs the integer engine with running BN statistics,
+The serving forward runs the model's engine with running BN statistics,
 deterministic round-half-even quantization and no state updates
 (``Ctx(train=False, update=False)``).  Orbax checkpoints, the int8 weight
 export and BN folding are not ported yet.
@@ -16,13 +16,14 @@ import torch
 from lbt_tpu_torch.convert import from_jax_numpy
 from lbt_tpu_torch.nn.core import Ctx
 from lbt_tpu_torch.nn.model import Model
-from lbt_tpu_torch.utils.device import resolve_device
+from lbt_tpu_torch.utils.device import full_f32, resolve_device
 
 
 def make_predict_fn(model: Model, return_probs: bool = False):
     """``x -> labels [, probs]`` for NHWC f32 ``x`` on the model's device."""
     ctx = Ctx(train=False, update=False)
 
+    @full_f32()
     @torch.inference_mode()
     def predict(x: torch.Tensor):
         logits = model.apply(x, ctx)

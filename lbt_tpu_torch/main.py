@@ -1,14 +1,15 @@
 """Experiment CLI of the PyTorch port: ``main.py``'s flags and defaults,
 plus ``--device``.
 
+    python -m lbt_tpu_torch.main                  # main.py's defaults
     python -m lbt_tpu_torch.main --model CIFAR10_Resnet20 --bits 8 \\
         --noise_mode hash --batch_size 128 --device cuda
 
 A command line of ``main.py`` runs here unchanged where the port has what
-it asks for.  A flag value the port cannot run exits with status 2 before
-any work, naming the value and the ROADMAP item that ports it; none is
-replaced in silence.  ``main.py``'s default ``--noise_mode prng`` is one of
-them: pass ``--noise_mode hash``.
+it asks for, its defaults included (``--noise_mode prng`` draws
+``jax.random``'s threefry stream bit for bit).  A flag value the port
+cannot run exits with status 2 before any work, naming the value and the
+ROADMAP item that ports it; none is replaced in silence.
 """
 
 from __future__ import annotations
@@ -62,9 +63,9 @@ def build_parser() -> argparse.ArgumentParser:
                    help="round-to-nearest-even instead of stochastic")
     p.add_argument("--noise_mode", type=str, default="prng",
                    choices=["prng", "hash", "hash1"],
-                   help="stochastic-rounding noise: the counter hash "
-                        "('hash') or its single-round form ('hash1'); "
-                        "'prng' is not ported")
+                   help="stochastic-rounding noise: jax.random's threefry "
+                        "uniforms ('prng'), the counter hash ('hash') or "
+                        "its single-round form ('hash1')")
     p.add_argument("--conv_act_extra", type=int, default=1,
                    help="extra bits for conv activations over --bits_a")
     p.add_argument("--fused_bn", action="store_true")
@@ -122,6 +123,36 @@ def build_parser() -> argparse.ArgumentParser:
     return p
 
 
+def quant_config(args) -> QuantConfig:
+    """``main.py``'s QuantConfig of a command line: the FP32 passthrough
+    (``QuantConfig.fp32()``, engine ``sim``) when every width is 32, else
+    the flags as given (conv activations get no extra bit past a 32-bit
+    ``bits_a``)."""
+    bw = args.bits_w if args.bits_w is not None else args.bits
+    ba = args.bits_a if args.bits_a is not None else args.bits
+    bg = args.bits_g if args.bits_g is not None else args.bits
+    if bw >= 32 and ba >= 32 and bg >= 32:
+        return QuantConfig.fp32(stem_s2d=args.stem_s2d)
+    return QuantConfig(
+        bits_w=bw, bits_a=ba, bits_b=bw, bits_g=bg,
+        conv_act_extra=0 if ba >= 32 else args.conv_act_extra,
+        target_overflow_rate=args.target_overflow_rate,
+        stochastic=not args.deterministic_rounding,
+        noise_shared_axis0=args.noise_shared_axis0,
+        noise_mode=args.noise_mode,
+        engine=args.engine,
+        fused_bn=args.fused_bn,
+        bn_momentum=args.bn_momentum,
+        faithful_eval=args.faithful_eval,
+        range_update_every=args.range_update_every,
+        act_dtype=args.act_dtype,
+        remat_bn=args.remat_bn,
+        bn_residual_q16=args.bn_residual_q16,
+        initial_exponent_g=args.initial_exponent_g,
+        stem_s2d=args.stem_s2d,
+    )
+
+
 def refusals(args) -> List[str]:
     """Why the port cannot run this command line: one message per flag
     value, each naming the ROADMAP item that ports it."""
@@ -129,31 +160,8 @@ def refusals(args) -> List[str]:
     if args.model in NOT_PORTED:
         out.append(f"--model {args.model} is not ported (ROADMAP queue 1 "
                    f"item 6); the port has {sorted(MODEL_REGISTRY)}")
-    if args.noise_mode == "prng":
-        out.append("--noise_mode prng (main.py's default: jax.random "
-                   "threefry noise) is not ported (ROADMAP queue 1 item 2); "
-                   "pass --noise_mode hash")
-    bw = args.bits_w if args.bits_w is not None else args.bits
-    ba = args.bits_a if args.bits_a is not None else args.bits
-    bg = args.bits_g if args.bits_g is not None else args.bits
-    if bw >= 32 and ba >= 32 and bg >= 32:
-        out.append(f"--bits {args.bits}: the fp32 passthrough runs "
-                   f"engine='sim', which is not ported (ROADMAP queue 1 "
-                   f"item 4)")
-    elif (bw > 8 or ba > 8 or bg > 8
-          or ba + args.conv_act_extra > 9):
-        out.append(f"bit-widths w{bw} a{ba} g{bg} (conv activations "
-                   f"a{ba + args.conv_act_extra}) need lbt_tpu's float "
-                   f"fallback, which is not ported (ROADMAP queue 1 item 4): "
-                   f"the int8 engine takes w, a, g <= 8 and conv "
-                   f"activations <= 9 bits")
-    if args.engine in ("sim", "sim_bf16"):
-        out.append(f"--engine {args.engine} is not ported (ROADMAP queue 1 "
-                   f"item 4); the port runs int8 (and pallas as its alias)")
     for flag, item in (("bn_residual_q16", "queue 1 item 13, not to port"),
                        ("remat_bn", "queue 1 item 13, not to port"),
-                       ("stem_s2d", "queue 1 item 4"),
-                       ("noise_shared_axis0", "queue 1 item 2"),
                        ("native_loader", "queue 1 item 9"),
                        ("data_parallel", "queue 1 item 12"),
                        ("lowbit_allreduce", "queue 1 item 12"),
@@ -199,24 +207,7 @@ def main(argv: Optional[List[str]] = None) -> Trainer:
     logger.info("Start of experiment: %s",
                 json.dumps(vars(args), sort_keys=True))
 
-    bits = args.bits
-    cfg = QuantConfig(
-        bits_w=args.bits_w if args.bits_w is not None else bits,
-        bits_a=args.bits_a if args.bits_a is not None else bits,
-        bits_b=args.bits_w if args.bits_w is not None else bits,
-        bits_g=args.bits_g if args.bits_g is not None else bits,
-        conv_act_extra=args.conv_act_extra,
-        target_overflow_rate=args.target_overflow_rate,
-        stochastic=not args.deterministic_rounding,
-        noise_mode=args.noise_mode,
-        engine=args.engine,
-        fused_bn=args.fused_bn,
-        bn_momentum=args.bn_momentum,
-        faithful_eval=args.faithful_eval,
-        range_update_every=args.range_update_every,
-        act_dtype=args.act_dtype,
-        initial_exponent_g=args.initial_exponent_g,
-    )
+    cfg = quant_config(args)
     tc = TrainConfig(
         lr=args.lr, momentum=args.momentum,
         weight_decay=args.weight_decay, batch_size=args.batch_size,

@@ -1,6 +1,6 @@
 """Model zoo (PyTorch port of ``lbt_tpu/models/zoo.py``): the CIFAR
 ResNets (the gradient-buffer option is not ported) and the ImageNet
-ResNets (the space-to-depth stem is not ported).  The other ``lbt_tpu``
+ResNets, with the space-to-depth stem on request.  The other ``lbt_tpu``
 models are not ported yet."""
 
 from __future__ import annotations
@@ -10,7 +10,7 @@ from typing import Callable, Dict
 from lbt_tpu_torch.config import QuantConfig
 from lbt_tpu_torch.nn.blocks import ResidualBlock, ResidualBottleneck
 from lbt_tpu_torch.nn.layers import (AvgPool, Conv2d, Dense, Flatten,
-                                     MaxPool, ReLU)
+                                     MaxPool, ReLU, SpaceToDepth)
 from lbt_tpu_torch.nn.model import Model
 from lbt_tpu_torch.nn.norm import BatchNorm
 
@@ -81,14 +81,22 @@ def imagenet_resnet(cfg: QuantConfig, depth: int = 50,
     3x3/2 SAME max pool, four stages at 64/128/256/512 channels (basic
     blocks or bottlenecks; strides 1/2/2/2), global average pool and a
     dense head with bias.  ``dropout_keep`` is accepted and unused, as in
-    ``lbt_tpu``; ``cfg.stem_s2d`` (the space-to-depth stem) is not ported
-    and raises in ``check_supported``.  Parameters are zero until
+    ``lbt_tpu``.  ``cfg.stem_s2d`` takes the MLPerf space-to-depth stem:
+    a 2x2 :class:`SpaceToDepth`, then a 4x4/s1 conv over 12 channels with
+    pads (1, 2), into which the 7x7/s2 SAME conv embeds exactly
+    (``lbt_tpu/models/zoo.py``).  Parameters are zero until
     :meth:`Model.init`."""
     del dropout_keep
     block_cls, stage_sizes = _IMAGENET_STAGES[depth]
-    layers = [
-        Conv2d("conv1", cfg, (7, 7, 3, 64), (2, 2), "SAME", use_bias=False,
-               weight_decay=weight_decay),
+    if cfg.stem_s2d:
+        stem = [SpaceToDepth(block=2),
+                Conv2d("conv1", cfg, (4, 4, 12, 64), (1, 1),
+                       ((1, 2), (1, 2)), use_bias=False,
+                       weight_decay=weight_decay)]
+    else:
+        stem = [Conv2d("conv1", cfg, (7, 7, 3, 64), (2, 2), "SAME",
+                       use_bias=False, weight_decay=weight_decay)]
+    layers = stem + [
         BatchNorm("conv1-bn", cfg, 64, weight_decay=weight_decay),
         ReLU(),
         MaxPool(ksize=(3, 3), strides=(2, 2), padding="SAME"),

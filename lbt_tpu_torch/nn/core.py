@@ -183,9 +183,10 @@ class Layer(nn.Module):
     # -- helpers of quantized layers ---------------------------------------
     def _qkw(self, ctx: Ctx) -> dict:
         """Rounding options: stochastic only with a key (no key =
-        serving, round-to-nearest)."""
+        serving, round-to-nearest), the noise stream and its sharing."""
         return dict(stochastic=self.cfg.stochastic and ctx.key is not None,
-                    backend=self.cfg.quant_backend)
+                    backend=self.cfg.quant_backend,
+                    noise_shared_axis0=self.cfg.noise_shared_axis0)
 
     def _ctrl(self, ctx: Ctx, site: str, bits: int, x: torch.Tensor,
               minmax: Optional[torch.Tensor] = None) -> None:

@@ -82,6 +82,7 @@ class _QuantLeaf(Layer):
         cfg = self.cfg
         return dict(bits_x=bits_x, bits_w=cfg.bits_w,
                     exp_g=self.exp("grad"), bits_g=cfg.bits_g,
+                    engine=cfg.engine,
                     key_x=ctx.layer_key(self.uid, SITE_X),
                     key_w=ctx.layer_key(self.uid, SITE_W),
                     stats=ctx.controls, **self._qkw(ctx))
@@ -259,3 +260,23 @@ class Flatten(Layer):
 
     def forward(self, x, ctx):
         return x.reshape(x.shape[0], -1)
+
+
+class SpaceToDepth(Layer):
+    """NHWC block rearrange, ``[B, H, W, C] -> [B, H/b, W/b, b*b*C]``,
+    output channels in ``(ph, pw, c)`` order, phase-major, as
+    ``lbt_tpu``'s.  Stateless and exact; autograd differentiates the
+    reshape and permute.  The s2d ImageNet stem (``QuantConfig.stem_s2d``)
+    runs a 4x4/s1 conv over its output in place of the 7x7/s2 conv."""
+
+    def __init__(self, name: str = "", *, block: int = 2):
+        super().__init__(name)
+        self.block = int(block)
+
+    def forward(self, x, ctx):
+        b = self.block
+        n, h, w, c = x.shape
+        if h % b or w % b:
+            raise ValueError(f"{tuple(x.shape)} is not divisible by {b}")
+        y = x.reshape(n, h // b, b, w // b, b, c).permute(0, 1, 3, 2, 4, 5)
+        return y.reshape(n, h // b, w // b, b * b * c)

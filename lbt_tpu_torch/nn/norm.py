@@ -353,14 +353,16 @@ class BatchNorm(Sequential):
 
     def fuses_with(self, layer: Layer) -> bool:
         """Whether ``layer`` then this BN can run as one fused kernel: a
-        bias-free conv with a kernel for its shape, controllers at a zero
-        target (they read min / max only)."""
-        norm = self.layers[0]
+        bias-free conv on the integer route (``int8`` / ``pallas``) with a
+        kernel for its shape and widths, controllers at a zero target
+        (they read min / max only).  Under ``sim`` / ``sim_bf16`` the conv
+        runs on its own and K1 quantizes the BN input."""
+        norm, ccfg = self.layers[0], layer.cfg
         return (isinstance(layer, Conv2d) and not layer.use_bias
-                and layer.cfg.bits_g <= 8
-                and layer.cfg.target_overflow_rate == 0.0
+                and ccfg.target_overflow_rate == 0.0
                 and norm.cfg.target_overflow_rate == 0.0
-                and fusable(layer.ksize, norm.cfg.bits_a))
+                and fusable(layer.ksize, norm.cfg.bits_a, ccfg.engine,
+                            ccfg.bits_a_conv, ccfg.bits_w, ccfg.bits_g))
 
     def forward_from(self, conv: Conv2d, x, ctx: Ctx):
         y = self.layers[0].forward_from_conv(conv, x, ctx)

@@ -29,7 +29,7 @@ from typing import Optional, Tuple
 import torch
 
 from lbt_tpu_torch.ops.im2col import Pads, im2col, out_hw
-from lbt_tpu_torch.ops.kernels.quant import round_codes
+from lbt_tpu_torch.ops.kernels.quant import Noise, round_codes
 
 _CODE_DTYPES = (torch.int8, torch.int16)
 
@@ -37,8 +37,7 @@ _CODE_DTYPES = (torch.int8, torch.int16)
 def conv_fused_plain(xc: torch.Tensor, wc: torch.Tensor,
                      inv_scale: torch.Tensor, mult_out: torch.Tensor, *,
                      strides: Tuple[int, int], pads: Pads, bits_out: int = 8,
-                     seed: Optional[int] = None, light: bool = False,
-                     round_bf16: bool = False):
+                     noise: Optional[Noise] = None, round_bf16: bool = False):
     """Plain PyTorch version of #4 / #5 (any device):
     ``(codes [B,Ho,Wo,K] int8, moments [2,K] int64, minmax [2] f32)``.
     ``round_bf16`` rounds the conv output to bfloat16 (nearest, ties to
@@ -56,13 +55,14 @@ def conv_fused_plain(xc: torch.Tensor, wc: torch.Tensor,
     if round_bf16:
         y = y.to(torch.bfloat16).to(torch.float32)
     minmax = torch.stack([y.amin(), y.amax()])
-    codes = round_codes(y * mult_out, bits_out, seed, light)
+    codes = round_codes(y * mult_out, bits_out, noise)
     c64 = codes.to(torch.int64)
     moments = torch.stack([c64.sum(0), (c64 * c64).sum(0)])
     return codes.view(b, ho, wo, cout), moments, minmax
 
 
-def _check(xc, wc, inv_scale, mult_out, strides, pads, bits_out, ksize):
+def _check(xc, wc, inv_scale, mult_out, strides, pads, bits_out, ksize,
+           noise):
     if xc.dtype not in _CODE_DTYPES or wc.dtype != torch.int8:
         raise ValueError(f"need int8/int16 input codes and int8 weight "
                          f"codes, got {xc.dtype}, {wc.dtype}")
@@ -86,12 +86,16 @@ def _check(xc, wc, inv_scale, mult_out, strides, pads, bits_out, ksize):
     b, h, w, _ = xc.shape
     ho, wo = out_hw(h, w, ksize, strides, pads)
     if b * ho * wo * wc.shape[3] >= 2 ** 32 or xc.numel() >= 2 ** 31:
-        raise ValueError("the hash counter and the kernel's int32 indices "
+        raise ValueError("the noise counter and the kernel's int32 indices "
                          "cover smaller tensors")
+    # a shared draw is one of the BN input's shape[1:]
+    if noise is not None and (noise.mode not in (1, 2, 3) or noise.inner
+                              not in (0, ho * wo * wc.shape[3])):
+        raise ValueError(f"bad noise {noise}")
 
 
 def _launch(entry: str, xc, wc, inv_scale, mult_out, strides, pads,
-            bits_out, seed, light, round_bf16):
+            bits_out, noise, round_bf16):
     b, h, w, cin = xc.shape
     kh, kw, _, cout = wc.shape
     ho, wo = out_hw(h, w, (kh, kw), strides, pads)
@@ -110,9 +114,10 @@ def _launch(entry: str, xc, wc, inv_scale, mult_out, strides, pads,
         rc = fn(xc.data_ptr(), int(xc.dtype == torch.int16), wc.data_ptr(),
                 codes.data_ptr(), moments.data_ptr(), minmax.data_ptr(),
                 inv_scale.data_ptr(), mult_out.data_ptr(),
-                0 if seed is None else seed & 0xFFFFFFFF,
-                int(seed is not None), int(light), int(round_bf16), bits_out,
-                dims, stream)
+                *((0, 0, 0, 0) if noise is None else
+                  (noise.k0 & 0xFFFFFFFF, noise.k1 & 0xFFFFFFFF,
+                   noise.inner, noise.mode)),
+                int(round_bf16), bits_out, dims, stream)
     if rc != 0:
         raise RuntimeError(f"{entry} launch failed: cudaError {rc} at x "
                            f"{tuple(xc.shape)} w {tuple(wc.shape)}")
@@ -120,46 +125,52 @@ def _launch(entry: str, xc, wc, inv_scale, mult_out, strides, pads,
 
 
 def _fused(ksize, entry, counter, xc, wc, inv_scale, mult_out, strides,
-           pads, bits_out, seed, light, round_bf16):
+           pads, bits_out, noise, round_bf16):
     strides = tuple(strides)
     pads = tuple(tuple(p) for p in pads)
-    _check(xc, wc, inv_scale, mult_out, strides, pads, bits_out, ksize)
+    _check(xc, wc, inv_scale, mult_out, strides, pads, bits_out, ksize,
+           noise)
     if xc.device.type == "cpu":
         return conv_fused_plain(xc, wc, inv_scale, mult_out, strides=strides,
-                                pads=pads, bits_out=bits_out, seed=seed,
-                                light=light, round_bf16=round_bf16)
+                                pads=pads, bits_out=bits_out, noise=noise,
+                                round_bf16=round_bf16)
     if xc.device.type != "cuda":
         raise ValueError(f"no fused conv kernel for device {xc.device}")
     out = _launch(entry, xc, wc, inv_scale, mult_out, strides, pads,
-                  bits_out, seed, light, round_bf16)
+                  bits_out, noise, round_bf16)
     counter.launches += 1
+    counter.launches_by_mode[0 if noise is None else noise.mode] += 1
     return out
 
 
 def conv3x3_fused(xc, wc, inv_scale, mult_out, *, strides, pads,
-                  bits_out: int = 8, seed: Optional[int] = None,
-                  light: bool = False, round_bf16: bool = False):
+                  bits_out: int = 8, noise: Optional[Noise] = None,
+                  round_bf16: bool = False):
     """#4: 3x3 conv of int8 or 9-bit int16 codes (any stride and padding)
     with the epilogue; ``(codes, moments, minmax)`` as
     :func:`conv_fused_plain`.  int16 codes must lie in [-256, 255]: the
     kernel contracts them as split-9 int8 planes.
-    ``seed=None`` rounds half-to-even, an int seed stochastically with
-    the counter hash (``light`` = ``hash1``).  ``round_bf16`` as in
+    ``noise=None`` rounds half-to-even, a :class:`~lbt_tpu_torch.ops.
+    kernels.quant.Noise` stochastically with its stream over the flat
+    NHWC index of the output.  ``round_bf16`` as in
     :func:`conv_fused_plain`."""
     return _fused((3, 3), "lbt_conv3x3_fused", conv3x3_fused, xc, wc,
-                  inv_scale, mult_out, strides, pads, bits_out, seed, light,
+                  inv_scale, mult_out, strides, pads, bits_out, noise,
                   round_bf16)
 
 
 def conv1x1_fused(xc, wc, inv_scale, mult_out, *, strides, pads,
-                  bits_out: int = 8, seed: Optional[int] = None,
-                  light: bool = False, round_bf16: bool = False):
+                  bits_out: int = 8, noise: Optional[Noise] = None,
+                  round_bf16: bool = False):
     """#5: 1x1 conv (rows gathered at the stride) with the same epilogue
     and contract as :func:`conv3x3_fused`."""
     return _fused((1, 1), "lbt_conv1x1_fused", conv1x1_fused, xc, wc,
-                  inv_scale, mult_out, strides, pads, bits_out, seed, light,
+                  inv_scale, mult_out, strides, pads, bits_out, noise,
                   round_bf16)
 
 
 conv3x3_fused.launches = 0
 conv1x1_fused.launches = 0
+# the launches of each noise mode, as quantize_codes.launches_by_mode
+conv3x3_fused.launches_by_mode = [0, 0, 0, 0]
+conv1x1_fused.launches_by_mode = [0, 0, 0, 0]

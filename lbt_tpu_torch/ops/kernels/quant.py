@@ -13,12 +13,16 @@ out beside the codes; on request (``stats=True``) it also gives the
 ``[min, max]`` of the scaled tensor ``x * mult``, all that
 ``overflow_stats`` needs at a zero target rate, reduced across blocks in
 the same launch (a ticket in a per-stream scratch tells the last block).
-The TPU's hardware PRNG is replaced by the counter hash of ``lbt_tpu``'s
-``xla_hash`` / ``xla_hash1`` paths over the row-major flat index
-(:func:`hash_uniform_flat`), so stochastic codes match ``lbt_tpu`` bit for
-bit.  The source's header says what bounds the kernel (bytes) and how its
-design answers.  Built by ``build.py`` and called through ``ctypes`` on
-PyTorch's current stream.
+The TPU's hardware PRNG is replaced by the three noise streams of
+``lbt_tpu``'s XLA paths over the row-major flat index: the counter hashes
+of ``xla_hash`` / ``xla_hash1`` (:func:`hash_uniform_flat`) and
+``jax.random.uniform``'s partitionable threefry of ``xla`` (``noise_mode=
+'prng'``, :func:`threefry_uniform_flat`), each also as one draw of
+``shape[1:]`` shared along axis 0; a :class:`Noise` names the stream, its
+key and that sharing.  So stochastic codes match ``lbt_tpu`` bit for bit.
+The source's header says what bounds the kernel (bytes under the hashes,
+integer operations under threefry) and how its design answers.  Built by
+``build.py`` and called through ``ctypes`` on PyTorch's current stream.
 
 :func:`quantize_codes` is the wrapper: a CPU tensor takes the plain PyTorch
 version :func:`quantize_codes_plain`; a CUDA tensor launches the kernel or
@@ -29,7 +33,7 @@ from __future__ import annotations
 
 import functools
 import math
-from typing import Optional, Union
+from typing import NamedTuple, Optional, Union
 
 import torch
 
@@ -38,10 +42,29 @@ _INV24 = 2.0 ** -24
 # lowbias32 / multiply-xorshift constants of lbt_tpu's counter hash
 _HASH_M1 = 0x7FEB352D
 _HASH_M2 = 0x846CA68B
+# Threefry-2x32's rotations (JAX's schedule, dfxp/keys.py) and key parity
+_ROT = ((13, 15, 26, 6), (17, 29, 16, 24))
+_KS_PARITY = 0x1BD11BDA
 # the kernel's grid: at most this many blocks of 256 threads an SM
 BLOCKS_PER_SM = 4
 
 Exp = Union[int, torch.Tensor]
+
+# noise modes (the kernels' ``mode``; 0 rounds half to even)
+HASH, HASH1, THREEFRY = 1, 2, 3
+
+
+class Noise(NamedTuple):
+    """The stochastic-rounding noise of one quantize call.  ``mode`` is
+    :data:`HASH`, :data:`HASH1` or :data:`THREEFRY`; ``k0`` the hashes'
+    32-bit seed or the threefry key's first word, ``k1`` its second;
+    ``inner > 0`` draws element ``i``'s noise at the counter ``i % inner``
+    (``lbt_tpu``'s ``noise_shared_axis0``: one draw of ``shape[1:]``,
+    ``inner = prod(shape[1:])``, broadcast along axis 0)."""
+    mode: int
+    k0: int
+    k1: int = 0
+    inner: int = 0
 
 
 def code_dtype(bits: int) -> torch.dtype:
@@ -74,14 +97,20 @@ def _mul32(h: torch.Tensor, c: int) -> torch.Tensor:
     return (lo + hi) & _MASK32
 
 
-def hash_uniform_flat(seed: int, n: int, light: bool,
-                      device=None) -> torch.Tensor:
+def _counters(n: int, inner: int, device) -> torch.Tensor:
+    """int64 counters of ``n`` flat indices: ``i``, or ``i % inner``."""
+    i = torch.arange(n, dtype=torch.int64, device=device)
+    return i % inner if inner else i
+
+
+def hash_uniform_flat(seed: int, n: int, light: bool, device=None,
+                      inner: int = 0) -> torch.Tensor:
     """Uniform [0, 1) f32 noise: the top 24 bits of the uint32 counter
     hash of ``arange(n) ^ seed``, as ``lbt_tpu/dfxp/quantize.py:
     _hash_uniform`` computes it — the lowbias32 finalizer
     (``noise_mode='hash'``) or, with ``light``, one multiply-xorshift
-    round (``'hash1'``)."""
-    x = torch.arange(n, dtype=torch.int64, device=device) ^ (seed & _MASK32)
+    round (``'hash1'``).  ``inner > 0`` counts ``arange(n) % inner``."""
+    x = _counters(n, inner, device) ^ (seed & _MASK32)
     if not light:
         x = x ^ (x >> 16)
     x = _mul32(x, _HASH_M1)
@@ -92,29 +121,65 @@ def hash_uniform_flat(seed: int, n: int, light: bool,
     return (x >> 8).to(torch.float32) * _INV24
 
 
-def round_codes(scaled: torch.Tensor, bits: int, seed: Optional[int] = None,
-                light: bool = False) -> torch.Tensor:
+def _rotl32(v: torch.Tensor, r: int) -> torch.Tensor:
+    t = (v << r).bitwise_and_(_MASK32)
+    return t.bitwise_or_(v >> (32 - r))
+
+
+def threefry_uniform_flat(k0: int, k1: int, n: int, inner: int = 0,
+                          device=None) -> torch.Tensor:
+    """Uniform [0, 1) f32 noise equal to ``jax.random.uniform(key, shape,
+    float32)`` for a key of raw data ``(k0, k1)`` and ``n = prod(shape)``,
+    under ``jax_threefry_partitionable`` (JAX's default): element ``i`` is
+    the Threefry-2x32 cipher of the counter ``(hi32(c), lo32(c))``, ``c =
+    i`` (or ``i % inner``), its two words xored, the top 23 bits as the
+    mantissa of 1.0, minus 1.  In int64 torch ops masked to 32 bits, as
+    ``dfxp/keys.py:threefry2x32`` runs the cipher in numpy."""
+    c = _counters(n, inner, device)
+    ks = (k0 & _MASK32, k1 & _MASK32, (k0 ^ k1 ^ _KS_PARITY) & _MASK32)
+    x0 = (c >> 32).add_(ks[0]).bitwise_and_(_MASK32)
+    x1 = c.bitwise_and_(_MASK32).add_(ks[1]).bitwise_and_(_MASK32)
+    for i in range(5):
+        for r in _ROT[i % 2]:
+            x0.add_(x1).bitwise_and_(_MASK32)
+            x1 = _rotl32(x1, r).bitwise_xor_(x0)
+        x0.add_(ks[(i + 1) % 3]).bitwise_and_(_MASK32)
+        x1.add_(ks[(i + 2) % 3] + i + 1).bitwise_and_(_MASK32)
+    bits = ((x0 ^ x1) >> 9) | 0x3F800000
+    return bits.to(torch.int32).view(torch.float32) - 1.0
+
+
+def noise_uniform(noise: Noise, n: int, device=None) -> torch.Tensor:
+    """The ``n`` uniforms of ``noise``'s stream over the flat index."""
+    if noise.mode == THREEFRY:
+        return threefry_uniform_flat(noise.k0, noise.k1, n, noise.inner,
+                                     device)
+    return hash_uniform_flat(noise.k0, n, noise.mode == HASH1, device,
+                             noise.inner)
+
+
+def round_codes(scaled: torch.Tensor, bits: int,
+                noise: Optional[Noise] = None) -> torch.Tensor:
     """Codes of an already scaled f32 tensor ``x * mult``: clipped, then
-    rounded half-to-even (``seed=None``) or as ``floor(scaled + u)`` with
-    the counter-hash noise over the flat index (any device)."""
+    rounded half-to-even (``noise=None``) or as ``floor(scaled + u)`` with
+    ``noise``'s uniforms over the flat index (any device)."""
     limit = float(2 ** (bits - 1))
-    if seed is None:
+    if noise is None:
         codes = torch.round(torch.clamp(scaled, -limit, limit - 1))
     else:
-        u = hash_uniform_flat(seed, scaled.numel(), light, scaled.device)
+        u = noise_uniform(noise, scaled.numel(), scaled.device)
         codes = torch.floor(
             torch.clamp(scaled + u.view(scaled.shape), -limit, limit - 1))
     return codes.to(code_dtype(bits))
 
 
 def quantize_codes_plain(x: torch.Tensor, bits: int, exp: Exp,
-                         seed: Optional[int] = None, light: bool = False,
-                         stats: bool = False):
+                         noise: Optional[Noise] = None, stats: bool = False):
     """Plain PyTorch version of K1 (any device): ``(codes, mult)`` or
     ``(codes, mult, minmax)``."""
     mult = multiplier(bits, exp, x.device)
     scaled = x * mult.reshape(())
-    codes = round_codes(scaled, bits, seed, light)
+    codes = round_codes(scaled, bits, noise)
     if stats:
         return codes, mult, torch.stack([scaled.amin(), scaled.amax()])
     return codes, mult
@@ -155,8 +220,8 @@ def _scratch(device: torch.device, stream: int) -> torch.Tensor:
     return buf
 
 
-def _launch(x: torch.Tensor, bits: int, exp: Exp, seed: Optional[int],
-            light: bool, stats: bool):
+def _launch(x: torch.Tensor, bits: int, exp: Exp, noise: Optional[Noise],
+            stats: bool):
     dev = x.device
     with torch.cuda.device(dev):
         if isinstance(exp, torch.Tensor):
@@ -176,8 +241,9 @@ def _launch(x: torch.Tensor, bits: int, exp: Exp, seed: Optional[int],
             None if minmax is None else minmax.data_ptr(),
             None if scratch is None else scratch.data_ptr(),
             _max_blocks(dev.index), bits,
-            0 if seed is None else seed & _MASK32,
-            0 if seed is None else (2 if light else 1), stream)
+            *((0, 0, 0, 0) if noise is None else
+              (noise.k0 & _MASK32, noise.k1 & _MASK32, noise.inner,
+               noise.mode)), stream)
     if rc != 0:
         raise RuntimeError(f"K1 launch failed: cudaError {rc} at "
                            f"{tuple(x.shape)} bits={bits}")
@@ -185,17 +251,16 @@ def _launch(x: torch.Tensor, bits: int, exp: Exp, seed: Optional[int],
 
 
 def quantize_codes(x: torch.Tensor, bits: int, exp: Exp,
-                   seed: Optional[int] = None, light: bool = False,
-                   stats: bool = False):
+                   noise: Optional[Noise] = None, stats: bool = False):
     """DFXP codes of ``x`` (f32, contiguous, any shape) in
     :func:`code_dtype` of ``bits``, at the exponent ``exp``.
 
     ``exp`` is a one-element int32 tensor on ``x``'s device (another
     integer tensor is converted there) or a Python int.  Returns
     ``(codes, mult)``, ``mult`` the f32 multiplier ``2**(bits-1-exp)`` in
-    ``exp``'s shape.  ``seed=None`` rounds half-to-even; an int seed
-    selects stochastic rounding with the counter-hash noise (``light`` =
-    ``hash1``).  ``stats=True`` returns ``(codes, mult, minmax)`` with
+    ``exp``'s shape.  ``noise=None`` rounds half-to-even; a
+    :class:`Noise` rounds stochastically with its stream.  ``stats=True``
+    returns ``(codes, mult, minmax)`` with
     ``minmax`` the f32 ``[min, max]`` of ``x * mult`` (``x`` must not be
     empty)."""
     if not 1 <= bits < 32:
@@ -209,16 +274,23 @@ def quantize_codes(x: torch.Tensor, bits: int, exp: Exp,
         raise ValueError(f"exp must be one integer, got {exp.dtype} "
                          f"x{exp.numel()}")
     if x.numel() >= 2 ** 32:
-        raise ValueError("the hash counter covers at most 2**32 elements")
+        raise ValueError("the noise counter covers at most 2**32 elements")
+    if noise is not None and (noise.mode not in (HASH, HASH1, THREEFRY)
+                              or not 0 <= noise.inner < 2 ** 32):
+        raise ValueError(f"bad noise {noise}")
     if stats and not x.numel():
         raise ValueError("min / max of an empty tensor")
     if x.device.type == "cpu":
-        return quantize_codes_plain(x, bits, exp, seed, light, stats)
+        return quantize_codes_plain(x, bits, exp, noise, stats)
     if x.device.type != "cuda":
         raise ValueError(f"no K1 kernel for device {x.device}")
-    out = _launch(x, bits, exp, seed, light, stats)
+    out = _launch(x, bits, exp, noise, stats)
     quantize_codes.launches += 1
+    quantize_codes.launches_by_mode[0 if noise is None else noise.mode] += 1
     return out
 
 
 quantize_codes.launches = 0
+# the launches of each noise mode (0: round to nearest, then HASH, HASH1,
+# THREEFRY)
+quantize_codes.launches_by_mode = [0, 0, 0, 0]

@@ -7,9 +7,14 @@ the kernel reads again.  Operations are those the function needs on its
 inputs' type: ``2*M*N*K`` int8 ops for a GEMM; for a conv of 9-bit (int16)
 codes, twice the int8 ops, since the tensor cores take them as two split-9
 int8 planes; five f32 operations an element for K1's quantize (scale, add
-the noise, two clips, round).  ``bound_ms`` is the larger of bytes over the
-memory rate and operations over the peak rate of their type (NVIDIA's H100
-SXM data sheet, dense, at 700 W).
+the noise, two clips, round).  Stochastic rounding adds the fewest integer
+instructions its noise can take an element (:data:`NOISE_INSTRUCTIONS`),
+against the SMs' issue rate: every instruction takes one of the 4 warp
+slots an SM issues a clock, whichever pipe runs it.  ``bound_ms`` is the
+largest of bytes over the memory rate and each type's operations over its
+peak rate (NVIDIA's H100 SXM data sheet, dense, at 700 W; the issue rate
+from the SM count and the SM clock, which ``chip_smoke.py`` reads on the
+card and passes in).
 """
 
 from __future__ import annotations
@@ -21,6 +26,35 @@ from typing import Sequence
 HBM_BYTES_PER_S = 3.35e12
 INT8_OPS_PER_S = 1979e12
 F32_OPS_PER_S = 67e12
+# a Hopper SM issues at most one warp instruction a clock from each of its
+# four schedulers: 128 thread instructions a clock, on any pipe
+ISSUE_LANES_PER_SM = 4 * 32
+
+
+def issue_rate(sm_count: int = 132, sm_clock_hz: float = 1.98e9) -> float:
+    """The card's instruction issue rate, thread instructions a second:
+    4 warp slots x 32 lanes x SMs x SM clock (by default the H100 SXM's
+    132 SMs at its 1,980 MHz maximum)."""
+    return ISSUE_LANES_PER_SM * sm_count * sm_clock_hz
+
+
+ISSUE_PER_S = issue_rate()
+
+# The fewest integer instructions an element of each noise mode
+# (csrc/dfxp.cuh) can take, none for the counter or the float's f32 ops,
+# every constant folded into a 3-input IADD3/LOP3 where one exists and a
+# shift with its or into one LEA.HI, so that no compiler emits fewer:
+#   0: none, rounding to nearest;
+#   1: the hash: the seed's xor and the first xorshift in SHF + LOP3
+#      (the seed's own xorshift is made once), two more xorshifts (2
+#      each), two multiplies, the bits' move into a float (1): 9;
+#   2: hash1: the seed's xor, one xorshift, two multiplies, the move: 6;
+#   3: threefry: 20 rounds of add, rotate (one funnel shift) and xor (60);
+#      of the six key injections into the counter's two words, those into
+#      x0 fold into the next round's IADD3 and those into x1 take one add
+#      each (6), the last into x0 one more (1); the output's xor and its
+#      shift-or (2): 69.
+NOISE_INSTRUCTIONS = {0: 0, 1: 9, 2: 6, 3: 69}
 
 
 @dataclass(frozen=True)
@@ -28,6 +62,8 @@ class Work:
     bytes: int
     ops: int
     ops_per_s: float  # the card's peak for these operations' type
+    int_ops: int = 0  # the noise's integer instructions
+    int_ops_per_s: float = ISSUE_PER_S
 
     @property
     def bytes_ms(self) -> float:
@@ -35,7 +71,9 @@ class Work:
 
     @property
     def ops_ms(self) -> float:
-        return self.ops / self.ops_per_s * 1e3
+        """The slower of the two operation types' times."""
+        return max(self.ops / self.ops_per_s,
+                   self.int_ops / self.int_ops_per_s) * 1e3
 
     @property
     def bound_ms(self) -> float:
@@ -46,11 +84,15 @@ class Work:
         return "bytes" if self.bytes_ms >= self.ops_ms else "operations"
 
 
-def quantize_work(numel: int, code_bytes: int, stats: bool) -> Work:
+def quantize_work(numel: int, code_bytes: int, stats: bool,
+                  noise_mode: int = 0,
+                  int_ops_per_s: float = ISSUE_PER_S) -> Work:
     """K1: f32 in, codes out, the int32 exponent in, the f32 multiplier
-    out, [min, max] out on request."""
+    out, [min, max] out on request; the noise's integer instructions of
+    ``noise_mode`` (0: none) an element."""
     return Work(numel * (4 + code_bytes) + 4 + 4 + (8 if stats else 0),
-                5 * numel, F32_OPS_PER_S)
+                5 * numel, F32_OPS_PER_S,
+                NOISE_INSTRUCTIONS[noise_mode] * numel, int_ops_per_s)
 
 
 def gemm_work(m: int, k: int, n: int, scaled: bool) -> Work:
@@ -76,13 +118,16 @@ def _lines_read(n_in: int, n_out: int, taps: int, stride: int,
 
 def conv_fused_work(xshape: Sequence[int], x_bytes: int,
                     wshape: Sequence[int], strides: Sequence[int],
-                    pads) -> Work:
+                    pads, noise_mode: int = 0,
+                    int_ops_per_s: float = ISSUE_PER_S) -> Work:
     """#4 / #5: NHWC codes (``x_bytes`` each) and HWIO int8 weights in,
     the two scales in; int8 codes [B,Ho,Wo,Cout], int64 moments [2,Cout]
     and f32 [min, max] out.  Only the input pixels some output reads
     count: a 1x1 conv at stride 2 reads a quarter of its input (a pixel's
     codes are whole 32-byte sectors at the path's widths, so the others
-    are never fetched).  ``pads`` is ``((top, bottom), (left, right))``."""
+    are never fetched).  ``pads`` is ``((top, bottom), (left, right))``;
+    the epilogue's noise (``noise_mode``) costs its integer instructions
+    an output element."""
     b, h, w, cin = xshape
     kh, kw, _, cout = wshape
     (sh, sw), ((pt, pb), (pl, pr)) = strides, pads
@@ -93,4 +138,5 @@ def conv_fused_work(xshape: Sequence[int], x_bytes: int,
     nbytes = (read * x_bytes + math.prod(wshape) + 8
               + pixels * cout + 16 * cout + 8)
     ops = 2 * pixels * kh * kw * cin * cout * (2 if x_bytes == 2 else 1)
-    return Work(nbytes, ops, INT8_OPS_PER_S)
+    return Work(nbytes, ops, INT8_OPS_PER_S,
+                NOISE_INSTRUCTIONS[noise_mode] * pixels * cout, int_ops_per_s)

@@ -1,11 +1,30 @@
-"""Quantized matmul / conv2d on integer codes, forward and backward
-(PyTorch port of ``lbt_tpu/ops/qops.py``, ``engine='int8'``).
+"""Quantized matmul / conv2d, forward and backward (PyTorch port of
+``lbt_tpu/ops/qops.py``), on the route ``lbt_tpu`` takes for the engine
+and the code widths.
 
-Forward: both operands are quantized by K1 to integer codes (with the
+The integer route (``engine='int8'`` or ``'pallas'``, both widths within
+9 bits): both operands are quantized by K1 to integer codes (with the
 ``[min, max]`` their controllers read, on request), contracted by K2 (the
 hand-written int8 GEMM, exact int32 accumulation) and dequantized by the
 product of the two power-of-two multipliers: bit-identical to
 ``lbt_tpu``'s integer engine.
+
+The float route (``engine='sim'`` / ``'sim_bf16'``, a 32-bit operand, or
+widths past 9 bits: ``lbt_tpu``'s fake-quant route and its float
+fallback): each operand fake-quantized by K1 with a straight-through
+gradient, then one float contraction, ``torch.matmul`` / ``F.conv2d``
+(cuBLAS / cuDNN on the card), differentiated by autograd.  ``sim`` and
+the fallback contract in f32 under the process's TF32 setting, which the
+entry points turn off for their calls (``utils.device.full_f32``), so
+their f32 contractions are full f32; ``sim_bf16`` rounds both
+operands to bf16 and the product to bf16 before it is upcast, as
+``lbt_tpu``'s all-bf16 ``dot_general`` does, and its transposed
+contractions in the backward stay bf16.  As in ``lbt_tpu``, this route
+draws its operands' noise from threefry (``backend='xla'``) whatever the
+configured stream.  The integer route's widths that K2 does not take (a
+9-bit weight or dense operand) contract in f32 with the configured
+stream: equal to ``lbt_tpu``'s bf16 integer contraction wherever its f32
+sums are exact.
 
 * ``qmatmul``: ``[M, K] @ [K, N]``, the counterpart of ``qmatmul_pallas``.
 * ``qconv2d``: NHWC x HWIO.  A plain-torch im2col of the codes into
@@ -19,18 +38,22 @@ product of the two power-of-two multipliers: bit-identical to
   through kernel #4 (3x3) or #5 (1x1): the conv and the BN site's
   stochastic quantize, code moments and min/max in one kernel.
 
-Backward (``torch.autograd.Function``s; autograd never differentiates
-through im2col or a float matmul).  The cotangent arrives on the
-``(bits_g, exp_g)`` grid, placed there by the layer's barrier, so its
-codes are recovered exactly and both contractions run on integers:
+Backward of the integer route (``torch.autograd.Function``s; autograd
+never differentiates through im2col or a float matmul).  The cotangent
+arrives on the ``(bits_g, exp_g)`` grid, placed there by the layer's
+barrier, so with ``bits_g <= 8`` its codes are recovered exactly and both
+contractions run on integers:
 
     dx = g . W^T                 K2 on a copy of W^T (dense)
     dx = im2col(dilate(g)) . W'  K2, W' the flipped HIO-transposed kernel
     dW = X^T . g                 K2's split-K X^T.g form, int64 sums
 
 For 9-bit x the dW contraction is split-9 as well (``lbt_tpu`` contracts
-it in bf16 with f32 sums, inexact past 2**24).  The straight-through
-estimator passes the cotangent through the operand quantizers.
+it in bf16 with f32 sums, inexact past 2**24).  Wider cotangents (and
+none quantized, ``bits_g = 32``) take ``lbt_tpu``'s float backward, ``dx =
+g . Wq^T`` and ``dW = Xq^T . g`` in f32 on the dequantized codes.  The
+straight-through estimator passes the cotangent through the operand
+quantizers.
 """
 
 from __future__ import annotations
@@ -38,43 +61,70 @@ from __future__ import annotations
 from typing import NamedTuple, Optional, Tuple
 
 import torch
+import torch.nn.functional as F
 
+from lbt_tpu_torch.config import INT_ENGINES
 from lbt_tpu_torch.dfxp.barrier import quantize_cotangent
 from lbt_tpu_torch.dfxp.quantize import (Exp, KeyData, dequantize,
-                                         multiplier, noise_seed,
-                                         quantize_int)
+                                         multiplier, noise_spec,
+                                         quantize_int, quantize_ste)
 from lbt_tpu_torch.ops.im2col import (conv_pads, conv_same_padding,
                                       dilate_pad, dx_pads, im2col, out_hw)
 from lbt_tpu_torch.ops.kernels.conv_fused import conv1x1_fused, conv3x3_fused
 from lbt_tpu_torch.ops.kernels.gemm import int8_matmul, int8_matmul_tn
 
-__all__ = ["BNInput", "conv_pads", "conv_same_padding", "im2col", "qconv2d",
-           "qconv2d_bn_input", "qmatmul"]
-
-def _check_widths(bits_x: int, bits_w: int, max_bits_x: int) -> None:
-    if bits_w > 8 or bits_x > max_bits_x:
-        raise NotImplementedError(
-            f"code widths x{bits_x} w{bits_w} need lbt_tpu's float "
-            f"fallback, which is not ported (int8 engine: w <= 8 bits, "
-            f"x <= {max_bits_x} bits)")
+__all__ = ["BNInput", "conv_pads", "conv_same_padding", "im2col",
+           "int_route", "qconv2d", "qconv2d_bn_input", "qmatmul"]
 
 
-def _wants_grad(*ts) -> bool:
-    return torch.is_grad_enabled() and any(t.requires_grad for t in ts)
+def int_route(engine: str, bits_x: int, bits_w: int) -> bool:
+    """Whether ``lbt_tpu`` contracts these operands on integer codes: an
+    integer engine and both widths within 9 bits (its ``_code_dtype``).
+    Otherwise it takes the fake-quant float route."""
+    return engine in INT_ENGINES and max(bits_x, bits_w) <= 9
 
 
-def _check_grad_width(bits_g: int) -> None:
-    if bits_g > 8:
-        raise NotImplementedError(
-            f"bits_g={bits_g}: the integer backward needs cotangent codes "
-            f"of at most 8 bits; lbt_tpu's float backward is not ported")
-
-
-def _codes(t, bits, exp, key, stochastic, backend, stats):
+def _codes(t, bits, exp, key, stochastic, backend, shared, stats):
     """``(codes, mult, minmax or None)`` of one operand."""
     out = quantize_int(t, bits, exp, key, stochastic=stochastic,
-                       backend=backend, stats=stats)
+                       backend=backend, noise_shared_axis0=shared,
+                       stats=stats)
     return out if stats else (*out, None)
+
+
+def _float_conv(x, w, strides, pads) -> torch.Tensor:
+    """NHWC x HWIO conv in the operands' dtype through ``F.conv2d``, with
+    TF-style (lo, hi) pads; NHWC result."""
+    (pt, pb), (pl, pr) = pads
+    xn = x.permute(0, 3, 1, 2)
+    if pt or pb or pl or pr:
+        xn = F.pad(xn, (pl, pr, pt, pb))
+    y = F.conv2d(xn, w.permute(3, 2, 0, 1), stride=tuple(strides))
+    return y.permute(0, 2, 3, 1).contiguous()
+
+
+def _fake_quant(t, bits, exp, key, stats, kw):
+    """``(tq, minmax or None)``: STE fake-quantize of one operand."""
+    if stats and bits < 32:
+        return quantize_ste(t, bits, exp, key, stats=True, **kw)
+    return quantize_ste(t, bits, exp, key, **kw), None
+
+
+def _float_route(contract, x, w, exp_x, exp_w, *, bits_x, bits_w, key_x,
+                 key_w, stochastic, backend, shared, stats, bf16):
+    """Both operands fake-quantized (STE), then ``contract`` in f32, or
+    with ``bf16`` on bf16 operands into a bf16 product upcast after;
+    autograd differentiates it."""
+    kw = dict(stochastic=stochastic, backend=backend,
+              noise_shared_axis0=shared)
+    xq, mm_x = _fake_quant(x, bits_x, exp_x, key_x, stats, kw)
+    wq, mm_w = _fake_quant(w, bits_w, exp_w, key_w, stats, kw)
+    if bf16:
+        y = contract(xq.to(torch.bfloat16),
+                     wq.to(torch.bfloat16)).to(torch.float32)
+    else:
+        y = contract(xq.to(torch.float32), wq.to(torch.float32))
+    return (y, mm_x, mm_w) if stats else y
 
 
 def _recover_codes(g: torch.Tensor, mult: torch.Tensor) -> torch.Tensor:
@@ -108,9 +158,16 @@ class _QMatmul(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g):
         xc, wc, mx, mw = ctx.saved_tensors
+        dx = dw = None
+        if ctx.bits_g > 8:  # lbt_tpu's float backward
+            g = g.to(torch.float32)
+            if ctx.needs_input_grad[0]:
+                dx = g @ dequantize(wc, mw).t()
+            if ctx.needs_input_grad[1]:
+                dw = dequantize(xc, mx).t() @ g
+            return dx, dw, None, None, None, None, None, None
         mg = multiplier(ctx.bits_g, ctx.exp_g, g.device)
         gc = _recover_codes(g, mg)
-        dx = dw = None
         if ctx.needs_input_grad[0]:
             dx = int8_matmul(gc, wc.t().contiguous(),
                              (1.0 / (mg * mw)).reshape(1))
@@ -121,20 +178,29 @@ class _QMatmul(torch.autograd.Function):
 
 def qmatmul(x: torch.Tensor, w: torch.Tensor, exp_x: Exp, exp_w: Exp, *,
             bits_x: int, bits_w: int, exp_g: Exp = 0, bits_g: int = 32,
-            key_x: Optional[KeyData] = None,
+            engine: str = "int8", key_x: Optional[KeyData] = None,
             key_w: Optional[KeyData] = None, stochastic: bool = False,
-            backend: str = "xla_hash", stats: bool = False):
-    """Quantized ``x @ w`` for ``[M, K] @ [K, N]``, both operands at most
-    8-bit codes; f32 result.  Differentiable when ``x`` or ``w`` requires
-    grad: the cotangent must lie on the ``(bits_g, exp_g)`` grid.
-    ``stats=True`` returns ``(y, minmax_x, minmax_w)``."""
-    _check_widths(bits_x, bits_w, 8)
+            backend: str = "xla", noise_shared_axis0: bool = False,
+            stats: bool = False):
+    """Quantized ``x @ w`` for ``[M, K] @ [K, N]`` on ``engine``'s route;
+    f32 result.  Differentiable when ``x`` or ``w`` requires grad; on the
+    integer route with ``bits_g <= 8`` the cotangent must lie on the
+    ``(bits_g, exp_g)`` grid.  ``stats=True`` returns ``(y, minmax_x,
+    minmax_w)`` (None for a 32-bit operand)."""
+    kw = dict(bits_x=bits_x, bits_w=bits_w, key_x=key_x, key_w=key_w,
+              stochastic=stochastic, shared=noise_shared_axis0, stats=stats)
+    if not int_route(engine, bits_x, bits_w):
+        return _float_route(
+            torch.matmul, x, w, exp_x, exp_w, backend="xla",
+            bf16=engine == "sim_bf16" and max(bits_x, bits_w) < 32, **kw)
+    if max(bits_x, bits_w) > 8:  # 9-bit codes: K2 takes int8 only
+        return _float_route(torch.matmul, x, w, exp_x, exp_w,
+                            backend=backend, bf16=False, **kw)
     xc, mx, mm_x = _codes(x, bits_x, exp_x, key_x, stochastic, backend,
-                          stats)
+                          noise_shared_axis0, stats)
     wc, mw, mm_w = _codes(w, bits_w, exp_w, key_w, stochastic, backend,
-                          stats)
-    if _wants_grad(x, w):
-        _check_grad_width(bits_g)
+                          noise_shared_axis0, stats)
+    if torch.is_grad_enabled() and (x.requires_grad or w.requires_grad):
         y = _QMatmul.apply(x, w, xc, wc, mx, mw, exp_g, bits_g)
     else:
         y = int8_matmul(xc, wc, (1.0 / (mx * mw)).reshape(1))
@@ -187,6 +253,19 @@ def _conv_backward(gc, mg, xc, wc, mx, mw, strides, pads, need_dx, need_dw):
     return dx, dw
 
 
+def _float_conv_backward(g, xq, wq, strides, pads, needs):
+    """``(dx, dW)`` of the f32 conv of ``xq`` and ``wq`` for the
+    cotangent ``g`` (None where ``needs`` is false): the transposed convs
+    through autograd."""
+    xq = xq.detach().requires_grad_(needs[0])
+    wq = wq.detach().requires_grad_(needs[1])
+    wrt = [t for t in (xq, wq) if t.requires_grad]
+    with torch.enable_grad():
+        grads = iter(torch.autograd.grad(
+            _float_conv(xq, wq, strides, pads), wrt, g.to(torch.float32)))
+    return tuple(next(grads) if n else None for n in needs)
+
+
 class _QConv2d(torch.autograd.Function):
 
     @staticmethod
@@ -203,6 +282,11 @@ class _QConv2d(torch.autograd.Function):
     def backward(ctx, g):
         xc, wc, mx, mw = ctx.saved_tensors
         bits_g, strides, pads = ctx.opts
+        if bits_g > 8:  # lbt_tpu's float backward
+            dx, dw = _float_conv_backward(
+                g, dequantize(xc, mx), dequantize(wc, mw), strides, pads,
+                ctx.needs_input_grad[:2])
+            return dx, dw, None, None, None, None, None, None
         mg = multiplier(bits_g, ctx.exp_g, g.device)
         dx, dw = _conv_backward(_recover_codes(g, mg), mg, xc, wc, mx, mw,
                                 strides, pads, ctx.needs_input_grad[0],
@@ -212,23 +296,35 @@ class _QConv2d(torch.autograd.Function):
 
 def qconv2d(x: torch.Tensor, w: torch.Tensor, exp_x: Exp, exp_w: Exp, *,
             strides: Tuple[int, int], padding, bits_x: int, bits_w: int,
-            exp_g: Exp = 0, bits_g: int = 32,
+            exp_g: Exp = 0, bits_g: int = 32, engine: str = "int8",
             key_x: Optional[KeyData] = None,
             key_w: Optional[KeyData] = None, stochastic: bool = False,
-            backend: str = "xla_hash", stats: bool = False):
-    """Quantized 2-d convolution, NHWC activations x HWIO weights; f32
-    NHWC result.  Activations up to 9-bit codes, weights up to 8.
+            backend: str = "xla", noise_shared_axis0: bool = False,
+            stats: bool = False):
+    """Quantized 2-d convolution, NHWC activations x HWIO weights, on
+    ``engine``'s route; f32 NHWC result.  The integer route contracts
+    activations of up to 9-bit codes (split-9) with 8-bit weights.
     Differentiable as :func:`qmatmul`; ``stats=True`` returns ``(y,
     minmax_x, minmax_w)``."""
-    _check_widths(bits_x, bits_w, 9)
     strides = tuple(strides)
     pads = conv_pads(padding, x.shape[1:3], w.shape[0:2], strides)
+    kw = dict(bits_x=bits_x, bits_w=bits_w, key_x=key_x, key_w=key_w,
+              stochastic=stochastic, shared=noise_shared_axis0, stats=stats)
+
+    def conv(a, b):
+        return _float_conv(a, b, strides, pads)
+
+    if not int_route(engine, bits_x, bits_w):
+        return _float_route(
+            conv, x, w, exp_x, exp_w, backend="xla",
+            bf16=engine == "sim_bf16" and max(bits_x, bits_w) < 32, **kw)
+    if bits_w > 8:  # 9-bit weight codes: K2 takes int8 only
+        return _float_route(conv, x, w, exp_x, exp_w, backend=backend,
+                            bf16=False, **kw)
     xc, mx, mm_x = _codes(x, bits_x, exp_x, key_x, stochastic, backend,
-                          stats)
+                          noise_shared_axis0, stats)
     wc, mw, mm_w = _codes(w, bits_w, exp_w, key_w, stochastic, backend,
-                          stats)
-    if _wants_grad(x, w):
-        _check_grad_width(bits_g)
+                          noise_shared_axis0, stats)
     y = _QConv2d.apply(x, w, xc, wc, mx, mw, exp_g, (bits_g, strides, pads))
     return (y, mm_x, mm_w) if stats else y
 
@@ -258,22 +354,21 @@ class _ConvBNInput(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, x, w, sink, xc, wc, mx, mw, mult_out, opts):
-        strides, pads, bits_out, seed, light, carrier, barrier = opts
+        strides, pads, bits_out, noise, carrier, barrier = opts
         ctx.save_for_backward(xc, wc, mx, mw)
         ctx.opts, ctx.has_sink = opts, sink is not None
         fused = conv3x3_fused if wc.shape[0] == 3 else conv1x1_fused
         codes, moments, minmax = fused(
             xc, wc, (1.0 / (mx * mw)).reshape(1), mult_out.reshape(1),
-            strides=strides, pads=pads, bits_out=bits_out, seed=seed,
-            light=light, round_bf16=carrier == torch.bfloat16)
+            strides=strides, pads=pads, bits_out=bits_out, noise=noise,
+            round_bf16=carrier == torch.bfloat16)
         ctx.mark_non_differentiable(codes, moments, minmax)
         return dequantize(codes, mult_out), codes, moments, minmax
 
     @staticmethod
     def backward(ctx, g, *_):
         xc, wc, mx, mw = ctx.saved_tensors
-        strides, pads, _, _, _, carrier, (bits_g, exp_g, key_g, kw) = \
-            ctx.opts
+        strides, pads, _, _, carrier, (bits_g, exp_g, key_g, kw) = ctx.opts
         # the cotangent crosses the carrier between the conv and the BN
         # site, as the unfused route's two casts round it
         g = g.to(carrier).to(torch.float32)
@@ -285,9 +380,14 @@ class _ConvBNInput(torch.autograd.Function):
                 None, None, None)
 
 
-def fusable(ksize, bits_out: int) -> bool:
-    """Whether :func:`qconv2d_bn_input` has a kernel for this conv."""
-    return tuple(ksize[:2]) in ((3, 3), (1, 1)) and bits_out <= 8
+def fusable(ksize, bits_out: int, engine: str, bits_x: int, bits_w: int,
+            bits_g: int) -> bool:
+    """Whether :func:`qconv2d_bn_input` has a kernel for this conv: a
+    3x3 or 1x1 conv on the integer route with codes the kernels take
+    (activations of up to 9 bits, 8-bit weights, cotangent and output)."""
+    return (tuple(ksize[:2]) in ((3, 3), (1, 1)) and bits_out <= 8
+            and int_route(engine, bits_x, bits_w) and bits_w <= 8
+            and bits_g <= 8)
 
 
 def qconv2d_bn_input(
@@ -297,9 +397,9 @@ def qconv2d_bn_input(
     bits_g: int = 8, exp_g: Exp = 0, key_g: Optional[KeyData] = None,
     sink: Optional[torch.Tensor] = None, key_x: Optional[KeyData] = None,
     key_w: Optional[KeyData] = None, stochastic: bool = False,
-    backend: str = "xla_hash", target_overflow_rate: float = 0.0,
-    gate: bool = True, stats: bool = False,
-    carrier: torch.dtype = torch.float32,
+    backend: str = "xla", noise_shared_axis0: bool = False,
+    target_overflow_rate: float = 0.0, gate: bool = True,
+    stats: bool = False, carrier: torch.dtype = torch.float32,
 ) -> BNInput:
     """A bias-free quantized conv followed by the next site's quantize at
     ``(bits_out, exp_out, key_out)``, in one kernel: the BN input's codes,
@@ -313,26 +413,27 @@ def qconv2d_bn_input(
     ``(bits_g, exp_g, key_g)`` (statistics into ``sink``, or the hold
     sentinel when ``gate`` is off), then the integer conv backward.
     ``stats=True`` also returns the conv operands' ``[min, max]``."""
-    _check_widths(bits_x, bits_w, 9)
-    if not fusable(w.shape, bits_out):
+    if not fusable(w.shape, bits_out, "int8", bits_x, bits_w, bits_g):
         raise NotImplementedError(
-            f"no fused kernel for a {tuple(w.shape[:2])} conv into "
-            f"{bits_out}-bit codes")
+            f"no fused kernel for a {tuple(w.shape[:2])} conv of codes "
+            f"x{bits_x} w{bits_w} g{bits_g} into {bits_out}-bit codes")
     strides = tuple(strides)
     pads = conv_pads(padding, x.shape[1:3], w.shape[0:2], strides)
     xc, mx, mm_x = _codes(x, bits_x, exp_x, key_x, stochastic, backend,
-                          stats)
+                          noise_shared_axis0, stats)
     wc, mw, mm_w = _codes(w, bits_w, exp_w, key_w, stochastic, backend,
-                          stats)
-    if _wants_grad(x, w):
-        _check_grad_width(bits_g)
+                          noise_shared_axis0, stats)
     mult_out = multiplier(bits_out, exp_out, x.device)
-    seed, light = noise_seed(key_out, stochastic, backend)
+    out_shape = (x.shape[0], *out_hw(x.shape[1], x.shape[2], w.shape[:2],
+                                     strides, pads), w.shape[3])
+    noise = noise_spec(key_out, stochastic, backend, out_shape,
+                       noise_shared_axis0)
     barrier = (bits_g, exp_g, key_g,
                dict(stochastic=stochastic, backend=backend,
+                    noise_shared_axis0=noise_shared_axis0,
                     target_overflow_rate=target_overflow_rate,
                     gate=bool(gate)))
     xq, codes, moments, minmax = _ConvBNInput.apply(
         x, w, sink, xc, wc, mx, mw, mult_out,
-        (strides, pads, bits_out, seed, light, carrier, barrier))
+        (strides, pads, bits_out, noise, carrier, barrier))
     return BNInput(xq, codes, mult_out, moments, minmax, mm_x, mm_w)

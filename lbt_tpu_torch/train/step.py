@@ -1,10 +1,11 @@
 """The single-device train and eval steps (PyTorch port of
 ``lbt_tpu/train/step.py``).
 
-One call runs, eagerly on the model's device: the forward with the range
-controllers (new exponents and BN statistics staged aside), the backward
-through the cotangent barriers (their overflow statistics land in the
-sinks), the commit of the staged state, ``absorb_sinks`` for the gradient
+One call runs, eagerly on the model's device with TF32 off
+(``utils.device.full_f32``): the forward with the range controllers (new
+exponents and BN statistics staged aside), the backward through the
+cotangent barriers (their overflow statistics land in the sinks), the
+commit of the staged state, ``absorb_sinks`` for the gradient
 sites, in-gradient weight decay and momentum SGD.  Parameters, exponent
 and BN buffers and the velocity are updated in place.
 
@@ -27,6 +28,7 @@ from lbt_tpu_torch.dfxp.keys import fold_in
 from lbt_tpu_torch.nn.core import Ctx
 from lbt_tpu_torch.nn.model import Model
 from lbt_tpu_torch.train.optim import apply_weight_decay, momentum_update
+from lbt_tpu_torch.utils.device import full_f32
 
 
 def make_train_step(model: Model, tc: TrainConfig) -> Callable:
@@ -40,6 +42,7 @@ def make_train_step(model: Model, tc: TrainConfig) -> Callable:
     decays = dict(model.decays())
     n_uids = model.num_layers()
 
+    @full_f32()
     def train_step(model: Model, velocity: Dict[str, torch.Tensor],
                    x: torch.Tensor, y: torch.Tensor, step: int, lr: float,
                    base_key) -> Dict[str, torch.Tensor]:
@@ -83,6 +86,7 @@ def make_eval_step(model: Model, faithful_eval: bool = False) -> Callable:
     State is never updated, and no autograd graph is built."""
     n_uids = model.num_layers()
 
+    @full_f32()
     @torch.no_grad()
     def eval_step(model: Model, x: torch.Tensor, y: torch.Tensor,
                   key) -> Dict[str, torch.Tensor]:

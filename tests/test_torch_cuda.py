@@ -36,6 +36,19 @@ def dev():
     return torch.device("cuda")
 
 
+MODES = {"hash": quant.HASH, "hash1": quant.HASH1,
+         "threefry": quant.THREEFRY}
+
+
+def _noise(mode, seed, inner=0):
+    """The Noise of ``mode`` (None rounds to nearest) from one seed: the
+    hashes' seed, or both threefry key words."""
+    if mode is None:
+        return None
+    return quant.Noise(MODES[mode], seed & 0xFFFFFFFF,
+                       (seed * 0x9E3779B9) & 0xFFFFFFFF, inner)
+
+
 def _same(got, want):
     """K1's outputs (codes, multiplier[, min/max]) equal, dtypes too."""
     assert len(got) == len(want)
@@ -45,7 +58,7 @@ def _same(got, want):
 
 
 @pytest.mark.parametrize("bits", [4, 8, 9, 16, 20])
-@pytest.mark.parametrize("mode", [None, "hash", "hash1"])
+@pytest.mark.parametrize("mode", [None, "hash", "hash1", "threefry"])
 @pytest.mark.parametrize("shape", [(1,), (4097,), (3, 5, 7),
                                    (2, 32, 32, 16)])
 def test_k1_matches_plain(dev, bits, mode, shape):
@@ -56,13 +69,12 @@ def test_k1_matches_plain(dev, bits, mode, shape):
     x.view(-1)[:4] = (torch.tensor([0.5, -0.5, 2.5, 1e9]) / mult)[:x.numel()]
     x = x.to(dev)
     exp = torch.tensor(2, dtype=torch.int32, device=dev)
-    seed = None if mode is None else 0x9E3779B9 + bits
+    noise = _noise(mode, 0x9E3779B9 + bits)
     before = quant.quantize_codes.launches
-    got = quant.quantize_codes(x, bits, exp, seed, light=mode == "hash1")
+    got = quant.quantize_codes(x, bits, exp, noise)
     torch.cuda.synchronize()
     assert quant.quantize_codes.launches == before + 1
-    want = quant.quantize_codes_plain(x, bits, exp, seed,
-                                      light=mode == "hash1")
+    want = quant.quantize_codes_plain(x, bits, exp, noise)
     assert got[0].dtype == quant.code_dtype(bits)
     _same(got, want)
 
@@ -113,6 +125,36 @@ def test_qconv2d_card_matches_cpu(dev, bits_x, wshape, stride):
     assert torch.equal(got.cpu(), want)
 
 
+@pytest.mark.parametrize("engine", ["sim", "sim_bf16"])
+@pytest.mark.parametrize("wshape,stride", [((3, 3, 16, 32), 2),
+                                           ((1, 1, 16, 32), 2),
+                                           ((3, 3, 3, 16), 1)])
+def test_sim_qconv2d_card_matches_cpu(dev, engine, wshape, stride):
+    """The sim engines' conv on the card (cuDNN, TF32 off) and on the
+    CPU, stochastic with threefry noise: output and both gradients within
+    1e-5 (sim) or one bf16 ulp (sim_bf16) of each other; the operands'
+    codes are K1's and the plain version's, equal bitwise."""
+    g = torch.Generator().manual_seed(2)
+    x = torch.randn(4, 16, 16, wshape[2], generator=g)
+    w = torch.rand(wshape, generator=g) - 0.5
+    kw = dict(strides=(stride, stride), padding="SAME", bits_x=9, bits_w=8,
+              bits_g=8, exp_g=-2, engine=engine, stochastic=True,
+              key_x=(1, 2), key_w=(3, 4))
+    tol = dict(rtol=1e-5, atol=1e-6) if engine == "sim" else dict(
+        rtol=2.0 ** -8, atol=1e-6)
+    outs, gy = [], None
+    for d in ("cpu", dev):
+        xd = x.detach().to(d).requires_grad_()
+        wd = w.detach().to(d).requires_grad_()
+        y = qops.qconv2d(xd, wd, 1, -1, **kw)
+        if gy is None:  # one cotangent on the 8-bit grid, for both
+            gy = torch.randint(-128, 128, y.shape, generator=g) / 2.0 ** 9
+        y.backward(gy.to(d))
+        outs.append([t.detach().cpu() for t in (y, xd.grad, wd.grad)])
+    for got, want in zip(outs[1], outs[0]):
+        np.testing.assert_allclose(got.numpy(), want.numpy(), **tol)
+
+
 def test_resnet20_card_matches_cpu(dev):
     cfg = QuantConfig.uniform(8)
     cpu = cifar10_resnet(cfg, 20).init(torch.Generator().manual_seed(0))
@@ -128,15 +170,15 @@ def test_resnet20_card_matches_cpu(dev):
 
 
 @pytest.mark.parametrize("bits", [8, 9])
-@pytest.mark.parametrize("mode", [None, "hash"])
+@pytest.mark.parametrize("mode", [None, "hash", "threefry"])
 @pytest.mark.parametrize("shape", [(1,), (4097,), (3, 5, 7),
                                    (2, 32, 32, 16), (64, 10)])
 def test_k1_stats_matches_plain(dev, bits, mode, shape):
     g = torch.Generator().manual_seed(bits + len(shape))
     x = (torch.randn(shape, generator=g) * 3).to(dev)
-    seed = None if mode is None else 0x1234567 + bits
-    got = quant.quantize_codes(x, bits, 1, seed, stats=True)
-    want = quant.quantize_codes_plain(x, bits, 1, seed, stats=True)
+    noise = _noise(mode, 0x1234567 + bits)
+    got = quant.quantize_codes(x, bits, 1, noise, stats=True)
+    want = quant.quantize_codes_plain(x, bits, 1, noise, stats=True)
     torch.cuda.synchronize()
     _same(got, want)
 
@@ -153,7 +195,7 @@ K1_ODD_SIZES = [(1,), (3,), (4095,), (4097,), (1000003,)]
 
 
 @pytest.mark.parametrize("stats", [False, True])
-@pytest.mark.parametrize("mode", [None, "hash", "hash1"])
+@pytest.mark.parametrize("mode", [None, "hash", "hash1", "threefry"])
 @pytest.mark.parametrize("bits", [8, 9])
 @pytest.mark.parametrize("shape", K1_PATH_SHAPES + K1_ODD_SIZES)
 def test_k1_every_path_shape(dev, shape, bits, mode, stats):
@@ -163,17 +205,35 @@ def test_k1_every_path_shape(dev, shape, bits, mode, stats):
     g = torch.Generator().manual_seed(len(shape) * 31 + shape[0])
     x = (torch.randn(shape, generator=g) * 3).to(dev)
     exp = torch.tensor(1, dtype=torch.int32, device=dev)
-    seed = None if mode is None else 0xA5A5F00D ^ shape[0]
+    noise = _noise(mode, 0xA5A5F00D ^ shape[0])
     before = quant.quantize_codes.launches
-    got = quant.quantize_codes(x, bits, exp, seed, mode == "hash1", stats)
+    got = quant.quantize_codes(x, bits, exp, noise, stats)
     torch.cuda.synchronize()
     assert quant.quantize_codes.launches == before + 1
-    _same(got, quant.quantize_codes_plain(x, bits, exp, seed,
-                                          mode == "hash1", stats))
+    _same(got, quant.quantize_codes_plain(x, bits, exp, noise, stats))
+
+
+@pytest.mark.parametrize("mode", ["hash", "hash1", "threefry"])
+@pytest.mark.parametrize("bits", [4, 8, 9, 16])
+@pytest.mark.parametrize("shape", [(5,), (4097,), (3, 5, 7),
+                                   (128, 16, 16, 32), (7, 1000003)])
+def test_k1_shared_axis0_matches_plain(dev, shape, bits, mode):
+    """A draw of ``shape[1:]`` shared along axis 0 (``noise_shared_axis0``,
+    the counter ``i % inner``): codes and min/max bitwise, rows of equal
+    inputs rounded alike."""
+    g = torch.Generator().manual_seed(len(shape) + bits)
+    x = (torch.randn(shape, generator=g) * 3).to(dev)
+    x[-1] = x[0]
+    inner = int(np.prod(shape[1:]))
+    noise = _noise(mode, 0x5EED + bits, inner)
+    got = quant.quantize_codes(x, bits, 1, noise, stats=True)
+    torch.cuda.synchronize()
+    _same(got, quant.quantize_codes_plain(x, bits, 1, noise, stats=True))
+    assert torch.equal(got[0][-1], got[0][0])
 
 
 @pytest.mark.parametrize("offset", [1, 2, 3])
-@pytest.mark.parametrize("mode", [None, "hash"])
+@pytest.mark.parametrize("mode", [None, "hash", "threefry"])
 def test_k1_misaligned_view(dev, offset, mode):
     """A contiguous view that starts 4-12 bytes past a 16-byte boundary
     takes the scalar path: same codes at the same flat index."""
@@ -181,10 +241,10 @@ def test_k1_misaligned_view(dev, offset, mode):
     buf = (torch.randn(300007, generator=g) * 5).to(dev)
     x = buf[offset:]
     assert x.is_contiguous() and x.data_ptr() % 16
-    seed = None if mode is None else 77
-    got = quant.quantize_codes(x, 9, 3, seed, stats=True)
+    noise = _noise(mode, 77)
+    got = quant.quantize_codes(x, 9, 3, noise, stats=True)
     torch.cuda.synchronize()
-    _same(got, quant.quantize_codes_plain(x, 9, 3, seed, stats=True))
+    _same(got, quant.quantize_codes_plain(x, 9, 3, noise, stats=True))
 
 
 @pytest.mark.parametrize("bits", [8, 9, 16])
@@ -195,9 +255,9 @@ def test_k1_subnormal_inputs_at_exp_min(dev, bits):
                       5.877e-39, 0.0, -0.0], dtype=torch.float32)
     x = v.repeat(5000)[:39999].contiguous().to(dev)
     assert (x.abs() < 1.1754944e-38).all()
-    for seed in (None, 5):
-        got = quant.quantize_codes(x, bits, EXP_MIN, seed, stats=True)
-        want = quant.quantize_codes_plain(x, bits, EXP_MIN, seed,
+    for noise in (None, _noise("hash", 5), _noise("threefry", 5)):
+        got = quant.quantize_codes(x, bits, EXP_MIN, noise, stats=True)
+        want = quant.quantize_codes_plain(x, bits, EXP_MIN, noise,
                                           stats=True)
         torch.cuda.synchronize()
         _same(got, want)
@@ -206,7 +266,7 @@ def test_k1_subnormal_inputs_at_exp_min(dev, bits):
         assert got[2][0].item() < 0 < got[2][1].item()
 
 
-@pytest.mark.parametrize("mode", [None, "hash"])
+@pytest.mark.parametrize("mode", [None, "hash", "threefry"])
 def test_k1_infinite_inputs(dev, mode):
     """+-inf clip to the rails; min / max report them."""
     g = torch.Generator().manual_seed(3)
@@ -214,10 +274,10 @@ def test_k1_infinite_inputs(dev, mode):
     x[::97] = float("inf")
     x[5::89] = -float("inf")
     x = x.to(dev)
-    seed = None if mode is None else 123
-    got = quant.quantize_codes(x, 8, 0, seed, stats=True)
+    noise = _noise(mode, 123)
+    got = quant.quantize_codes(x, 8, 0, noise, stats=True)
     torch.cuda.synchronize()
-    _same(got, quant.quantize_codes_plain(x, 8, 0, seed, stats=True))
+    _same(got, quant.quantize_codes_plain(x, 8, 0, noise, stats=True))
     assert got[2].tolist() == [-float("inf"), float("inf")]
 
 
@@ -233,6 +293,9 @@ def test_k1_exponents_build_the_multiplier(dev):
             assert got[1].shape == (1,)
 
 
+NINE = _noise("hash", 9)
+
+
 def test_k1_graph_replays_reset_the_ticket(dev):
     """100 replays of a captured multi-block K1 with min/max, each on
     fresh data, give the plain version's codes and min/max: the ticket
@@ -246,17 +309,17 @@ def test_k1_graph_replays_reset_the_ticket(dev):
         side.wait_stream(torch.cuda.current_stream())
         if warm:
             with torch.cuda.stream(side):
-                quant.quantize_codes(x, 8, exp, 9, stats=True)
+                quant.quantize_codes(x, 8, exp, NINE, stats=True)
         graph = torch.cuda.CUDAGraph()
         with torch.cuda.graph(graph, stream=side):
-            out = quant.quantize_codes(x, 8, exp, 9, stats=True)
+            out = quant.quantize_codes(x, 8, exp, NINE, stats=True)
         for i in range(100):
             x.copy_(torch.randn(x.shape, generator=g) * (1 + i % 7))
             graph.replay()
             torch.cuda.synchronize()
-            _same(out, quant.quantize_codes_plain(x, 8, exp, 9, stats=True))
-    got = quant.quantize_codes(x, 8, exp, 9, stats=True)
-    _same(got, quant.quantize_codes_plain(x, 8, exp, 9, stats=True))
+            _same(out, quant.quantize_codes_plain(x, 8, exp, NINE, stats=True))
+    got = quant.quantize_codes(x, 8, exp, NINE, stats=True)
+    _same(got, quant.quantize_codes_plain(x, 8, exp, NINE, stats=True))
 
 
 def test_k1_two_streams_at_once(dev):
@@ -272,15 +335,16 @@ def test_k1_two_streams_at_once(dev):
     for rep in range(20):
         for i, (x, s) in enumerate(zip(xs, streams)):
             with torch.cuda.stream(s):
-                outs[i].append(quant.quantize_codes(x, 9, 1, rep,
-                                                    stats=True))
+                outs[i].append(quant.quantize_codes(
+                    x, 9, 1, _noise("threefry", rep), stats=True))
     torch.cuda.synchronize()
     for i, x in enumerate(xs):
         for rep, got in enumerate(outs[i]):
-            _same(got, quant.quantize_codes_plain(x, 9, 1, rep, stats=True))
+            _same(got, quant.quantize_codes_plain(
+                x, 9, 1, _noise("threefry", rep), stats=True))
 
 
-@pytest.mark.parametrize("mode", ["hash", "hash1"])
+@pytest.mark.parametrize("mode", ["hash", "hash1", "threefry"])
 def test_k1_stochastic_codes_are_unbiased(dev, mode):
     """E[floor(s + u)] = s: over 256 seeds the mean code of each of 4096
     fixed values s (off-grid, inside the rails) lies within 6 standard
@@ -294,13 +358,14 @@ def test_k1_stochastic_codes_are_unbiased(dev, mode):
     acc = torch.zeros_like(s)
     seeds = rng.integers(0, 2 ** 32, 256)
     for seed in seeds:
-        acc += quant.quantize_codes(x, 8, 2, int(seed), mode == "hash1")[0]
+        acc += quant.quantize_codes(x, 8, 2, _noise(mode, int(seed)))[0]
     err = acc / len(seeds) - s
     assert err.abs().max().item() < 6 / 32
     assert abs(err.mean().item()) < 6 / (2 * (256 * 4096) ** 0.5)
 
 
-def test_fused_stochastic_codes_are_unbiased(dev):
+@pytest.mark.parametrize("mode", ["hash", "threefry"])
+def test_fused_stochastic_codes_are_unbiased(dev, mode):
     """#4/#5's stochastic epilogue on the card: over 256 seeds the mean
     code of each conv output lies within 6 sd of y*mult (sd <= 1/32 of a
     code), their mean error within 6 sd of 0 (sd <= 1/(2 sqrt(256 n)))."""
@@ -323,7 +388,7 @@ def test_fused_stochastic_codes_are_unbiased(dev):
         seeds = rng.integers(0, 2 ** 32, 256)
         for seed in seeds:
             codes = fused(xc, wc, inv, mult, strides=(1, 1), pads=pads,
-                          seed=int(seed))[0]
+                          noise=_noise(mode, int(seed)))[0]
             acc += codes.reshape(scaled.shape)
         err = acc / len(seeds) - scaled
         assert err.abs().max().item() < 6 / 32
@@ -387,11 +452,13 @@ FUSED_SHAPES = [((8, 32, 32, 3), (3, 3, 3, 16), 1),
 
 @pytest.mark.parametrize("round_bf16", [False, True])
 @pytest.mark.parametrize("xdtype", [torch.int8, torch.int16])
-@pytest.mark.parametrize("mode", [None, "hash", "hash1"])
+@pytest.mark.parametrize("mode", [None, "hash", "hash1", "threefry",
+                                  "hash1 shared", "threefry shared"])
 @pytest.mark.parametrize("case", range(len(FUSED_SHAPES)))
 def test_conv_fused_matches_plain(dev, case, mode, xdtype, round_bf16):
     """Codes, moments and min/max bitwise, one launch, with and without
-    the conv output's rounding to bfloat16 (a bf16 carrier)."""
+    the conv output's rounding to bfloat16 (a bf16 carrier); the noise
+    per element or drawn once along axis 0."""
     xshape, wshape, s = FUSED_SHAPES[case]
     g = torch.Generator().manual_seed(case)
     lim = 256 if xdtype == torch.int16 else 128
@@ -401,9 +468,11 @@ def test_conv_fused_matches_plain(dev, case, mode, xdtype, round_bf16):
     inv = torch.tensor([2.0 ** -16], device=dev)
     mult = torch.tensor([2.0 ** -3], device=dev)
     pads = qops.conv_pads("SAME", xshape[1:3], wshape[:2], (s, s))
-    kw = dict(strides=(s, s), pads=pads, seed=None if mode is None
-              else 0xC0FFEE + case, light=mode == "hash1",
-              round_bf16=round_bf16)
+    ho, wo = qops.out_hw(xshape[1], xshape[2], wshape[:2], (s, s), pads)
+    noise = _noise(mode and mode.split()[0], 0xC0FFEE + case,
+                   ho * wo * wshape[3] if mode and mode.endswith("shared")
+                   else 0)
+    kw = dict(strides=(s, s), pads=pads, noise=noise, round_bf16=round_bf16)
     fused = (conv_fused.conv3x3_fused if wshape[0] == 3
              else conv_fused.conv1x1_fused)
     before = fused.launches
@@ -415,8 +484,7 @@ def test_conv_fused_matches_plain(dev, case, mode, xdtype, round_bf16):
         assert a.dtype == b.dtype and torch.equal(a, b)
 
 
-def _trained(dev, steps=2):
-    cfg = QuantConfig.uniform(8, noise_mode="hash")
+def _trained(dev, steps=2, cfg=QuantConfig.uniform(8, noise_mode="hash")):
     model = cifar10_resnet(cfg, 8, weight_decay=2e-4).init(
         torch.Generator().manual_seed(0)).to(dev)
     vel = momentum_init(dict(model.net.named_parameters()))
@@ -527,13 +595,27 @@ def test_eval_step_card_matches_cpu(dev, faithful):
     assert gacc == cacc
 
 
-def test_train_step_card_matches_cpu(dev):
-    """Two steps of ResNet-8 on the card and on the CPU: exponents equal,
-    floats to 1e-5 (the card's reductions run in another order)."""
-    (cp, cq, cv), closs = _trained(torch.device("cpu"))
-    (gp, gq, gv), gloss = _trained(dev)
+@pytest.mark.parametrize("cfg", [
+    QuantConfig.uniform(8, noise_mode="hash"), QuantConfig.uniform(8),
+    QuantConfig.uniform(8, engine="sim", noise_mode="prng"),
+    QuantConfig.uniform(8, engine="sim_bf16", noise_mode="prng"),
+    QuantConfig.fp32()], ids=["int8-hash", "int8-prng", "sim-prng",
+                              "sim_bf16-prng", "fp32"])
+def test_train_step_card_matches_cpu(dev, cfg):
+    """Two steps of ResNet-8 on the card and on the CPU, under the int8
+    engine with hash and threefry noise, both sim engines and the FP32
+    arm: exponents equal, losses and floats to 1e-5 (the card's
+    reductions and cuDNN's convs sum in another order).  Under ``sim``
+    the f32 conv sums of cuDNN and of the CPU are not exact (9-bit codes
+    times 8-bit codes over up to 4,096 terms: their rounding, about
+    sqrt(n) 2**-24 = 4e-6 of the sum of the terms' magnitudes, which runs
+    to 10x the result's), so the floats hold within 1e-4 of the leaf's
+    largest magnitude (on an H100 the largest difference was 9e-6 of it)."""
+    (cp, cq, cv), closs = _trained(torch.device("cpu"), cfg=cfg)
+    (gp, gq, gv), gloss = _trained(dev, cfg=cfg)
     np.testing.assert_allclose([x.item() for x in gloss],
                                [x.item() for x in closs], rtol=1e-5)
+    leaf_scaled = cfg.engine == "sim"
 
     def cmp(a, b):
         if isinstance(a, dict):
@@ -543,7 +625,9 @@ def test_train_step_card_matches_cpu(dev):
         elif a.dtype == np.int32:
             np.testing.assert_array_equal(a, b)
         else:
-            np.testing.assert_allclose(a, b, rtol=1e-5, atol=1e-5)
+            atol = (1e-4 * float(np.abs(b).max()) if leaf_scaled
+                    else 1e-5)
+            np.testing.assert_allclose(a, b, rtol=1e-5, atol=atol)
 
     for a, b in ((gp, cp), (gq, cq), (gv, cv)):
         cmp(a, b)
@@ -618,8 +702,9 @@ def test_conv_fused_split9_extremes(dev, case, codes):
     mult = torch.tensor([2.0 ** -1], device=dev)
     pads = (qops.conv_pads(padding, xshape[1:3], wshape[:2], (s, s))
             if padding == "SAME" else padding)
-    for seed in (None, 0xBADC0DE + case):
-        kw = dict(strides=(s, s), pads=pads, seed=seed)
+    for noise in (None, _noise("hash", 0xBADC0DE + case),
+                  _noise("threefry", 0xBADC0DE + case)):
+        kw = dict(strides=(s, s), pads=pads, noise=noise)
         got = conv_fused.conv3x3_fused(xc, wc, inv, mult, **kw)
         torch.cuda.synchronize()
         want = conv_fused.conv_fused_plain(xc, wc, inv, mult, **kw)
@@ -639,7 +724,8 @@ def test_conv1x1_fused_at_the_shortcut_shapes(dev, xshape, wshape, xdtype):
                        dtype=torch.int8).to(dev)
     inv = torch.tensor([2.0 ** -13], device=dev)
     mult = torch.tensor([2.0 ** -1], device=dev)
-    kw = dict(strides=(2, 2), pads=((0, 0), (0, 0)), seed=0x51DE)
+    kw = dict(strides=(2, 2), pads=((0, 0), (0, 0)),
+              noise=_noise("threefry", 0x51DE))
     before = conv_fused.conv1x1_fused.launches
     got = conv_fused.conv1x1_fused(xc, wc, inv, mult, **kw)
     torch.cuda.synchronize()

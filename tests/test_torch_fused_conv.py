@@ -101,7 +101,9 @@ RESNET20 = {
 def test_plain_matches_lbt_tpu_unfused_composition(case, stochastic):
     """conv -> BN input quantize as lbt_tpu runs it unfused
     (``qconv2d`` then ``quantize_int(..., backend='xla_hash')`` at the BN
-    site's key) against the port's fused route on the same codes."""
+    site's key) against the port's fused route on the same codes.  The
+    threefry noise (``backend='xla'``) is held the same way in
+    ``tests/test_torch_prng.py``."""
     xshape, wshape, s, bits_x = RESNET20[case]
     rng = np.random.default_rng(sum(wshape) + s)
     x = rng.normal(0, 1, xshape).astype(np.float32)
@@ -125,7 +127,7 @@ def test_plain_matches_lbt_tpu_unfused_composition(case, stochastic):
         xc, wc, (1.0 / (mx * mw)).reshape(1),
         tq.multiplier(8, exp_out).reshape(1), strides=(s, s),
         pads=qops.conv_pads("SAME", xshape[1:3], wshape[:2], (s, s)),
-        seed=tq.key_seed(kd) if stochastic else None)
+        noise=tq.noise_spec(kd, stochastic, "xla_hash", want.shape))
     np.testing.assert_array_equal(codes.numpy().astype(np.int64), want)
     np.testing.assert_array_equal(
         moments.numpy(), [want.sum((0, 1, 2)), (want ** 2).sum((0, 1, 2))])
@@ -145,7 +147,7 @@ def test_plain_stochastic_codes_are_unbiased():
     acc = torch.zeros(1, 4, 4, 32, dtype=torch.float64)
     for seed in range(64):
         acc += conv1x1_fused(xc, wc, inv, mult, strides=(1, 1), pads=pads,
-                             seed=seed * 7919)[0]
+                             noise=tq.Noise(1, seed * 7919))[0]
     scaled = ((qops.im2col(xc, (1, 1), (1, 1), pads).double()
                @ wc.reshape(32, 32).double()) * (4.0 / 64)).view_as(acc)
     mean = acc / 64

@@ -270,8 +270,9 @@ def test_resnet50_converter_round_trip(act_dtype):
 
 
 def test_cli_takes_the_headline_and_refuses_the_rest():
-    """The headline's command line has no refusal; ``--stem_s2d`` and
-    ``--noise_mode prng`` are still named."""
+    """The headline's command line has no refusal, nor has it with
+    ``--stem_s2d`` and ``--noise_mode prng`` (refused before they were
+    ported); ``--remat_bn`` and ``--bn_residual_q16`` are still named."""
     p = build_parser()
     argv = ["--model", "Imagenet_Resnet50", "--bits", "8", "--engine",
             "int8", "--noise_mode", "hash1", "--fused_bn",
@@ -280,7 +281,9 @@ def test_cli_takes_the_headline_and_refuses_the_rest():
     assert refusals(p.parse_args(argv)) == []
     assert MODEL_DATASET["Imagenet_Resnet50"] == "imagenet"
     assert MODEL_DATASET["Imagenet_Resnet18"] == "imagenet"
-    msgs = refusals(p.parse_args(argv[:4] + ["--noise_mode", "prng",
-                                             "--stem_s2d"]))
-    assert any("--stem_s2d" in m for m in msgs)
-    assert any("--noise_mode prng" in m for m in msgs)
+    assert refusals(p.parse_args(argv[:4] + ["--noise_mode", "prng",
+                                             "--stem_s2d"])) == []
+    msgs = refusals(p.parse_args(argv + ["--remat_bn",
+                                         "--bn_residual_q16"]))
+    assert any("--remat_bn" in m for m in msgs)
+    assert any("--bn_residual_q16" in m for m in msgs)

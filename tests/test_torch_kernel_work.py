@@ -72,3 +72,34 @@ def test_quantize_work_is_bound_by_bytes():
     assert (w.bytes, w.ops, w.bound_by) == (6016, 5000, "bytes")
     assert math.isclose(w.bound_ms, 6016 / 3.35e9)
     assert work.quantize_work(1000, 1, False).bytes == 5008
+
+
+@pytest.mark.parametrize("mode,by", [(0, "bytes"), (1, "bytes"),
+                                     (2, "bytes"), (3, "operations")])
+def test_noise_integer_operations_bound_k1(mode, by):
+    """K1's noise counts its fewest integer instructions an element
+    against the issue rate, 4 warps x 32 lanes x 132 SMs x 1,980 MHz: the
+    hashes stay bound by bytes; threefry's 69 instructions an element make
+    K1 bound by operations (int8 codes of a stage-1 ResNet-20 activation,
+    2,097,152 elements)."""
+    n = 2097152
+    w = work.quantize_work(n, 1, True, mode)
+    assert w.int_ops == work.NOISE_INSTRUCTIONS[mode] * n
+    assert w.bound_by == by
+    rate = 128 * 132 * 1.98e9
+    assert math.isclose(work.ISSUE_PER_S, rate)
+    if mode == 3:
+        assert math.isclose(w.bound_ms, 69 * n / rate * 1e3)
+        slow = work.quantize_work(n, 1, True, 3, rate / 2)
+        assert math.isclose(slow.bound_ms, 2 * w.bound_ms)
+
+
+def test_noise_integer_operations_in_the_fused_epilogue():
+    """#4's epilogue draws one noise a BN-input code: threefry's integer
+    instructions count over the output elements, beside the int8 ops."""
+    same = ((1, 1), (1, 1))
+    args = ((128, 32, 32, 16), 2, (3, 3, 16, 16), (1, 1), same)
+    w0, w3 = work.conv_fused_work(*args), work.conv_fused_work(*args, 3)
+    assert (w0.int_ops, w3.int_ops) == (0, 69 * 128 * 32 * 32 * 16)
+    assert (w3.bytes, w3.ops) == (w0.bytes, w0.ops)
+    assert w3.bound_by == "operations" and w3.bound_ms > w0.bound_ms

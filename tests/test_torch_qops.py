@@ -105,12 +105,30 @@ def test_same_padding_is_asymmetric_at_stride_2():
     assert qops.conv_pads("VALID", (8, 8), (3, 3), (1, 1)) == ((0, 0),) * 2
 
 
-def test_qops_refuse_code_widths_beyond_the_int8_engine():
-    x = torch.zeros(2, 4, 4, 3)
-    w = torch.zeros(3, 3, 3, 4)
-    with pytest.raises(NotImplementedError):
-        qops.qconv2d(x, w, 0, 0, strides=(1, 1), padding="SAME", bits_x=10,
-                     bits_w=8)
-    with pytest.raises(NotImplementedError):
-        qops.qmatmul(torch.zeros(2, 3), torch.zeros(3, 4), 0, 0, bits_x=9,
-                     bits_w=8)
+@pytest.mark.parametrize("widths", [(10, 8), (9, 8), (8, 9), (32, 8)])
+def test_qops_refuse_code_widths_beyond_the_int8_engine(widths):
+    """Code widths past the int8 engine's, refused before the float
+    fallback was ported, now take it: ``lbt_tpu``'s fake-quant route past
+    9 bits or at 32 (f32 contraction), and its bf16 integer route for
+    9-bit weights or dense operands, which the port contracts in f32.
+    Forwards bitwise where both operands are on a grid (every sum here is
+    exact in f32); at rtol 1e-5 with a 32-bit operand, whose f32 sums
+    round in another order."""
+    bits_x, bits_w = widths
+    rng = np.random.default_rng(sum(widths))
+    x = rng.normal(0, 1, (2, 6, 6, 3)).astype(np.float32)
+    w = rng.normal(0, 0.3, (3, 3, 3, 4)).astype(np.float32)
+    kw = dict(bits_x=bits_x, bits_w=bits_w)
+    want = jops.qconv2d(jnp.asarray(x), jnp.asarray(w), jnp.int32(1),
+                        jnp.int32(0), jnp.int32(0), strides=(1, 1),
+                        padding="SAME", bits_g=8, engine="int8", **kw)
+    got = qops.qconv2d(torch.from_numpy(x), torch.from_numpy(w), 1, 0,
+                       strides=(1, 1), padding="SAME", **kw)
+    tol = dict(rtol=0, atol=0) if bits_x < 32 else dict(rtol=1e-5, atol=1e-6)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), **tol)
+    a, b = x.reshape(12, 18), w.reshape(27, 4)[:18]
+    want = jops.qmatmul(jnp.asarray(a), jnp.asarray(b), jnp.int32(1),
+                        jnp.int32(0), jnp.int32(0), bits_g=8,
+                        engine="int8", **kw)
+    got = qops.qmatmul(torch.from_numpy(a), torch.from_numpy(b), 1, 0, **kw)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), **tol)

@@ -139,12 +139,28 @@ def test_k1_stochastic_matches_lbt_tpu_hash(backend, bits):
             err_msg=f"{backend} {kd}")
 
 
-def test_stochastic_prng_stream_is_refused():
+@pytest.mark.parametrize("bits", (8, 9))
+def test_stochastic_prng_stream_is_refused(bits):
+    """What a stochastic quantize still refuses: no key, an unknown
+    backend.  The ``prng`` stream (``backend='xla'``), refused before
+    threefry was ported, now runs and gives ``lbt_tpu``'s codes bitwise
+    (more cases in ``tests/test_torch_prng.py``)."""
     x = torch.zeros(4)
-    with pytest.raises(NotImplementedError):
-        tq.quantize_int(x, 8, 0, (1, 2), stochastic=True, backend="xla")
-    with pytest.raises(ValueError):
+    with pytest.raises(ValueError, match="requires a PRNG key"):
         tq.quantize_int(x, 8, 0, None, stochastic=True)
+    with pytest.raises(ValueError, match="unknown quantize backend"):
+        tq.quantize_int(x, 8, 0, (1, 2), stochastic=True, backend="xla_hash2")
+    xs = np.random.default_rng(3).normal(0, 1, (4, 6, 6, 16)).astype(
+        np.float32)
+    for kd in _KEYS:
+        key = jax.random.wrap_key_data(np.asarray(kd, np.uint32))
+        want, _ = jq.quantize_int(jnp.asarray(xs), bits, jnp.int32(1), key,
+                                  stochastic=True, backend="xla")
+        got, _ = tq.quantize_int(torch.from_numpy(xs), bits, 1, kd,
+                                 stochastic=True, backend="xla")
+        np.testing.assert_array_equal(
+            got.numpy().astype(np.int32),
+            np.asarray(want, np.float32).astype(np.int32), err_msg=str(kd))
 
 
 def test_wrappers_refuse_devices_without_a_kernel():

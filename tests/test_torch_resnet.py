@@ -67,9 +67,10 @@ def _randomize(params, qstate, seed):
     return walk(params), walk(qstate)
 
 
-def _jax_layer_forward(layer, params, qstate, x):
+def _jax_layer_forward(layer, params, qstate, x, compiler_options=None):
     sinks = make_sinks(layer)
-    fn = jax.jit(lambda p, q, s, x: layer.apply(p, q, s, x, _EVAL)[0])
+    fn = jax.jit(lambda p, q, s, x: layer.apply(p, q, s, x, _EVAL)[0],
+                 compiler_options=compiler_options)
     return np.asarray(fn(params, qstate, sinks, jnp.asarray(x)))
 
 
@@ -154,19 +155,74 @@ def test_converter_raises_on_mismatch():
 @pytest.mark.parametrize("kw", [
     dict(engine="sim"), dict(engine="sim_bf16"), dict(remat_bn=True),
     dict(bn_residual_q16=True), dict(noise_shared_axis0=True),
-    dict(stem_s2d=True)])
+    dict(stem_s2d=True), dict(noise_impl="unsafe_rbg")])
 def test_unported_config_options_raise(kw):
-    with pytest.raises(NotImplementedError):
-        cifar10_resnet(QuantConfig.uniform(8, **kw), 20)
+    """``remat_bn``, ``bn_residual_q16`` and the ``unsafe_rbg`` key are not
+    to be ported and raise.  The options ported since build: the noise
+    shared along axis 0 and the s2d stem (a no-op on a CIFAR stem, as in
+    ``lbt_tpu``) the same layers as the default; both sim engines a
+    conv -> BN -> ReLU -> pool -> dense stack whose serving forward equals
+    ``lbt_tpu``'s, at rtol = atol = 1e-5 (every contraction's sum is
+    exact, and under ``sim_bf16`` rounds once to bf16 in both).
+    ``lbt_tpu`` is jitted without excess precision: allowed it, XLA on the
+    CPU computes a bf16 contraction in f32 and drops the rounding of its
+    output to bf16, which the port, the TPU and the card keep (ROADMAP
+    queue 3)."""
+    cfg = QuantConfig.uniform(8, **kw)
+    if set(kw) & {"remat_bn", "bn_residual_q16", "noise_impl"}:
+        with pytest.raises(NotImplementedError):
+            cifar10_resnet(cfg, 20)
+        return
+    if "engine" not in kw:
+        names = [n for n, _ in cifar10_resnet(cfg, 20).net.named_modules()]
+        assert names == [n for n, _ in cifar10_resnet(
+            QuantConfig.uniform(8), 20).net.named_modules()]
+        return
+    from lbt_tpu.nn.layers import AvgPool as JAvgPool
+    from lbt_tpu.nn.layers import Dense as JDense
+    from lbt_tpu.nn.layers import Flatten as JFlatten
+    from lbt_tpu.nn.layers import ReLU as JReLU
+    from lbt_tpu_torch.nn.layers import AvgPool, Dense, Flatten, ReLU
+    jnet = jfinalize(JSequential("net", [
+        JConv2d("conv", cfg, (3, 3, 3, 16), (2, 2), "SAME", use_bias=False),
+        JBatchNorm("bn", cfg, 16), JReLU(),
+        JAvgPool(ksize=(4, 4), strides=(1, 1)), JFlatten(),
+        JDense("head", cfg, 16, 10)]))
+    params, qstate = _randomize(*jnet.init(jax.random.key(3)), seed=12)
+    x = np.random.default_rng(5).normal(0, 1, (2, 8, 8, 3)).astype(
+        np.float32)
+    want = _jax_layer_forward(jnet, params, qstate, x,
+                              {"xla_allow_excess_precision": False})
+    net = finalize(Sequential("net", [
+        Conv2d("conv", cfg, (3, 3, 3, 16), (2, 2), "SAME", use_bias=False),
+        BatchNorm("bn", cfg, 16), ReLU(),
+        AvgPool(ksize=(4, 4), strides=(1, 1)), Flatten(),
+        Dense("head", cfg, 16, 10)]))
+    load_jax_numpy(net, params, qstate)
+    got = net(torch.from_numpy(x), Ctx(train=False)).detach().numpy()
+    np.testing.assert_allclose(got, want, **TOL)
 
 
 def test_imagenet_resnet_refuses_the_s2d_stem():
-    """The space-to-depth stem of the ImageNet ResNets is not ported."""
+    """The space-to-depth stem of the ImageNet ResNets, refused before it
+    was ported: ``SpaceToDepth`` then the 4x4/s1 conv over 12 channels,
+    with ``lbt_tpu``'s layer names (the converter's trees carry its
+    4x4x12x64 stem both ways).  Its embedding of the 7x7/s2 stem and its
+    forward are held in ``tests/test_torch_sim.py``."""
     from lbt_tpu_torch.models import imagenet_resnet
+    from lbt_tpu_torch.nn.layers import SpaceToDepth
     cfg = QuantConfig.uniform(8, fused_bn=True, act_dtype="bf16",
                               stem_s2d=True)
-    with pytest.raises(NotImplementedError, match="stem_s2d"):
-        imagenet_resnet(cfg, 50)
+    model = imagenet_resnet(cfg, 50)
+    stem = model.net.layers[:2]
+    assert isinstance(stem[0], SpaceToDepth) and stem[0].block == 2
+    assert stem[1].name == "conv1" and stem[1].ksize == (4, 4, 12, 64)
+    assert stem[1].strides == (1, 1)
+    assert stem[1].padding == ((1, 2), (1, 2))
+    plain = imagenet_resnet(QuantConfig.uniform(8, fused_bn=True,
+                                                act_dtype="bf16"), 50)
+    assert plain.net.layers[0].ksize == (7, 7, 3, 64)
+    assert model.num_layers() == plain.num_layers() + 1
 
 
 def test_registry_and_serving_only_context():
@@ -178,10 +234,11 @@ def test_registry_and_serving_only_context():
         build_model("MNIST", cfg)
     with pytest.raises(ValueError):
         build_model("no_such_model", cfg)
-    # training with threefry 'prng' noise: the stream is not ported
-    with pytest.raises(NotImplementedError):
-        model.apply(torch.zeros(1, 32, 32, 3),
-                    Ctx(train=True, key=np.array([0, 1], np.uint32)))
+    # training with threefry 'prng' noise (refused before it was ported)
+    small = cifar10_resnet(cfg, 8).init(torch.Generator().manual_seed(0))
+    out = small.apply(torch.zeros(1, 32, 32, 3),
+                      Ctx(train=True, key=np.array([0, 1], np.uint32)))
+    assert out.shape == (1, 10) and torch.isfinite(out).all()
 
 
 def test_init_is_seeded_and_device_independent():

@@ -333,29 +333,39 @@ def _compare_trees(got, want, lsb_of, path=""):
         _compare_floats(got, want, lsb_of(path), path)
 
 
-def test_train_step_matches_lbt_tpu():
-    """Three steps of ResNet-8 (batch 4, 32x32) under uniform(8,
-    noise_mode='hash') from the same converted weights, base key and
-    data, against lbt_tpu's jitted ``make_train_step``.
+# XLA on the CPU computes a bf16 contraction in f32 and, allowed excess
+# precision, drops the rounding of its output to bf16, which the TPU, the
+# card and the port keep; this compiler option keeps it (ROADMAP queue 3)
+NO_EXCESS_PRECISION = {"xla_allow_excess_precision": False}
 
-    Tolerances: losses at rtol 1e-5; exponents bitwise after every step;
-    params, velocity and BN state at
-    rtol = atol = 1e-5, except at most 1e-4 of each leaf's elements, which
-    may differ by one LSB of that leaf's 8-bit grid at the current
-    exponent.  The BN moments are exact code sums in the port and f32
-    reductions in lbt_tpu, so a stochastic code may flip by one."""
-    cfg = jconfig.QuantConfig.uniform(8, noise_mode="hash")
+
+def compare_train_steps(cfg, n_steps=N_STEPS, depth=8):
+    """``n_steps`` steps of a CIFAR ResNet (batch 4, 32x32) under ``cfg``
+    from the same converted weights, base key and data, through the port's
+    ``make_train_step`` and ``lbt_tpu``'s, jitted without excess
+    precision, compared after every step.
+
+    Tolerances: losses at rtol 1e-5; accuracies and exponents bitwise;
+    params, velocity and BN state at rtol = atol = 1e-5, except at most
+    1e-4 of each leaf's elements, which may differ by one LSB of that
+    leaf's 8-bit grid at the current exponent.  The BN moments are exact
+    code sums in the port and f32 reductions in lbt_tpu, so a stochastic
+    code may flip by one."""
     tc = jconfig.TrainConfig()
-    jm, params, qstate = _jax_trees(8, cfg, seed=0, wd=tc.weight_decay)
+    jm = jax_resnet(cfg, depth, weight_decay=tc.weight_decay)
+    # both start from the port's init, carried into lbt_tpu's trees (its
+    # own init runs op by op: seconds a model)
+    model = cifar10_resnet(cfg, depth, weight_decay=tc.weight_decay).init(
+        torch.Generator().manual_seed(0))
+    params, qstate, _ = convert.to_jax_numpy(model)
     velocity = jmomentum_init(params)
-    model, vel = convert.from_jax_numpy(
-        cifar10_resnet(cfg, 8, weight_decay=tc.weight_decay),
-        *(jax.tree.map(np.asarray, t) for t in (params, qstate, velocity)))
-    jstep = jmake_train_step(jm, tc, jit=True, donate=False)
+    vel = momentum_init(dict(model.net.named_parameters()))
+    jstep = jax.jit(jmake_train_step(jm, tc, jit=False),
+                    compiler_options=NO_EXCESS_PRECISION)
     step = make_train_step(model, tconfig.TrainConfig())
     rng = np.random.default_rng(0)
     jkey = jax.random.key(7)
-    for s in range(N_STEPS):
+    for s in range(n_steps):
         x = rng.normal(0, 1, (BATCH, 32, 32, 3)).astype(np.float32)
         y = rng.integers(0, 10, (BATCH,)).astype(np.int32)
         params, qstate, velocity, jmet = jstep(
@@ -382,6 +392,13 @@ def test_train_step_matches_lbt_tpu():
         _compare_trees(q, jq_np, lambda path: _lsb(8, 2))
         _compare_trees(p, jax.tree.map(np.asarray, params), lsb_of)
         _compare_trees(v, jax.tree.map(np.asarray, velocity), lsb_of)
+
+
+def test_train_step_matches_lbt_tpu():
+    """Three steps of ResNet-8 under uniform(8, noise_mode='hash') against
+    lbt_tpu's jitted ``make_train_step``, at the tolerances of
+    :func:`compare_train_steps`."""
+    compare_train_steps(jconfig.QuantConfig.uniform(8, noise_mode="hash"))
 
 
 def test_layer_reached_twice_refuses_its_sink():

@@ -641,17 +641,33 @@ def test_step_profiler_writes_a_chrome_trace(tmp_path):
 
 
 @pytest.mark.parametrize("argv,msg", [
-    ([], "--noise_mode prng"),
-    (["--noise_mode", "hash", "--bits", "32"], "--bits 32"),
-    (["--noise_mode", "hash", "--engine", "sim_bf16"], "--engine sim_bf16"),
-    (["--noise_mode", "hash", "--stem_s2d"], "--stem_s2d"),
+    ([], None),
+    (["--noise_mode", "hash", "--bits", "32"], None),
+    (["--noise_mode", "hash", "--engine", "sim_bf16"], None),
+    (["--noise_mode", "hash", "--stem_s2d"], None),
     (["--noise_mode", "hash", "--scan_steps", "4"], "--scan_steps 4"),
     (["--noise_mode", "hash", "--data_parallel"], "--data_parallel"),
     (["--noise_mode", "hash", "--model", "MNIST"], "--model MNIST"),
+    (["--remat_bn"], "--remat_bn"),
+    (["--bn_residual_q16"], "--bn_residual_q16"),
 ])
 def test_cli_refuses_what_it_cannot_run(tmp_path, capsys, argv, msg):
-    """Exit status 2 before any work, naming the value and the ROADMAP
-    item."""
+    """What the port cannot run exits with status 2 before any work,
+    naming the value and the ROADMAP item.  main.py's defaults (``prng``
+    noise), the FP32 arm, the sim engines and the s2d stem, refused before
+    they were ported, have no refusal now and give main.py's config."""
+    from lbt_tpu_torch.main import build_parser, quant_config, refusals
+    if msg is None:
+        args = build_parser().parse_args(argv)
+        assert refusals(args) == []
+        cfg = tconfig.check_supported(quant_config(args))
+        if "32" in argv:
+            assert cfg == tconfig.QuantConfig.fp32()
+        else:
+            assert (cfg.engine, cfg.noise_mode) == (
+                args.engine, args.noise_mode)
+            assert cfg.stem_s2d == ("--stem_s2d" in argv)
+        return
     exp = tmp_path / "exp"
     with pytest.raises(SystemExit) as e:
         main(argv + ["--device", "cpu", "--exp_path", str(exp)])
