@@ -2,13 +2,17 @@
 """Smoke run of lbt_tpu_torch on one NVIDIA GPU: serve and train DFXP-INT8
 ResNet-20, the last through the port's Trainer and CLI (main.py's defaults
 among its runs), then train and serve the bench headline, ResNet-50 at 224
-px and batch 128, and train the bench's baseline leg at the same size.
+px and batch 128, train the bench's baseline leg at the same size, train
+VGG-16 / CIFAR-100 under int4w-int8a and serve it folded and exported, and
+train the reference's small models through the CLI.
 
 Run from the root of a checkout, on a machine with one CUDA card:
 
     python3 chip_smoke.py [--out details.json]
 
-Phases; each raises on failure and the script then exits non-zero:
+Phases; each raises on failure, and the script then prints
+``chip_smoke: FAILED in phase <name>`` with the traceback on stderr (and
+the line on stdout) and exits 1, with no result line.
 
 1. device  needs CUDA; prints the card's name and power limit; TF32 off;
            reads the SM count and maximum SM clock for the issue rate
@@ -128,12 +132,41 @@ Phases; each raises on failure and the script then exits non-zero:
            Then the headline's img/s over this phase's: the port's first
            reading of ``bench.py``'s ``vs_baseline``.
 
+12. vgg16  configuration V: ``VGG16_CIFAR100`` at full width and depth,
+           batch 256, under ``benchmarks/vgg_bench.py``'s ``int4w-int8a``
+           (uniform(8, int8, hash) with 4-bit weights: 8-bit biases, BN
+           parameters and gradients, 9-bit conv activations, unfused BN,
+           controllers every step), weights from a seed, seeded images
+           with labels in 0..99, deterministic algorithms on, TF32 off.
+           As resnet50: 2 steps through the kernels (counters reset just
+           before; K1, K2's two forms and #4 each launched) equal to the
+           plain route in every tensor, the first loss at batch 8 equal
+           to the CPU's, 8 timed steps, peak memory, a 2-step profile,
+           and K1, K2 and #4 at V's shapes beside their bounds and
+           library calls; the Dropout mask against the CPU's (f32, bf16)
+           and its device ms.  Then a ``Trainer`` on V's config trains
+           one epoch of 10 steps (counters reset just before, each
+           kernel launched, losses finite), and its
+           checkpoint is served by ``Predictor.from_checkpoint(...,
+           fold_bn=True)``: K1 and K2 launched, logits equal to the folded
+           model's plain route bitwise, the export's bytes against f32
+           (at most 0.3 of them), the restored export serving the same
+           logits; the share of labels the folded and unfolded models
+           agree on (recorded, not gated) and ms a request of 128.
+13. zoo    ``lbt_tpu_torch.main`` on the card, 4 steps of 128 and an eval
+           each, counters reset just before: ``PI_MNIST``, ``MNIST`` and
+           ``CIFAR10`` under main.py's defaults (prng, dropout keep 0.5),
+           ``CIFAR10_VGG --bits_w 4 --bits_a 8`` and ``CIFAR10_Resnet20
+           --gradient_buffer --noise_mode hash``; losses finite, each
+           kernel of the path launched (K1 in threefry mode under prng),
+           the gradient buffers nonzero.
+
 Prints the card, then one JSON line of kernels (launches from the trainer
 phase, the threefry rows' from its run of main.py's defaults; ms,
 plain_ms, bound_ms and library_ms a training step; the same keys under
-``resnet50`` for the headline's path and under ``baseline50`` for the
-baseline's K1), then, last, one JSON line ``{"ok": true, "device":
-{...}}``.
+``resnet50`` for the headline's path, under ``baseline50`` for the
+baseline's K1 and under ``vgg16`` for V's), then, last, one JSON line
+``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
@@ -142,6 +175,7 @@ import argparse
 import collections
 import contextlib
 import dataclasses
+import faulthandler
 import json
 import logging
 import math
@@ -151,6 +185,7 @@ import statistics
 import subprocess
 import sys
 import time
+import traceback
 from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 from unittest import mock
@@ -1076,6 +1111,8 @@ def phase_fused(fused, conv_calls, reps=REPS, threefry_twins=False
     rate = CARD["issue_per_s"]
     out = {}
     for kind in ("conv3x3_fused", "conv1x1_fused"):
+        if not any(key[0] == kind for key in conv_calls):
+            continue  # a path without this kind (VGG-16: no 1x1 conv)
         err, rows, tf_rows = 0.0, [], []
         fn = getattr(fused, kind)
         for key, count in sorted(conv_calls.items()):
@@ -1608,17 +1645,19 @@ def _r50_train(qmod, qops, quant, gemm, fused) -> dict:
 
 
 def train_leg(tag, build, gate_steps, timed_steps, modules, launched,
-              record_steps, required) -> dict:
-    """One ResNet-50 training leg at 224 px and batch 128 from ``build``'s
-    model: its kernel calls recorded (``record_steps``), ``gate_steps``
-    steps through the kernels (every counter reset just before;
-    ``launched(launches, threefry_launches)`` checks them) equal to the
-    same steps through the plain versions in every tensor, the first loss
-    at batch ``R50_CPU_BATCH`` equal to the CPU route's at rtol 1e-5,
+              record_steps, required, batches=None) -> dict:
+    """One training leg from ``build``'s model on ``batches`` (default
+    ``gate_steps`` of ResNet-50's, 224 px at batch 128): its kernel calls
+    recorded (``record_steps``), ``gate_steps`` steps through the kernels
+    (every counter reset just before; ``launched(launches,
+    threefry_launches)`` checks them) equal to the same steps through the
+    plain versions in every tensor, the first loss at batch
+    ``R50_CPU_BATCH`` equal to the CPU route's at rtol 1e-5,
     ``timed_steps`` timed steps with the peak memory, and a 2-step profile
     (one launch a K1 and #4/#5 call; the kinds in ``required`` called)."""
     qmod, qops, quant, gemm, fused = modules
-    batches = r50_batches(gate_steps)
+    batches = batches or r50_batches(gate_steps)
+    n_batch, image = batches[0][0].shape[0], batches[0][0].shape[1]
     probe = build(SEED).to("cuda")
     k1, k2, tn, conv = record_train_calls(
         qmod, qops, quant, gemm, fused, probe, batches[0],
@@ -1632,7 +1671,7 @@ def train_leg(tag, build, gate_steps, timed_steps, modules, launched,
     torch.cuda.synchronize()
     launches = train_counters(quant, gemm, fused)
     threefry = threefry_counters(quant, fused)
-    print(f"{tag} train: {gate_steps} steps of {BATCH} at {R50_IMAGE} px "
+    print(f"{tag} train: {gate_steps} steps of {n_batch} at {image} px "
           f"through the kernels; launches {launches}, in threefry mode "
           f"{threefry}", flush=True)
     launched(launches, threefry)
@@ -1667,6 +1706,9 @@ def train_leg(tag, build, gate_steps, timed_steps, modules, launched,
 
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
+    # what is allocated when the timed steps start: this leg's model and
+    # velocity, and whatever earlier phases still hold
+    held = torch.cuda.memory_allocated()
     times, step = [], gate_steps
     for i in range(timed_steps):
         torch.cuda.synchronize()
@@ -1677,10 +1719,11 @@ def train_leg(tag, build, gate_steps, timed_steps, modules, launched,
         step += 1
     peak = torch.cuda.max_memory_allocated()
     med = statistics.median(times)
-    print(f"{tag} train: median {med:.3f} ms a step of {BATCH} over "
+    print(f"{tag} train: median {med:.3f} ms a step of {n_batch} over "
           f"{timed_steps} steps (steps {gate_steps}-{step - 1}), "
-          f"{BATCH / med * 1e3:.1f} img/s; peak memory "
-          f"{peak / 2 ** 30:.2f} GiB", flush=True)
+          f"{n_batch / med * 1e3:.1f} img/s; peak memory "
+          f"{peak / 2 ** 30:.2f} GiB ({held / 2 ** 30:.2f} GiB allocated "
+          f"before the steps)", flush=True)
 
     before = train_counters(quant, gemm, fused)
     prof = _profile_steps(card_run, batches, step)
@@ -1694,8 +1737,9 @@ def train_leg(tag, build, gate_steps, timed_steps, modules, launched,
     return {"launches": launches, "threefry_launches": threefry,
             "losses": losses, "plain_losses": plain_losses,
             "first_loss_card": card_first, "first_loss_cpu": cpu_first,
-            "ms_per_step": med, "img_per_s": BATCH / med * 1e3,
+            "ms_per_step": med, "img_per_s": n_batch / med * 1e3,
             "samples_ms": times, "max_memory_allocated": peak,
+            "memory_allocated_before": held,
             "profile": prof, "k1_calls": k1, "k2_calls": k2,
             "tn_calls": tn, "conv_calls": conv}
 
@@ -1831,6 +1875,279 @@ def _b50_train(qmod, qops, quant, gemm, fused) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# vgg16: configuration V, VGG-16 / CIFAR-100 at batch 256 under int4w-int8a
+# ---------------------------------------------------------------------------
+
+V_BATCH = 256
+V_CLASSES = 100
+V_GATE_STEPS = 2        # kernel route vs plain route, bitwise
+V_TIMED_STEPS = 8
+V_REQUESTS = 4          # serving requests of BATCH (128) images
+V_DIR = REPO / "experiments" / "smoke_vgg16"
+V_TRAIN_STEPS = 10      # the Trainer's run: 1 epoch of 10 steps of 256
+
+
+def v_config():
+    """``benchmarks/vgg_bench.py``'s ``int4w-int8a``: uniform(8, int8,
+    hash) with 4-bit weights; 8-bit biases, BN parameters and gradients,
+    9-bit conv activations, unfused BN, controllers every step."""
+    from lbt_tpu_torch.config import QuantConfig
+    return dataclasses.replace(
+        QuantConfig.uniform(8, engine="int8", noise_mode="hash"), bits_w=4)
+
+
+def build_vgg16(seed: int):
+    """``VGG16_CIFAR100`` at full width and depth under V's config,
+    weights from ``seed``, the default recipe's weight decay, dropout at
+    keep 0.5."""
+    from lbt_tpu_torch.config import TrainConfig
+    from lbt_tpu_torch.models import build_model
+    return build_model("VGG16_CIFAR100", v_config(),
+                       weight_decay=TrainConfig().weight_decay).init(
+                           torch.Generator().manual_seed(seed))
+
+
+def v_batches(n: int) -> list:
+    """``n`` seeded batches of 32x32x3 images, labels in 0..99."""
+    rng = np.random.default_rng(SEED + 16)
+    return [(torch.from_numpy(rng.standard_normal((V_BATCH, 32, 32, 3),
+                                                  dtype=np.float32)),
+             torch.from_numpy(rng.integers(0, V_CLASSES, (V_BATCH,))))
+            for _ in range(n)]
+
+
+def phase_vgg16(qmod, qops, quant, gemm, fused) -> dict:
+    """Configuration V on the card: train (gate, time, profile, the
+    kernels at its shapes, the Dropout mask), then a Trainer on its config,
+    whose checkpoint is folded, exported, restored and served."""
+    t0 = time.perf_counter()
+
+    def launched(launches, threefry):
+        for k in ("k1", "k2", "k2_tn", "conv3x3"):
+            check(launches[k] > 0, f"{k} never launched on VGG-16's "
+                  f"training path")
+
+    torch.use_deterministic_algorithms(True)
+    try:
+        out = train_leg("vgg16", build_vgg16, V_GATE_STEPS, V_TIMED_STEPS,
+                        (qmod, qops, quant, gemm, fused), launched,
+                        ((0, 1.0),), ("k1", "conv3x3"),
+                        batches=v_batches(V_GATE_STEPS))
+    finally:
+        torch.use_deterministic_algorithms(False)
+    torch.cuda.empty_cache()
+    out["k1"] = phase_k1_train(quant, out.pop("k1_calls"), FAST_REPS, "V K1")
+    out["k2"] = phase_k2_train(gemm, out.pop("k2_calls"),
+                               out.pop("tn_calls"), R50_K2_REPS, "V K2")
+    out["fused"] = phase_fused(fused, out.pop("conv_calls"), FAST_REPS)
+    out["dropout"] = _v_dropout()
+    torch.cuda.empty_cache()
+    out["deploy"] = _v_deploy(qmod, qops, quant, gemm, fused)
+    out["seconds"] = time.perf_counter() - t0
+    print(f"vgg16: phase took {out['seconds']:.1f} s", flush=True)
+    return out
+
+
+def _v_dropout() -> dict:
+    """V's Dropout mask (its two layers: 256 x 512 each) drawn on the card
+    by the plain threefry in torch ops: equal to the CPU's bitwise in f32
+    and bf16 carriers, its device ms a layer (graph replays, f32)."""
+    from lbt_tpu_torch.dfxp.keys import base_key
+    from lbt_tpu_torch.nn.core import Ctx
+    from lbt_tpu_torch.nn.layers import Dropout
+    layer = Dropout(keep=0.5)
+    layer.uid = 43
+    ctx = Ctx(train=True, key=base_key(TRAIN_KEY_SEED))
+    x = torch.randn(V_BATCH, 512, generator=torch.Generator().manual_seed(3))
+    for dtype in (torch.float32, torch.bfloat16):
+        got = layer(x.to(dtype).cuda(), ctx)
+        check(got.dtype == dtype and torch.equal(got.cpu(),
+                                                  layer(x.to(dtype), ctx)),
+              f"the Dropout mask on the card differs from the CPU's "
+              f"({dtype})")
+    ms = device_ms(lambda t: layer(t, ctx), [(x.cuda(),)])
+    print(f"vgg16 dropout: masks of {V_BATCH}x512 equal to the CPU's (f32, "
+          f"bf16); {ms * 1e3:.1f} us of device time a layer (plain threefry "
+          f"in torch ops), 2 layers a step", flush=True)
+    return {"ms_per_layer": ms, "layers_per_step": 2}
+
+
+def _v_deploy(qmod, qops, quant, gemm, fused) -> dict:
+    """V trained by a ``Trainer`` on its config (10 steps of 256 on
+    CIFAR-100-shaped data, augmentation on, counters reset just before,
+    each kernel of the path launched, loss finite),
+    then its checkpoint served: ``Predictor.from_checkpoint(fold_bn=True)``
+    through the kernels (K1, K2 launched) with logits equal to the folded
+    model's plain route bitwise; the export's size against f32; the
+    restored export served with the same logits; the share of labels the
+    folded and unfolded models agree on (recorded); ms a request of 128."""
+    from lbt_tpu_torch import convert, infer
+    from lbt_tpu_torch.config import TrainConfig
+    from lbt_tpu_torch.data.datasets import load_dataset, make_augment
+    from lbt_tpu_torch.nn.core import Ctx
+    from lbt_tpu_torch.train.trainer import Trainer
+    shutil.rmtree(V_DIR, ignore_errors=True)
+    tc = TrainConfig(batch_size=V_BATCH, n_epoch=1, log_every=5,
+                     checkpoint_dir=str(V_DIR / "ckpt"))
+    run = Trainer(build_vgg16(SEED), tc,
+                  load_dataset("cifar100", n_train=V_TRAIN_STEPS * V_BATCH,
+                               n_test=512),
+                  augment=make_augment("cifar100"),
+                  logdir=str(V_DIR), device="cuda")
+    reset_counters(quant, gemm, fused)
+    _, run_ms = _sync_ms(run.train)
+    run.metrics.close()
+    launches = train_counters(quant, gemm, fused)
+    check(run.step == V_TRAIN_STEPS, f"V's Trainer took {run.step} steps")
+    for k in ("k1", "k2", "k2_tn", "conv3x3"):
+        check(launches[k] > 0, f"{k} never launched in V's Trainer run")
+    rows = _rows(V_DIR / "metrics.jsonl")
+    losses = [r["train/loss"] for r in rows if "train/loss" in r]
+    check(losses and all(math.isfinite(x) for x in losses),
+          f"V's logged losses {losses}")
+    epoch = run.epoch_time
+    img_s = epoch["images"] / epoch["seconds"]
+    print(f"vgg16 trainer: 1 epoch of {run.step} steps through "
+          f"Trainer.train in {run_ms / 1e3:.1f} s, {img_s:.1f} img/s; "
+          f"losses {losses}; launches {launches}", flush=True)
+
+    ckpt_dir = V_DIR / "ckpt"
+    folded = infer.Predictor.from_checkpoint(build_vgg16(SEED + 1), ckpt_dir,
+                                             fold_bn=True, device="cuda")
+    unfolded = infer.Predictor.from_checkpoint(build_vgg16(SEED + 1),
+                                               ckpt_dir, device="cuda")
+    rng = np.random.default_rng(SEED + 17)
+    requests = [rng.standard_normal((BATCH, 32, 32, 3), dtype=np.float32)
+                for _ in range(V_REQUESTS)]
+    folded(requests[0])
+    torch.cuda.synchronize()
+    quant.quantize_codes.launches = gemm.int8_matmul.launches = 0
+    labels = [folded(x).cpu() for x in requests]
+    serve_launches = {"k1": quant.quantize_codes.launches,
+                      "k2": gemm.int8_matmul.launches}
+    check(serve_launches["k1"] > 0 and serve_launches["k2"] > 0,
+          f"V's folded serving launched {serve_launches}")
+
+    exported = infer.export_quantized_weights(folded.model)
+    qb, fb = infer.exported_nbytes(exported)
+    check(qb < 0.3 * fb, f"the export holds {qb} bytes against {fb} as f32")
+    served = infer.Predictor(infer.fold_batchnorm(build_vgg16(SEED + 1)),
+                             infer.restore_quantized_weights(exported),
+                             convert.to_jax_numpy(folded.model)[1],
+                             device="cuda")
+    ctx = Ctx(train=False, update=False)
+    agree = []
+    with torch.inference_mode():
+        for x, lab in zip(requests, labels):
+            x = torch.from_numpy(x).cuda()
+            got = folded.model.apply(x, ctx)
+            with plain_route(qmod, qops, quant, gemm):
+                want = folded.model.apply(x, ctx)
+            check(got.shape == (BATCH, V_CLASSES)
+                  and bool(torch.isfinite(got).all()),
+                  f"bad folded VGG-16 logits {tuple(got.shape)}")
+            check(torch.equal(got, want), "V's folded serving: kernel and "
+                  "plain routes give other logits")
+            check(torch.equal(lab, want.argmax(-1).cpu()),
+                  "V's folded serving: labels differ from the plain route")
+            check(torch.equal(served.model.apply(x, ctx), got),
+                  "the restored export serves other logits")
+            agree.append((unfolded(x).cpu() == lab).float().mean().item())
+    agreement = statistics.mean(agree)
+
+    samples = {"folded": [], "unfolded": []}
+    for route in ("folded", "unfolded", "unfolded", "folded"):
+        pred = folded if route == "folded" else unfolded
+        for x in requests[:2]:
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            pred(x).cpu()
+            samples[route].append((time.perf_counter() - t1) * 1e3)
+    med = {r: statistics.median(v) for r, v in samples.items()}
+    print(f"vgg16 serve: Predictor.from_checkpoint(fold_bn=True) on the "
+          f"Trainer's checkpoint, {V_REQUESTS} requests of {BATCH}, launches "
+          f"{serve_launches}; logits equal to the folded plain route and "
+          f"to the restored export's; export {qb} bytes against {fb} as "
+          f"f32 ({fb / qb:.2f}x smaller); folded and unfolded labels agree "
+          f"on {agreement:.4f}; median ms a request: folded "
+          f"{med['folded']:.3f}, unfolded {med['unfolded']:.3f}", flush=True)
+    shutil.rmtree(ckpt_dir, ignore_errors=True)
+    return {"trainer_launches": launches, "trainer_losses": losses,
+            "trainer_img_per_s": img_s, "trainer_run_s": run_ms / 1e3,
+            "serve_launches": serve_launches, "exported_bytes": qb,
+            "f32_bytes": fb, "label_agreement": agreement,
+            "ms_per_request": med, "samples_ms": samples}
+
+
+# ---------------------------------------------------------------------------
+# zoo: the reference's small models and the gradient buffer through the CLI
+# ---------------------------------------------------------------------------
+
+ZOO_ARGV = ["--batch_size", "128", "--n_train", "512", "--n_test", "256",
+            "--n_epoch", "1", "--log_every", "2", "--checkpoint_every", "1"]
+# (model, flags, kernels of its path): main.py's defaults (prng noise,
+# dropout keep 0.5) for the three small models
+ZOO_RUNS = (
+    ("PI_MNIST", [], ("k1", "k2", "k2_tn")),
+    ("MNIST", [], ("k1", "k2", "k2_tn")),
+    ("CIFAR10", [], ("k1", "k2", "k2_tn")),
+    ("CIFAR10_VGG", ["--bits_w", "4", "--bits_a", "8"],
+     ("k1", "k2", "k2_tn")),
+    ("CIFAR10_Resnet20", ["--gradient_buffer", "--noise_mode", "hash"],
+     ("k1", "k2", "k2_tn", "conv3x3", "conv1x1")),
+)
+ZOO_DIR = REPO / "experiments" / "smoke_zoo"
+
+
+def phase_zoo(quant, gemm, fused) -> dict:
+    """Each of ``ZOO_RUNS`` through ``lbt_tpu_torch.main`` on the card, 4
+    steps of 128 and an eval, every counter reset just before: the loss
+    finite, each kernel of the path launched (K1 in threefry mode under
+    ``prng``); the gradient-buffer run's buffers nonzero."""
+    from lbt_tpu_torch.main import main as train_main
+    from lbt_tpu_torch.nn.layers import GradientBuffer
+    t0 = time.perf_counter()
+    shutil.rmtree(ZOO_DIR, ignore_errors=True)
+    out = {}
+    for name, flags, kernels in ZOO_RUNS:
+        reset_counters(quant, gemm, fused)
+        run, run_ms = _sync_ms(lambda: train_main(
+            ["--model", name] + flags + ZOO_ARGV
+            + ["--device", "cuda", "--exp_path", str(ZOO_DIR / name)]))
+        launches = train_counters(quant, gemm, fused)
+        threefry = threefry_counters(quant, fused)
+        for k in kernels:
+            check(launches[k] > 0, f"{k} never launched in the {name} run")
+        if run.model.cfg.noise_mode == "prng":
+            check(threefry["k1"] > 0, f"{name}: K1 never in threefry mode")
+        rows = _rows(ZOO_DIR / name / "metrics.jsonl")
+        losses = [r["train/loss"] for r in rows if "train/loss" in r]
+        test = [r["test/loss"] for r in rows if "test/loss" in r]
+        check(losses and test and all(math.isfinite(x)
+                                      for x in losses + test),
+              f"{name}: losses {losses}, test {test}")
+        bufs = [la.buffer for la in run.model.net.modules()
+                if isinstance(la, GradientBuffer)]
+        check(len(bufs) == (2 if "--gradient_buffer" in flags else 0)
+              and all(b.abs().sum().item() > 0 for b in bufs),
+              f"{name}: gradient buffers {[b.abs().sum() for b in bufs]}")
+        out[name] = {"launches": launches, "threefry_launches": threefry,
+                     "losses": losses, "test_loss": test, "run_s":
+                     run_ms / 1e3, "step": run.step,
+                     "gradient_buffers": len(bufs)}
+        print(f"zoo {name} {' '.join(flags)}: {run.step} steps of 128 in "
+              f"{run_ms / 1e3:.1f} s through lbt_tpu_torch.main, losses "
+              f"{losses}, test loss {test}; launches {launches}, in "
+              f"threefry mode {threefry}"
+              + (f"; {len(bufs)} gradient buffers nonzero" if bufs else ""),
+              flush=True)
+    shutil.rmtree(ZOO_DIR, ignore_errors=True)
+    out["seconds"] = time.perf_counter() - t0
+    print(f"zoo: phase took {out['seconds']:.1f} s", flush=True)
+    return out
+
+
 def port_modules():
     """Import every module of the port that this script drives and check
     that none of them loaded JAX, which the card's machine does not have,
@@ -1861,7 +2178,9 @@ def kernel_lines(report) -> list:
     ``torch.quantize_per_tensor``); #4/#5 have no library call that
     computes their function: ``conv_library_ms`` is cuDNN's conv alone.
     ``resnet50`` holds the same keys for the headline's path: launches of
-    its 3 counted training steps, ms a step at its shapes and cadence."""
+    its 3 counted training steps, ms a step at its shapes and cadence;
+    ``vgg16`` for configuration V's (K1, K2, #4; its path has no 1x1
+    conv): launches of its 2 counted steps, ms a step at its shapes."""
     k1, k2, fused = report["k1_train"], report["k2_train"], report["fused"]
     launches = report["trainer"]["launches"]
     r50 = report["resnet50"]
@@ -1876,6 +2195,9 @@ def kernel_lines(report) -> list:
         return {"launches": n, "max_abs_err": t["max_abs_err"],
                 **times(t, library), **extra}
 
+    v = report["vgg16"]
+    v_launches = v["launches"]
+    v3 = v["fused"]["conv3x3_fused"]
     c3, c1 = fused["conv3x3_fused"], fused["conv1x1_fused"]
     r3, r1 = r50["fused"]["conv3x3_fused"], r50["fused"]["conv1x1_fused"]
     tf = report["trainer"]["defaults"]["threefry_launches"]
@@ -1909,28 +2231,34 @@ def kernel_lines(report) -> list:
          "replaces": "lbt_tpu/ops/pallas/quant_kernels.py:126",
          "launches": launches["k1"],
          "max_abs_err": max(report["k1"]["max_abs_err"], k1["max_abs_err"],
-                            r50["k1"]["max_abs_err"]),
+                            r50["k1"]["max_abs_err"], v["k1"]["max_abs_err"]),
          **times(k1, library=False),
          "serve_8bit": report["k1"]["library_8bit"],
-         "resnet50": at_r50(r50["k1"], r50_launches["k1"], False)},
+         "resnet50": at_r50(r50["k1"], r50_launches["k1"], False),
+         "vgg16": at_r50(v["k1"], v_launches["k1"], False)},
         {"name": "k2_int8_gemm", "route": "cuda",
          "source": "lbt_tpu_torch/csrc/int8_gemm.cu",
          "replaces": "lbt_tpu/ops/pallas/quant_kernels.py:187",
          "launches": launches["k2"] + launches["k2_tn"],
          "max_abs_err": max(report["k2"]["max_abs_err"], k2["max_abs_err"],
-                            r50["k2"]["max_abs_err"]),
+                            r50["k2"]["max_abs_err"], v["k2"]["max_abs_err"]),
          **times(k2),
          "resnet50": at_r50(r50["k2"], r50_launches["k2"]
                             + r50_launches["k2_tn"],
-                            forms=r50["k2"]["forms"])},
+                            forms=r50["k2"]["forms"]),
+         "vgg16": at_r50(v["k2"], v_launches["k2"] + v_launches["k2_tn"],
+                         forms=v["k2"]["forms"])},
         {"name": "conv3x3_fused", "route": "cuda",
          "source": "lbt_tpu_torch/csrc/conv_fused.cu",
          "replaces": "lbt_tpu/ops/pallas/conv_kernels.py:170",
          "launches": launches["conv3x3"],
-         "max_abs_err": max(c3["max_abs_err"], r3["max_abs_err"]),
+         "max_abs_err": max(c3["max_abs_err"], r3["max_abs_err"],
+                            v3["max_abs_err"]),
          **times(c3, library=False), "conv_library_ms": c3["lib_ms"],
          "resnet50": at_r50(r3, r50_launches["conv3x3"], False,
-                            conv_library_ms=r3["lib_ms"])},
+                            conv_library_ms=r3["lib_ms"]),
+         "vgg16": at_r50(v3, v_launches["conv3x3"], False,
+                         conv_library_ms=v3["lib_ms"])},
         {"name": "conv1x1_fused", "route": "cuda",
          "source": "lbt_tpu_torch/csrc/conv_fused.cu",
          "replaces": "lbt_tpu/ops/pallas/conv1x1_kernels.py:146",
@@ -1942,46 +2270,58 @@ def kernel_lines(report) -> list:
     ]
 
 
+# the phase running now, named in the report of a failure
+PHASE = ["start"]
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--out", type=Path, default=None,
                     help="also write every measurement to this JSON file")
     args = ap.parse_args(argv)
 
-    if not torch.cuda.is_available():
-        print("chip_smoke: no CUDA device", file=sys.stderr)
-        return 1
-    if not (REPO / "lbt_tpu_torch").is_dir():
-        print(f"chip_smoke: no lbt_tpu_torch package beside {__file__}",
-              file=sys.stderr)
-        return 1
+    PHASE[0] = "device"
+    check(torch.cuda.is_available(), "no CUDA device: chip_smoke needs one")
+    PHASE[0] = "imports"
+    check((REPO / "lbt_tpu_torch").is_dir(),
+          f"no lbt_tpu_torch package beside {__file__}: run chip_smoke.py "
+          f"from the root of a checkout")
     qmod, qops, build, gemm, quant = port_modules()
     from lbt_tpu_torch.ops.kernels import conv_fused
 
-    report = {"device": phase_device()}
-    report["build"] = phase_build(build)
+    report = {}
+
+    def phase(name, fn, *fargs):
+        PHASE[0] = name
+        report[name] = fn(*fargs)
+        return report[name]
+
+    phase("device", phase_device)
+    phase("build", phase_build, build)
+    PHASE[0] = "serve shapes"
     probe = build_resnet20(SEED).to("cuda")
     x = torch.from_numpy(np.random.default_rng(SEED + 3).normal(
         0, 1, (BATCH, 32, 32, 3)).astype(np.float32)).cuda()
     k1_calls, k2_calls = record_path_calls(probe, x, qmod, qops, quant,
                                            gemm)
-    report["k1"] = phase_k1(quant, k1_calls)
-    report["k2"] = phase_k2(gemm, k2_calls)
-    report["serve"] = phase_serve(quant, gemm, qmod, qops)
+    phase("k1", phase_k1, quant, k1_calls)
+    phase("k2", phase_k2, gemm, k2_calls)
+    phase("serve", phase_serve, quant, gemm, qmod, qops)
     from lbt_tpu_torch.infer import Predictor
-    report["profile"] = phase_profile(Predictor(probe), x)
+    phase("profile", phase_profile, Predictor(probe), x)
 
+    PHASE[0] = "train shapes"
     k1_t, k2_t, tn_t, conv_t = record_train_calls(qmod, qops, quant, gemm,
                                                   conv_fused)
-    report["k1_train"] = phase_k1_train(quant, k1_t, threefry_twins=True)
-    report["k2_train"] = phase_k2_train(gemm, k2_t, tn_t)
-    report["fused"] = phase_fused(conv_fused, conv_t, threefry_twins=True)
-    report["train"] = phase_train(qmod, qops, quant, gemm, conv_fused)
-    report["trainer"] = phase_trainer(quant, gemm, conv_fused,
-                                      report["device"]["nvidia_smi"])
-    report["resnet50"] = phase_resnet50(qmod, qops, quant, gemm, conv_fused)
-    report["baseline50"] = phase_baseline50(qmod, qops, quant, gemm,
-                                            conv_fused)
+    phase("k1_train", phase_k1_train, quant, k1_t, REPS, "K1-stats", True)
+    phase("k2_train", phase_k2_train, gemm, k2_t, tn_t)
+    phase("fused", phase_fused, conv_fused, conv_t, REPS, True)
+    phase("train", phase_train, qmod, qops, quant, gemm, conv_fused)
+    phase("trainer", phase_trainer, quant, gemm, conv_fused,
+          report["device"]["nvidia_smi"])
+    phase("resnet50", phase_resnet50, qmod, qops, quant, gemm, conv_fused)
+    phase("baseline50", phase_baseline50, qmod, qops, quant, gemm,
+          conv_fused)
     report["vs_baseline"] = (report["resnet50"]["img_per_s"]
                              / report["baseline50"]["img_per_s"])
     print(f"vs_baseline (bench.py's ratio, the port's first reading): the "
@@ -1989,7 +2329,10 @@ def main(argv=None) -> int:
           f"resnet50) over the baseline's "
           f"{report['baseline50']['img_per_s']:.1f} (phase baseline50) = "
           f"{report['vs_baseline']:.3f}", flush=True)
+    phase("vgg16", phase_vgg16, qmod, qops, quant, gemm, conv_fused)
+    phase("zoo", phase_zoo, quant, gemm, conv_fused)
 
+    PHASE[0] = "report"
     kernels = kernel_lines(report)
     report["kernels"] = kernels
     if args.out is not None:
@@ -2003,5 +2346,23 @@ def main(argv=None) -> int:
     return 0
 
 
+def run() -> int:
+    """``main`` with every failure reported: the phase that failed and its
+    traceback on stderr (a line on stdout too), then exit status 1; no
+    result line is printed.  A crash below Python (a fault in a kernel)
+    dumps the Python stack through ``faulthandler``."""
+    faulthandler.enable()
+    try:
+        return main()
+    except Exception as e:  # noqa: BLE001 -- reported, then exit 1
+        sys.stdout.flush()
+        print(f"chip_smoke: FAILED in phase {PHASE[0]}: "
+              f"{type(e).__name__}: {e}", file=sys.stderr)
+        traceback.print_exc(file=sys.stderr)
+        print(f"chip_smoke: FAILED in phase {PHASE[0]} (traceback on "
+              f"stderr)", flush=True)
+        return 1
+
+
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(run())

@@ -1,9 +1,10 @@
 """lbt-tpu's PyTorch / CUDA port for NVIDIA Hopper (H100).
 
 A second package beside ``lbt_tpu`` (the JAX reference, which it never
-imports).  Module paths mirror ``lbt_tpu``'s.  The port serves the CIFAR
-and ImageNet ResNets (``infer.Predictor``) and trains them one step at a
-time on one device (``train.step.make_train_step``, the CLI
+imports).  Module paths mirror ``lbt_tpu``'s.  The port serves every
+model of ``lbt_tpu``'s registry (``infer.Predictor``, with BN folded and
+weights exported as integer codes on request) and trains it one step at
+a time on one device (``train.step.make_train_step``, the CLI
 ``python -m lbt_tpu_torch.main``) under the integer engine or the float
 simulation (``sim`` / ``sim_bf16``), with any of ``lbt_tpu``'s noise
 streams; ``models.zoo`` builds them and ``convert`` carries ``lbt_tpu``'s

@@ -6,8 +6,10 @@ The trees are ``lbt_tpu``'s nested dicts with numpy arrays at the leaves
 gives).  The walk follows the layers: a container's keys are its child
 names; a leaf layer's params map to its parameters by name, its
 ``qstate['exp'][site]`` to the int32 buffer ``exp_<site>`` and its
-``qstate['state']`` entries (BN ``mean`` / ``var``) to buffers of the same
-name.  Any missing, extra or mis-shaped entry raises ``ValueError``.
+``qstate['state']`` entries (BN ``mean`` / ``var``, a GradientBuffer's
+``buffer``) to buffers of the same name.  A folded model
+(``infer.fold_batchnorm``) is a model like any other: its trees are
+``lbt_tpu``'s folded trees.  Any missing, extra or mis-shaped entry raises ``ValueError``.
 The momentum velocity has the params tree's layout in ``lbt_tpu`` and is a
 dict keyed by parameter name (``model.net.named_parameters()``) in the
 port (:mod:`lbt_tpu_torch.train.optim`).

@@ -4,6 +4,8 @@ plus ``--device``.
     python -m lbt_tpu_torch.main                  # main.py's defaults
     python -m lbt_tpu_torch.main --model CIFAR10_Resnet20 --bits 8 \\
         --noise_mode hash --batch_size 128 --device cuda
+    python -m lbt_tpu_torch.main --model VGG16_CIFAR100 --bits_w 4 \\
+        --bits_a 8 --bits_g 8 --batch_size 256
 
 A command line of ``main.py`` runs here unchanged where the port has what
 it asks for, its defaults included (``--noise_mode prng`` draws
@@ -26,8 +28,7 @@ import torch
 from lbt_tpu_torch.config import QuantConfig, TrainConfig
 from lbt_tpu_torch.data.datasets import load_dataset, make_augment
 from lbt_tpu_torch.models import build_model
-from lbt_tpu_torch.models.zoo import (MODEL_DATASET, MODEL_REGISTRY,
-                                      NOT_PORTED)
+from lbt_tpu_torch.models.zoo import MODEL_DATASET, MODEL_REGISTRY
 from lbt_tpu_torch.train.trainer import Trainer
 from lbt_tpu_torch.utils.logging import get_logger
 
@@ -46,7 +47,7 @@ def build_parser() -> argparse.ArgumentParser:
         prog=PROG, description="DFXP low-bit training, PyTorch port")
     p.add_argument("--exp_path", type=str, default=None)
     p.add_argument("--model", type=str, default="CIFAR10_Resnet20",
-                   choices=sorted(set(MODEL_REGISTRY) | set(NOT_PORTED)))
+                   choices=sorted(MODEL_REGISTRY))
     p.add_argument("--device", type=str, default="cuda",
                    help="torch device to train on ('cuda', 'cuda:1', "
                         "'cpu'); 'cuda' without a card is an error")
@@ -157,15 +158,11 @@ def refusals(args) -> List[str]:
     """Why the port cannot run this command line: one message per flag
     value, each naming the ROADMAP item that ports it."""
     out = []
-    if args.model in NOT_PORTED:
-        out.append(f"--model {args.model} is not ported (ROADMAP queue 1 "
-                   f"item 6); the port has {sorted(MODEL_REGISTRY)}")
     for flag, item in (("bn_residual_q16", "queue 1 item 13, not to port"),
                        ("remat_bn", "queue 1 item 13, not to port"),
                        ("native_loader", "queue 1 item 9"),
                        ("data_parallel", "queue 1 item 12"),
                        ("lowbit_allreduce", "queue 1 item 12"),
-                       ("gradient_buffer", "queue 1 item 5"),
                        ("debug_nans", "queue 1 item 9")):
         if getattr(args, flag):
             out.append(f"--{flag} is not ported (ROADMAP {item})")
@@ -190,6 +187,9 @@ def main(argv: Optional[List[str]] = None) -> Trainer:
         if v is not None and not (1 <= v <= 32):
             _fail(f"--{name} must be in 1..32 (32 = fp32 passthrough), "
                     f"got {v}")
+    if args.gradient_buffer and not args.model.startswith("CIFAR10_Resnet"):
+        _fail("--gradient_buffer only supported for the CIFAR10_Resnet* "
+              "models (reference sites)")
     refused = refusals(args)
     if refused:
         _fail("the PyTorch port cannot run this command line:\n  "
@@ -221,8 +221,11 @@ def main(argv: Optional[List[str]] = None) -> Trainer:
         checkpoint_every_epochs=args.checkpoint_every,
         checkpoint_dir=os.path.join(exp, "ckpt"),
     )
-    model = build_model(args.model, cfg, dropout_keep=args.dropout,
-                        weight_decay=args.weight_decay)
+    model_kw = dict(dropout_keep=args.dropout,
+                    weight_decay=args.weight_decay)
+    if args.gradient_buffer:
+        model_kw["gradient_buffer_batch"] = args.batch_size
+    model = build_model(args.model, cfg, **model_kw)
     ds_name = MODEL_DATASET[args.model]
     data = load_dataset(ds_name, n_train=args.n_train, n_test=args.n_test)
     if data["synthetic"]:

@@ -6,7 +6,10 @@ In training, each quantized site draws its stochastic noise from its own
 key, ``fold_in(fold_in(step_key, uid), site)`` with ``lbt_tpu``'s site
 indices (:data:`SITE_X` ...), measures its controller statistics in the
 same K1 pass that quantizes it, and the layer's output passes the
-cotangent barrier (``dfxp/barrier.py``) at the gradient site.
+cotangent barrier (``dfxp/barrier.py``) at the gradient site.  Dropout
+draws its mask from the site-4 key (``jax.random.bernoulli``'s stream);
+``GradientBuffer`` quantizes the cotangent plus an error-feedback buffer
+at the site-3 key.
 """
 
 from __future__ import annotations
@@ -14,11 +17,14 @@ from __future__ import annotations
 from typing import Tuple
 
 import torch
+import torch.nn.functional as F
 from torch import nn
 
 from lbt_tpu_torch.config import QuantConfig, carrier_dtype
-from lbt_tpu_torch.dfxp.barrier import grad_quant_barrier
+from lbt_tpu_torch.dfxp.barrier import grad_quant_barrier, quantize_cotangent
+from lbt_tpu_torch.dfxp.quantize import dequantize
 from lbt_tpu_torch.nn.core import Ctx, Layer, site_init_exp
+from lbt_tpu_torch.ops.kernels.quant import threefry_uniform_flat
 from lbt_tpu_torch.ops.qops import qconv2d, qmatmul
 
 # PRNG site indices (folded into the layer key), as lbt_tpu's
@@ -237,22 +243,60 @@ class MaxPool(Layer):
 
 
 class AvgPool(Layer):
-    """Average pooling over NHWC windows, VALID padding: window sums at
-    f32 divided by the window size."""
+    """Average pooling over NHWC windows: window sums at f32 divided by
+    the count of real (unpadded) positions in the window, as
+    ``tf.nn.avg_pool``; SAME pads with zeros, the extra at the end, and
+    its divisor is the window sum of ones."""
 
     def __init__(self, name: str = "", *, ksize: Tuple[int, int],
                  strides: Tuple[int, int], padding: str = "VALID"):
         super().__init__(name)
-        if padding.upper() != "VALID":
-            raise NotImplementedError("only VALID average pooling is ported")
         self.ksize = tuple(ksize)
         self.strides = tuple(strides)
-        self.padding = "VALID"
+        self.padding = padding.upper()
+        if self.padding not in ("VALID", "SAME"):
+            raise ValueError(f"bad padding {padding!r}")
+
+    def _window_sums(self, x: torch.Tensor) -> torch.Tensor:
+        (kh, kw), (sh, sw) = self.ksize, self.strides
+        return x.unfold(1, kh, sh).unfold(2, kw, sw).sum(dim=(-2, -1))
 
     def forward(self, x, ctx):
-        (kh, kw), (sh, sw) = self.ksize, self.strides
-        win = x.to(torch.float32).unfold(1, kh, sh).unfold(2, kw, sw)
-        return (win.sum(dim=(-2, -1)) / float(kh * kw)).to(x.dtype)
+        xf = x.to(torch.float32)
+        if self.padding == "VALID":
+            total = self._window_sums(xf)
+            return (total / float(self.ksize[0] * self.ksize[1])).to(x.dtype)
+        (pt, pb), (pl, pr) = (_same_pads(n, k, s) for n, k, s in
+                              zip(x.shape[1:3], self.ksize, self.strides))
+        pad = (0, 0, pl, pr, pt, pb)
+        count = self._window_sums(F.pad(xf.new_ones((1,) + x.shape[1:3]
+                                                    + (1,)), pad))
+        return (self._window_sums(F.pad(xf, pad)) / count).to(x.dtype)
+
+
+class Dropout(Layer):
+    """Inverted dropout, ``keep`` the keep probability (the CLI's
+    ``--dropout``); active only in training with ``keep < 1``.  The mask is
+    ``jax.random.bernoulli(key, keep, shape)`` of the site-4 key bit for
+    bit: the threefry uniforms of the flat index below ``keep`` in f32.
+    Kept elements become ``x / keep`` in ``x``'s dtype, ``keep`` rounded
+    to that dtype first (JAX's weak-typed scalar)."""
+
+    def __init__(self, name: str = "", *, keep: float = 0.5):
+        super().__init__(name)
+        self.keep = keep
+
+    def forward(self, x, ctx):
+        if not ctx.train or self.keep >= 1.0:
+            return x
+        key = ctx.layer_key(self.uid, SITE_DROP)
+        if key is None:
+            raise ValueError("training dropout needs a PRNG key")
+        u = threefry_uniform_flat(*key, x.numel(), device=x.device)
+        # 0-d CPU tensors: scalars to an op on any device, no copy
+        mask = u.view(x.shape) < torch.tensor(self.keep, dtype=torch.float32)
+        keep = torch.tensor(self.keep, dtype=torch.float32).to(x.dtype)
+        return torch.where(mask, x / keep, 0.0)
 
 
 class Flatten(Layer):
@@ -280,3 +324,66 @@ class SpaceToDepth(Layer):
             raise ValueError(f"{tuple(x.shape)} is not divisible by {b}")
         y = x.reshape(n, h // b, b, w // b, b, c).permute(0, 1, 3, 2, 4, 5)
         return y.reshape(n, h // b, w // b, b * b * c)
+
+
+class _GradBuf(torch.autograd.Function):
+    """Identity forward.  Backward: ``total = g + buffer``, quantized at
+    the layer's gradient site (``bits_g``, its exponent, the site-3 key),
+    with the overflow statistics of ``total`` into the sink (the hold
+    sentinel when the controllers are gated off); ``total - gq`` is
+    staged as the new buffer and ``gq`` passes on in ``g``'s dtype."""
+
+    @staticmethod
+    def forward(ctx, x, sink, layer, tctx):
+        ctx.layer, ctx.tctx, ctx.has_sink = layer, tctx, sink is not None
+        # no key (a keyless training call) draws from key data (0, 0), as
+        # lbt_tpu's zero key data
+        ctx.key = tctx.layer_key(layer.uid, SITE_G) or (0, 0)
+        ctx.gate = tctx.update_gate
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        layer, cfg = ctx.layer, ctx.layer.cfg
+        total = g + layer.buffer
+        codes, mult, stats = quantize_cotangent(
+            total, cfg.bits_g, layer.exp("grad"), ctx.key,
+            stochastic=cfg.stochastic, backend=cfg.quant_backend,
+            noise_shared_axis0=cfg.noise_shared_axis0,
+            target_overflow_rate=cfg.target_overflow_rate, gate=ctx.gate)
+        gq = dequantize(codes, mult)
+        ctx.tctx.stage(layer.buffer, total - gq)
+        return gq.to(g.dtype), (stats if ctx.has_sink else None), None, None
+
+
+class GradientBuffer(Layer):
+    """Error-feedback gradient quantizer (``lbt_tpu``'s ``GradientBuffer``,
+    the reference's ``GradientBuffer_q``): the identity forward; the
+    backward adds the persistent residual ``buffer`` (a module buffer of
+    the fixed activation ``shape``) to the cotangent, quantizes the sum at
+    ``bits_g`` and keeps the quantization error as the next buffer,
+    staged on the :class:`Ctx` and committed after the backward pass.  Its
+    gradient-site exponent steps from its sink as a barrier's does.
+    Outside training it is the identity and the buffer is untouched."""
+
+    def __init__(self, name: str, cfg: QuantConfig,
+                 shape: Tuple[int, ...]):
+        super().__init__(name, cfg)
+        self.shape = tuple(shape)
+        if cfg.bits_g < 32:
+            self._register_exps([("grad", cfg.bits_g,
+                                  site_init_exp(cfg, "grad"))])
+            self.register_buffer("buffer", torch.zeros(self.shape))
+
+    def reset_parameters(self, generator):
+        if self.cfg.bits_g < 32:
+            self.buffer.zero_()
+        self._reset_exps()
+
+    def forward(self, x, ctx):
+        if self.cfg.bits_g >= 32 or not ctx.train:
+            return x
+        if tuple(x.shape) != self.shape:
+            raise ValueError(f"GradientBuffer {self.name!r} expects shape "
+                             f"{self.shape}, got {tuple(x.shape)}")
+        return _GradBuf.apply(x, ctx.sink(self), self, ctx)

@@ -26,7 +26,7 @@ from lbt_tpu_torch.ops import qops
 from lbt_tpu_torch.ops.kernels import quant
 from lbt_tpu_torch.ops.kernels.conv_fused import (conv1x1_fused,
                                                   conv3x3_fused)
-from test_torch_train import compare_train_steps
+from test_torch_train import compare_train_steps, resnet_pair
 
 jq = importlib.import_module("lbt_tpu.dfxp.quantize")
 
@@ -171,4 +171,4 @@ def test_resnet8_int8_prng_train_steps_match_lbt_tpu():
     """Three steps of ResNet-8 under ``uniform(8)``: the int8 engine with
     main.py's default ``prng`` noise (K1 and #4/#5 in threefry mode on the
     card), against lbt_tpu's jitted step."""
-    compare_train_steps(jconfig.QuantConfig.uniform(8))
+    compare_train_steps(*resnet_pair(jconfig.QuantConfig.uniform(8)))

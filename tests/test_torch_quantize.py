@@ -175,10 +175,11 @@ def test_wrappers_refuse_devices_without_a_kernel():
 
 
 def test_port_imports_no_jax():
-    """The port (its trainer, data, checkpoint, logging and CLI included),
-    and chip_smoke.py's own imports and walk of the serving path, load no
-    JAX, and nothing of ``lbt_tpu``: the card's machine has no JAX, and
-    the port owns its config."""
+    """The port (its trainer, data, checkpoint, logging, CLI, deployment
+    and every registry model included), and chip_smoke.py's own imports
+    and walk of the serving path, load no JAX, and nothing of
+    ``lbt_tpu``: the card's machine has no JAX, and the port owns its
+    config."""
     code = (
         "import sys, torch\n"
         "import lbt_tpu_torch\n"
@@ -188,7 +189,18 @@ def test_port_imports_no_jax():
         "import lbt_tpu_torch.data.datasets, lbt_tpu_torch.data.pipeline\n"
         "import lbt_tpu_torch.train.checkpoint, lbt_tpu_torch.utils.tb\n"
         "import lbt_tpu_torch.utils.logging, lbt_tpu_torch.utils.profiling\n"
+        "from lbt_tpu_torch.infer import (fold_batchnorm,\n"
+        "    export_quantized_weights, restore_quantized_weights,\n"
+        "    exported_nbytes)\n"
+        "from lbt_tpu_torch.nn.layers import Dropout, GradientBuffer\n"
+        "from lbt_tpu_torch.config import QuantConfig\n"
+        "from lbt_tpu_torch.models import MODEL_REGISTRY, build_model\n"
+        "for name in MODEL_REGISTRY:\n"
+        "    build_model(name, QuantConfig.uniform(8))\n"
+        "build_model('CIFAR10_Resnet20', QuantConfig.uniform(8),\n"
+        "            gradient_buffer_batch=4)\n"
         "import chip_smoke\n"
+        "chip_smoke.v_config(), chip_smoke.build_vgg16(0)\n"
         "qmod, qops, build, gemm, quant = chip_smoke.port_modules()\n"
         "m = chip_smoke.build_resnet20(0)\n"
         "k1, k2 = chip_smoke.record_path_calls(\n"

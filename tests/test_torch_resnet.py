@@ -230,8 +230,9 @@ def test_registry_and_serving_only_context():
     model = build_model("CIFAR10_Resnet32", cfg)
     assert model.name == "cifar10_resnet32"
     assert tconfig.check_supported(cfg) is cfg
-    with pytest.raises(NotImplementedError):
-        build_model("MNIST", cfg)
+    # lbt_tpu's other registry models (refused before they were ported)
+    assert build_model("MNIST", cfg).name == "lenet_mnist"
+    assert build_model("VGG16_CIFAR100", cfg).name == "vgg16"
     with pytest.raises(ValueError):
         build_model("no_such_model", cfg)
     # training with threefry 'prng' noise (refused before it was ported)

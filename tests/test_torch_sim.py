@@ -31,7 +31,8 @@ from lbt_tpu_torch.nn.core import Ctx
 from lbt_tpu_torch.nn.layers import SpaceToDepth
 from lbt_tpu_torch.ops import qops
 from test_torch_resnet import _randomize
-from test_torch_train import NO_EXCESS_PRECISION, compare_train_steps
+from test_torch_train import (NO_EXCESS_PRECISION, compare_train_steps,
+                              resnet_pair)
 
 _EVAL = JCtx(train=False, key=None, update=False)
 
@@ -283,5 +284,5 @@ def test_resnet8_sim_bf16_prng_train_steps_match_lbt_tpu():
     (sim_bf16, prng noise, unfused BN, f32 carriers, controllers every
     step), against lbt_tpu's step, at the tolerances of
     :func:`compare_train_steps`."""
-    compare_train_steps(jconfig.QuantConfig.uniform(
-        8, engine="sim_bf16", noise_mode="prng"))
+    compare_train_steps(*resnet_pair(jconfig.QuantConfig.uniform(
+        8, engine="sim_bf16", noise_mode="prng")))

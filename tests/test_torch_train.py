@@ -339,24 +339,34 @@ def _compare_trees(got, want, lsb_of, path=""):
 NO_EXCESS_PRECISION = {"xla_allow_excess_precision": False}
 
 
-def compare_train_steps(cfg, n_steps=N_STEPS, depth=8):
-    """``n_steps`` steps of a CIFAR ResNet (batch 4, 32x32) under ``cfg``
-    from the same converted weights, base key and data, through the port's
-    ``make_train_step`` and ``lbt_tpu``'s, jitted without excess
-    precision, compared after every step.
+def resnet_pair(cfg, depth=8):
+    """``lbt_tpu``'s CIFAR ResNet under ``cfg`` and the port's, the port's
+    initialized from a seed (lbt_tpu's own init runs op by op: seconds a
+    model; :func:`compare_train_steps` carries these weights over)."""
+    wd = jconfig.TrainConfig().weight_decay
+    return (jax_resnet(cfg, depth, weight_decay=wd),
+            cifar10_resnet(cfg, depth, weight_decay=wd).init(
+                torch.Generator().manual_seed(0)))
+
+
+def compare_train_steps(jm, model, batch_shape=(BATCH, 32, 32, 3),
+                        n_classes=10, n_steps=N_STEPS, check_state=None):
+    """``n_steps`` steps of ``model`` (the port's, initialized) and ``jm``
+    (lbt_tpu's twin) from the same converted weights, base key and data,
+    through the port's ``make_train_step`` and ``lbt_tpu``'s, jitted
+    without excess precision, compared after every step;
+    ``check_state(port qstate, lbt_tpu qstate)`` adds a check of its own.
 
     Tolerances: losses at rtol 1e-5; accuracies and exponents bitwise;
     params, velocity and BN state at rtol = atol = 1e-5, except at most
     1e-4 of each leaf's elements, which may differ by one LSB of that
-    leaf's 8-bit grid at the current exponent.  The BN moments are exact
-    code sums in the port and f32 reductions in lbt_tpu, so a stochastic
-    code may flip by one."""
+    leaf's grid (the site's width under ``model.cfg``) at the current
+    exponent.  The BN moments are exact code sums in the port and f32
+    reductions in lbt_tpu, so a stochastic code may flip by one."""
     tc = jconfig.TrainConfig()
-    jm = jax_resnet(cfg, depth, weight_decay=tc.weight_decay)
-    # both start from the port's init, carried into lbt_tpu's trees (its
-    # own init runs op by op: seconds a model)
-    model = cifar10_resnet(cfg, depth, weight_decay=tc.weight_decay).init(
-        torch.Generator().manual_seed(0))
+    cfg = model.cfg
+    bits_of = {"W": cfg.bits_w, "b": cfg.bits_b, "gamma": cfg.bits_b,
+               "beta": cfg.bits_b}
     params, qstate, _ = convert.to_jax_numpy(model)
     velocity = jmomentum_init(params)
     vel = momentum_init(dict(model.net.named_parameters()))
@@ -366,8 +376,8 @@ def compare_train_steps(cfg, n_steps=N_STEPS, depth=8):
     rng = np.random.default_rng(0)
     jkey = jax.random.key(7)
     for s in range(n_steps):
-        x = rng.normal(0, 1, (BATCH, 32, 32, 3)).astype(np.float32)
-        y = rng.integers(0, 10, (BATCH,)).astype(np.int32)
+        x = rng.normal(0, 1, batch_shape).astype(np.float32)
+        y = rng.integers(0, n_classes, (batch_shape[0],)).astype(np.int32)
         params, qstate, velocity, jmet = jstep(
             params, qstate, velocity, jnp.asarray(x), jnp.asarray(y), s,
             tc.lr, jkey)
@@ -387,18 +397,21 @@ def compare_train_steps(cfg, n_steps=N_STEPS, depth=8):
             exps = node.get("exp", {}) if isinstance(node, dict) else {}
             site = {"W": "w", "b": "b", "gamma": "gamma",
                     "beta": "beta"}.get(parts[-1], "x")
-            return _lsb(8, exps.get(site, 2))
+            return _lsb(bits_of.get(parts[-1], 8), exps.get(site, 2))
 
         _compare_trees(q, jq_np, lambda path: _lsb(8, 2))
         _compare_trees(p, jax.tree.map(np.asarray, params), lsb_of)
         _compare_trees(v, jax.tree.map(np.asarray, velocity), lsb_of)
+        if check_state is not None:
+            check_state(q, jq_np)
 
 
 def test_train_step_matches_lbt_tpu():
     """Three steps of ResNet-8 under uniform(8, noise_mode='hash') against
     lbt_tpu's jitted ``make_train_step``, at the tolerances of
     :func:`compare_train_steps`."""
-    compare_train_steps(jconfig.QuantConfig.uniform(8, noise_mode="hash"))
+    compare_train_steps(*resnet_pair(
+        jconfig.QuantConfig.uniform(8, noise_mode="hash")))
 
 
 def test_layer_reached_twice_refuses_its_sink():

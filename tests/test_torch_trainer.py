@@ -553,9 +553,13 @@ def test_build_model_takes_main_kwargs(pkg):
                         weight_decay=WD)
     assert m.decay_tree()["conv1"] == {"W": WD}
     if pkg == "lbt_tpu_torch":
-        with pytest.raises(NotImplementedError, match="GradientBuffer"):
-            build_model("CIFAR10_Resnet20", _configs()[1],
-                        gradient_buffer_batch=32)
+        # main.py's --gradient_buffer (refused before GradientBuffer was
+        # ported)
+        gb = build_model("CIFAR10_Resnet20", _configs()[1],
+                         gradient_buffer_batch=32)
+        names = [la.name for la in gb.net.layers]
+        assert names[:3] == ["conv1", "grad-buffer-stem", "conv1-bn"]
+        assert names[-1] == "grad-buffer-head"
 
 
 def test_cli_trains_and_writes(tmp_path):
@@ -647,15 +651,17 @@ def test_step_profiler_writes_a_chrome_trace(tmp_path):
     (["--noise_mode", "hash", "--stem_s2d"], None),
     (["--noise_mode", "hash", "--scan_steps", "4"], "--scan_steps 4"),
     (["--noise_mode", "hash", "--data_parallel"], "--data_parallel"),
-    (["--noise_mode", "hash", "--model", "MNIST"], "--model MNIST"),
+    (["--noise_mode", "hash", "--model", "MNIST"], None),
+    (["--noise_mode", "hash", "--gradient_buffer"], None),
     (["--remat_bn"], "--remat_bn"),
     (["--bn_residual_q16"], "--bn_residual_q16"),
 ])
 def test_cli_refuses_what_it_cannot_run(tmp_path, capsys, argv, msg):
     """What the port cannot run exits with status 2 before any work,
     naming the value and the ROADMAP item.  main.py's defaults (``prng``
-    noise), the FP32 arm, the sim engines and the s2d stem, refused before
-    they were ported, have no refusal now and give main.py's config."""
+    noise), the FP32 arm, the sim engines, the s2d stem, the reference's
+    small models and ``--gradient_buffer``, refused before they were
+    ported, have no refusal now and give main.py's config."""
     from lbt_tpu_torch.main import build_parser, quant_config, refusals
     if msg is None:
         args = build_parser().parse_args(argv)
