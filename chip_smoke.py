@@ -3,8 +3,11 @@
 ResNet-20, the last through the port's Trainer and CLI (main.py's defaults
 among its runs), then train and serve the bench headline, ResNet-50 at 224
 px and batch 128, train the bench's baseline leg at the same size, train
-VGG-16 / CIFAR-100 under int4w-int8a and serve it folded and exported, and
-train the reference's small models through the CLI.
+VGG-16 / CIFAR-100 under int4w-int8a and serve it folded and exported,
+train the reference's small models through the CLI, and train the
+headline through the CLI from TFRecord shards and an ImageFolder tree of
+ImageNet-like JPEGs, ResNet-20 through the C++ loader, with ``--debug_nans``
+checked.
 
 Run from the root of a checkout, on a machine with one CUDA card:
 
@@ -160,12 +163,36 @@ the line on stdout) and exits 1, with no result line.
            --gradient_buffer --noise_mode hash``; losses finite, each
            kernel of the path launched (K1 in threefry mode under prng),
            the gradient buffers nonzero.
+14. records  first probes ``g++``, libjpeg (``jpeglib.h`` through ``g++
+           -E``, ``-ljpeg`` linking) and PIL; a leg whose prerequisite is
+           missing does not run, and a line says so.  Writes 1,280
+           training and 300 validation images from a seed (short side
+           333-500 px, aspect 3/4-4/3, JPEG quality 90, about 100 KB each,
+           labels over 1,000 classes) as 4 + 1 TFRecord shards and as an
+           ImageFolder tree (one worker process a shard), times each
+           source alone at 224 px and batch 128 (img/s beside the CPU
+           count), then runs ``lbt_tpu_torch.main`` under the headline's
+           flags for 1 epoch (10 steps) and an eval from each, and from
+           1,280 in-memory synthetic images (the control): counters
+           reset just before and each kernel launched, finite logged
+           losses, every eval covering all 300 images in a ragged batch;
+           img/s, the input-stall share, median ms between step returns
+           beside phase resnet50's ms a step, eval ms, pinned host blocks
+           created; then 2 steps on the run's source in a profiler window
+           (each kernel's device ms, one launch a K1 and #4/#5 call).  Then
+           the trainer phase's ResNet-20 command line with
+           ``--native_loader`` (1 epoch; the loss falls), and
+           ``--debug_nans``: ResNet-20 (10-way head) from the 1000-class
+           tree raises FloatingPointError at step 0, without the flag logs
+           NaN losses and finishes; a clean run with it finishes.  The data
+           is deleted after.
 
 Prints the card, then one JSON line of kernels (launches from the trainer
 phase, the threefry rows' from its run of main.py's defaults; ms,
 plain_ms, bound_ms and library_ms a training step; the same keys under
 ``resnet50`` for the headline's path, under ``baseline50`` for the
-baseline's K1 and under ``vgg16`` for V's), then, last, one JSON line
+baseline's K1, under ``vgg16`` for V's, and under ``records`` the
+launches of each CLI run of phase records), then, last, one JSON line
 ``{"ok": true, "device": {...}}``.
 """
 
@@ -2148,11 +2175,460 @@ def phase_zoo(quant, gemm, fused) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase records: the headline fed from TFRecord shards and an ImageFolder
+# tree, the native loader, --debug_nans
+# ---------------------------------------------------------------------------
+
+R_TRAIN, R_VAL = 1280, 300   # 10 steps of 128; a ragged eval batch
+R_SHARDS = 4
+R_DIR = REPO / "experiments" / "smoke_records"
+# bench.py's headline through main.py's flags
+R_HEADLINE = ["--model", "Imagenet_Resnet50", "--batch_size", "128",
+              "--engine", "int8", "--noise_mode", "hash1", "--fused_bn",
+              "--range_update_every", "8", "--act_dtype", "bf16",
+              "--conv_act_extra", "0"]
+R_RUN = ["--n_epoch", "1", "--log_every", "5", "--device", "cuda"]
+R_IMAGEFOLDER_WORKERS = 8
+
+
+def _lerp(a: np.ndarray, n: int, axis: int) -> np.ndarray:
+    """``a``, a grid of points 8 px apart along ``axis``, linearly
+    interpolated at ``n`` pixels."""
+    pos = np.arange(n, dtype=np.float32) / 8
+    i0 = pos.astype(np.intp)
+    f = (pos - i0).reshape([-1 if k == axis else 1 for k in range(a.ndim)])
+    return np.take(a, i0, axis) * (1 - f) + np.take(a, i0 + 1, axis) * f
+
+
+def records_image(i: int) -> np.ndarray:
+    """Image ``i`` of the records corpus, from its own seed: ImageNet's
+    shapes (short side 333-500 px, aspect 3/4-4/3), a random field on an
+    8-px grid, interpolated, plus uniform noise, so that a JPEG of it at
+    quality 90 runs about 65-145 KB, as ImageNet's files do."""
+    rng = np.random.default_rng([SEED, 9, i])
+    short = int(rng.integers(333, 501))
+    aspect = float(np.exp(rng.uniform(np.log(3 / 4), np.log(4 / 3))))
+    h, w = ((short, round(short * aspect)) if aspect >= 1
+            else (round(short / aspect), short))
+    grid = rng.uniform(0, 255, (h // 8 + 2, w // 8 + 2, 3)).astype(
+        np.float32)
+    base = _lerp(_lerp(grid, h, 0), w, 1)
+    noise = rng.integers(-20, 21, (h, w, 3), dtype=np.int16)
+    return np.clip(base + noise, 0, 255).astype(np.uint8)
+
+
+def write_records_part(part: dict) -> dict:
+    """Worker of :func:`write_records`: the images ``part["indices"]``
+    with their labels, as JPEG files in the ImageFolder tree (with PIL)
+    and as one TFRecord shard (JPEG records, or raw uint8 records without
+    PIL), as ``part`` asks."""
+    import io
+    from lbt_tpu_torch.data.tfrecord import TFRecordWriter, make_example
+    writer = TFRecordWriter(part["shard"]) if part["shard"] else None
+    nbytes = 0
+    try:
+        for i, label in zip(part["indices"], part["labels"]):
+            arr = records_image(i)
+            if part["pil"]:
+                from PIL import Image
+                buf = io.BytesIO()
+                Image.fromarray(arr).save(buf, format="JPEG", quality=90)
+                data = buf.getvalue()
+                nbytes += len(data)
+                if part["tree"]:
+                    Path(part["tree"], f"n{label:04d}",
+                         f"{i:05d}.jpeg").write_bytes(data)
+                record = make_example(data, label)
+            else:
+                record = make_example(arr.tobytes(), label, *arr.shape[:2])
+            if writer is not None:
+                writer.write(record)
+    finally:
+        if writer is not None:
+            writer.close()
+    return {"images": len(part["indices"]), "jpeg_bytes": nbytes}
+
+
+def write_records(legs: dict) -> dict:
+    """The corpus of phase records under ``R_DIR``, from the seed: R_TRAIN
+    training images (labels over the head's classes) as R_SHARDS TFRecord
+    shards and as ``tree/train/<class>/``, R_VAL validation images as one
+    shard and ``tree/val/<class>/``; every class directory exists in both
+    trees, so the two give the shards' labels.  One worker process a
+    shard, started together."""
+    import multiprocessing
+    from concurrent.futures import ProcessPoolExecutor
+    rng = np.random.default_rng(SEED + 9)
+    labels = rng.integers(0, R50_CLASSES, R_TRAIN + R_VAL)
+    tree = R_DIR / "tree"
+    if legs["imagefolder"]:
+        for split in ("train", "val"):
+            for c in range(R50_CLASSES):
+                (tree / split / f"n{c:04d}").mkdir(parents=True)
+    bounds = np.linspace(0, R_TRAIN, R_SHARDS + 1).astype(int)
+    spans = [("train", f"train-{s:02d}-of-{R_SHARDS:02d}", bounds[s],
+              bounds[s + 1]) for s in range(R_SHARDS)]
+    spans.append(("val", "val-00-of-01", R_TRAIN, R_TRAIN + R_VAL))
+    parts = [{"indices": list(range(lo, hi)),
+              "labels": [int(v) for v in labels[lo:hi]],
+              "shard": (str(R_DIR / f"{name}.tfrecord") if legs["tfrecord"]
+                        else None),
+              "tree": str(tree / split) if legs["imagefolder"] else None,
+              "pil": legs["pil"]} for split, name, lo, hi in spans]
+    t0 = time.perf_counter()
+    with ProcessPoolExecutor(
+            len(parts), mp_context=multiprocessing.get_context("spawn")
+            ) as pool:
+        done = list(pool.map(write_records_part, parts))
+    seconds = time.perf_counter() - t0
+    n = sum(d["images"] for d in done)
+    jpeg = sum(d["jpeg_bytes"] for d in done)
+    out = {"images": n, "seconds": seconds, "classes": R50_CLASSES,
+           "jpeg_kb_mean": jpeg / n / 1e3 if jpeg else None,
+           "train_labels": labels[:R_TRAIN], "val_labels": labels[R_TRAIN:]}
+    print(f"records data: {R_TRAIN} + {R_VAL} images (labels over "
+          f"{len(np.unique(labels))} of {R50_CLASSES} classes) in "
+          f"{seconds:.1f} s, " + (f"JPEG quality 90, {out['jpeg_kb_mean']:.1f}"
+                                  f" KB an image" if jpeg else "raw records")
+          + (f"; {R_SHARDS} + 1 TFRecord shards" if legs["tfrecord"]
+             else "") + ("; an ImageFolder tree" if legs["imagefolder"]
+                         else ""), flush=True)
+    return out
+
+
+def probe_host() -> dict:
+    """What the input sources need on this machine: ``g++`` (the host
+    libraries), libjpeg's header and library (the TFRecord pipeline) and
+    PIL (ImageFolder decode, JPEG writing)."""
+    gxx = shutil.which("g++")
+    header = link = False
+    if gxx:
+        header = subprocess.run(
+            [gxx, "-E", "-x", "c++", "-"], input="#include <jpeglib.h>\n",
+            capture_output=True, text=True).returncode == 0
+        src = R_DIR / "probe.cc"
+        src.write_text("int main() { return 0; }\n")
+        link = subprocess.run(
+            [gxx, str(src), "-ljpeg", "-o", str(R_DIR / "probe")],
+            capture_output=True).returncode == 0
+    try:
+        import PIL
+        pil = PIL.__version__
+    except ImportError:
+        pil = None
+    out = {"gxx": gxx, "jpeglib_h": header, "ljpeg": link, "pil": pil}
+    legs = {"native": bool(gxx), "tfrecord": bool(gxx and header and link),
+            "imagefolder": pil is not None, "pil": pil is not None}
+    print(f"records probe: g++ {gxx or 'not found'}; jpeglib.h through "
+          f"g++ -E {'found' if header else 'not found'}; -ljpeg "
+          f"{'links' if link else 'does not link'}; PIL "
+          f"{pil or 'not importable'}", flush=True)
+    for leg, need in (("native", "g++"),
+                      ("tfrecord", "g++, jpeglib.h and -ljpeg"),
+                      ("imagefolder", "PIL")):
+        if not legs[leg]:
+            print(f"records: the {leg} leg does not run here: it needs "
+                  f"{need}", flush=True)
+    return {"probe": out, "legs": legs}
+
+
+def source_rate(batches) -> dict:
+    """img/s of one epoch of a source alone, no model."""
+    t0 = time.perf_counter()
+    n = sum(len(y) for _, y in batches)
+    seconds = time.perf_counter() - t0
+    return {"images": n, "seconds": seconds, "img_per_s": n / seconds}
+
+
+@contextlib.contextmanager
+def cli_probe():
+    """Inside, the Trainer's train step notes the host clock at each
+    return (no sync: the headline's step is host-bound), and its eval step
+    the batch size of each call."""
+    import lbt_tpu_torch.train.trainer as trainer_mod
+    marks, evals = [], []
+    real_train, real_eval = (trainer_mod.make_train_step,
+                             trainer_mod.make_eval_step)
+
+    def make_train_step(model, tc):
+        step = real_train(model, tc)
+
+        def timed(*args):
+            out = step(*args)
+            marks.append(time.perf_counter())
+            return out
+        return timed
+
+    def make_eval_step(model, faithful_eval=False):
+        step = real_eval(model, faithful_eval=faithful_eval)
+
+        def counted(model, x, y, key):
+            evals.append(int(x.shape[0]))
+            return step(model, x, y, key)
+        return counted
+
+    with mock.patch.object(trainer_mod, "make_train_step", make_train_step), \
+            mock.patch.object(trainer_mod, "make_eval_step", make_eval_step):
+        yield marks, evals
+
+
+def _host_pins() -> dict:
+    s = torch.cuda.host_memory_stats()
+    return {"blocks_created": s.get("num_host_alloc"),
+            "handouts": s.get("active_requests.allocated")}
+
+
+def records_cli(tag, argv, quant, gemm, fused, n_val) -> dict:
+    """``lbt_tpu_torch.main`` on the card with ``argv``, every launch
+    counter reset just before: each kernel launched; the logged losses
+    finite; each eval covering all ``n_val`` images in ragged batches.
+    Then the run's eval timed again, and 2 more steps on batches of its
+    source in a profiler window: the kernels' names, one launch a K1 and
+    #4/#5 call, the busy share."""
+    from lbt_tpu_torch.data.pipeline import batch_iterator
+    from lbt_tpu_torch.main import main as train_main
+    exp = R_DIR / tag.replace(" ", "_")
+    pins = _host_pins()
+    reset_counters(quant, gemm, fused)
+    with cli_probe() as (marks, evals):
+        run, run_ms = _sync_ms(lambda: train_main(
+            argv + ["--exp_path", str(exp)]))
+    launches = train_counters(quant, gemm, fused)
+    pins = {k: (v - pins[k] if v is not None and pins[k] is not None
+                else None) for k, v in _host_pins().items()}
+    for k, v in launches.items():
+        check(v > 0, f"{tag}: {k} never launched")
+    rows = _rows(exp / "metrics.jsonl")
+    losses = [r["train/loss"] for r in rows if "train/loss" in r]
+    stall = [r["train/input_stall_frac"] for r in rows
+             if "train/input_stall_frac" in r]
+    check(losses and all(math.isfinite(x) for x in losses),
+          f"{tag}: logged losses {losses}")
+    bs = run.tc.eval_batch_size
+    per_eval = [min(bs, n_val - lo) for lo in range(0, n_val, bs)]
+    check(per_eval[-1] < bs, f"{tag}: no ragged eval batch of {bs}")
+    check(evals and evals == per_eval * (len(evals) // len(per_eval)),
+          f"{tag}: eval batches {evals}, want {per_eval} an eval")
+    epoch = run.epoch_time
+    steps = len(marks)
+    gaps = [(b - a) * 1e3 for a, b in zip(marks, marks[1:])]
+    final, eval_ms = _sync_ms(run.evaluate)
+
+    lr = run.tc.lr
+    if run.native is not None:
+        src = run.native.epoch(1)
+    elif "train_iter" in run.dataset:
+        src = run.dataset["train_iter"](1, run.tc.batch_size)
+    else:
+        src = batch_iterator(*run.dataset["train"], run.tc.batch_size,
+                             epoch=1)
+    batches = [tuple(torch.from_numpy(a).cuda() for a in b)
+               for _, b in zip(range(2), src)]
+    del src
+
+    def one(step, batch):
+        return run.train_step(run.model, run.velocity, batch[0], batch[1],
+                              step, lr, run.base_key)["loss"]
+    reset_counters(quant, gemm, fused)
+    prof = _profile_steps(one, batches, run.step)
+    calls = train_counters(quant, gemm, fused)
+    one_launch_a_call(prof.pop("rows"), calls)
+    check(all(v > 0 for v in prof["kernel_ms_per_step"].values()),
+          f"{tag}: a kernel took no device time in the profile: "
+          f"{prof['kernel_ms_per_step']}")
+    out = {"launches": launches, "losses": losses, "steps": steps,
+           "img_per_s": epoch["images"] / epoch["seconds"],
+           "epoch_seconds": epoch["seconds"],
+           "input_stall_frac": stall[-1] if stall else None,
+           "stall_seconds": epoch["stall_seconds"],
+           "ms_per_step": statistics.median(gaps) if gaps else None,
+           "step_gaps_ms": gaps, "eval_batches": evals,
+           "eval_ms": eval_ms, "final_eval": final, "run_s": run_ms / 1e3,
+           "pinned": pins, "profile": prof}
+    print(f"{tag}: {steps} steps in {epoch['seconds']:.2f} s, "
+          f"{out['img_per_s']:.1f} img/s, input stall "
+          f"{100 * (out['input_stall_frac'] or 0):.2f}% of the epoch, "
+          f"median {out['ms_per_step']:.1f} ms between step returns; "
+          f"losses {losses}; eval of {n_val} in batches {per_eval} "
+          f"{eval_ms:.1f} ms; launches {launches}; pinned blocks created "
+          f"{pins['blocks_created']} for {pins['handouts']} handouts; "
+          f"profile: kernels' device ms a step "
+          f"{prof['kernel_ms_per_step']}, busy {prof['busy_share']}",
+          flush=True)
+    shutil.rmtree(exp / "ckpt", ignore_errors=True)
+    del run, batches
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_records(quant, gemm, fused, headline_ms: float) -> dict:
+    """The headline trained through ``lbt_tpu_torch.main`` from TFRecord
+    shards and from an ImageFolder tree of ImageNet-like JPEGs written
+    from a seed, each source also timed alone; ResNet-20 through the C++
+    loader (the loss must fall); ``--debug_nans``.  A leg whose
+    prerequisite is missing here does not run, and the phase says so; the
+    data is deleted after."""
+    t0 = time.perf_counter()
+    shutil.rmtree(R_DIR, ignore_errors=True)
+    R_DIR.mkdir(parents=True)
+    try:
+        out = _records(quant, gemm, fused, headline_ms)
+    finally:
+        shutil.rmtree(R_DIR, ignore_errors=True)
+    out["seconds"] = time.perf_counter() - t0
+    print(f"records: phase took {out['seconds']:.1f} s", flush=True)
+    return out
+
+
+def _records(quant, gemm, fused, headline_ms: float) -> dict:
+    from lbt_tpu_torch.data.imagefolder import ImageFolderDataset
+    from lbt_tpu_torch.data.tfrecord import TFRecordDataset
+    out = probe_host()
+    legs = out["legs"]
+    out["cpu_count"] = os.cpu_count()
+    shards = str(R_DIR / f"train-*-of-{R_SHARDS:02d}.tfrecord")
+    tree = R_DIR / "tree"
+    if legs["tfrecord"] or legs["imagefolder"]:
+        data = write_records(legs)
+        out["data"] = {k: v for k, v in data.items()
+                       if not k.endswith("labels")}
+
+    alone = {}
+    if legs["tfrecord"]:
+        ds = TFRecordDataset(shards, 224, train=True, seed=SEED)
+        alone["tfrecord"] = source_rate(ds.batches(0, BATCH))
+        ds.close()
+    if legs["imagefolder"]:
+        ds = ImageFolderDataset(str(tree / "train"), 224, train=True,
+                                seed=SEED, workers=R_IMAGEFOLDER_WORKERS)
+        alone["imagefolder"] = source_rate(ds.batches(0, BATCH))
+    out["alone"] = alone
+    for k, v in alone.items():
+        print(f"records alone, {k}"
+              + (f" at {R_IMAGEFOLDER_WORKERS} workers" if k ==
+                 "imagefolder" else " at its default workers")
+              + f": {v['images']} images at 224 px in {v['seconds']:.2f} s, "
+              f"{v['img_per_s']:.1f} img/s on {os.cpu_count()} CPUs",
+              flush=True)
+
+    # the control: the same command line on in-memory synthetic images
+    cli = {"memory": records_cli(
+        "records memory", R_HEADLINE + R_RUN + [
+            "--n_train", str(R_TRAIN), "--n_test", str(R_VAL)],
+        quant, gemm, fused, R_VAL)}
+    if legs["tfrecord"]:
+        cli["tfrecord"] = records_cli(
+            "records tfrecord", R_HEADLINE + R_RUN + [
+                "--tfrecord_train", shards, "--tfrecord_val",
+                str(R_DIR / "val-00-of-01.tfrecord"), "--num_classes",
+                str(R50_CLASSES)], quant, gemm, fused, R_VAL)
+    if legs["imagefolder"]:
+        cli["imagefolder"] = records_cli(
+            "records imagefolder", R_HEADLINE + R_RUN + [
+                "--data_dir", str(tree)], quant, gemm, fused, R_VAL)
+    out["cli"] = cli
+    for k, v in cli.items():
+        print(f"records {k}: {v['ms_per_step']:.1f} ms a step against "
+              f"{cli['memory']['ms_per_step']:.1f} from memory through the "
+              f"CLI and {headline_ms:.1f} in phase resnet50 (a sync a "
+              f"step); {v['img_per_s']:.1f} against "
+              f"{cli['memory']['img_per_s']:.1f} img/s an epoch",
+              flush=True)
+    out["headline_ms_per_step"] = headline_ms
+
+    if legs["native"]:
+        out["native_loader"] = records_native(quant, gemm, fused)
+    out["debug_nans"] = records_debug_nans(legs, tree)
+    return out
+
+
+def records_native(quant, gemm, fused) -> dict:
+    """The trainer phase's ResNet-20 command line with ``--native_loader``,
+    1 epoch of 20 steps, counters reset just before: each kernel launched,
+    the logged loss falls."""
+    from lbt_tpu_torch.main import main as train_main
+    exp = R_DIR / "native"
+    reset_counters(quant, gemm, fused)
+    run, run_ms = _sync_ms(lambda: train_main(
+        TRAINER_ARGV + ["--native_loader", "--n_epoch", "1", "--device",
+                        "cuda", "--exp_path", str(exp)]))
+    launches = train_counters(quant, gemm, fused)
+    for k, v in launches.items():
+        check(v > 0, f"native loader run: {k} never launched")
+    check(run.native is not None and run.augment is None,
+          "the run did not take the native loader")
+    rows = _rows(exp / "metrics.jsonl")
+    losses = [r["train/loss"] for r in rows if "train/loss" in r]
+    stall = [r["train/input_stall_frac"] for r in rows
+             if "train/input_stall_frac" in r]
+    check(len(losses) >= 2 and all(math.isfinite(x) for x in losses)
+          and losses[-1] < losses[0], f"the loss did not fall: {losses}")
+    epoch = run.epoch_time
+    out = {"launches": launches, "losses": losses, "steps": run.step,
+           "img_per_s": epoch["images"] / epoch["seconds"],
+           "input_stall_frac": stall[-1], "run_s": run_ms / 1e3}
+    print(f"records native loader: ResNet-20, {run.step} steps of "
+          f"{run.tc.batch_size} in "
+          f"{epoch['seconds']:.2f} s, {out['img_per_s']:.1f} img/s, input "
+          f"stall {100 * stall[-1]:.2f}%; losses {losses}; launches "
+          f"{launches}", flush=True)
+    shutil.rmtree(exp / "ckpt", ignore_errors=True)
+    return out
+
+
+def records_debug_nans(legs: dict, tree: Path) -> dict:
+    """``--debug_nans`` on the card: ResNet-20 (a 10-way head) from the
+    1000-class tree raises FloatingPointError at step 0; the same run
+    without the flag logs NaN losses and finishes; a clean run with the
+    flag finishes."""
+    from lbt_tpu_torch.main import main as train_main
+    if not legs["imagefolder"]:
+        print("records debug_nans: not run (needs the ImageFolder tree)",
+              flush=True)
+        return {"ran": False}
+    argv = ["--model", "CIFAR10_Resnet20", "--noise_mode", "hash",
+            "--batch_size", str(BATCH), "--n_epoch", "1", "--log_every",
+            "1", "--device", "cuda", "--data_dir", str(tree)]
+    t0 = time.perf_counter()
+    try:
+        train_main(argv + ["--debug_nans", "--exp_path",
+                           str(R_DIR / "nan_on")])
+        raised = None
+    except FloatingPointError as e:
+        raised = str(e)
+    check(raised is not None and "train step 0" in raised,
+          f"--debug_nans with labels outside the head: {raised}")
+    off = train_main(argv + ["--exp_path", str(R_DIR / "nan_off")])
+    losses = [r["train/loss"] for r in _rows(R_DIR / "nan_off"
+                                             / "metrics.jsonl")
+              if "train/loss" in r]
+    check(off.step == R_TRAIN // BATCH and losses
+          and all(math.isnan(x) for x in losses),
+          f"without --debug_nans: {off.step} steps, losses {losses}")
+    clean = train_main(ZOO_ARGV + [
+        "--model", "CIFAR10_Resnet20", "--noise_mode", "hash",
+        "--debug_nans", "--device", "cuda", "--exp_path",
+        str(R_DIR / "nan_clean")])
+    check(clean.step > 0, "the clean run with --debug_nans took no step")
+    seconds = time.perf_counter() - t0
+    print(f"records debug_nans: labels outside the head raise "
+          f"FloatingPointError: {raised!r}; without the flag "
+          f"{off.step} steps, losses {losses}; a clean run with the flag "
+          f"took {clean.step} steps ({seconds:.1f} s)", flush=True)
+    return {"ran": True, "raised": raised, "off_losses": losses,
+            "off_steps": off.step, "clean_steps": clean.step,
+            "seconds": seconds}
+
+
 def port_modules():
     """Import every module of the port that this script drives and check
     that none of them loaded JAX, which the card's machine does not have,
     or anything of ``lbt_tpu``.  Returns the modules the phases take."""
     import lbt_tpu_torch.config  # noqa: F401
+    import lbt_tpu_torch.data.imagefolder  # noqa: F401
+    import lbt_tpu_torch.data.native  # noqa: F401
+    import lbt_tpu_torch.data.tfrecord  # noqa: F401
     import lbt_tpu_torch.infer  # noqa: F401
     import lbt_tpu_torch.main  # noqa: F401
     import lbt_tpu_torch.models  # noqa: F401
@@ -2180,9 +2656,20 @@ def kernel_lines(report) -> list:
     ``resnet50`` holds the same keys for the headline's path: launches of
     its 3 counted training steps, ms a step at its shapes and cadence;
     ``vgg16`` for configuration V's (K1, K2, #4; its path has no 1x1
-    conv): launches of its 2 counted steps, ms a step at its shapes."""
+    conv): launches of its 2 counted steps, ms a step at its shapes;
+    ``records`` the launches of each CLI run of phase records (the
+    headline from each streaming source that ran, ResNet-20 through the
+    native loader), whose shapes are those of ``resnet50`` and the
+    trainer's."""
     k1, k2, fused = report["k1_train"], report["k2_train"], report["fused"]
     launches = report["trainer"]["launches"]
+    rec = report["records"]
+    rec_runs = {**rec["cli"], **({"native_loader": rec["native_loader"]}
+                                 if "native_loader" in rec else {})}
+
+    def at_records(*kinds):
+        return {run: sum(r["launches"][k] for k in kinds)
+                for run, r in rec_runs.items()}
     r50 = report["resnet50"]
     r50_launches = r50["launches"]
 
@@ -2235,7 +2722,8 @@ def kernel_lines(report) -> list:
          **times(k1, library=False),
          "serve_8bit": report["k1"]["library_8bit"],
          "resnet50": at_r50(r50["k1"], r50_launches["k1"], False),
-         "vgg16": at_r50(v["k1"], v_launches["k1"], False)},
+         "vgg16": at_r50(v["k1"], v_launches["k1"], False),
+         "records": at_records("k1")},
         {"name": "k2_int8_gemm", "route": "cuda",
          "source": "lbt_tpu_torch/csrc/int8_gemm.cu",
          "replaces": "lbt_tpu/ops/pallas/quant_kernels.py:187",
@@ -2247,7 +2735,8 @@ def kernel_lines(report) -> list:
                             + r50_launches["k2_tn"],
                             forms=r50["k2"]["forms"]),
          "vgg16": at_r50(v["k2"], v_launches["k2"] + v_launches["k2_tn"],
-                         forms=v["k2"]["forms"])},
+                         forms=v["k2"]["forms"]),
+         "records": at_records("k2", "k2_tn")},
         {"name": "conv3x3_fused", "route": "cuda",
          "source": "lbt_tpu_torch/csrc/conv_fused.cu",
          "replaces": "lbt_tpu/ops/pallas/conv_kernels.py:170",
@@ -2258,7 +2747,8 @@ def kernel_lines(report) -> list:
          "resnet50": at_r50(r3, r50_launches["conv3x3"], False,
                             conv_library_ms=r3["lib_ms"]),
          "vgg16": at_r50(v3, v_launches["conv3x3"], False,
-                         conv_library_ms=v3["lib_ms"])},
+                         conv_library_ms=v3["lib_ms"]),
+         "records": at_records("conv3x3")},
         {"name": "conv1x1_fused", "route": "cuda",
          "source": "lbt_tpu_torch/csrc/conv_fused.cu",
          "replaces": "lbt_tpu/ops/pallas/conv1x1_kernels.py:146",
@@ -2266,7 +2756,8 @@ def kernel_lines(report) -> list:
          "max_abs_err": max(c1["max_abs_err"], r1["max_abs_err"]),
          **times(c1, library=False), "conv_library_ms": c1["lib_ms"],
          "resnet50": at_r50(r1, r50_launches["conv1x1"], False,
-                            conv_library_ms=r1["lib_ms"])},
+                            conv_library_ms=r1["lib_ms"]),
+         "records": at_records("conv1x1")},
     ]
 
 
@@ -2331,6 +2822,8 @@ def main(argv=None) -> int:
           f"{report['vs_baseline']:.3f}", flush=True)
     phase("vgg16", phase_vgg16, qmod, qops, quant, gemm, conv_fused)
     phase("zoo", phase_zoo, quant, gemm, conv_fused)
+    phase("records", phase_records, quant, gemm, conv_fused,
+          report["resnet50"]["ms_per_step"])
 
     PHASE[0] = "report"
     kernels = kernel_lines(report)

@@ -6,6 +6,12 @@ plus ``--device``.
         --noise_mode hash --batch_size 128 --device cuda
     python -m lbt_tpu_torch.main --model VGG16_CIFAR100 --bits_w 4 \\
         --bits_a 8 --bits_g 8 --batch_size 256
+    python -m lbt_tpu_torch.main --model Imagenet_Resnet50 \\
+        --batch_size 128 --tfrecord_train 'shards/train-*' \\
+        --tfrecord_val 'shards/val-*' --num_classes 1000
+    python -m lbt_tpu_torch.main --model Imagenet_Resnet50 \\
+        --batch_size 128 --data_dir imagenet   # imagenet/{train,val}/<class>/
+    python -m lbt_tpu_torch.main --model CIFAR10_Resnet20 --native_loader
 
 A command line of ``main.py`` runs here unchanged where the port has what
 it asks for, its defaults included (``--noise_mode prng`` draws
@@ -26,9 +32,12 @@ from typing import List, Optional
 import torch
 
 from lbt_tpu_torch.config import QuantConfig, TrainConfig
-from lbt_tpu_torch.data.datasets import load_dataset, make_augment
+from lbt_tpu_torch.data.datasets import aug_spec, load_dataset, make_augment
+from lbt_tpu_torch.data.imagefolder import streaming_dataset
+from lbt_tpu_torch.data.tfrecord import tfrecord_dataset
 from lbt_tpu_torch.models import build_model
 from lbt_tpu_torch.models.zoo import MODEL_DATASET, MODEL_REGISTRY
+from lbt_tpu_torch.train.step import debug_nans
 from lbt_tpu_torch.train.trainer import Trainer
 from lbt_tpu_torch.utils.logging import get_logger
 
@@ -116,7 +125,9 @@ def build_parser() -> argparse.ArgumentParser:
                    help="log train metrics every N batches")
     p.add_argument("--scan_steps", type=int, default=0)
     p.add_argument("--data_parallel", action="store_true")
-    p.add_argument("--debug_nans", action="store_true")
+    p.add_argument("--debug_nans", action="store_true",
+                   help="fail a step whose outputs hold a NaN (the port's "
+                        "jax_debug_nans)")
     p.add_argument("--lowbit_allreduce", action="store_true")
     p.add_argument("--lowbit_wire", type=str, default=None,
                    choices=["int16", "int8"])
@@ -160,22 +171,52 @@ def refusals(args) -> List[str]:
     out = []
     for flag, item in (("bn_residual_q16", "queue 1 item 13, not to port"),
                        ("remat_bn", "queue 1 item 13, not to port"),
-                       ("native_loader", "queue 1 item 9"),
                        ("data_parallel", "queue 1 item 12"),
-                       ("lowbit_allreduce", "queue 1 item 12"),
-                       ("debug_nans", "queue 1 item 9")):
+                       ("lowbit_allreduce", "queue 1 item 12")):
         if getattr(args, flag):
             out.append(f"--{flag} is not ported (ROADMAP {item})")
-    for flag in ("data_dir", "tfrecord_train", "tfrecord_val",
-                 "lowbit_wire"):
-        if getattr(args, flag) is not None:
-            item = "12" if flag == "lowbit_wire" else "9"
-            out.append(f"--{flag} {getattr(args, flag)} is not ported "
-                       f"(ROADMAP queue 1 item {item})")
+    if args.lowbit_wire is not None:
+        out.append(f"--lowbit_wire {args.lowbit_wire} is not ported "
+                   f"(ROADMAP queue 1 item 12)")
     if args.scan_steps > 1:
         out.append(f"--scan_steps {args.scan_steps}: the scanned block is "
                    f"not to be ported (ROADMAP queue 1 item 13)")
     return out
+
+
+def load_data(args, model, ds_name: str, logger):
+    """``main.py``'s data branch: TFRecord shards, an ImageFolder tree
+    (``<data_dir>/train``, ``<data_dir>/val`` where it exists) or the
+    in-memory dataset of the model.  The streaming sources decode at the
+    model's input size and augment on the host; ``--num_classes`` reaches
+    the data only, the model keeps its head.  Returns ``(data,
+    augment)``."""
+    if args.tfrecord_train:
+        if args.num_classes is None:
+            raise SystemExit("--tfrecord_train requires --num_classes")
+        if args.native_loader:
+            raise SystemExit("--native_loader needs in-memory arrays; "
+                             "drop it when streaming TFRecords")
+        data = tfrecord_dataset(
+            args.tfrecord_train, args.tfrecord_val,
+            image_size=model.input_shape[0], seed=args.seed,
+            num_classes=args.num_classes)
+        return data, None
+    if args.data_dir:
+        if args.native_loader:
+            raise SystemExit("--native_loader needs in-memory arrays; "
+                             "drop it when using --data_dir streaming")
+        val = os.path.join(args.data_dir, "val")
+        data = streaming_dataset(
+            os.path.join(args.data_dir, "train"),
+            val if os.path.isdir(val) else None,
+            image_size=model.input_shape[0], seed=args.seed)
+        return data, None
+    data = load_dataset(ds_name, n_train=args.n_train, n_test=args.n_test)
+    if data["synthetic"]:
+        logger.warning("dataset %s not found locally - SYNTHETIC data",
+                       ds_name)
+    return data, None if args.no_augment else make_augment(ds_name)
 
 
 def main(argv: Optional[List[str]] = None) -> Trainer:
@@ -227,17 +268,15 @@ def main(argv: Optional[List[str]] = None) -> Trainer:
         model_kw["gradient_buffer_batch"] = args.batch_size
     model = build_model(args.model, cfg, **model_kw)
     ds_name = MODEL_DATASET[args.model]
-    data = load_dataset(ds_name, n_train=args.n_train, n_test=args.n_test)
-    if data["synthetic"]:
-        logger.warning("dataset %s not found locally - SYNTHETIC data",
-                       ds_name)
-    augment = None if args.no_augment else make_augment(ds_name)
+    data, augment = load_data(args, model, ds_name, logger)
 
     # Trainer.train() resumes from checkpoint_dir when it holds one
     trainer = Trainer(model, tc, data, augment=augment, logger=logger,
                       logdir=exp, profile_steps=args.profile_steps,
-                      device=device)
-    final = trainer.train()
+                      native_loader=args.native_loader,
+                      aug_spec=aug_spec(ds_name), device=device)
+    with debug_nans(args.debug_nans):
+        final = trainer.train()
     logger.info("End of experiment: final test acc %.4f loss %.4f",
                 final["accuracy"], final["loss"])
     trainer.metrics.close()

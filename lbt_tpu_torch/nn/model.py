@@ -3,6 +3,7 @@ stack plus classification-head utilities."""
 
 from __future__ import annotations
 
+import itertools
 from typing import Dict, List, Optional, Sequence, Tuple
 
 import torch
@@ -42,7 +43,9 @@ class Model:
 
     @property
     def device(self) -> torch.device:
-        return next(self.net.buffers()).device
+        # an FP32 MLP holds parameters and no buffer
+        return next(itertools.chain(self.net.buffers(),
+                                    self.net.parameters())).device
 
     def num_layers(self) -> int:
         return len(walk(self.net))
@@ -75,14 +78,25 @@ class Model:
         return self.net(x, ctx)
 
     def loss_and_acc(self, logits: torch.Tensor, labels: torch.Tensor):
-        """(mean softmax CE, top-1 accuracy)."""
+        """(mean softmax CE, top-1 accuracy).  A label outside the head is
+        what ``lbt_tpu``'s ``take_along_axis`` makes of it: ``-C..-1``
+        count from the end, any other picks NaN, so the loss is NaN while
+        the gradient keeps only that row's ``logz`` part, and the example
+        counts as wrong."""
         logits = logits.to(torch.float32)
         labels = labels.to(torch.int64)
+        n_classes = logits.shape[-1]
         logz = torch.logsumexp(logits, dim=-1)
-        # a one-hot product picks the label's logit exactly, and its
-        # backward needs no scatter (deterministic on the card)
-        onehot = torch.nn.functional.one_hot(labels, logits.shape[-1])
-        ll = (logits * onehot.to(torch.float32)).sum(-1)
+        idx = torch.where(labels < 0, labels + n_classes, labels)
+        # a one-hot select picks the label's logit exactly (an Inf
+        # elsewhere in the row stays out), and its backward needs no
+        # scatter (deterministic on the card); a label outside the head
+        # selects no column, and no device assert fires
+        onehot = idx[:, None] == torch.arange(n_classes,
+                                              device=logits.device)
+        ll = torch.where(onehot, logits, 0.0).sum(-1)
+        ll = torch.where((idx >= 0) & (idx < n_classes), ll,
+                         torch.full_like(ll, float("nan")))
         loss = torch.mean(logz - ll)
         acc = torch.mean((logits.argmax(dim=-1) == labels).to(torch.float32))
         return loss, acc

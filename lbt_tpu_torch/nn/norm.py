@@ -16,6 +16,8 @@ runs the conv and its own input quantize in one kernel (#4 / #5) through
 
 from __future__ import annotations
 
+import math
+
 import torch
 from torch import nn
 
@@ -38,11 +40,30 @@ def code_moments(codes: torch.Tensor) -> torch.Tensor:
 
 
 def sqrt_f32(t: torch.Tensor) -> torch.Tensor:
-    """The correctly rounded f32 square root of f32 ``t``, on any device.
-    ``torch.sqrt`` of f32 on the CPU is not (one ulp off for ~0.7% of
-    inputs); the card's, numpy's and XLA's are.  The float64 root rounded
-    once to f32 is, so the CPU, the card and ``lbt_tpu`` agree."""
-    return torch.sqrt(t.to(torch.float64)).to(torch.float32)
+    """The correctly rounded f32 square root of f32 ``t``, on any device,
+    as the card's, numpy's and XLA's are.  ``torch.sqrt`` of f32 on the
+    CPU is not (one ulp off for ~0.7% of inputs), and its float64 root,
+    vectorized, is not correctly rounded either: rounded to f32 it lands
+    one ulp off now and then, in no fixed place.  So on the CPU the f32
+    rounding of the float64 root moves by one ulp where the exact square
+    of a rounding midpoint says it must (every step exact in float64),
+    and the gradient stays the root's; the card's float64 root is
+    correctly rounded, and its f32 rounding is the answer."""
+    x = t.to(torch.float64)
+    r = torch.sqrt(x).to(torch.float32)
+    if t.device.type != "cpu":
+        return r
+    with torch.no_grad():
+        up = torch.nextafter(r, torch.full_like(r, math.inf))
+        down = torch.nextafter(r, torch.zeros_like(r))
+        rd = r.to(torch.float64)
+        hi = (rd + up.to(torch.float64)) * 0.5
+        lo = (rd + down.to(torch.float64)) * 0.5
+        # one ulp up or down (adjacent floats differ by an exact f32)
+        step = torch.where(x > hi * hi, up - r,
+                           torch.where(x < lo * lo, down - r, 0.0))
+        step = torch.where(torch.isfinite(r), step, 0.0)
+    return r + step
 
 
 def batch_moments(moments: torch.Tensor, n: int, mult: torch.Tensor):

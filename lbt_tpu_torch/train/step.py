@@ -14,11 +14,16 @@ Python branch: a step with ``step % K == 0`` or ``step <
 range_update_warmup_steps`` runs the controllers; any other step runs
 with ``update_gate=False`` (exponents hold, barriers emit the hold
 sentinel).
+
+:func:`debug_nans` is the port's ``jax_debug_nans`` (``main.py
+--debug_nans``): while it is on, each step checks its floating outputs for
+NaN and raises ``FloatingPointError``.
 """
 
 from __future__ import annotations
 
-from typing import Callable, Dict
+import contextlib
+from typing import Callable, Dict, Iterable, Tuple
 
 import numpy as np
 import torch
@@ -29,6 +34,39 @@ from lbt_tpu_torch.nn.core import Ctx
 from lbt_tpu_torch.nn.model import Model
 from lbt_tpu_torch.train.optim import apply_weight_decay, momentum_update
 from lbt_tpu_torch.utils.device import full_f32
+
+# process-wide, as jax.config's jax_debug_nans is
+_DEBUG_NANS = [False]
+
+
+@contextlib.contextmanager
+def debug_nans(on: bool = True):
+    """While ``on``, every train and eval step checks each floating output
+    (loss, accuracy; after a train step also the parameters, velocity and
+    float buffers, BN statistics among them) for NaN and raises
+    ``FloatingPointError`` naming the first such tensor and the step: the
+    condition under which ``jax_debug_nans`` fails a jitted step.  Inf
+    passes, as there (``jax_debug_infs`` is another switch).  Off, a step
+    adds no check and no host sync.  The previous setting is restored on
+    exit."""
+    saved, _DEBUG_NANS[0] = _DEBUG_NANS[0], bool(on)
+    try:
+        yield
+    finally:
+        _DEBUG_NANS[0] = saved
+
+
+def _raise_on_nan(where: str,
+                  named: Iterable[Tuple[str, torch.Tensor]]) -> None:
+    """One host read of "has a NaN" for every floating tensor of
+    ``named``; raises naming the first that has."""
+    names, tensors = zip(*[(k, t) for k, t in named
+                           if t.is_floating_point()])
+    bad = torch.stack([t.isnan().any() for t in tensors]).cpu()
+    if bool(bad.any()):
+        first = names[int(bad.nonzero()[0, 0])]
+        raise FloatingPointError(
+            f"invalid value (nan) in {first} after {where} (debug_nans)")
 
 
 def make_train_step(model: Model, tc: TrainConfig) -> Callable:
@@ -68,7 +106,12 @@ def make_train_step(model: Model, tc: TrainConfig) -> Callable:
             momentum_update(params, velocity, grads, lr, tc.momentum)
         for p in params.values():
             p.grad = None
-        return {"loss": loss.detach(), "accuracy": acc.detach()}
+        out = {"loss": loss.detach(), "accuracy": acc.detach()}
+        if _DEBUG_NANS[0]:
+            _raise_on_nan(f"train step {step}", [
+                *out.items(), *model.net.state_dict().items(),
+                *((f"velocity.{k}", v) for k, v in velocity.items())])
+        return out
 
     return train_step
 
@@ -93,6 +136,9 @@ def make_eval_step(model: Model, faithful_eval: bool = False) -> Callable:
         ctx = Ctx(train=faithful_eval, key=np.asarray(key), update=False,
                   n_uids=n_uids)
         loss, acc = model.loss_and_acc(model.apply(x, ctx), y)
+        if _DEBUG_NANS[0]:
+            _raise_on_nan("the eval step",
+                          [("loss", loss), ("accuracy", acc)])
         return {"loss": loss, "accuracy": acc, "count": x.shape[0]}
 
     return eval_step

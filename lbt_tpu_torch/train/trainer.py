@@ -25,6 +25,7 @@ from typing import Callable, Dict, Optional
 import torch
 
 from lbt_tpu_torch.config import TrainConfig
+from lbt_tpu_torch.data.native import NativeLoader
 from lbt_tpu_torch.data.pipeline import batch_iterator, device_prefetch
 from lbt_tpu_torch.dfxp import keys
 from lbt_tpu_torch.nn.model import Model
@@ -47,12 +48,17 @@ class Trainer:
     ``dataset`` holds ``'train'`` / ``'test'`` numpy ``(x, y)`` pairs, or
     ``'train_iter'(epoch, batch_size)`` / ``'test_iter'(batch_size)``
     callables yielding numpy batches.  ``augment`` is ``(key, x) -> x``
-    (``data.datasets.make_augment``)."""
+    (``data.datasets.make_augment``).  ``native_loader`` takes the train
+    batches of the in-memory ``'train'`` arrays from the C++ loader
+    (``data.native.NativeLoader``), which also augments them as
+    ``aug_spec`` (``{'pad', 'flip'}``, ``data.datasets.aug_spec``) says,
+    in place of ``augment``."""
 
     def __init__(self, model: Model, tc: TrainConfig, dataset: Dict,
                  augment: Optional[Callable] = None, logger=None,
                  logdir: Optional[str] = None, profile_steps: int = 0,
-                 native_loader: bool = False, device=None):
+                 native_loader: bool = False,
+                 aug_spec: Optional[Dict] = None, device=None):
         if tc.data_parallel or tc.tensor_parallel > 1 or tc.lowbit_allreduce \
                 or tc.lowbit_wire is not None:
             raise NotImplementedError(
@@ -64,14 +70,20 @@ class Trainer:
                 f"scan_steps={tc.scan_steps}: the scanned K-step block is "
                 f"not to be ported (ROADMAP queue 1 item 13); steps run one "
                 f"by one")
-        if native_loader:
-            raise NotImplementedError(
-                "the native C++ loader is not ported (ROADMAP queue 1 "
-                "item 9); batches come from data.pipeline")
         self.model = model
         self.tc = tc
         self.dataset = dataset
         self.augment = augment
+        self.native = None
+        if native_loader:
+            # shuffle and augmentation on the loader's host threads, one
+            # batch ahead (native/loader.cc)
+            spec = aug_spec or {}
+            xtr, ytr = dataset["train"]
+            self.native = NativeLoader(
+                xtr, ytr, tc.batch_size, pad=spec.get("pad", 0),
+                flip=spec.get("flip", False), seed=tc.seed)
+            self.augment = None
         self.device = resolve_device(device)
         self.logger = logger or get_logger(
             f"{logdir}/experiment.log" if logdir else None)
@@ -151,7 +163,9 @@ class Trainer:
             self.velocity = momentum_init(self.params)
             self.logger.info("Reset momentum slots (faithful mode)")
 
-        if "train_iter" in self.dataset:
+        if self.native is not None:
+            src = self.native.epoch(epoch)
+        elif "train_iter" in self.dataset:
             src = self.dataset["train_iter"](epoch, tc.batch_size)
         else:
             xtr, ytr = self.dataset["train"]

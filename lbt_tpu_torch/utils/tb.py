@@ -30,22 +30,22 @@ for _i in range(256):
     _TABLE.append(_c)
 
 
-def _crc32c(data: bytes) -> int:
+def crc32c(data: bytes) -> int:
     crc = 0xFFFFFFFF
     for b in data:
         crc = _TABLE[(crc ^ b) & 0xFF] ^ (crc >> 8)
     return crc ^ 0xFFFFFFFF
 
 
-def _masked_crc(data: bytes) -> int:
-    crc = _crc32c(data)
+def masked_crc(data: bytes) -> int:
+    crc = crc32c(data)
     return (((crc >> 15) | (crc << 17)) + 0xA282EAD8) & 0xFFFFFFFF
 
 
 # -- minimal protobuf encoding ----------------------------------------------
 
 
-def _varint(n: int) -> bytes:
+def varint(n: int) -> bytes:
     out = bytearray()
     while True:
         b = n & 0x7F
@@ -56,7 +56,7 @@ def _varint(n: int) -> bytes:
 
 
 def _tag(field: int, wire: int) -> bytes:
-    return _varint((field << 3) | wire)
+    return varint((field << 3) | wire)
 
 
 def _pb_double(field: int, v: float) -> bytes:
@@ -68,11 +68,11 @@ def _pb_float(field: int, v: float) -> bytes:
 
 
 def _pb_int64(field: int, v: int) -> bytes:
-    return _tag(field, 0) + _varint(v & 0xFFFFFFFFFFFFFFFF)
+    return _tag(field, 0) + varint(v & 0xFFFFFFFFFFFFFFFF)
 
 
 def _pb_bytes(field: int, v: bytes) -> bytes:
-    return _tag(field, 2) + _varint(len(v)) + v
+    return _tag(field, 2) + varint(len(v)) + v
 
 
 def _event(wall_time: float, step: int, payload: bytes = b"",
@@ -109,9 +109,9 @@ class EventWriter:
     def _record(self, payload: bytes):
         header = struct.pack("<Q", len(payload))
         self._f.write(header)
-        self._f.write(struct.pack("<I", _masked_crc(header)))
+        self._f.write(struct.pack("<I", masked_crc(header)))
         self._f.write(payload)
-        self._f.write(struct.pack("<I", _masked_crc(payload)))
+        self._f.write(struct.pack("<I", masked_crc(payload)))
         self._f.flush()
 
     def scalars(self, step: int, values: Dict[str, float]):

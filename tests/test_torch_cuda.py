@@ -1029,3 +1029,101 @@ def test_folded_export_serves_on_the_card_as_on_the_cpu(dev):
             a, b = a.codes, b.codes
         assert torch.equal(a, b.cpu()), path
     assert torch.equal(clog, glog)
+
+
+# the input sources (native/*.cc, PIL) on the card's host
+
+def _has_libjpeg() -> bool:
+    """g++ finds libjpeg's header and links it: the TFRecord library
+    builds."""
+    import shutil
+    import subprocess
+    gxx = shutil.which("g++")
+    return gxx is not None and subprocess.run(
+        [gxx, "-E", "-x", "c++", "-"], input="#include <jpeglib.h>\n",
+        capture_output=True, text=True).returncode == 0
+
+
+def _source_batches(name, root):
+    """Two epochs' worth of batches of 4 at 32 px from one source."""
+    import io
+    from lbt_tpu_torch.data import imagefolder, tfrecord
+    from lbt_tpu_torch.data.native import NativeLoader
+    rng = np.random.default_rng(5)
+    if name == "native":
+        x = rng.normal(0, 1, (12, 32, 32, 3)).astype(np.float32)
+        y = rng.integers(0, 10, 12).astype(np.int32)
+        return list(NativeLoader(x, y, 4, pad=4, flip=True).epoch(0))
+    Image = pytest.importorskip("PIL.Image")
+    images = [rng.integers(0, 256, (40, 48, 3), np.uint8) for _ in range(10)]
+    if name == "tfrecord":
+        if not _has_libjpeg():
+            pytest.skip("libjpeg's header or library is missing: the "
+                        "TFRecord library (native/tfrecord.cc) cannot build")
+        path = str(root / "shard.tfrecord")
+        with tfrecord.TFRecordWriter(path) as wr:
+            for i, im in enumerate(images):
+                buf = io.BytesIO()
+                Image.fromarray(im).save(buf, format="JPEG")
+                wr.write(tfrecord.make_example(buf.getvalue(), i % 3))
+        return list(tfrecord.TFRecordDataset(path, 32, train=False)
+                    .batches(0, 4))
+    for i, im in enumerate(images):
+        d = root / f"c{i % 3}"
+        d.mkdir(exist_ok=True)
+        Image.fromarray(im).save(d / f"{i}.jpeg")
+    return list(imagefolder.ImageFolderDataset(str(root), 32, train=False,
+                                               workers=2).batches(0, 4))
+
+
+@pytest.mark.parametrize("name", ["native", "tfrecord", "imagefolder"])
+def test_sources_feed_device_prefetch_on_the_card(dev, tmp_path, name):
+    """Each source's numpy batches reach the card through
+    ``device_prefetch`` unchanged, the ragged last eval batch included."""
+    want = _source_batches(name, tmp_path)
+    got = list(device_prefetch(iter(want), device=dev))
+    assert len(got) == len(want) and len(want[-1][1]) <= 4
+    for (xg, yg), (xw, yw) in zip(got, want):
+        assert xg.device.type == "cuda" and yg.device.type == "cuda"
+        assert torch.equal(xg.cpu(), torch.from_numpy(xw))
+        assert torch.equal(yg.cpu(), torch.from_numpy(yw))
+
+
+def test_device_prefetch_reuses_pinned_blocks(dev):
+    """Batches of the headline's size (128 x 224 x 224 x 3 f32, 77 MB)
+    through ``device_prefetch``: the pinned host allocator grows by a few
+    blocks at first, then hands the same ones out again."""
+    x = np.zeros((128, 224, 224, 3), np.float32)
+    y = np.zeros((128,), np.int32)
+    before = torch.cuda.host_memory_stats().get("num_host_alloc")
+    if before is None:
+        pytest.skip("this torch reports no pinned-allocator statistics")
+    for xb, _ in device_prefetch(((x, y) for _ in range(12)), device=dev):
+        xb.add_(1)
+    torch.cuda.synchronize()
+    grown = torch.cuda.host_memory_stats()["num_host_alloc"] - before
+    assert grown <= 8, f"{grown} pinned blocks created for 12 batches"
+
+
+def test_loss_outside_the_head_gives_nan_without_device_assert(dev):
+    """Labels at, past and below the head's width: the loss is NaN, the
+    gradient finite and equal to the CPU's, no device assert fires (the
+    context stays usable)."""
+    from lbt_tpu_torch.nn.model import Model
+    model = cifar10_resnet(QuantConfig.uniform(8, noise_mode="hash"), 8)
+    assert isinstance(model, Model)
+    logits = torch.from_numpy(np.random.default_rng(0).normal(
+        0, 2, (6, 10)).astype(np.float32))
+    labels = torch.tensor([0, 9, 10, 400, -1, -11])
+    out = []
+    for d in ("cpu", dev):
+        t = logits.to(d, copy=True).requires_grad_()
+        loss, acc = model.loss_and_acc(t, labels.to(d))
+        loss.backward()
+        torch.cuda.synchronize()
+        out.append((loss.item(), acc.item(), t.grad.cpu()))
+    (lc, ac, gc), (lg, ag, gg) = out
+    assert np.isnan(lc) and np.isnan(lg) and ac == ag
+    assert torch.isfinite(gg).all()
+    torch.testing.assert_close(gg, gc, rtol=1e-6, atol=1e-7)
+    assert (torch.ones(4, device=dev) * 2).sum().item() == 8.0

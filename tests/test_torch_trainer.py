@@ -583,7 +583,7 @@ def test_cli_trains_and_writes(tmp_path):
     ({"tensor_parallel": 2}, {}, "item 12"),
     ({"lowbit_allreduce": True}, {}, "item 12"),
     ({"scan_steps": 4}, {}, "item 13"),
-    ({}, {"native_loader": True}, "item 9"),
+    ({"lowbit_wire": "int8"}, {}, "item 12"),
 ])
 def test_trainer_refuses_what_it_cannot_run(tc_kw, trainer_kw, item):
     cfg = tconfig.QuantConfig.uniform(8, noise_mode="hash")

@@ -187,12 +187,15 @@ def test_registry_and_cli_take_every_model():
 @pytest.mark.parametrize("argv", [
     ["--model", "MNIST"],
     ["--model", "CIFAR10_Resnet20", "--gradient_buffer", "--noise_mode",
-     "hash"]], ids=["mnist-defaults", "resnet20-gradient-buffer"])
+     "hash"],
+    ["--model", "PI_MNIST", "--bits", "32"]],
+    ids=["mnist-defaults", "resnet20-gradient-buffer", "pi-mnist-fp32"])
 def test_cli_trains_the_new_paths(tmp_path, argv):
     """``python -m lbt_tpu_torch.main`` on the CPU, 2 steps: LeNet under
     main.py's defaults (prng, dropout), ResNet-20 with the gradient
-    buffers (sized for the batch, nonzero after the run); the loss is
-    finite.  ``--gradient_buffer`` on another model exits 2."""
+    buffers (sized for the batch, nonzero after the run), the FP32 MLP (a
+    model with parameters and no buffer); the loss is finite.
+    ``--gradient_buffer`` on another model exits 2."""
     tr = main(argv + ["--device", "cpu", "--n_train", "32", "--n_test",
                       "16", "--batch_size", "16", "--n_epoch", "1",
                       "--log_every", "1", "--exp_path",
