@@ -4,10 +4,11 @@ ResNet-20, the last through the port's Trainer and CLI (main.py's defaults
 among its runs), then train and serve the bench headline, ResNet-50 at 224
 px and batch 128, train the bench's baseline leg at the same size, train
 VGG-16 / CIFAR-100 under int4w-int8a and serve it folded and exported,
-train the reference's small models through the CLI, and train the
+train the reference's small models through the CLI, train the
 headline through the CLI from TFRecord shards and an ImageFolder tree of
 ImageNet-like JPEGs, ResNet-20 through the C++ loader, with ``--debug_nans``
-checked.
+checked, and train data parallel on ``torch.distributed``: two ranks
+sharing the card, NCCL at world size 1, the CLI under torchrun.
 
 Run from the root of a checkout, on a machine with one CUDA card:
 
@@ -186,13 +187,41 @@ the line on stdout) and exits 1, with no result line.
            tree raises FloatingPointError at step 0, without the flag logs
            NaN losses and finishes; a clean run with it finishes.  The data
            is deleted after.
+15. dp     data parallelism (``lbt_tpu_torch.parallel``).  (b) in this
+           process: 2 ResNet-20 steps of ``make_dp_train_step`` over an
+           NCCL group of world size 1, plain and with the low-bit
+           all-reduce's psum transport and both rings, each equal bit for
+           bit to the same steps over a gloo group of world size 1 on the
+           card.  Then 2 rank processes (``chip_smoke.py --dp-worker``,
+           ``parallel.initialize``: gloo, the ranks share the card):
+           (a) ResNet-20 under uniform(8, noise_mode='hash'), global batch
+           128 (64 a rank), 4 steps through the kernels (counters reset
+           just before, each required to rise) equal to the same 4
+           through the plain versions and to the other rank in every
+           tensor (deterministic algorithms, tolerance 0), the first loss
+           against the 2-rank CPU route at rtol 1e-5, then 2 steps with
+           each low-bit transport (losses finite, ranks equal); (c) the
+           headline (phase resnet50's config) at 2 x 64 with the low-bit
+           all-reduce: 3 steps, then 6 timed ones: median ms a step
+           (two ranks sharing one card: not a scaling number), host ms
+           and calls a step in collectives, kernel launches a step, each
+           rank's peak memory; the ranks' states equal; then the low-bit
+           bucket's wires alone (the int32 all-reduce, one int16 and one
+           int8 ring hop), host ms.  (d) ``python -m
+           torch.distributed.run --nproc_per_node 2 -m lbt_tpu_torch.main
+           --data_parallel --lowbit_allreduce`` on ResNet-20, 1 epoch of
+           10 steps and an eval of 300 (a padded, ragged batch), then a
+           run to 2 epochs that resumes: exit 0, rank 0 alone logging.
+           Phases K1-stats and fused also run each stochastic check at a
+           non-zero noise counter offset (``CHECK_ROW0``).
 
 Prints the card, then one JSON line of kernels (launches from the trainer
 phase, the threefry rows' from its run of main.py's defaults; ms,
 plain_ms, bound_ms and library_ms a training step; the same keys under
 ``resnet50`` for the headline's path, under ``baseline50`` for the
 baseline's K1, under ``vgg16`` for V's, and under ``records`` the
-launches of each CLI run of phase records), then, last, one JSON line
+launches of each CLI run of phase records, under ``dp`` rank 0's launches
+in phase dp), then, last, one JSON line
 ``{"ok": true, "device": {...}}``.
 """
 
@@ -243,13 +272,22 @@ CARD = {}
 NOISE_K0, NOISE_K1 = 0x5DEECE66, 0x2545F491
 
 
-def noise_of(quant, mode: int, shape, shared: bool = False):
+def noise_of(quant, mode: int, shape, shared: bool = False,
+             row0: int = 0):
     """The :class:`Noise` of ``mode`` (0: None) for a tensor of
-    ``shape``, drawn once along axis 0 with ``shared``."""
+    ``shape``, drawn once along axis 0 with ``shared``; ``row0`` places
+    its rows in a larger batch's draw (the counter's offset, as a
+    data-parallel eval rank draws)."""
     if not mode:
         return None
     inner = math.prod(shape[1:]) if shared else 0
-    return quant.Noise(mode, NOISE_K0, NOISE_K1, inner)
+    offset = 0 if shared else row0 * math.prod(shape[1:])
+    return quant.Noise(mode, NOISE_K0, NOISE_K1, inner, offset)
+
+
+# the row a compared call's slice starts at in its global batch: every
+# stochastic check of K1 and #4/#5 runs again at this counter offset
+CHECK_ROW0 = 3
 
 
 def noise_key(noise) -> tuple:
@@ -1015,8 +1053,9 @@ def phase_k1_train(quant, k1_calls, reps=REPS, tag="K1-stats",
                    threefry_twins=False) -> dict:
     """K1 at every quantize call of the training step, with the path's
     rounding mode and its min/max output, bitwise against the plain
-    version (codes, multiplier, min/max), and again with threefry noise;
-    timed per shape.  ``threefry_twins`` also times each stochastic call
+    version (codes, multiplier, min/max), and again with threefry noise,
+    each stochastic call also at a non-zero counter offset (a
+    data-parallel eval rank's rows, ``CHECK_ROW0``); timed per shape.  ``threefry_twins`` also times each stochastic call
     with threefry noise in place of its hash (``threefry`` in the result:
     the step under ``noise_mode='prng'``)."""
     from lbt_tpu_torch.ops.kernels import work
@@ -1043,8 +1082,11 @@ def phase_k1_train(quant, k1_calls, reps=REPS, tag="K1-stats",
     for (shape, bits, mode, shared, stats), count in sorted(
             k1_calls.items()):
         x = (torch.randn(shape, generator=gen) * 2).cuda()
-        for m in sorted({0, mode, 3}):
-            noise = noise_of(quant, m, shape, shared)
+        for m, row0 in [(m, r) for m in sorted({0, mode, 3})
+                        for r in ((0, CHECK_ROW0) if m else (0,))]:
+            noise = noise_of(quant, m, shape, shared, row0)
+            if shared and row0:  # any offset, K1 takes it before % inner
+                noise = noise._replace(offset=row0 * noise.inner + 5)
             got = quant.quantize_codes(x, bits, exp, noise, True)
             want = quant.quantize_codes_plain(x, bits, exp, noise, True)
             torch.cuda.synchronize()
@@ -1129,7 +1171,9 @@ def phase_fused(fused, conv_calls, reps=REPS, threefry_twins=False
                 ) -> dict:
     """#4 and #5 at every conv -> BN shape of the step (batch 128):
     codes (deterministic, stochastic with the path's noise, and with
-    threefry noise), moments and min/max equal to the plain version's;
+    threefry noise, each stochastic call also at the counter offset of
+    rows ``CHECK_ROW0..``), moments and min/max equal to the plain
+    version's;
     timed per shape, and with ``threefry_twins`` again with threefry noise
     in place of the path's hash (``threefry`` in each kind's result)."""
     from lbt_tpu_torch.ops.im2col import out_hw
@@ -1157,9 +1201,13 @@ def phase_fused(fused, conv_calls, reps=REPS, threefry_twins=False
             mult = torch.tensor([2.0 ** -2], device="cuda")
             yshape = (xshape[0], *out_hw(xshape[1], xshape[2], wshape[:2],
                                          strides, pads), wshape[3])
-            for m in sorted({0, mode, 3}):
+            for m, row0 in [(m, r) for m in sorted({0, mode, 3})
+                            for r in ((0, CHECK_ROW0) if m else (0,))]:
                 kw = dict(strides=strides, pads=pads, round_bf16=rbf,
-                          noise=noise_of(quant, m, yshape, shared))
+                          noise=noise_of(quant, m, yshape, shared, row0))
+                if shared and row0:  # a whole number of shared draws
+                    kw["noise"] = kw["noise"]._replace(
+                        offset=row0 * kw["noise"].inner)
                 got = fn(xc, wc, inv, mult, **kw)
                 want = fused.conv_fused_plain(xc, wc, inv, mult, **kw)
                 torch.cuda.synchronize()
@@ -2621,6 +2669,331 @@ def records_debug_nans(legs: dict, tree: Path) -> dict:
             "seconds": seconds}
 
 
+# ---------------------------------------------------------------------------
+# dp: data parallelism on torch.distributed (2 ranks sharing the card)
+# ---------------------------------------------------------------------------
+
+DP_RANKS = 2
+DP_STEPS = 4            # ResNet-20 steps: kernel route, then plain route
+DP_LOWBIT_STEPS = 2     # each low-bit transport's ResNet-20 steps
+DP_WIRES = (None, "int16", "int8")   # psum transport, then the two rings
+DP_R50_GATE = 3         # headline steps before the timed ones (on, off, off)
+DP_R50_TIMED = 6
+DP_DIR = REPO / "experiments" / "smoke_dp"
+DP_CLI = ["--model", "CIFAR10_Resnet20", "--data_parallel",
+          "--lowbit_allreduce", "--noise_mode", "hash", "--batch_size",
+          "128", "--n_train", "1280", "--n_test", "300", "--log_every",
+          "5", "--checkpoint_every", "1"]
+
+
+def _digest(model, velocity, ebuf=None) -> dict:
+    """sha256 of every tensor of the training state: parameters,
+    exponents, BN statistics, velocity (and ``ebuf``)."""
+    import hashlib
+    state = {**_state(model, velocity),
+             **{f"ebuf.{k}": v for k, v in (ebuf or {}).items()}}
+    return {k: hashlib.sha256(v.detach().cpu().contiguous().numpy()
+                              .tobytes()).hexdigest()
+            for k, v in state.items()}
+
+
+def _dp_run(model, group, batches, lowbit=None, wire=None):
+    """``(run, velocity, ebuf)``: ``run(i)`` takes DP step ``i`` of
+    ``model`` on this rank's rows of ``batches[i % len]`` and returns its
+    loss (a tensor)."""
+    from lbt_tpu_torch.config import TrainConfig
+    from lbt_tpu_torch.dfxp.keys import base_key
+    from lbt_tpu_torch.parallel import init_error_buffers, make_dp_train_step
+    from lbt_tpu_torch.train.optim import momentum_init
+    params = dict(model.net.named_parameters())
+    vel, ebuf = momentum_init(params), init_error_buffers(params)
+    step = make_dp_train_step(model, TrainConfig(), group, lowbit_bits=lowbit,
+                              lowbit_wire=wire)
+    dev, per = model.device, batches[0][0].shape[0] // group.world
+    rows = slice(group.rank * per, (group.rank + 1) * per)
+
+    def run(i):
+        x, y = batches[i % len(batches)]
+        return step(model, vel, ebuf, x[rows].to(dev), y[rows].to(dev), i,
+                    TRAIN_LR, base_key(TRAIN_KEY_SEED))["loss"]
+    return run, vel, ebuf
+
+
+def _dp_rank_r20(group, modules) -> dict:
+    """Leg (a) on one rank: ResNet-20, global batch 128, through the
+    kernels (counters reset just before) and through the plain versions,
+    then the first step on the CPU over the same group, then each low-bit
+    transport."""
+    qmod, qops, quant, gemm, fused = modules
+    batches = train_batches(DP_STEPS)
+    card = build_train_model(SEED).to("cuda")
+    run, vel, _ = _dp_run(card, group, batches)
+    reset_counters(quant, gemm, fused)
+    losses = [run(i) for i in range(DP_STEPS)]
+    torch.cuda.synchronize()
+    launches = train_counters(quant, gemm, fused)
+    for k, v in launches.items():
+        check(v > 0, f"{k} never launched on the data-parallel path")
+    plain = build_train_model(SEED).to("cuda")
+    prun, pvel, _ = _dp_run(plain, group, batches)
+    with plain_route(qmod, qops, quant, gemm):
+        plain_losses = [prun(i).item() for i in range(DP_STEPS)]
+    check(train_counters(quant, gemm, fused) == launches,
+          "the plain route launched a kernel")
+    out = {"launches": launches, "losses": [x.item() for x in losses],
+           "plain_losses": plain_losses, "digest": _digest(card, vel),
+           "plain_digest": _digest(plain, pvel)}
+    cpu = build_train_model(SEED)
+    crun, _, _ = _dp_run(cpu, group, batches)
+    out["cpu_first_loss"] = crun(0).item()
+    out["lowbit"] = {}
+    for wire in DP_WIRES:
+        model = build_train_model(SEED).to("cuda")
+        lrun, lvel, _ = _dp_run(model, group, batches, lowbit=8, wire=wire)
+        ls = [lrun(i).item() for i in range(DP_LOWBIT_STEPS)]
+        out["lowbit"][str(wire)] = {"losses": ls,
+                                    "digest": _digest(model, lvel)}
+    return out
+
+
+def _dp_rank_r50(group, modules) -> dict:
+    """Leg (c) on one rank: the headline (ResNet-50/224 under lean-a8)
+    with the low-bit all-reduce (psum transport), 64 rows of a global 128;
+    ``DP_R50_GATE`` steps, then ``DP_R50_TIMED`` timed ones: host ms a
+    step (synced), collective host ms and calls a step, kernel launches a
+    step, peak memory."""
+    _, _, quant, gemm, fused = modules
+    batches = r50_batches(1)
+    model = build_resnet50(SEED).to("cuda")
+    run, vel, _ = _dp_run(model, group, batches, lowbit=8)
+    torch.cuda.reset_peak_memory_stats()
+    gate = [run(i).item() for i in range(DP_R50_GATE)]
+    check(all(math.isfinite(x) for x in gate), f"losses {gate}")
+    reset_counters(quant, gemm, fused)
+    sec0, calls0 = group.seconds, group.calls
+    samples = []
+    for i in range(DP_R50_GATE, DP_R50_GATE + DP_R50_TIMED):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        run(i)
+        torch.cuda.synchronize()
+        samples.append((time.perf_counter() - t0) * 1e3)
+    n = DP_R50_TIMED
+    coll_ms = (group.seconds - sec0) * 1e3 / n
+    coll_calls = (group.calls - calls0) / n
+    launches = {k: v / n for k, v in train_counters(quant, gemm,
+                                                   fused).items()}
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    # the low-bit bucket's wires alone, at the headline's size: the psum
+    # transport's int32 all-reduce, and one ring hop (bucket / N) in int16
+    # and in int8 (2 (N - 1) hops a step); host ms, device synced
+    size = sum(p.numel() for p in model.net.parameters())
+    wires = {}
+    for name, dtype, numel in (("psum_int32", torch.int32, size),
+                               ("ring_int16_hop", torch.int16,
+                                size // group.world),
+                               ("ring_int8_hop", torch.int8,
+                                size // group.world)):
+        x = torch.ones(numel, dtype=dtype, device="cuda")
+        ts = []
+        for _ in range(3):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            (group.ring_pass if "ring" in name else group.all_reduce)(x)
+            torch.cuda.synchronize()
+            ts.append((time.perf_counter() - t0) * 1e3)
+        wires[name] = {"mb": numel * x.element_size() / 1e6,
+                       "ms": statistics.median(ts)}
+    return {"gate_losses": gate, "samples_ms": samples, "wires": wires,
+            "ms_per_step": statistics.median(samples),
+            "collective_ms_per_step": coll_ms,
+            "collective_calls_per_step": coll_calls,
+            "launches_per_step": launches,
+            "max_memory_gib": peak, "digest": _digest(model, vel)}
+
+
+def dp_worker(argv) -> int:
+    """One rank of phase dp (``chip_smoke.py --dp-worker STORE RANK WORLD
+    OUT``): joins the group through ``parallel.initialize`` (2 ranks on
+    one card: gloo), runs legs (a) and (c), writes its results to OUT."""
+    import pickle
+    store, rank, world, out_path = argv
+    os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
+    qmod, qops, _, gemm, quant = port_modules()
+    from lbt_tpu_torch.ops.kernels import conv_fused
+    from lbt_tpu_torch.parallel import initialize
+    group = initialize("cuda", init_method=f"file://{store}",
+                       world_size=int(world), rank=int(rank))
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.use_deterministic_algorithms(True)
+    modules = (qmod, qops, quant, gemm, conv_fused)
+    out = {"backend": group.backend, "device": str(group.device)}
+    out["r20"] = _dp_rank_r20(group, modules)
+    torch.cuda.empty_cache()
+    out["r50"] = _dp_rank_r50(group, modules)
+    with open(out_path, "wb") as f:
+        pickle.dump(out, f)
+    torch.distributed.destroy_process_group()
+    return 0
+
+
+def _dp_nccl(modules) -> dict:
+    """Leg (b): ResNet-20 steps of ``make_dp_train_step`` over an NCCL
+    group of world size 1, plain and with each low-bit transport, equal
+    bit for bit to the same steps over a gloo group of world size 1 on
+    the card: every collective's dtype and call is one NCCL takes."""
+    import tempfile
+    import torch.distributed as dist
+    from lbt_tpu_torch.parallel import Group
+    tmp = tempfile.mkdtemp(dir=DP_DIR)
+    dist.init_process_group("nccl", init_method=f"file://{tmp}/store",
+                            world_size=1, rank=0,
+                            device_id=torch.device("cuda", 0))
+    try:
+        groups = {"nccl": Group(device="cuda"),
+                  "gloo": Group(dist.new_group(backend="gloo"),
+                                device="cuda")}
+        batches = [(x[:64], y[:64]) for x, y in train_batches(2)]
+        out = {}
+        for wire in ("plain",) + DP_WIRES:
+            res = {}
+            for name, g in groups.items():
+                model = build_train_model(SEED).to("cuda")
+                run, vel, ebuf = _dp_run(
+                    model, g, batches, lowbit=None if wire == "plain"
+                    else 8, wire=None if wire == "plain" else wire)
+                losses = [run(i).item() for i in range(2)]
+                res[name] = (losses, _digest(model, vel, ebuf))
+            check(res["nccl"] == res["gloo"],
+                  f"dp {wire}: NCCL and gloo steps differ")
+            out[str(wire)] = res["nccl"][0]
+        print(f"dp (b): NCCL at world size 1 equals gloo bitwise, 2 "
+              f"ResNet-20 steps each: plain, psum, int16 ring, int8 ring; "
+              f"losses {out}", flush=True)
+        return out
+    finally:
+        dist.destroy_process_group()
+
+
+def _dp_cli() -> dict:
+    """Leg (d): the CLI under ``torch.distributed.run`` with 2 ranks on
+    the card, 1 epoch of 10 steps and an eval of 300 (one padded, ragged
+    batch), then a second run to 2 epochs that resumes."""
+    exp = DP_DIR / "cli"
+    shutil.rmtree(exp, ignore_errors=True)
+    out = {}
+    for n_epoch in (1, 2):
+        t0 = time.perf_counter()
+        cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone",
+               "--nproc_per_node", str(DP_RANKS), "-m", "lbt_tpu_torch.main",
+               *DP_CLI, "--n_epoch", str(n_epoch), "--exp_path", str(exp)]
+        p = subprocess.run(cmd, cwd=REPO, capture_output=True, text=True,
+                           timeout=300)
+        check(p.returncode == 0, f"torchrun exit {p.returncode}: "
+              f"{p.stderr[-3000:]}")
+        out[f"epochs_{n_epoch}_s"] = time.perf_counter() - t0
+    log = (exp / "experiment.log").read_text()
+    rows = _rows(exp / "metrics.jsonl")
+    losses = [r["train/loss"] for r in rows if "train/loss" in r]
+    tests = [r["test/accuracy"] for r in rows if "test/accuracy" in r]
+    check(log.count("Start of experiment") == 2, "rank 0 alone logs")
+    check("Resumed from" in log and "@ step 10" in log,
+          "the second run did not resume at step 10")
+    check(len(losses) == 4 and all(math.isfinite(v) for v in losses),
+          f"logged losses {losses}")
+    check(len(tests) == 2, f"evals logged {tests}")
+    check(sorted(int(d) for d in os.listdir(exp / "ckpt")) == [10, 20],
+          "checkpoints")
+    out.update(losses=losses, test_accuracy=tests)
+    print(f"dp (d): torchrun 2 ranks on the card, --data_parallel "
+          f"--lowbit_allreduce: 1 epoch ({out['epochs_1_s']:.1f} s), "
+          f"resumed to 2 ({out['epochs_2_s']:.1f} s); losses {losses}, "
+          f"test accuracy {tests}", flush=True)
+    return out
+
+
+def phase_dp(qmod, qops, quant, gemm, fused) -> dict:
+    """Data parallelism on the card: (b) NCCL at world size 1 against
+    gloo, in this process; (a) and (c) in 2 rank processes sharing the
+    card over gloo; (d) the CLI under torchrun."""
+    import pickle
+    t0 = time.perf_counter()
+    shutil.rmtree(DP_DIR, ignore_errors=True)
+    DP_DIR.mkdir(parents=True)
+    torch.use_deterministic_algorithms(True)
+    try:
+        out = {"nccl": _dp_nccl((qmod, qops, quant, gemm, fused))}
+    finally:
+        torch.use_deterministic_algorithms(False)
+    torch.cuda.empty_cache()
+    procs = [subprocess.Popen(
+        [sys.executable, str(REPO / "chip_smoke.py"), "--dp-worker",
+         str(DP_DIR / "store"), str(r), str(DP_RANKS),
+         str(DP_DIR / f"rank{r}.pkl")], cwd=REPO,
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        for r in range(DP_RANKS)]
+    try:
+        logs = [p.communicate(timeout=600)[0] for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+    for r, p in enumerate(procs):
+        check(p.returncode == 0, f"dp rank {r} exit {p.returncode}:\n"
+              f"{logs[r][-3000:]}")
+    ranks = []
+    for r in range(DP_RANKS):
+        with open(DP_DIR / f"rank{r}.pkl", "rb") as f:
+            ranks.append(pickle.load(f))
+    a0, a1 = (r["r20"] for r in ranks)
+    check(ranks[0]["backend"] == "gloo", "2 ranks on one card: gloo")
+    check(a0["digest"] == a1["digest"] and a0["losses"] == a1["losses"],
+          "dp (a): the ranks' states differ")
+    check(a0["digest"] == a0["plain_digest"]
+          and a0["losses"] == a0["plain_losses"],
+          "dp (a): kernel and plain routes differ")
+    check(math.isclose(a0["cpu_first_loss"], a0["losses"][0],
+                       rel_tol=1e-5),
+          f"dp (a): first loss {a0['losses'][0]} against the 2-rank CPU "
+          f"route's {a0['cpu_first_loss']}")
+    for wire in map(str, DP_WIRES):
+        l0, l1 = a0["lowbit"][wire], a1["lowbit"][wire]
+        check(l0 == l1, f"dp (a) lowbit {wire}: the ranks differ")
+        check(all(math.isfinite(v) for v in l0["losses"]),
+              f"dp (a) lowbit {wire}: losses {l0['losses']}")
+    print(f"dp (a): ResNet-20, 2 ranks x 64 on the card over gloo, "
+          f"{DP_STEPS} steps: kernel route == plain route, rank 0 == rank "
+          f"1 in all {len(a0['digest'])} tensors (tolerance 0); losses "
+          f"{a0['losses']}, the 2-rank CPU route's first "
+          f"{a0['cpu_first_loss']}; launches {a0['launches']}; low-bit "
+          f"{ {w: a0['lowbit'][w]['losses'] for w in a0['lowbit']} }, "
+          f"ranks equal", flush=True)
+    c0, c1 = (r["r50"] for r in ranks)
+    check(c0["digest"] == c1["digest"], "dp (c): the ranks' states differ")
+    print(f"dp (c): the headline, 2 ranks x 64 sharing one card "
+          f"({ranks[0]['backend']}; not a scaling number), "
+          f"--lowbit_allreduce: median {c0['ms_per_step']:.1f} / "
+          f"{c1['ms_per_step']:.1f} ms a step (ranks 0 / 1), collectives "
+          f"{c0['collective_ms_per_step']:.1f} / "
+          f"{c1['collective_ms_per_step']:.1f} ms in "
+          f"{c0['collective_calls_per_step']:g} calls a step, peak "
+          f"{c0['max_memory_gib']:.2f} / {c1['max_memory_gib']:.2f} GiB, "
+          f"launches a step {c0['launches_per_step']}; ranks equal",
+          flush=True)
+    print("dp (c): the bucket's wires alone, host ms (staged through host "
+          "memory): " + ", ".join(
+              f"{k} {v['mb']:.1f} MB {v['ms']:.1f} / "
+              f"{c1['wires'][k]['ms']:.1f}" for k, v in c0["wires"].items()),
+          flush=True)
+    out.update(backend=ranks[0]["backend"], r20=a0, r20_rank1=a1, r50=c0,
+               r50_rank1=c1)
+    out["cli"] = _dp_cli()
+    out["seconds"] = time.perf_counter() - t0
+    print(f"dp: phase took {out['seconds']:.1f} s", flush=True)
+    return out
+
+
 def port_modules():
     """Import every module of the port that this script drives and check
     that none of them loaded JAX, which the card's machine does not have,
@@ -2660,7 +3033,9 @@ def kernel_lines(report) -> list:
     ``records`` the launches of each CLI run of phase records (the
     headline from each streaming source that ran, ResNet-20 through the
     native loader), whose shapes are those of ``resnet50`` and the
-    trainer's."""
+    trainer's; ``dp`` rank 0's launches in phase dp (ResNet-20's 4
+    counted steps, the headline's a step), at the shapes of half the
+    batch."""
     k1, k2, fused = report["k1_train"], report["k2_train"], report["fused"]
     launches = report["trainer"]["launches"]
     rec = report["records"]
@@ -2670,6 +3045,14 @@ def kernel_lines(report) -> list:
     def at_records(*kinds):
         return {run: sum(r["launches"][k] for k in kinds)
                 for run, r in rec_runs.items()}
+    dp = report["dp"]
+
+    def at_dp(*kinds):
+        """Rank 0's launches in phase dp: ResNet-20's counted steps, the
+        headline's a step."""
+        return {"resnet20": sum(dp["r20"]["launches"][k] for k in kinds),
+                "resnet50_a_step": sum(dp["r50"]["launches_per_step"][k]
+                                       for k in kinds)}
     r50 = report["resnet50"]
     r50_launches = r50["launches"]
 
@@ -2723,7 +3106,7 @@ def kernel_lines(report) -> list:
          "serve_8bit": report["k1"]["library_8bit"],
          "resnet50": at_r50(r50["k1"], r50_launches["k1"], False),
          "vgg16": at_r50(v["k1"], v_launches["k1"], False),
-         "records": at_records("k1")},
+         "records": at_records("k1"), "dp": at_dp("k1")},
         {"name": "k2_int8_gemm", "route": "cuda",
          "source": "lbt_tpu_torch/csrc/int8_gemm.cu",
          "replaces": "lbt_tpu/ops/pallas/quant_kernels.py:187",
@@ -2736,7 +3119,7 @@ def kernel_lines(report) -> list:
                             forms=r50["k2"]["forms"]),
          "vgg16": at_r50(v["k2"], v_launches["k2"] + v_launches["k2_tn"],
                          forms=v["k2"]["forms"]),
-         "records": at_records("k2", "k2_tn")},
+         "records": at_records("k2", "k2_tn"), "dp": at_dp("k2", "k2_tn")},
         {"name": "conv3x3_fused", "route": "cuda",
          "source": "lbt_tpu_torch/csrc/conv_fused.cu",
          "replaces": "lbt_tpu/ops/pallas/conv_kernels.py:170",
@@ -2748,7 +3131,7 @@ def kernel_lines(report) -> list:
                             conv_library_ms=r3["lib_ms"]),
          "vgg16": at_r50(v3, v_launches["conv3x3"], False,
                          conv_library_ms=v3["lib_ms"]),
-         "records": at_records("conv3x3")},
+         "records": at_records("conv3x3"), "dp": at_dp("conv3x3")},
         {"name": "conv1x1_fused", "route": "cuda",
          "source": "lbt_tpu_torch/csrc/conv_fused.cu",
          "replaces": "lbt_tpu/ops/pallas/conv1x1_kernels.py:146",
@@ -2757,7 +3140,7 @@ def kernel_lines(report) -> list:
          **times(c1, library=False), "conv_library_ms": c1["lib_ms"],
          "resnet50": at_r50(r1, r50_launches["conv1x1"], False,
                             conv_library_ms=r1["lib_ms"]),
-         "records": at_records("conv1x1")},
+         "records": at_records("conv1x1"), "dp": at_dp("conv1x1")},
     ]
 
 
@@ -2782,9 +3165,14 @@ def main(argv=None) -> int:
 
     report = {}
 
+    seconds = report["phase_seconds"] = {}
+
     def phase(name, fn, *fargs):
         PHASE[0] = name
+        t0 = time.perf_counter()
         report[name] = fn(*fargs)
+        seconds[name] = time.perf_counter() - t0
+        print(f"phase {name} took {seconds[name]:.1f} s", flush=True)
         return report[name]
 
     phase("device", phase_device)
@@ -2824,6 +3212,7 @@ def main(argv=None) -> int:
     phase("zoo", phase_zoo, quant, gemm, conv_fused)
     phase("records", phase_records, quant, gemm, conv_fused,
           report["resnet50"]["ms_per_step"])
+    phase("dp", phase_dp, qmod, qops, quant, gemm, conv_fused)
 
     PHASE[0] = "report"
     kernels = kernel_lines(report)
@@ -2845,6 +3234,8 @@ def run() -> int:
     result line is printed.  A crash below Python (a fault in a kernel)
     dumps the Python stack through ``faulthandler``."""
     faulthandler.enable()
+    if sys.argv[1:2] == ["--dp-worker"]:
+        return dp_worker(sys.argv[2:])
     try:
         return main()
     except Exception as e:  # noqa: BLE001 -- reported, then exit 1

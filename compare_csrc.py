@@ -11,15 +11,17 @@ K1 of a version that had one beside this checkout's CUDA K1.
         [lbt_tpu_torch/ops/kernels/quant_triton.py] \\
         | tar -x -C lbt_tpu_torch/_build/old
     python3 compare_csrc.py lbt_tpu_torch/_build/old/lbt_tpu_torch/csrc \\
-        [--pre-threefry] [--resnet50] [--kernels k1,fused] \\
+        [--pre-threefry | --pre-offset] [--resnet50] [--kernels k1,fused] \\
         [--old-k1 lbt_tpu_torch/_build/old/lbt_tpu_torch/ops/kernels/quant_triton.py] \\
         [--out chiprun_out/compare.json]
 
 The other sources must keep the C interface of ``ops/kernels/build.py``,
-or with ``--pre-threefry`` the one before threefry noise was added (K1
-took a seed and a mode, #4/#5 a seed and two flags): then only the
-hashes' calls with an unshared draw are timed, which that interface
-takes.  The CUDA K1 is compared where the other sources have
+or with ``--pre-offset`` the one before the noise counter's offset was
+added (6563fe7 and older: K1 and #4/#5 took no offset; every call here
+has offset 0), or with ``--pre-threefry`` the one before threefry noise
+was added (K1 took a seed and a mode, #4/#5 a seed and two flags): then
+only the hashes' calls with an unshared draw are timed, which that
+interface takes.  The CUDA K1 is compared where the other sources have
 ``quantize.cu``.  The Triton K1 is loaded by file path and needs
 ``triton``.  It takes the
 multiplier, which the old path built from the exponent in torch ops at
@@ -54,6 +56,54 @@ def _codes(shape, lim, gen, dtype=torch.int8):
     return torch.randint(-lim, lim, shape, generator=gen, dtype=dtype).cuda()
 
 
+def _no_offset(offset):
+    if offset:
+        raise ValueError("sources from before the noise offset draw at "
+                         "offset 0 only")
+
+
+def _pre_offset(build, csrc: Path) -> dict:
+    """The K1 and #4/#5 libraries of ``csrc``, sources from before the
+    noise counter's offset, behind this checkout's C interface (their
+    entry points take no ``offset``; a non-zero one raises)."""
+    k1_lib = ctypes.CDLL(str(build.build_library(
+        "quantize", ["quantize.cu"], csrc=csrc)))
+    fn = k1_lib["lbt_quantize"]
+    fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
+                   ctypes.c_ulonglong, ctypes.c_void_p, ctypes.c_void_p,
+                   ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
+                   ctypes.c_int, ctypes.c_uint32, ctypes.c_uint32,
+                   ctypes.c_uint32, ctypes.c_int, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+
+    def lbt_quantize(*a, fn=fn):
+        *head, offset, mode, stream = a
+        _no_offset(offset)
+        return fn(*head, mode, stream)
+
+    conv_lib = ctypes.CDLL(str(build.build_library(
+        "conv_fused", ["conv_fused.cu"], csrc=csrc)))
+    entries = {}
+    for name in ("lbt_conv3x3_fused", "lbt_conv1x1_fused"):
+        fn = conv_lib[name]
+        fn.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p,
+                       ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+                       ctypes.c_void_p, ctypes.c_void_p, ctypes.c_uint32,
+                       ctypes.c_uint32, ctypes.c_uint32, ctypes.c_int,
+                       ctypes.c_int, ctypes.c_int,
+                       ctypes.POINTER(ctypes.c_int), ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+
+        def entry(*a, fn=fn):
+            _no_offset(a[11])
+            return fn(*a[:11], *a[12:])
+
+        entries[name] = staticmethod(entry)
+    return {"quantize_library": type("K1", (), {
+                "lbt_quantize": staticmethod(lbt_quantize)}),
+            "conv_fused_library": type("Fused", (), entries)}
+
+
 def _pre_threefry(build, csrc: Path) -> dict:
     """The K1 and #4/#5 libraries of ``csrc``, sources from before
     threefry noise, behind this checkout's C interface: K1's
@@ -77,8 +127,9 @@ def _pre_threefry(build, csrc: Path) -> dict:
     fn.restype = ctypes.c_int
 
     def lbt_quantize(*a, fn=fn):
-        *head, seed, k1, inner, mode, stream = a
+        *head, seed, k1, inner, offset, mode, stream = a
         unshared_hash(k1, inner, mode)
+        _no_offset(offset)
         return fn(*head, seed, mode, stream)
 
     out["quantize_library"] = type("K1", (), {
@@ -97,8 +148,9 @@ def _pre_threefry(build, csrc: Path) -> dict:
         fn.restype = ctypes.c_int
 
         def entry(*a, fn=fn):
-            (k0, k1, inner, mode), tail = a[8:12], a[12:]
+            (k0, k1, inner, offset, mode), tail = a[8:13], a[13:]
             unshared_hash(k1, inner, mode)
+            _no_offset(offset)
             return fn(*a[:8], k0, int(mode != 0), int(mode == 2), *tail)
 
         entries[name] = staticmethod(entry)
@@ -267,6 +319,9 @@ def main(argv=None) -> int:
     ap.add_argument("--pre-threefry", action="store_true",
                     help="the other sources have the C interface from "
                          "before threefry noise")
+    ap.add_argument("--pre-offset", action="store_true",
+                    help="the other sources have the C interface from "
+                         "before the noise counter's offset")
     ap.add_argument("--resnet50", action="store_true",
                     help="the bench headline's ResNet-50 training shapes")
     ap.add_argument("--kernels", default="k1,k2,fused",
@@ -286,6 +341,8 @@ def main(argv=None) -> int:
     old_libs = dict(int8_gemm_library=build.int8_gemm_library(csrc))
     if args.pre_threefry:
         old_libs.update(_pre_threefry(build, csrc))
+    elif args.pre_offset:
+        old_libs.update(_pre_offset(build, csrc))
     else:
         old_libs["conv_fused_library"] = build.conv_fused_library(csrc)
         if (csrc / "quantize.cu").exists():

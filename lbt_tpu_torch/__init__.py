@@ -5,7 +5,8 @@ imports).  Module paths mirror ``lbt_tpu``'s.  The port serves every
 model of ``lbt_tpu``'s registry (``infer.Predictor``, with BN folded and
 weights exported as integer codes on request) and trains it one step at
 a time on one device (``train.step.make_train_step``, the CLI
-``python -m lbt_tpu_torch.main``) under the integer engine or the float
+``python -m lbt_tpu_torch.main``), or data parallel over the ranks of
+``torch.distributed`` (``parallel``), under the integer engine or the float
 simulation (``sim`` / ``sim_bf16``), with any of ``lbt_tpu``'s noise
 streams; ``models.zoo`` builds them and ``convert`` carries ``lbt_tpu``'s
 trees in and out.  The hot ops are hand-written CUDA C++ kernels

@@ -12,7 +12,8 @@ names; a leaf layer's params map to its parameters by name, its
 ``lbt_tpu``'s folded trees.  Any missing, extra or mis-shaped entry raises ``ValueError``.
 The momentum velocity has the params tree's layout in ``lbt_tpu`` and is a
 dict keyed by parameter name (``model.net.named_parameters()``) in the
-port (:mod:`lbt_tpu_torch.train.optim`).
+port (:mod:`lbt_tpu_torch.train.optim`); so is the data-parallel step's
+error-feedback ``ebuf`` (:mod:`lbt_tpu_torch.parallel.lowbit`).
 """
 
 from __future__ import annotations
@@ -89,17 +90,25 @@ def load_jax_numpy(layer: Layer, params: Mapping, qstate: Mapping,
 
 
 def from_jax_numpy(model: Model, params: Mapping, qstate: Mapping,
-                   velocity: Optional[Mapping] = None):
+                   velocity: Optional[Mapping] = None,
+                   ebuf: Optional[Mapping] = None):
     """Load a whole ``lbt_tpu`` model's trees into ``model``.  Returns
     ``model``, or ``(model, velocity)`` when a velocity tree is given, the
-    port's velocity on the model's device."""
-    by_id: Dict[int, torch.Tensor] = {}
-    load_jax_numpy(model.net, params, qstate, velocity=velocity,
-                   velocity_out=by_id)
+    port's velocity on the model's device, or ``(model, velocity, ebuf)``
+    when an ``ebuf`` tree (params layout) is given too."""
+    def named(tree):
+        by_id: Dict[int, torch.Tensor] = {}
+        load_jax_numpy(model.net, params, qstate, velocity=tree,
+                       velocity_out=by_id)
+        return {name: by_id[id(p)]
+                for name, p in model.net.named_parameters()}
+
     if velocity is None:
+        load_jax_numpy(model.net, params, qstate)
         return model
-    return model, {name: by_id[id(p)]
-                   for name, p in model.net.named_parameters()}
+    if ebuf is None:
+        return model, named(velocity)
+    return model, named(velocity), named(ebuf)
 
 
 def _numpy(t: torch.Tensor) -> np.ndarray:
@@ -131,13 +140,21 @@ def dump_jax_numpy(layer: Layer, velocity_by_id=None):
     return params, qstate, velocity
 
 
-def to_jax_numpy(model: Model, velocity: Optional[Mapping] = None):
+def to_jax_numpy(model: Model, velocity: Optional[Mapping] = None,
+                 ebuf: Optional[Mapping] = None):
     """``(params, qstate, velocity)`` of ``model`` as ``lbt_tpu`` trees of
     numpy arrays; ``velocity`` (the port's dict) becomes a params-layout
-    tree, or None when not given."""
-    by_id = None
-    if velocity is not None:
-        named = dict(model.net.named_parameters())
-        _keys_match("velocity", "parameter", velocity, named)
-        by_id = {id(named[k]): v for k, v in velocity.items()}
-    return dump_jax_numpy(model.net, by_id)
+    tree, or None when not given.  With ``ebuf`` (a dict like
+    ``velocity``) its params-layout tree comes fourth."""
+    named = dict(model.net.named_parameters())
+
+    def by_id(tensors, what):
+        if tensors is None:
+            return None
+        _keys_match(what, "parameter", tensors, named)
+        return {id(named[k]): v for k, v in tensors.items()}
+
+    out = dump_jax_numpy(model.net, by_id(velocity, "velocity"))
+    if ebuf is None:
+        return out
+    return (*out, dump_jax_numpy(model.net, by_id(ebuf, "ebuf"))[2])

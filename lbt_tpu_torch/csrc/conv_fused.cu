@@ -15,7 +15,9 @@
 //           | rint(clip(y*mult, -L, L-1))         (deterministic)
 //   moments = [sum q, sum q^2] per output channel, exact in int64
 // The noise u is one of lbt_tpu's streams (dfxp.cuh) at the flat NHWC
-// output index (modulo inner for a draw shared along axis 0): its counter
+// output index plus offset (the codes' place in a larger batch's draw;
+// modulo inner for a draw shared along axis 0, offset then a multiple of
+// inner and so of no effect): its counter
 // hash (lowbias32, or one multiply-xorshift round for hash1) xor the BN
 // site's seed, or jax.random.uniform's threefry under the site's key.  So
 // the codes equal lbt_tpu's quantize_int(conv(x, w), backend='xla_hash' /
@@ -120,6 +122,7 @@ struct Args {
   unsigned int k0, k1, inner;  // the noise's key words, shared counter
   int mode, round_bf16, vec;     // mode 0 rounds half to even
   float limit;
+  unsigned int offset;  // the counter's offset (0 when shared)
 };
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
@@ -388,12 +391,13 @@ __global__ void __launch_bounds__(kThreads) conv_fused_kernel(Args p) {
   for (int h = 0; h < 2; ++h) {
     const int64_t pix = pix0 + warp * 16 + g + 8 * h;
     if (pix >= npix) continue;
-    // the noise's counter: idx, or with a draw shared along axis 0 idx %
-    // inner, which is idx less the first index of pix's image (inner =
-    // ho*wo*cout); the test and the division run once a pixel
+    // the noise's counter is idx - coff: idx + offset (coff = -offset,
+    // mod 2^32), or with a draw shared along axis 0 idx % inner, which is
+    // idx less the first index of pix's image (inner = ho*wo*cout; offset
+    // 0); the test, the division and the offset run once a pixel
     const unsigned int coff =
         p.inner ? static_cast<unsigned int>(pix / (p.ho * p.wo)) * p.inner
-                : 0u;
+                : 0u - p.offset;
 #pragma unroll
     for (int j = 0; j < CT / 8; ++j) {
 #pragma unroll
@@ -517,8 +521,8 @@ template <int KH, int KW>
 int entry(const void* x, int x_int16, const void* w, void* codes,
           void* moments, void* minmax, const void* inv_scale,
           const void* mult, unsigned int k0, unsigned int k1,
-          unsigned int inner, int mode, int round_bf16, int bits_out,
-          const int* dims, void* stream) {
+          unsigned int inner, unsigned int offset, int mode, int round_bf16,
+          int bits_out, const int* dims, void* stream) {
   // dims: b, h, w, cin, ho, wo, cout, sh, sw, ph, pw
   Args a;
   a.x = x;
@@ -534,14 +538,17 @@ int entry(const void* x, int x_int16, const void* w, void* codes,
   a.k0 = k0;
   a.k1 = k1;
   a.inner = inner;
+  a.offset = offset;
   a.mode = mode;
   a.round_bf16 = round_bf16;
   a.vec = a.cin % 16 == 0 && reinterpret_cast<uintptr_t>(x) % 16 == 0;
   if (a.b < 1 || a.ho < 1 || a.wo < 1 || a.cin < 1 || a.cout < 1 ||
       bits_out < 1 || bits_out > 8 || mode < 0 || mode > 3 ||
       (inner != 0 &&
-       static_cast<int64_t>(inner) !=
-           static_cast<int64_t>(a.ho) * a.wo * a.cout) ||
+       (offset != 0 || static_cast<int64_t>(inner) !=
+                           static_cast<int64_t>(a.ho) * a.wo * a.cout)) ||
+      static_cast<int64_t>(a.b) * a.ho * a.wo * a.cout + offset >
+          (1ll << 32) ||
       static_cast<int64_t>(a.b) * a.ho * a.wo > INT32_MAX)
     return static_cast<int>(cudaErrorInvalidValue);
   a.limit = static_cast<float>(1 << (bits_out - 1));
@@ -564,18 +571,20 @@ int entry(const void* x, int x_int16, const void* w, void* codes,
 // min/max keys and one of the blocks' ticket counter); minmax: float [2]
 // out; inv_scale, mult: one float each on the device; mode 0 rounds half
 // to even, 1-3 stochastically (hash, hash1, threefry; dfxp.cuh) with the
-// key words k0 (the hashes' seed) and k1, at the counter idx % inner when
-// inner > 0 (which must then be ho*wo*cout); round_bf16 != 0 rounds the conv output to bfloat16 before
+// key words k0 (the hashes' seed) and k1, at the counter idx + offset, or
+// idx % inner when inner > 0 (which must then be ho*wo*cout, with offset
+// 0); round_bf16 != 0 rounds the conv output to bfloat16 before
 // min/max and the quantize.  One launch; returns cudaGetLastError() after
 // it.
 extern "C" int lbt_conv3x3_fused(const void* x, int x_int16, const void* w,
                                  void* codes, void* moments, void* minmax,
                                  const void* inv_scale, const void* mult,
                                  unsigned int k0, unsigned int k1,
-                                 unsigned int inner, int mode, int round_bf16,
-                                 int bits_out, const int* dims, void* stream) {
+                                 unsigned int inner, unsigned int offset,
+                                 int mode, int round_bf16, int bits_out,
+                                 const int* dims, void* stream) {
   return entry<3, 3>(x, x_int16, w, codes, moments, minmax, inv_scale, mult,
-                     k0, k1, inner, mode, round_bf16, bits_out, dims,
+                     k0, k1, inner, offset, mode, round_bf16, bits_out, dims,
                      stream);
 }
 
@@ -583,9 +592,10 @@ extern "C" int lbt_conv1x1_fused(const void* x, int x_int16, const void* w,
                                  void* codes, void* moments, void* minmax,
                                  const void* inv_scale, const void* mult,
                                  unsigned int k0, unsigned int k1,
-                                 unsigned int inner, int mode, int round_bf16,
-                                 int bits_out, const int* dims, void* stream) {
+                                 unsigned int inner, unsigned int offset,
+                                 int mode, int round_bf16, int bits_out,
+                                 const int* dims, void* stream) {
   return entry<1, 1>(x, x_int16, w, codes, moments, minmax, inv_scale, mult,
-                     k0, k1, inner, mode, round_bf16, bits_out, dims,
+                     k0, k1, inner, offset, mode, round_bf16, bits_out, dims,
                      stream);
 }

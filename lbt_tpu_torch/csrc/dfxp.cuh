@@ -64,15 +64,18 @@ __device__ __forceinline__ float threefry_uniform(unsigned int k0,
   return __fsub_rn(__uint_as_float(bits), 1.0f);
 }
 
-// The counter of flat index i: i itself, or with SHARED (a draw of
+// The counter of flat index i: i + offset, or with SHARED (a draw of
 // shape[1:] broadcast over axis 0, lbt_tpu's noise_shared_axis0, inner =
-// prod(shape[1:])) i % inner.  A compile-time choice, so an unshared
-// draw pays nothing for it.  Flat indices stay below 2^32 in every
-// caller.
+// prod(shape[1:])) (i + offset) % inner.  offset places a slice of rows
+// in a larger tensor's draw: a rank that evaluates rows row0.. of a
+// global batch draws at row0 * inner + i, as the global tensor would
+// (0 otherwise).  SHARED is a compile-time choice, so an unshared draw
+// pays nothing for it.  Counters stay below 2^32 in every caller.
 template <bool SHARED>
 __device__ __forceinline__ unsigned int noise_index(unsigned int i,
-                                                    unsigned int inner) {
-  return SHARED ? i % inner : i;
+                                                    unsigned int inner,
+                                                    unsigned int offset) {
+  return SHARED ? (i + offset) % inner : i + offset;
 }
 
 // Noise modes: 1 the hash (lowbias32), 2 hash1, 3 threefry; k0 is the

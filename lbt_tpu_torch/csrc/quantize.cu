@@ -10,8 +10,9 @@
 //   minmax  = [min_i x_i*mult, max_i x_i*mult]         on request
 // with L = 2^(bits-1), codes int8 (bits <= 8), int16 (<= 16) or int32.
 // The noise u_i is one of lbt_tpu's three streams, drawn at the counter
-// c_i = i (or i % inner for a draw shared along axis 0, inner =
-// prod(shape[1:])): its counter hash (lowbias32, or one multiply-xorshift
+// c_i = i + offset (or (i + offset) % inner for a draw shared along axis
+// 0, inner = prod(shape[1:]); offset places the tensor's rows in a larger
+// batch's draw, 0 unless a rank evaluates a slice of rows): its counter hash (lowbias32, or one multiply-xorshift
 // round for hash1) of c_i ^ seed, the top 24 bits times 2^-24; or
 // jax.random.uniform's threefry (mode 3: Threefry-2x32 of the counter
 // (0, c_i) under the site key (seed, k1), the two words xored, 23 bits of
@@ -103,6 +104,7 @@ struct Args {
   unsigned int seed;   // the hashes' seed, or threefry's first key word
   unsigned int k1;     // threefry's second key word
   unsigned int inner;  // the counter is i % inner in a SHARED instance
+  unsigned int offset;  // added to i before that
   int bits;
   int vec;       // x 16-byte and codes 4-code aligned
   float lo, hi;  // -L and L-1, as the plain version's f32 clamp bounds
@@ -150,7 +152,7 @@ __device__ __forceinline__ T code_of(float scaled, unsigned int idx,
     return static_cast<T>(__float_as_int(__fadd_rn(v, kMagic)) -
                           __float_as_int(kMagic));
   }
-  const float u = noise_uniform(MODE, noise_index<SHARED>(idx, p.inner),
+  const float u = noise_uniform(MODE, noise_index<SHARED>(idx, p.inner, p.offset),
                                 p.seed, p.k1);
   v = fminf(fmaxf(__fadd_rn(scaled, u), p.lo), p.hi);
   if (sizeof(T) == 4) return static_cast<T>(__float2int_rd(v));
@@ -348,18 +350,20 @@ cudaError_t launch(const Args& a, int mode, bool stats, int grid,
 // the first call (each call leaves it so): the two keys, and the ticket
 // counter a cache line further; mode 0 rounds half to even, 1 and 2
 // stochastically with the hash and hash1 noise of seed, 3 with the
-// threefry uniforms of the key (seed, k1); inner > 0 draws the noise at
-// the counter i % inner.  One launch of at most max_blocks blocks on
+// threefry uniforms of the key (seed, k1); the noise of element i is drawn
+// at the counter i + offset, or (i + offset) % inner when inner > 0
+// (offset + n <= 2^32).  One launch of at most max_blocks blocks on
 // stream; returns cudaGetLastError() after it.
 extern "C" int lbt_quantize(const void* x, void* codes, int code_bytes,
                             unsigned long long n, const void* exp,
                             void* mult, void* minmax, void* scratch,
                             int max_blocks, int bits, unsigned int seed,
-                            unsigned int k1, unsigned int inner, int mode,
-                            void* stream) {
+                            unsigned int k1, unsigned int inner,
+                            unsigned int offset, int mode, void* stream) {
   const int want_bytes = bits <= 8 ? 1 : (bits <= 16 ? 2 : 4);
   if (bits < 1 || bits > 31 || code_bytes != want_bytes || mode < 0 ||
       mode > 3 || max_blocks < 1 || n >= (1ull << 32) ||
+      n + offset > (1ull << 32) ||
       (minmax != nullptr && (scratch == nullptr || n == 0)))
     return static_cast<int>(cudaErrorInvalidValue);
   Args a;
@@ -374,6 +378,7 @@ extern "C" int lbt_quantize(const void* x, void* codes, int code_bytes,
   a.seed = seed;
   a.k1 = k1;
   a.inner = inner;
+  a.offset = offset;
   a.bits = bits;
   a.vec = reinterpret_cast<uintptr_t>(x) % 16 == 0 &&
           reinterpret_cast<uintptr_t>(codes) % (4 * code_bytes) == 0;

@@ -168,13 +168,18 @@ def augment_draws(key, n: int, pad: int):
     return words[0] >> np.uint32(31), words[1] % span, words[2] % span
 
 
-def augment_crop_flip(key, x: torch.Tensor, pad: int) -> torch.Tensor:
+def augment_crop_flip(key, x: torch.Tensor, pad: int,
+                      rows=None) -> torch.Tensor:
     """Random horizontal flip, then zero pad by ``pad`` and a random crop
     back to ``x``'s size, of an NHWC batch on its device: one gather from
-    the padded batch, its column index mirrored where the flip is on."""
+    the padded batch, its column index mirrored where the flip is on.
+    ``rows = (row0, n_global)`` says ``x`` is rows ``row0..`` of a batch
+    of ``n_global`` (a data-parallel rank's): they take that batch's
+    draws."""
     n, h, w, _ = x.shape
-    flip, oh, ow = torch.from_numpy(
-        np.stack(augment_draws(key, n, pad)).astype(np.int64)).to(x.device)
+    row0, n_draws = (0, n) if rows is None else rows
+    draws = np.stack(augment_draws(key, n_draws, pad))[:, row0:row0 + n]
+    flip, oh, ow = torch.from_numpy(draws.astype(np.int64)).to(x.device)
     xp = torch.nn.functional.pad(x, (0, 0, pad, pad, pad, pad))
     i = torch.arange(h, device=x.device)
     j = torch.arange(w, device=x.device)

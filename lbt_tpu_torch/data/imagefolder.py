@@ -126,11 +126,14 @@ class ImageFolderDataset:
     # -- epoch iterator ------------------------------------------------------
     def batches(self, epoch: int, batch_size: int,
                 drop_remainder: Optional[bool] = None,
+                rows: Optional[Tuple[int, int]] = None,
                 ) -> Iterator[Tuple[np.ndarray, np.ndarray]]:
         """Yield (x f32 [B,S,S,3] in ~[-1,1], y int32 [B]) batches.
 
         Train: per-epoch shuffle (seeded), drop_remainder (static shapes
-        for jit).  Eval: source order, remainder kept.
+        for jit).  Eval: source order, remainder kept.  ``rows = (start,
+        size)`` decodes and yields only those rows of each batch (a
+        data-parallel rank's; fewer, or none, in a ragged last batch).
         """
         if drop_remainder is None:
             drop_remainder = self.train
@@ -143,9 +146,13 @@ class ImageFolderDataset:
                 idxs = order[lo:lo + batch_size]
                 if drop_remainder and len(idxs) < batch_size:
                     return
+                if rows is not None:
+                    idxs = idxs[rows[0]:rows[0] + rows[1]]
                 imgs = list(pool.map(
                     lambda i: self._load(int(i), epoch), idxs))
-                x = (np.stack(imgs).astype(np.float32) / 127.5) - 1.0
+                s = self.image_size
+                x = (np.stack(imgs).astype(np.float32) / 127.5 - 1.0
+                     if imgs else np.zeros((0, s, s, 3), np.float32))
                 yield x, self.labels[idxs]
 
 
@@ -164,13 +171,13 @@ def streaming_dataset(train_dir: str, val_dir: Optional[str] = None,
                              workers=workers)
           if val_dir else None)
 
-    def train_iter(epoch: int, batch_size: int):
-        return tr.batches(epoch, batch_size)
+    def train_iter(epoch: int, batch_size: int, rows=None):
+        return tr.batches(epoch, batch_size, rows=rows)
 
-    def test_iter(batch_size: int):
+    def test_iter(batch_size: int, rows=None):
         if ev is None:
             return iter(())
-        return ev.batches(0, batch_size)
+        return ev.batches(0, batch_size, rows=rows)
 
     return {
         "train_iter": train_iter,

@@ -27,9 +27,12 @@ def batch_iterator(
     drop_remainder: bool = True,
     seed: int = 0,
     epoch: int = 0,
+    rows: Optional[Tuple[int, int]] = None,
 ) -> Iterator[Tuple[np.ndarray, np.ndarray]]:
     """Shuffled minibatches (numpy copies).  ``drop_remainder`` keeps
-    every batch the same shape."""
+    every batch the same shape.  ``rows = (start, size)`` yields only
+    those rows of each batch (a data-parallel rank's), gathering no
+    other."""
     n = len(x)
     idx = np.arange(n)
     if shuffle:
@@ -38,6 +41,8 @@ def batch_iterator(
     end = n - (n % batch_size) if drop_remainder else n
     for start in range(0, end, batch_size):
         sel = idx[start:start + batch_size]
+        if rows is not None:
+            sel = sel[rows[0]:rows[0] + rows[1]]
         yield x[sel], y[sel]
 
 

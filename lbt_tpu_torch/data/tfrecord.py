@@ -212,6 +212,13 @@ class TFRecordDataset:
             yield x[:cnt].copy(), y[:cnt].copy()
 
 
+def _rows_of(batches, rows):
+    if rows is None:
+        return batches
+    return ((x[rows[0]:rows[0] + rows[1]], y[rows[0]:rows[0] + rows[1]])
+            for x, y in batches)
+
+
 def tfrecord_dataset(train_pattern, val_pattern=None, image_size: int = 224,
                      seed: int = 0, workers: int = 0,
                      shuffle_buffer: int = 1024,
@@ -225,13 +232,16 @@ def tfrecord_dataset(train_pattern, val_pattern=None, image_size: int = 224,
                           workers=workers, num_classes=num_classes, **kw)
           if val_pattern else None)
 
-    def train_iter(epoch: int, batch_size: int):
-        return tr.batches(epoch, batch_size)
+    # rows = (start, size): a data-parallel rank's rows of each batch.  The
+    # C++ pipeline (native/tfrecord.cc, shared with lbt_tpu) decodes whole
+    # batches, so every rank decodes the global batch and keeps its rows
+    def train_iter(epoch: int, batch_size: int, rows=None):
+        return _rows_of(tr.batches(epoch, batch_size), rows)
 
-    def test_iter(batch_size: int):
+    def test_iter(batch_size: int, rows=None):
         if ev is None:
             return iter(())
-        return ev.batches(0, batch_size)
+        return _rows_of(ev.batches(0, batch_size), rows)
 
     if num_classes is None:
         raise ValueError(

@@ -68,14 +68,20 @@ def hash_uniform(key: KeyData, shape, light: bool = False,
 
 
 def noise_spec(key: Optional[KeyData], stochastic: bool, backend: str,
-               shape: Sequence[int],
-               shared_axis0: bool = False) -> Optional[Noise]:
+               shape: Sequence[int], shared_axis0: bool = False,
+               row0: int = 0) -> Optional[Noise]:
     """The :class:`Noise` of a quantize site of ``shape``, or None to
     round to nearest.  ``backend`` is ``lbt_tpu``'s: ``'xla'`` draws
     ``jax.random.uniform``'s threefry under the key, ``'xla_hash'`` /
     ``'xla_hash1'`` the counter hash seeded by :func:`key_seed`.
     ``shared_axis0`` draws ``shape[1:]`` once and broadcasts it along axis
-    0 (``lbt_tpu``'s ``_noise``; a 0-d shape draws per element)."""
+    0 (``lbt_tpu``'s ``_noise``; a 0-d shape draws per element).  ``row0``
+    says that the tensor is rows ``row0..`` of a batch along axis 0 and
+    draws them as the whole batch's tensor would: each counter moves by
+    ``row0 * prod(shape[1:])`` (a whole number of shared draws, so a
+    shared draw is unchanged).  A data-parallel eval rank passes its
+    first row (``Ctx.row0``), as ``lbt_tpu``'s GSPMD eval draws over the
+    global batch; weights and training steps draw at 0."""
     if not stochastic:
         return None
     if key is None:
@@ -85,10 +91,11 @@ def noise_spec(key: Optional[KeyData], stochastic: bool, backend: str,
                          f"draws noise for {sorted(_BACKEND_MODES)}")
     mode = _BACKEND_MODES[backend]
     inner = math.prod(shape[1:]) if shared_axis0 and len(shape) else 0
+    offset = 0 if inner else row0 * math.prod(shape[1:])
     k0, k1 = (int(v) & 0xFFFFFFFF for v in key)
     if mode == THREEFRY:
-        return Noise(mode, k0, k1, inner)
-    return Noise(mode, key_seed(key), 0, inner)
+        return Noise(mode, k0, k1, inner, offset)
+    return Noise(mode, key_seed(key), 0, inner, offset)
 
 
 def quantize_int(
@@ -101,6 +108,7 @@ def quantize_int(
     backend: str = "xla",
     noise_shared_axis0: bool = False,
     stats: bool = False,
+    row0: int = 0,
 ):
     """Quantize to integer codes: ``(codes, multiplier)`` with
     ``dequantized = codes / multiplier`` and codes in :func:`code_dtype`.
@@ -110,10 +118,12 @@ def quantize_int(
     ``'xla_hash1'``, :func:`noise_spec`), shared along axis 0 with
     ``noise_shared_axis0``.  ``bits`` must be < 32.  ``stats=True``
     returns ``(codes, multiplier, minmax)``, ``minmax`` the f32 ``[min,
-    max]`` of ``x * multiplier`` from the same K1 pass."""
+    max]`` of ``x * multiplier`` from the same K1 pass.  ``row0`` places
+    ``x``'s rows in a larger batch's noise (:func:`noise_spec`)."""
     if bits >= 32:
         raise ValueError("quantize_int needs bits < 32")
-    noise = noise_spec(key, stochastic, backend, x.shape, noise_shared_axis0)
+    noise = noise_spec(key, stochastic, backend, x.shape, noise_shared_axis0,
+                       row0)
     x = x.to(torch.float32).contiguous()
     return quantize_codes(x, bits, exp, noise, stats=stats)
 
@@ -177,16 +187,19 @@ def quantize_ste(
     backend: str = "xla",
     noise_shared_axis0: bool = False,
     stats: bool = False,
+    row0: int = 0,
 ):
     """Fake-quantize with a straight-through gradient.  ``stats=True``
-    returns ``(xq, minmax)`` (``minmax`` as in :func:`quantize_int`)."""
+    returns ``(xq, minmax)`` (``minmax`` as in :func:`quantize_int`);
+    ``row0`` as there."""
     if bits >= 32:
         if stats:
             raise ValueError("no statistics of a passthrough site")
         return x
     out = quantize_int(x, bits, exp, key, stochastic=stochastic,
                        backend=backend,
-                       noise_shared_axis0=noise_shared_axis0, stats=stats)
+                       noise_shared_axis0=noise_shared_axis0, stats=stats,
+                       row0=row0)
     xq = straight_through(x, dequantize(out[0], out[1]))
     return (xq, out[2]) if stats else xq
 

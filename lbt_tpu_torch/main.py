@@ -12,6 +12,9 @@ plus ``--device``.
     python -m lbt_tpu_torch.main --model Imagenet_Resnet50 \\
         --batch_size 128 --data_dir imagenet   # imagenet/{train,val}/<class>/
     python -m lbt_tpu_torch.main --model CIFAR10_Resnet20 --native_loader
+    python -m torch.distributed.run --nproc_per_node 2 \
+        -m lbt_tpu_torch.main --data_parallel --lowbit_allreduce \
+        --lowbit_wire int8          # one process a rank (parallel/)
 
 A command line of ``main.py`` runs here unchanged where the port has what
 it asks for, its defaults included (``--noise_mode prng`` draws
@@ -31,6 +34,7 @@ from typing import List, Optional
 
 import torch
 
+from lbt_tpu_torch import parallel
 from lbt_tpu_torch.config import QuantConfig, TrainConfig
 from lbt_tpu_torch.data.datasets import aug_spec, load_dataset, make_augment
 from lbt_tpu_torch.data.imagefolder import streaming_dataset
@@ -39,7 +43,7 @@ from lbt_tpu_torch.models import build_model
 from lbt_tpu_torch.models.zoo import MODEL_DATASET, MODEL_REGISTRY
 from lbt_tpu_torch.train.step import debug_nans
 from lbt_tpu_torch.train.trainer import Trainer
-from lbt_tpu_torch.utils.logging import get_logger
+from lbt_tpu_torch.utils.logging import get_logger, null_logger
 
 
 PROG = "python -m lbt_tpu_torch.main"
@@ -124,11 +128,16 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--log_every", type=int, default=100,
                    help="log train metrics every N batches")
     p.add_argument("--scan_steps", type=int, default=0)
-    p.add_argument("--data_parallel", action="store_true")
+    p.add_argument("--data_parallel", action="store_true",
+                   help="one rank a process (torch.distributed.run); "
+                        "sync-BN, synced controllers, summed gradients")
+    p.add_argument("--tensor_parallel", type=int, default=1)
     p.add_argument("--debug_nans", action="store_true",
                    help="fail a step whose outputs hold a NaN (the port's "
                         "jax_debug_nans)")
-    p.add_argument("--lowbit_allreduce", action="store_true")
+    p.add_argument("--lowbit_allreduce", action="store_true",
+                   help="DFXP-int8 gradient all-reduce with error "
+                        "feedback (implies --data_parallel)")
     p.add_argument("--lowbit_wire", type=str, default=None,
                    choices=["int16", "int8"])
     p.add_argument("--gradient_buffer", action="store_true")
@@ -170,14 +179,12 @@ def refusals(args) -> List[str]:
     value, each naming the ROADMAP item that ports it."""
     out = []
     for flag, item in (("bn_residual_q16", "queue 1 item 13, not to port"),
-                       ("remat_bn", "queue 1 item 13, not to port"),
-                       ("data_parallel", "queue 1 item 12"),
-                       ("lowbit_allreduce", "queue 1 item 12")):
+                       ("remat_bn", "queue 1 item 13, not to port")):
         if getattr(args, flag):
             out.append(f"--{flag} is not ported (ROADMAP {item})")
-    if args.lowbit_wire is not None:
-        out.append(f"--lowbit_wire {args.lowbit_wire} is not ported "
-                   f"(ROADMAP queue 1 item 12)")
+    if args.tensor_parallel > 1:
+        out.append(f"--tensor_parallel {args.tensor_parallel}: tensor "
+                   f"parallelism is not ported (ROADMAP queue 1 item 14)")
     if args.scan_steps > 1:
         out.append(f"--scan_steps {args.scan_steps}: the scanned block is "
                    f"not to be ported (ROADMAP queue 1 item 13)")
@@ -239,14 +246,21 @@ def main(argv: Optional[List[str]] = None) -> Trainer:
     if device.type == "cuda" and not torch.cuda.is_available():
         _fail(f"--device {args.device}: no CUDA device is available "
                 f"(pass --device cpu to train on the CPU)")
-
     exp = args.exp_path or os.path.join(
         "experiments",
         datetime.datetime.now().strftime("%m-%d-%H%M%S") + "-" + args.model)
     os.makedirs(exp, exist_ok=True)
-    logger = get_logger(os.path.join(exp, "experiment.log"))
-    logger.info("Start of experiment: %s",
-                json.dumps(vars(args), sort_keys=True))
+    # rank 0 alone logs (torchrun's RANK; 0 in a single process)
+    logger = None
+    if int(os.environ.get("RANK", "0")) == 0:
+        logger = get_logger(os.path.join(exp, "experiment.log"))
+        logger.info("Start of experiment: %s",
+                    json.dumps(vars(args), sort_keys=True))
+    # one process a rank: join the group before anything is built
+    group = None
+    if int(os.environ.get("WORLD_SIZE", "1")) > 1:
+        group = parallel.initialize(str(device))
+        device = group.device
 
     cfg = quant_config(args)
     tc = TrainConfig(
@@ -261,6 +275,9 @@ def main(argv: Optional[List[str]] = None) -> Trainer:
         log_every=args.log_every,
         checkpoint_every_epochs=args.checkpoint_every,
         checkpoint_dir=os.path.join(exp, "ckpt"),
+        data_parallel=args.data_parallel or args.lowbit_allreduce,
+        lowbit_allreduce=args.lowbit_allreduce,
+        lowbit_wire=args.lowbit_wire,
     )
     model_kw = dict(dropout_keep=args.dropout,
                     weight_decay=args.weight_decay)
@@ -268,18 +285,22 @@ def main(argv: Optional[List[str]] = None) -> Trainer:
         model_kw["gradient_buffer_batch"] = args.batch_size
     model = build_model(args.model, cfg, **model_kw)
     ds_name = MODEL_DATASET[args.model]
-    data, augment = load_data(args, model, ds_name, logger)
+    data, augment = load_data(args, model, ds_name, logger or null_logger())
 
     # Trainer.train() resumes from checkpoint_dir when it holds one
     trainer = Trainer(model, tc, data, augment=augment, logger=logger,
                       logdir=exp, profile_steps=args.profile_steps,
                       native_loader=args.native_loader,
-                      aug_spec=aug_spec(ds_name), device=device)
-    with debug_nans(args.debug_nans):
-        final = trainer.train()
-    logger.info("End of experiment: final test acc %.4f loss %.4f",
-                final["accuracy"], final["loss"])
-    trainer.metrics.close()
+                      aug_spec=aug_spec(ds_name), device=device, group=group)
+    try:
+        with debug_nans(args.debug_nans):
+            final = trainer.train()
+        trainer.logger.info("End of experiment: final test acc %.4f loss "
+                            "%.4f", final["accuracy"], final["loss"])
+    finally:
+        trainer.metrics.close()
+        if group is not None:
+            torch.distributed.destroy_process_group()
     return trainer
 
 

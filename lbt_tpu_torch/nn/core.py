@@ -48,7 +48,14 @@ class Ctx:
     :mod:`lbt_tpu_torch.dfxp.keys`); without it quantization rounds
     deterministically.  ``sinks`` maps a layer uid to its stat sink;
     ``n_uids`` sizes the table of site keys built on first use.  Serving
-    is ``Ctx(train=False, update=False)``."""
+    is ``Ctx(train=False, update=False)``.
+
+    ``dist`` (a :class:`~lbt_tpu_torch.parallel.multihost.Group`, or None
+    on one device) is ``lbt_tpu``'s ``psum_axis``: the range controllers'
+    statistics are averaged over the ranks and BN takes the moments of the
+    global batch.  ``row0`` is the first row of this rank's slice of a
+    global batch in a data-parallel eval: the activations' noise is drawn
+    there, as ``lbt_tpu``'s GSPMD eval draws over the whole batch."""
 
     train: bool
     key: Optional[np.ndarray] = None
@@ -56,8 +63,12 @@ class Ctx:
     update_gate: bool = True
     sinks: Optional[Dict[int, torch.Tensor]] = None
     n_uids: int = 0
+    dist: Optional[object] = None
+    row0: int = 0
     _keys: Optional[np.ndarray] = dataclasses.field(default=None, repr=False)
     _staged: list = dataclasses.field(default_factory=list, repr=False)
+    _ctrl: list = dataclasses.field(default_factory=list, repr=False)
+    _means: list = dataclasses.field(default_factory=list, repr=False)
     _taken: set = dataclasses.field(default_factory=set, repr=False)
 
     def __post_init__(self):
@@ -94,12 +105,42 @@ class Ctx:
         self._taken.add(layer.uid)
         return self.sinks.get(layer.uid)
 
-    def stage(self, buf: torch.Tensor, value: torch.Tensor) -> None:
-        """Record ``buf``'s value after this step (written by commit)."""
-        self._staged.append((buf, value.detach()))
+    def stage(self, buf: torch.Tensor, value: torch.Tensor,
+              mean: bool = False) -> None:
+        """Record ``buf``'s value after this step (written by commit).
+        ``mean`` marks a value each rank computes from its own rows (a
+        GradientBuffer's residual): under ``dist`` the ranks' values are
+        averaged before the write, as ``lbt_tpu`` pmeans the sinks'
+        cotangents that carry it."""
+        if mean and self.dist is not None:
+            self._means.append((buf, value.detach()))
+        else:
+            self._staged.append((buf, value.detach()))
+
+    def stage_ctrl(self, exp: torch.Tensor, rates: torch.Tensor, bits: int,
+                   target: float) -> None:
+        """Stage a controller step of ``exp`` from this rank's overflow
+        ``rates``.  On one device it is staged at once; under ``dist`` the
+        rates of every site wait for :meth:`commit`, which averages them
+        over the ranks in one all-reduce."""
+        if self.dist is None:
+            self.stage(exp, update_exponent(exp, rates, bits, target))
+        else:
+            self._ctrl.append((exp, rates, bits, target))
 
     def commit(self) -> None:
         with torch.no_grad():
+            if self._ctrl:
+                rates = self.dist.mean(torch.stack(
+                    [r.to(torch.float32) for _, r, _, _ in self._ctrl]))
+                for (exp, _, bits, target), r in zip(self._ctrl, rates):
+                    exp.copy_(update_exponent(exp, r, bits, target))
+                self._ctrl.clear()
+            if self._means:
+                sums = self.dist.all_reduce_each([v for _, v in self._means])
+                for (buf, _), total in zip(self._means, sums):
+                    buf.copy_(total / self.dist.world)
+                self._means.clear()
             for buf, value in self._staged:
                 buf.copy_(value)
         self._staged.clear()
@@ -202,20 +243,21 @@ class Layer(nn.Module):
             rates = overflow_indicators(minmax, bits)
         else:
             rates = overflow_stats(x, bits, exp, target)
-        ctx.stage(exp, update_exponent(exp, rates, bits, target))
+        ctx.stage_ctrl(exp, rates, bits, target)
 
     def _quant(self, ctx: Ctx, site: str, t: torch.Tensor, bits: int,
-               site_idx: int) -> torch.Tensor:
+               site_idx: int, row0: int = 0) -> torch.Tensor:
         """STE fake-quantize ``t`` at ``site`` with its site key, staging
-        the site's controller step."""
+        the site's controller step; ``row0`` (``ctx.row0`` for a batch of
+        activations) places ``t``'s rows in the global batch's noise."""
         if bits >= 32:
             return t
         key = ctx.layer_key(self.uid, site_idx)
         if not ctx.controls:
-            return quantize_ste(t, bits, self.exp(site), key,
+            return quantize_ste(t, bits, self.exp(site), key, row0=row0,
                                 **self._qkw(ctx))
         tq, minmax = quantize_ste(t, bits, self.exp(site), key, stats=True,
-                                  **self._qkw(ctx))
+                                  row0=row0, **self._qkw(ctx))
         self._ctrl(ctx, site, bits, t, minmax)
         return tq
 

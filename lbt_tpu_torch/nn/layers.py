@@ -14,6 +14,7 @@ at the site-3 key.
 
 from __future__ import annotations
 
+import math
 from typing import Tuple
 
 import torch
@@ -91,7 +92,7 @@ class _QuantLeaf(Layer):
                     engine=cfg.engine,
                     key_x=ctx.layer_key(self.uid, SITE_X),
                     key_w=ctx.layer_key(self.uid, SITE_W),
-                    stats=ctx.controls, **self._qkw(ctx))
+                    stats=ctx.controls, row0=ctx.row0, **self._qkw(ctx))
 
     def _finish(self, x, out, ctx: Ctx, bits_x: int) -> torch.Tensor:
         """Controllers of x and W, the bias, the barrier, the carrier."""
@@ -292,7 +293,9 @@ class Dropout(Layer):
         key = ctx.layer_key(self.uid, SITE_DROP)
         if key is None:
             raise ValueError("training dropout needs a PRNG key")
-        u = threefry_uniform_flat(*key, x.numel(), device=x.device)
+        # rows row0.. of a global batch draw that batch's mask there
+        u = threefry_uniform_flat(*key, x.numel(), device=x.device,
+                                  offset=ctx.row0 * math.prod(x.shape[1:]))
         # 0-d CPU tensors: scalars to an op on any device, no copy
         mask = u.view(x.shape) < torch.tensor(self.keep, dtype=torch.float32)
         keep = torch.tensor(self.keep, dtype=torch.float32).to(x.dtype)
@@ -352,7 +355,7 @@ class _GradBuf(torch.autograd.Function):
             noise_shared_axis0=cfg.noise_shared_axis0,
             target_overflow_rate=cfg.target_overflow_rate, gate=ctx.gate)
         gq = dequantize(codes, mult)
-        ctx.tctx.stage(layer.buffer, total - gq)
+        ctx.tctx.stage(layer.buffer, total - gq, mean=True)
         return gq.to(g.dtype), (stats if ctx.has_sink else None), None, None
 
 

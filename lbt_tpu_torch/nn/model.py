@@ -78,11 +78,16 @@ class Model:
         return self.net(x, ctx)
 
     def loss_and_acc(self, logits: torch.Tensor, labels: torch.Tensor):
-        """(mean softmax CE, top-1 accuracy).  A label outside the head is
-        what ``lbt_tpu``'s ``take_along_axis`` makes of it: ``-C..-1``
-        count from the end, any other picks NaN, so the loss is NaN while
-        the gradient keeps only that row's ``logz`` part, and the example
-        counts as wrong."""
+        """(mean softmax CE, top-1 accuracy) of :meth:`per_example`."""
+        ce, correct = self.per_example(logits, labels)
+        return torch.mean(ce), torch.mean(correct)
+
+    def per_example(self, logits: torch.Tensor, labels: torch.Tensor):
+        """(softmax CE, top-1 correct as f32) of each example.  A label
+        outside the head is what ``lbt_tpu``'s ``take_along_axis`` makes of
+        it: ``-C..-1`` count from the end, any other picks NaN, so the loss
+        is NaN while the gradient keeps only that row's ``logz`` part, and
+        the example counts as wrong."""
         logits = logits.to(torch.float32)
         labels = labels.to(torch.int64)
         n_classes = logits.shape[-1]
@@ -97,6 +102,4 @@ class Model:
         ll = torch.where(onehot, logits, 0.0).sum(-1)
         ll = torch.where((idx >= 0) & (idx < n_classes), ll,
                          torch.full_like(ll, float("nan")))
-        loss = torch.mean(logz - ll)
-        acc = torch.mean((logits.argmax(dim=-1) == labels).to(torch.float32))
-        return loss, acc
+        return logz - ll, (logits.argmax(dim=-1) == labels).to(torch.float32)

@@ -12,6 +12,14 @@ and normalize through an ``autograd.Function`` whose backward is the
 gradient through the batch moments.  A ``BatchNorm`` that follows a conv
 runs the conv and its own input quantize in one kernel (#4 / #5) through
 :meth:`BatchNorm.forward_from`.
+
+Data parallel (``Ctx.dist``), BN is sync-BN over the global batch, as
+``lbt_tpu``'s ``pmean`` of the moments: the exact integer code sums are
+summed over the ranks (``n`` the global count, every rank holding as many
+rows), so every rank normalizes with the same moments; the backward sums
+the per-channel cotangents of the moments over the ranks and divides by
+the global ``n`` (the transpose of ``pmean``), so a data-parallel step is
+the global batch's step.  The EMA takes the synced moments.
 """
 
 from __future__ import annotations
@@ -66,6 +74,24 @@ def sqrt_f32(t: torch.Tensor) -> torch.Tensor:
     return r + step
 
 
+def _sync_moments(ctx: Ctx, moments: torch.Tensor, n: int):
+    """``(moments, n)`` over the global batch under ``ctx.dist`` (code
+    sums summed over the ranks, exact), else as given."""
+    if ctx.dist is None:
+        return moments, n
+    return ctx.dist.all_reduce(moments), n * ctx.dist.world
+
+
+def _sync_cotangents(dist, n: int, *sums):
+    """The moments' per-channel cotangents summed over the ranks, each
+    divided by the global count, as JAX transposes ``pmean`` then the
+    local mean; ``(sums / n)`` on one device."""
+    if dist is None:
+        return [s / n for s in sums]
+    total = dist.all_reduce(torch.stack(sums)) / dist.world
+    return [t / n for t in total]
+
+
 def batch_moments(moments: torch.Tensor, n: int, mult: torch.Tensor):
     """Biased batch ``(mean, var)`` (f32) of ``codes / mult`` from exact
     code sums: computed in float64, rounded once."""
@@ -85,10 +111,11 @@ class _BatchNormalize(torch.autograd.Function):
     - 2 mean dm2``."""
 
     @staticmethod
-    def forward(ctx, xq, mean, var, eps):
+    def forward(ctx, xq, mean, var, eps, dist):
         s = sqrt_f32(var + eps)
         num = xq - mean
         ctx.save_for_backward(xq, num, mean, s)
+        ctx.dist = dist
         return num / s
 
     @staticmethod
@@ -99,8 +126,9 @@ class _BatchNormalize(torch.autograd.Function):
         d_s = ((-g) * num * (1.0 / (s * s))).sum(axes)
         d_m2 = d_s * (0.5 / s)
         d_mean = -(g / s).sum(axes) - 2.0 * mean * d_m2
-        dx = g / s + (d_mean / n) + (d_m2 / n) * (2.0 * xq)
-        return dx, None, None, None
+        d_mean, d_m2 = _sync_cotangents(ctx.dist, n, d_mean, d_m2)
+        dx = g / s + d_mean + d_m2 * (2.0 * xq)
+        return dx, None, None, None, None
 
 
 def _quantize_input(layer: Layer, x, ctx: Ctx):
@@ -110,7 +138,7 @@ def _quantize_input(layer: Layer, x, ctx: Ctx):
     cfg = layer.cfg
     out = quantize_int(x, cfg.bits_a, layer.exp("x"),
                        ctx.layer_key(layer.uid, SITE_X),
-                       stats=ctx.controls, **layer._qkw(ctx))
+                       stats=ctx.controls, row0=ctx.row0, **layer._qkw(ctx))
     if ctx.controls:
         layer._ctrl(ctx, "x", cfg.bits_a, x, out[2])
     return straight_through(x, dequantize(out[0], out[1])), out[0], out[1]
@@ -134,7 +162,7 @@ def _conv_input(layer: Layer, conv: Conv2d, x, ctx: Ctx):
         key_w=ctx.layer_key(conv.uid, SITE_W),
         target_overflow_rate=ccfg.target_overflow_rate,
         gate=ctx.update_gate, stats=ctx.controls,
-        carrier=carrier_dtype(ccfg), **conv._qkw(ctx))
+        carrier=carrier_dtype(ccfg), row0=ctx.row0, **conv._qkw(ctx))
     if ctx.controls:
         conv._ctrl(ctx, "x", ccfg.bits_a_conv, x, r.minmax_x)
         conv._ctrl(ctx, "w", ccfg.bits_w, conv.W, r.minmax_w)
@@ -149,12 +177,30 @@ def _stage_ema(layer: Layer, ctx: Ctx, mean_b, var_b) -> None:
     ctx.stage(layer.var, m * layer.var + (1 - m) * var_b)
 
 
-def _float_moments(xq):
+class _GlobalMean(torch.autograd.Function):
+    """``pmean`` of per-rank ``[mean, m2]``: the sum over the ranks over
+    N; its backward is the transpose, the cotangent summed over the ranks
+    over N."""
+
+    @staticmethod
+    def forward(ctx, t, dist):
+        ctx.dist = dist
+        return dist.mean(t)
+
+    @staticmethod
+    def backward(ctx, g):
+        return ctx.dist.mean(g), None
+
+
+def _float_moments(xq, dist=None):
     """Biased batch ``(mean, var)`` of float ``xq`` (a 32-bit input site),
-    differentiated by autograd."""
+    differentiated by autograd; over the global batch under ``dist``."""
     axes = tuple(range(xq.dim() - 1))
     mean = xq.mean(axes)
-    return mean, (xq * xq).mean(axes) - mean * mean
+    m2 = (xq * xq).mean(axes)
+    if dist is not None:
+        mean, m2 = _GlobalMean.apply(torch.stack([mean, m2]), dist)
+    return mean, m2 - mean * mean
 
 
 class Normalization(Layer):
@@ -199,14 +245,14 @@ class Normalization(Layer):
         cfg = self.cfg
         if ctx.train or ctx.update:
             if moments is not None:
-                n = xq.numel() // xq.shape[-1]
-                mean_b, var_b = batch_moments(moments, n, mult)
+                mean_b, var_b = batch_moments(*_sync_moments(
+                    ctx, moments, xq.numel() // xq.shape[-1]), mult)
             else:  # bits_a = 32: float moments, differentiated by autograd
-                mean_b, var_b = _float_moments(xq)
+                mean_b, var_b = _float_moments(xq, ctx.dist)
         if ctx.update:
             _stage_ema(self, ctx, mean_b, var_b)
         if ctx.train and moments is not None:
-            y = _BatchNormalize.apply(xq, mean_b, var_b, self.eps)
+            y = _BatchNormalize.apply(xq, mean_b, var_b, self.eps, ctx.dist)
         elif ctx.train:
             y = (xq - mean_b) / sqrt_f32(var_b + self.eps)
         else:
@@ -246,7 +292,7 @@ class Rescale(Layer):
     def forward(self, x, ctx):
         cfg = self.cfg
         x = x.to(torch.float32)
-        xq = self._quant(ctx, "x", x, cfg.bits_a, SITE_X)
+        xq = self._quant(ctx, "x", x, cfg.bits_a, SITE_X, row0=ctx.row0)
         gq = self._quant(ctx, "gamma", self.gamma, cfg.bits_b, SITE_GAMMA)
         bq = self._quant(ctx, "beta", self.beta, cfg.bits_b, SITE_BETA)
         return barrier(self, xq * gq + bq, ctx).to(carrier_dtype(cfg))
@@ -264,9 +310,10 @@ class _FusedNormalize(torch.autograd.Function):
     codes, not the f32 ``xq``, and rebuilds ``xq`` from them."""
 
     @staticmethod
-    def forward(ctx, xq, gq, bq, mean, var, codes, mult, eps):
+    def forward(ctx, xq, gq, bq, mean, var, codes, mult, eps, dist):
         s = sqrt_f32(var + eps)
         ctx.save_for_backward(codes, mult, gq, mean, s)
+        ctx.dist = dist
         return (xq - mean) * (gq / s) + bq
 
     @staticmethod
@@ -279,8 +326,9 @@ class _FusedNormalize(torch.autograd.Function):
         d_r = (g * (xq - mean)).sum(axes)
         d_var = ((-d_r) * gq * (1.0 / (s * s))) * (0.5 / s)
         d_mean = -gr.sum(axes) - 2.0 * mean * d_var
-        dx = gr + (d_mean / n) + (d_var / n) * (2.0 * xq)
-        return dx, d_r / s, g.sum(axes), None, None, None, None, None
+        d_mean_n, d_var_n = _sync_cotangents(ctx.dist, n, d_mean, d_var)
+        dx = gr + d_mean_n + d_var_n * (2.0 * xq)
+        return dx, d_r / s, g.sum(axes), None, None, None, None, None, None
 
 
 class FusedBatchNorm(Layer):
@@ -341,15 +389,15 @@ class FusedBatchNorm(Layer):
         bq = self._quant(ctx, "beta", self.beta, cfg.bits_b, SITE_BETA)
         if ctx.train or ctx.update:
             if moments is not None:
-                mean_b, var_b = batch_moments(
-                    moments, xq.numel() // xq.shape[-1], mult)
+                mean_b, var_b = batch_moments(*_sync_moments(
+                    ctx, moments, xq.numel() // xq.shape[-1]), mult)
             else:
-                mean_b, var_b = _float_moments(xq)
+                mean_b, var_b = _float_moments(xq, ctx.dist)
         if ctx.update:
             _stage_ema(self, ctx, mean_b, var_b)
         if ctx.train and moments is not None:
             y = _FusedNormalize.apply(xq, gq, bq, mean_b, var_b, codes,
-                                      mult, self.eps)
+                                      mult, self.eps, ctx.dist)
         else:
             mean, var = ((mean_b, var_b) if ctx.train
                          else (self.mean, self.var))

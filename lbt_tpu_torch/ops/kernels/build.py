@@ -108,7 +108,8 @@ def quantize_library(csrc: Path = CSRC_DIR) -> ctypes.CDLL:
                    ctypes.c_ulonglong, ctypes.c_void_p, ctypes.c_void_p,
                    ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
                    ctypes.c_int, ctypes.c_uint32, ctypes.c_uint32,
-                   ctypes.c_uint32, ctypes.c_int, ctypes.c_void_p]
+                   ctypes.c_uint32, ctypes.c_uint32, ctypes.c_int,
+                   ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return lib
 
@@ -124,8 +125,8 @@ def conv_fused_library(csrc: Path = CSRC_DIR) -> ctypes.CDLL:
         fn.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p,
                        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
                        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_uint32,
-                       ctypes.c_uint32, ctypes.c_uint32, ctypes.c_int,
-                       ctypes.c_int, ctypes.c_int,
+                       ctypes.c_uint32, ctypes.c_uint32, ctypes.c_uint32,
+                       ctypes.c_int, ctypes.c_int, ctypes.c_int,
                        ctypes.POINTER(ctypes.c_int), ctypes.c_void_p]
         fn.restype = ctypes.c_int
     return lib

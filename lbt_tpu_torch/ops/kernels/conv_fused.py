@@ -88,9 +88,13 @@ def _check(xc, wc, inv_scale, mult_out, strides, pads, bits_out, ksize,
     if b * ho * wo * wc.shape[3] >= 2 ** 32 or xc.numel() >= 2 ** 31:
         raise ValueError("the noise counter and the kernel's int32 indices "
                          "cover smaller tensors")
-    # a shared draw is one of the BN input's shape[1:]
-    if noise is not None and (noise.mode not in (1, 2, 3) or noise.inner
-                              not in (0, ho * wo * wc.shape[3])):
+    # a shared draw is one of the BN input's shape[1:], and the offset of
+    # a slice of rows is then a whole number of draws
+    inner = ho * wo * wc.shape[3]
+    if noise is not None and (
+            noise.mode not in (1, 2, 3) or noise.inner not in (0, inner)
+            or noise.offset < 0 or (noise.inner and noise.offset % inner)
+            or noise.offset + b * inner > 2 ** 32):
         raise ValueError(f"bad noise {noise}")
 
 
@@ -114,9 +118,10 @@ def _launch(entry: str, xc, wc, inv_scale, mult_out, strides, pads,
         rc = fn(xc.data_ptr(), int(xc.dtype == torch.int16), wc.data_ptr(),
                 codes.data_ptr(), moments.data_ptr(), minmax.data_ptr(),
                 inv_scale.data_ptr(), mult_out.data_ptr(),
-                *((0, 0, 0, 0) if noise is None else
+                *((0, 0, 0, 0, 0) if noise is None else
                   (noise.k0 & 0xFFFFFFFF, noise.k1 & 0xFFFFFFFF,
-                   noise.inner, noise.mode)),
+                   noise.inner, 0 if noise.inner else noise.offset,
+                   noise.mode)),
                 int(round_bf16), bits_out, dims, stream)
     if rc != 0:
         raise RuntimeError(f"{entry} launch failed: cudaError {rc} at x "

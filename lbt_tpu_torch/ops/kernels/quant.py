@@ -60,11 +60,15 @@ class Noise(NamedTuple):
     32-bit seed or the threefry key's first word, ``k1`` its second;
     ``inner > 0`` draws element ``i``'s noise at the counter ``i % inner``
     (``lbt_tpu``'s ``noise_shared_axis0``: one draw of ``shape[1:]``,
-    ``inner = prod(shape[1:])``, broadcast along axis 0)."""
+    ``inner = prod(shape[1:])``, broadcast along axis 0).  ``offset`` is
+    added to every counter first (before the ``% inner``): it places the
+    tensor's rows in a larger batch's draw, ``row0 * prod(shape[1:])`` for
+    rows ``row0..`` of a global batch (``dfxp.quantize.noise_spec``)."""
     mode: int
     k0: int
     k1: int = 0
     inner: int = 0
+    offset: int = 0
 
 
 def code_dtype(bits: int) -> torch.dtype:
@@ -97,20 +101,22 @@ def _mul32(h: torch.Tensor, c: int) -> torch.Tensor:
     return (lo + hi) & _MASK32
 
 
-def _counters(n: int, inner: int, device) -> torch.Tensor:
-    """int64 counters of ``n`` flat indices: ``i``, or ``i % inner``."""
-    i = torch.arange(n, dtype=torch.int64, device=device)
+def _counters(n: int, inner: int, device, offset: int = 0) -> torch.Tensor:
+    """int64 counters of ``n`` flat indices: ``i + offset``, or that
+    ``% inner``."""
+    i = torch.arange(offset, offset + n, dtype=torch.int64, device=device)
     return i % inner if inner else i
 
 
 def hash_uniform_flat(seed: int, n: int, light: bool, device=None,
-                      inner: int = 0) -> torch.Tensor:
+                      inner: int = 0, offset: int = 0) -> torch.Tensor:
     """Uniform [0, 1) f32 noise: the top 24 bits of the uint32 counter
     hash of ``arange(n) ^ seed``, as ``lbt_tpu/dfxp/quantize.py:
     _hash_uniform`` computes it — the lowbias32 finalizer
     (``noise_mode='hash'``) or, with ``light``, one multiply-xorshift
-    round (``'hash1'``).  ``inner > 0`` counts ``arange(n) % inner``."""
-    x = _counters(n, inner, device) ^ (seed & _MASK32)
+    round (``'hash1'``).  The counters are ``arange(n) + offset``, ``%
+    inner`` when ``inner > 0``."""
+    x = _counters(n, inner, device, offset) ^ (seed & _MASK32)
     if not light:
         x = x ^ (x >> 16)
     x = _mul32(x, _HASH_M1)
@@ -127,15 +133,15 @@ def _rotl32(v: torch.Tensor, r: int) -> torch.Tensor:
 
 
 def threefry_uniform_flat(k0: int, k1: int, n: int, inner: int = 0,
-                          device=None) -> torch.Tensor:
+                          device=None, offset: int = 0) -> torch.Tensor:
     """Uniform [0, 1) f32 noise equal to ``jax.random.uniform(key, shape,
     float32)`` for a key of raw data ``(k0, k1)`` and ``n = prod(shape)``,
     under ``jax_threefry_partitionable`` (JAX's default): element ``i`` is
     the Threefry-2x32 cipher of the counter ``(hi32(c), lo32(c))``, ``c =
-    i`` (or ``i % inner``), its two words xored, the top 23 bits as the
+    i + offset`` (or that ``% inner``), its two words xored, the top 23 bits as the
     mantissa of 1.0, minus 1.  In int64 torch ops masked to 32 bits, as
     ``dfxp/keys.py:threefry2x32`` runs the cipher in numpy."""
-    c = _counters(n, inner, device)
+    c = _counters(n, inner, device, offset)
     ks = (k0 & _MASK32, k1 & _MASK32, (k0 ^ k1 ^ _KS_PARITY) & _MASK32)
     x0 = (c >> 32).add_(ks[0]).bitwise_and_(_MASK32)
     x1 = c.bitwise_and_(_MASK32).add_(ks[1]).bitwise_and_(_MASK32)
@@ -153,9 +159,9 @@ def noise_uniform(noise: Noise, n: int, device=None) -> torch.Tensor:
     """The ``n`` uniforms of ``noise``'s stream over the flat index."""
     if noise.mode == THREEFRY:
         return threefry_uniform_flat(noise.k0, noise.k1, n, noise.inner,
-                                     device)
+                                     device, noise.offset)
     return hash_uniform_flat(noise.k0, n, noise.mode == HASH1, device,
-                             noise.inner)
+                             noise.inner, noise.offset)
 
 
 def round_codes(scaled: torch.Tensor, bits: int,
@@ -241,9 +247,9 @@ def _launch(x: torch.Tensor, bits: int, exp: Exp, noise: Optional[Noise],
             None if minmax is None else minmax.data_ptr(),
             None if scratch is None else scratch.data_ptr(),
             _max_blocks(dev.index), bits,
-            *((0, 0, 0, 0) if noise is None else
+            *((0, 0, 0, 0, 0) if noise is None else
               (noise.k0 & _MASK32, noise.k1 & _MASK32, noise.inner,
-               noise.mode)), stream)
+               noise.offset, noise.mode)), stream)
     if rc != 0:
         raise RuntimeError(f"K1 launch failed: cudaError {rc} at "
                            f"{tuple(x.shape)} bits={bits}")
@@ -276,7 +282,9 @@ def quantize_codes(x: torch.Tensor, bits: int, exp: Exp,
     if x.numel() >= 2 ** 32:
         raise ValueError("the noise counter covers at most 2**32 elements")
     if noise is not None and (noise.mode not in (HASH, HASH1, THREEFRY)
-                              or not 0 <= noise.inner < 2 ** 32):
+                              or not 0 <= noise.inner < 2 ** 32
+                              or noise.offset < 0
+                              or noise.offset + x.numel() > 2 ** 32):
         raise ValueError(f"bad noise {noise}")
     if stats and not x.numel():
         raise ValueError("min / max of an empty tensor")

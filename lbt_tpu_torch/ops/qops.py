@@ -84,11 +84,11 @@ def int_route(engine: str, bits_x: int, bits_w: int) -> bool:
     return engine in INT_ENGINES and max(bits_x, bits_w) <= 9
 
 
-def _codes(t, bits, exp, key, stochastic, backend, shared, stats):
+def _codes(t, bits, exp, key, stochastic, backend, shared, stats, row0=0):
     """``(codes, mult, minmax or None)`` of one operand."""
     out = quantize_int(t, bits, exp, key, stochastic=stochastic,
                        backend=backend, noise_shared_axis0=shared,
-                       stats=stats)
+                       stats=stats, row0=row0)
     return out if stats else (*out, None)
 
 
@@ -111,13 +111,14 @@ def _fake_quant(t, bits, exp, key, stats, kw):
 
 
 def _float_route(contract, x, w, exp_x, exp_w, *, bits_x, bits_w, key_x,
-                 key_w, stochastic, backend, shared, stats, bf16):
+                 key_w, stochastic, backend, shared, stats, bf16, row0):
     """Both operands fake-quantized (STE), then ``contract`` in f32, or
     with ``bf16`` on bf16 operands into a bf16 product upcast after;
     autograd differentiates it."""
     kw = dict(stochastic=stochastic, backend=backend,
               noise_shared_axis0=shared)
-    xq, mm_x = _fake_quant(x, bits_x, exp_x, key_x, stats, kw)
+    xq, mm_x = _fake_quant(x, bits_x, exp_x, key_x, stats,
+                           dict(kw, row0=row0))
     wq, mm_w = _fake_quant(w, bits_w, exp_w, key_w, stats, kw)
     if bf16:
         y = contract(xq.to(torch.bfloat16),
@@ -181,14 +182,16 @@ def qmatmul(x: torch.Tensor, w: torch.Tensor, exp_x: Exp, exp_w: Exp, *,
             engine: str = "int8", key_x: Optional[KeyData] = None,
             key_w: Optional[KeyData] = None, stochastic: bool = False,
             backend: str = "xla", noise_shared_axis0: bool = False,
-            stats: bool = False):
+            stats: bool = False, row0: int = 0):
     """Quantized ``x @ w`` for ``[M, K] @ [K, N]`` on ``engine``'s route;
     f32 result.  Differentiable when ``x`` or ``w`` requires grad; on the
     integer route with ``bits_g <= 8`` the cotangent must lie on the
     ``(bits_g, exp_g)`` grid.  ``stats=True`` returns ``(y, minmax_x,
-    minmax_w)`` (None for a 32-bit operand)."""
+    minmax_w)`` (None for a 32-bit operand).  ``row0`` places ``x``'s
+    rows in a larger batch's noise (``dfxp.quantize.noise_spec``)."""
     kw = dict(bits_x=bits_x, bits_w=bits_w, key_x=key_x, key_w=key_w,
-              stochastic=stochastic, shared=noise_shared_axis0, stats=stats)
+              stochastic=stochastic, shared=noise_shared_axis0, stats=stats,
+              row0=row0)
     if not int_route(engine, bits_x, bits_w):
         return _float_route(
             torch.matmul, x, w, exp_x, exp_w, backend="xla",
@@ -197,7 +200,7 @@ def qmatmul(x: torch.Tensor, w: torch.Tensor, exp_x: Exp, exp_w: Exp, *,
         return _float_route(torch.matmul, x, w, exp_x, exp_w,
                             backend=backend, bf16=False, **kw)
     xc, mx, mm_x = _codes(x, bits_x, exp_x, key_x, stochastic, backend,
-                          noise_shared_axis0, stats)
+                          noise_shared_axis0, stats, row0)
     wc, mw, mm_w = _codes(w, bits_w, exp_w, key_w, stochastic, backend,
                           noise_shared_axis0, stats)
     if torch.is_grad_enabled() and (x.requires_grad or w.requires_grad):
@@ -300,16 +303,17 @@ def qconv2d(x: torch.Tensor, w: torch.Tensor, exp_x: Exp, exp_w: Exp, *,
             key_x: Optional[KeyData] = None,
             key_w: Optional[KeyData] = None, stochastic: bool = False,
             backend: str = "xla", noise_shared_axis0: bool = False,
-            stats: bool = False):
+            stats: bool = False, row0: int = 0):
     """Quantized 2-d convolution, NHWC activations x HWIO weights, on
     ``engine``'s route; f32 NHWC result.  The integer route contracts
     activations of up to 9-bit codes (split-9) with 8-bit weights.
     Differentiable as :func:`qmatmul`; ``stats=True`` returns ``(y,
-    minmax_x, minmax_w)``."""
+    minmax_x, minmax_w)``; ``row0`` as there."""
     strides = tuple(strides)
     pads = conv_pads(padding, x.shape[1:3], w.shape[0:2], strides)
     kw = dict(bits_x=bits_x, bits_w=bits_w, key_x=key_x, key_w=key_w,
-              stochastic=stochastic, shared=noise_shared_axis0, stats=stats)
+              stochastic=stochastic, shared=noise_shared_axis0, stats=stats,
+              row0=row0)
 
     def conv(a, b):
         return _float_conv(a, b, strides, pads)
@@ -322,7 +326,7 @@ def qconv2d(x: torch.Tensor, w: torch.Tensor, exp_x: Exp, exp_w: Exp, *,
         return _float_route(conv, x, w, exp_x, exp_w, backend=backend,
                             bf16=False, **kw)
     xc, mx, mm_x = _codes(x, bits_x, exp_x, key_x, stochastic, backend,
-                          noise_shared_axis0, stats)
+                          noise_shared_axis0, stats, row0)
     wc, mw, mm_w = _codes(w, bits_w, exp_w, key_w, stochastic, backend,
                           noise_shared_axis0, stats)
     y = _QConv2d.apply(x, w, xc, wc, mx, mw, exp_g, (bits_g, strides, pads))
@@ -400,6 +404,7 @@ def qconv2d_bn_input(
     backend: str = "xla", noise_shared_axis0: bool = False,
     target_overflow_rate: float = 0.0, gate: bool = True,
     stats: bool = False, carrier: torch.dtype = torch.float32,
+    row0: int = 0,
 ) -> BNInput:
     """A bias-free quantized conv followed by the next site's quantize at
     ``(bits_out, exp_out, key_out)``, in one kernel: the BN input's codes,
@@ -412,7 +417,9 @@ def qconv2d_bn_input(
     STE, is rounded to ``carrier``, then passes the conv's barrier at
     ``(bits_g, exp_g, key_g)`` (statistics into ``sink``, or the hold
     sentinel when ``gate`` is off), then the integer conv backward.
-    ``stats=True`` also returns the conv operands' ``[min, max]``."""
+    ``stats=True`` also returns the conv operands' ``[min, max]``;
+    ``row0`` places ``x``'s and the output's rows in a larger batch's
+    noise (``dfxp.quantize.noise_spec``)."""
     if not fusable(w.shape, bits_out, "int8", bits_x, bits_w, bits_g):
         raise NotImplementedError(
             f"no fused kernel for a {tuple(w.shape[:2])} conv of codes "
@@ -420,14 +427,14 @@ def qconv2d_bn_input(
     strides = tuple(strides)
     pads = conv_pads(padding, x.shape[1:3], w.shape[0:2], strides)
     xc, mx, mm_x = _codes(x, bits_x, exp_x, key_x, stochastic, backend,
-                          noise_shared_axis0, stats)
+                          noise_shared_axis0, stats, row0)
     wc, mw, mm_w = _codes(w, bits_w, exp_w, key_w, stochastic, backend,
                           noise_shared_axis0, stats)
     mult_out = multiplier(bits_out, exp_out, x.device)
     out_shape = (x.shape[0], *out_hw(x.shape[1], x.shape[2], w.shape[:2],
                                      strides, pads), w.shape[3])
     noise = noise_spec(key_out, stochastic, backend, out_shape,
-                       noise_shared_axis0)
+                       noise_shared_axis0, row0)
     barrier = (bits_g, exp_g, key_g,
                dict(stochastic=stochastic, backend=backend,
                     noise_shared_axis0=noise_shared_axis0,

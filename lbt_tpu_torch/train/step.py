@@ -69,14 +69,61 @@ def _raise_on_nan(where: str,
             f"invalid value (nan) in {first} after {where} (debug_nans)")
 
 
+def gate_of(model: Model) -> Callable[[int], bool]:
+    """``step -> whether the range controllers run``: the cadence
+    ``range_update_every`` after ``range_update_warmup_steps``."""
+    cfg = model.cfg
+    cadence = cfg.range_update_every if cfg else 1
+    warmup = cfg.range_update_warmup_steps if cfg else 0
+    return lambda step: cadence == 1 or step % cadence == 0 or step < warmup
+
+
+def forward_backward(model: Model, ctx: Ctx, x: torch.Tensor,
+                     y: torch.Tensor, divisor: float = 1.0):
+    """The step's forward and backward of ``loss / divisor`` under ``ctx``
+    (its ``sinks`` fresh), the staged state committed.  Returns ``(loss,
+    accuracy, sink statistics)``: each sink's gradient, zero where no
+    cotangent reached it, as ``lbt_tpu``'s would read."""
+    for p in model.net.parameters():
+        p.grad = None
+    logits = model.apply(x, ctx)
+    loss, acc = model.loss_and_acc(logits, y)
+    (loss / divisor if divisor != 1.0 else loss).backward()
+    with torch.no_grad():
+        ctx.commit()
+    return loss.detach(), acc.detach(), {
+        uid: s.grad if s.grad is not None else torch.zeros_like(s)
+        for uid, s in ctx.sinks.items()}
+
+
+@torch.no_grad()
+def sgd_update(model: Model, velocity: Dict[str, torch.Tensor],
+               grads: Dict[str, torch.Tensor], decays: Dict[str, float],
+               lr: float, momentum: float) -> None:
+    """In-gradient weight decay, then momentum SGD, in place; the
+    parameters' ``.grad`` cleared."""
+    params = dict(model.net.named_parameters())
+    grads = apply_weight_decay(grads, params, decays)
+    momentum_update(params, velocity, grads, lr, momentum)
+    for p in params.values():
+        p.grad = None
+
+
+def check_step(model: Model, velocity, out, step: int, extra=()) -> None:
+    """Under :func:`debug_nans`, raise on a NaN in a train step's
+    outputs, state, velocity or ``extra`` named tensors."""
+    if _DEBUG_NANS[0]:
+        _raise_on_nan(f"train step {step}", [
+            *out.items(), *model.net.state_dict().items(),
+            *((f"velocity.{k}", v) for k, v in velocity.items()), *extra])
+
+
 def make_train_step(model: Model, tc: TrainConfig) -> Callable:
     """``train_step(model, velocity, x, y, step, lr, base_key) ->
     {'loss', 'accuracy'}`` (0-d device tensors).  ``velocity`` is
     :func:`~lbt_tpu_torch.train.optim.momentum_init` of the parameters;
     ``base_key`` is raw threefry key data (``dfxp.keys.base_key(seed)``)."""
-    cfg = model.cfg
-    cadence = cfg.range_update_every if cfg else 1
-    warmup = cfg.range_update_warmup_steps if cfg else 0
+    gate = gate_of(model)
     decays = dict(model.decays())
     n_uids = model.num_layers()
 
@@ -84,33 +131,17 @@ def make_train_step(model: Model, tc: TrainConfig) -> Callable:
     def train_step(model: Model, velocity: Dict[str, torch.Tensor],
                    x: torch.Tensor, y: torch.Tensor, step: int, lr: float,
                    base_key) -> Dict[str, torch.Tensor]:
-        gate = cadence == 1 or step % cadence == 0 or step < warmup
-        sinks = model.make_sinks()
         ctx = Ctx(train=True, key=fold_in(np.asarray(base_key), step),
-                  update=True, update_gate=gate, sinks=dict(sinks),
-                  n_uids=n_uids)
-        params = dict(model.net.named_parameters())
-        for p in params.values():
-            p.grad = None
-        logits = model.apply(x, ctx)
-        loss, acc = model.loss_and_acc(logits, y)
-        loss.backward()
+                  update=True, update_gate=gate(step),
+                  sinks=model.make_sinks(), n_uids=n_uids)
+        loss, acc, stats = forward_backward(model, ctx, x, y)
         with torch.no_grad():
-            ctx.commit()
-            # a sink no cotangent reached reads zero, as lbt_tpu's would
-            model.absorb_sinks({uid: s.grad if s.grad is not None
-                                else torch.zeros_like(s)
-                                for uid, s in sinks.items()})
-            grads = apply_weight_decay(
-                {k: p.grad for k, p in params.items()}, params, decays)
-            momentum_update(params, velocity, grads, lr, tc.momentum)
-        for p in params.values():
-            p.grad = None
-        out = {"loss": loss.detach(), "accuracy": acc.detach()}
-        if _DEBUG_NANS[0]:
-            _raise_on_nan(f"train step {step}", [
-                *out.items(), *model.net.state_dict().items(),
-                *((f"velocity.{k}", v) for k, v in velocity.items())])
+            model.absorb_sinks(stats)
+        sgd_update(model, velocity,
+                   {k: p.grad for k, p in model.net.named_parameters()},
+                   decays, lr, tc.momentum)
+        out = {"loss": loss, "accuracy": acc}
+        check_step(model, velocity, out, step)
         return out
 
     return train_step
@@ -140,5 +171,39 @@ def make_eval_step(model: Model, faithful_eval: bool = False) -> Callable:
             _raise_on_nan("the eval step",
                           [("loss", loss), ("accuracy", acc)])
         return {"loss": loss, "accuracy": acc, "count": x.shape[0]}
+
+    return eval_step
+
+
+def make_masked_eval_step(model: Model,
+                          faithful_eval: bool = False) -> Callable:
+    """The data-parallel eval step (``lbt_tpu``'s ``make_masked_eval_step``):
+    ``eval_step(model, x, y, n_valid, key, dist=None, row0=0) ->
+    {'loss_sum', 'correct_sum'}`` (0-d f32 device tensors), the softmax CE
+    and the correct count summed over the rows of ``x`` whose global index
+    ``row0 + i`` lies below ``n_valid``: the global batch is padded to one
+    shape and each rank evaluates rows ``row0..`` of it.  ``dist`` and
+    ``row0`` go to the :class:`Ctx`: under ``faithful_eval`` BN takes the
+    global padded batch's moments, and every rank draws its rows' noise
+    where the global batch would.  The mask multiplies, so a NaN loss of a
+    valid row (a label outside the head) stays NaN, as in ``lbt_tpu``.
+    The caller sums over the ranks and divides by the true count."""
+    n_uids = model.num_layers()
+
+    @full_f32()
+    @torch.no_grad()
+    def eval_step(model: Model, x: torch.Tensor, y: torch.Tensor,
+                  n_valid: int, key, dist=None,
+                  row0: int = 0) -> Dict[str, torch.Tensor]:
+        ctx = Ctx(train=faithful_eval, key=np.asarray(key), update=False,
+                  n_uids=n_uids, dist=dist, row0=row0)
+        ce, correct = model.per_example(model.apply(x, ctx), y)
+        mask = ((torch.arange(x.shape[0], device=ce.device) + row0)
+                < n_valid).to(torch.float32)
+        out = {"loss_sum": torch.sum(ce * mask),
+               "correct_sum": torch.sum(correct * mask)}
+        if _DEBUG_NANS[0]:
+            _raise_on_nan("the eval step", out.items())
+        return out
 
     return eval_step

@@ -1,4 +1,5 @@
-"""Training loop on one device (PyTorch port of ``lbt_tpu/train/trainer.py``).
+"""Training loop (PyTorch port of ``lbt_tpu/train/trainer.py``), on one
+device or data parallel over the ranks of ``torch.distributed``.
 
 One eager train step per batch (``train.step.make_train_step``: forward
 with the range controllers, quantized backward, momentum SGD), batches
@@ -15,6 +16,16 @@ for every eval batch, as ``lbt_tpu``); the augmentation draws from
 0xA11CE), 1)``; the batch order is ``batch_iterator``'s ``(seed, epoch)``
 shuffle.  So a run resumed from a checkpoint takes the steps the
 uninterrupted run took.
+
+Data parallel (``TrainConfig.data_parallel`` in a process group of more
+than one rank, ``parallel.multihost.initialize`` first): every rank runs
+this loop over the same global batches, reads and decodes only its own
+rows of each (``host_batch_slice``), augments them with the global
+batch's draws, and steps with ``parallel.dp.make_dp_train_step``; the
+low-bit all-reduce's ``ebuf`` joins the checkpoint.  Only rank 0 writes
+logs, metrics, traces and checkpoints.  Evaluation pads each eval batch
+to a multiple of the world size, each rank evaluates its rows
+(``make_masked_eval_step``) and the sums are added over the ranks.
 """
 
 from __future__ import annotations
@@ -22,6 +33,7 @@ from __future__ import annotations
 import time
 from typing import Callable, Dict, Optional
 
+import numpy as np
 import torch
 
 from lbt_tpu_torch.config import TrainConfig
@@ -29,11 +41,14 @@ from lbt_tpu_torch.data.native import NativeLoader
 from lbt_tpu_torch.data.pipeline import batch_iterator, device_prefetch
 from lbt_tpu_torch.dfxp import keys
 from lbt_tpu_torch.nn.model import Model
+from lbt_tpu_torch.parallel.multihost import host_batch_slice
 from lbt_tpu_torch.train import checkpoint as ckpt
 from lbt_tpu_torch.train.optim import momentum_init, piecewise_lr
-from lbt_tpu_torch.train.step import make_eval_step, make_train_step
+from lbt_tpu_torch.train.step import (make_eval_step, make_masked_eval_step,
+                                      make_train_step)
 from lbt_tpu_torch.utils.device import resolve_device
-from lbt_tpu_torch.utils.logging import MetricsWriter, get_logger
+from lbt_tpu_torch.utils.logging import (MetricsWriter, get_logger,
+                                         null_logger)
 from lbt_tpu_torch.utils.profiling import StepProfiler
 
 # what lbt_tpu folds into its base key for the eval key and for the
@@ -52,24 +67,46 @@ class Trainer:
     batches of the in-memory ``'train'`` arrays from the C++ loader
     (``data.native.NativeLoader``), which also augments them as
     ``aug_spec`` (``{'pad', 'flip'}``, ``data.datasets.aug_spec``) says,
-    in place of ``augment``."""
+    in place of ``augment``.
+
+    Under data parallelism (``tc.data_parallel`` and a process group of
+    more than one rank) ``group`` is the
+    :class:`~lbt_tpu_torch.parallel.multihost.Group` (by default one over
+    the whole world) and ``device`` this rank's; the streaming sources
+    take ``rows=(start, size)`` and ``augment`` takes ``rows=(row0,
+    n_global)`` (``data.datasets.augment_crop_flip``)."""
 
     def __init__(self, model: Model, tc: TrainConfig, dataset: Dict,
                  augment: Optional[Callable] = None, logger=None,
                  logdir: Optional[str] = None, profile_steps: int = 0,
                  native_loader: bool = False,
-                 aug_spec: Optional[Dict] = None, device=None):
-        if tc.data_parallel or tc.tensor_parallel > 1 or tc.lowbit_allreduce \
-                or tc.lowbit_wire is not None:
+                 aug_spec: Optional[Dict] = None, device=None, group=None):
+        if tc.tensor_parallel > 1:
             raise NotImplementedError(
-                "data / tensor parallelism and the low-bit all-reduce are "
-                "not ported (ROADMAP queue 1 item 12); the port trains on "
-                "one device")
+                f"tensor_parallel={tc.tensor_parallel}: tensor parallelism "
+                f"is not ported (ROADMAP queue 1 item 14); the port runs "
+                f"data parallel")
+        world = (torch.distributed.get_world_size()
+                 if torch.distributed.is_initialized() else 1)
+        self.dp = bool(tc.data_parallel) and world > 1
+        if world > 1 and not self.dp:
+            raise ValueError(
+                "multi-process runs require data_parallel=True (each "
+                "process only holds its own batch shard)")
         if tc.scan_steps > 1:
             raise NotImplementedError(
                 f"scan_steps={tc.scan_steps}: the scanned K-step block is "
                 f"not to be ported (ROADMAP queue 1 item 13); steps run one "
                 f"by one")
+        self.group = None
+        if self.dp:
+            from lbt_tpu_torch.parallel.multihost import Group
+            self.group = group if group is not None else Group(device=device)
+            if tc.batch_size % self.group.world:
+                raise ValueError(
+                    f"batch_size {tc.batch_size} must divide across "
+                    f"{self.group.world} ranks")
+        self.is_main = self.group is None or self.group.rank == 0
         self.model = model
         self.tc = tc
         self.dataset = dataset
@@ -85,6 +122,10 @@ class Trainer:
                 flip=spec.get("flip", False), seed=tc.seed)
             self.augment = None
         self.device = resolve_device(device)
+        if not self.is_main:
+            # only rank 0 writes logs, metrics, traces and checkpoints
+            logdir = None
+            logger = null_logger()
         self.logger = logger or get_logger(
             f"{logdir}/experiment.log" if logdir else None)
         self.metrics = MetricsWriter(logdir)
@@ -97,11 +138,26 @@ class Trainer:
         self.base_key = keys.base_key(tc.seed)
         self.data_key = keys.fold_in(
             keys.fold_in(self.base_key, DATA_KEY_FOLD), 1)
-        self.train_step = make_train_step(model, tc)
         self.faithful = bool(model.cfg and model.cfg.faithful_eval)
-        self.eval_step = make_eval_step(model, faithful_eval=self.faithful)
+        self.ebuf = None
+        if self.dp:
+            from lbt_tpu_torch.parallel.dp import make_dp_train_step
+            from lbt_tpu_torch.parallel.lowbit import init_error_buffers
+            self.train_step = make_dp_train_step(
+                model, tc, self.group,
+                lowbit_bits=8 if tc.lowbit_allreduce else None,
+                lowbit_wire=tc.lowbit_wire)
+            self.ebuf = init_error_buffers(self.params)
+            self.eval_step = make_masked_eval_step(
+                model, faithful_eval=self.faithful)
+        else:
+            self.train_step = make_train_step(model, tc)
+            self.eval_step = make_eval_step(model,
+                                            faithful_eval=self.faithful)
         self.step = 0
         self.epoch = 0
+        # the step of the checkpoint this run wrote or resumed from last
+        self._saved_step = None
         # the last epoch's wall seconds (device work included), images
         # and seconds the loop waited on the input
         self.epoch_time = {}
@@ -116,16 +172,50 @@ class Trainer:
             tc.batch_size, tc.n_epoch)
 
     # -- checkpoint ---------------------------------------------------------
-    def _state(self):
-        return {"model": self.model.net.state_dict(),
-                "velocity": self.velocity,
-                "epoch": self.epoch, "step": self.step}
+    def _state(self, ebuf=None):
+        state = {"model": self.model.net.state_dict(),
+                 "velocity": self.velocity,
+                 "epoch": self.epoch, "step": self.step}
+        if self.dp:
+            state["ebuf"] = self.ebuf if ebuf is None else ebuf
+        return state
+
+    def _saved_ebuf(self) -> Dict[str, torch.Tensor]:
+        """The ``ebuf`` a checkpoint holds, as ``lbt_tpu``'s: its ``ebuf``
+        is declared replicated while each device holds its own residual,
+        and Orbax writes a replicated array from every replica, each the
+        slice ``k`` of ``world`` along the first axis that divides by
+        ``world`` (replica 0 the whole leaf where none does).  So each
+        leaf here is rank ``k``'s slice ``k`` there, put together with one
+        all-reduce (the other ranks add zeros)."""
+        g = self.group
+        mine = {}
+        for k, v in self.ebuf.items():
+            ax = next((i for i, n in enumerate(v.shape) if n % g.world == 0),
+                      None)
+            part = torch.zeros_like(v)
+            if ax is None:
+                if g.rank == 0:
+                    part.copy_(v)
+            else:
+                w = v.shape[ax] // g.world
+                part.narrow(ax, g.rank * w, w).copy_(
+                    v.narrow(ax, g.rank * w, w))
+            mine[k] = part
+        return dict(zip(mine, g.all_reduce_each(list(mine.values()))))
 
     def save(self, directory: Optional[str] = None):
+        """Write the checkpoint.  Under data parallelism every rank calls
+        this (the saved ``ebuf`` takes a slice from each, see
+        :meth:`_saved_ebuf`) and rank 0 writes it."""
         directory = directory or self.tc.checkpoint_dir
         if not directory:
             return
-        ckpt.save_checkpoint(directory, self.step, self._state())
+        ebuf = self._saved_ebuf() if self.dp else None
+        self._saved_step = self.step
+        if not self.is_main:
+            return
+        ckpt.save_checkpoint(directory, self.step, self._state(ebuf))
         self.logger.info("Saved checkpoint @ step %d to %s",
                          self.step, directory)
 
@@ -142,8 +232,12 @@ class Trainer:
                 t.copy_(state["model"][k])
             for k, v in self.velocity.items():
                 v.copy_(state["velocity"][k])
+            if self.dp and "ebuf" in state:
+                for k, v in self.ebuf.items():
+                    v.copy_(state["ebuf"][k])
         self.epoch = int(state["epoch"])
         self.step = int(state["step"])
+        self._saved_step = self.step
         self.logger.info("Resumed from %s @ step %d (epoch %d)",
                          d, step, self.epoch)
         return True
@@ -163,15 +257,24 @@ class Trainer:
             self.velocity = momentum_init(self.params)
             self.logger.info("Reset momentum slots (faithful mode)")
 
+        # a data-parallel rank reads, decodes and sends only its rows
+        rows = (host_batch_slice(tc.batch_size, self.group) if self.dp
+                else None)
         if self.native is not None:
             src = self.native.epoch(epoch)
+            if rows is not None:  # the C++ loader yields global batches
+                src = ((x[rows[0]:sum(rows)], y[rows[0]:sum(rows)])
+                       for x, y in src)
         elif "train_iter" in self.dataset:
-            src = self.dataset["train_iter"](epoch, tc.batch_size)
+            src = self.dataset["train_iter"](
+                epoch, tc.batch_size, **({"rows": rows} if rows else {}))
         else:
             xtr, ytr = self.dataset["train"]
             src = batch_iterator(xtr, ytr, tc.batch_size, seed=tc.seed,
-                                 epoch=epoch)
+                                 epoch=epoch, rows=rows)
         batches = device_prefetch(src, device=self.device)
+        aug_rows = {} if rows is None else {"rows": (rows[0],
+                                                     tc.batch_size)}
         last = {}
         t0, n_img = time.time(), 0
         first_step_logged = self.step > 0
@@ -193,12 +296,17 @@ class Trainer:
 
         for b, (x, y) in enumerate(timed(batches)):
             if self.augment is not None:
-                x = self.augment(keys.fold_in(self.data_key, self.step), x)
+                x = self.augment(keys.fold_in(self.data_key, self.step), x,
+                                 **aug_rows)
             self.profiler.observe(self.step)
-            m = self.train_step(self.model, self.velocity, x, y, self.step,
-                                lr, self.base_key)
+            if self.dp:
+                m = self.train_step(self.model, self.velocity, self.ebuf, x,
+                                    y, self.step, lr, self.base_key)
+            else:
+                m = self.train_step(self.model, self.velocity, x, y,
+                                    self.step, lr, self.base_key)
             self.step += 1
-            n_img += len(y)
+            n_img += tc.batch_size if self.dp else len(y)
             if not first_step_logged:
                 m["loss"].item()
                 self.logger.info("first train step (with warm-up) took "
@@ -235,6 +343,8 @@ class Trainer:
         """Mean loss and accuracy over the test set: weighted by each
         batch's count (exact with a ragged final batch), or, under
         ``faithful_eval``, the reference's mean of per-batch means."""
+        if self.dp:
+            return self._evaluate_dp()
         tc = self.tc
         if "test_iter" in self.dataset:
             batches = self.dataset["test_iter"](tc.eval_batch_size)
@@ -261,6 +371,64 @@ class Trainer:
         denom = len(ms) if self.faithful else max(n_examples, 1.0)
         return {k: v / denom for k, v in tot.items()}
 
+    def _eval_batches(self, rows):
+        """``(x, y, n)`` of each eval batch: this rank's ``rows`` of it
+        (fewer, or none, in a ragged last batch) and ``n`` the batch's
+        true count."""
+        tc = self.tc
+        if "test_iter" in self.dataset:
+            n_left = self.dataset["n_test"]
+            src = self.dataset["test_iter"](tc.eval_batch_size, rows=rows)
+        else:
+            xte, yte = self.dataset["test"]
+            n_left = len(xte)
+            src = batch_iterator(xte, yte, tc.eval_batch_size,
+                                 shuffle=False, drop_remainder=False,
+                                 rows=rows)
+        for x, y in src:
+            n = min(tc.eval_batch_size, n_left)
+            n_left -= n
+            yield x, y, n
+
+    def _evaluate_dp(self) -> Dict[str, float]:
+        """``lbt_tpu``'s ``_evaluate_dp``: each eval batch padded to a
+        multiple of the world size, each rank evaluating its rows of it
+        at its ``row0`` (where the global batch draws their noise), the
+        masked sums added over the ranks in one all-reduce and divided by
+        the true count (the exact count-weighted mean, with or without
+        ``faithful_eval``, as ``lbt_tpu``).  Under ``faithful_eval`` BN
+        takes the moments of the global padded batch, padding rows
+        included, so every rank pads its rows with zeros; otherwise no
+        row sees another, and a rank evaluates its real rows alone."""
+        tc, group = self.tc, self.group
+        eb = -(-tc.eval_batch_size // group.world) * group.world
+        rows = host_batch_slice(eb, group)
+        key = keys.fold_in(self.base_key, EVAL_KEY_FOLD)
+        sums, n_examples = [], 0
+        for x, y, n in self._eval_batches(rows):
+            n_examples += n
+            if self.faithful and len(x) < rows[1]:
+                pad = rows[1] - len(x)
+                x = np.concatenate([x, np.zeros((pad,) + x.shape[1:],
+                                                x.dtype)])
+                y = np.concatenate([y, np.zeros((pad,), y.dtype)])
+            if not len(x):
+                sums.append(torch.zeros(2, device=self.device))
+                continue
+            x, y = (torch.from_numpy(np.ascontiguousarray(a)).to(self.device)
+                    for a in (x, y))
+            m = self.eval_step(self.model, x, y, n, key, dist=group,
+                               row0=rows[0])
+            sums.append(torch.stack([m["loss_sum"], m["correct_sum"]]))
+        if not sums:
+            return {"loss": 0.0, "accuracy": 0.0}
+        # one collective for the whole set; summed on the host in float64
+        # batch by batch, as lbt_tpu adds its global batch sums
+        total = group.all_reduce(torch.stack(sums)).cpu().tolist()
+        denom = max(float(n_examples), 1.0)
+        return {"loss": sum(v[0] for v in total) / denom,
+                "accuracy": sum(v[1] for v in total) / denom}
+
     def train(self) -> Dict[str, float]:
         self.maybe_restore()
         tc = self.tc
@@ -275,8 +443,8 @@ class Trainer:
             if (tc.checkpoint_dir and tc.checkpoint_every_epochs and
                     self.epoch % tc.checkpoint_every_epochs == 0):
                 self.save()
-        # the final state, unless the last epoch's checkpoint holds it
-        if tc.checkpoint_dir and ckpt.latest_step(tc.checkpoint_dir) \
-                != self.step:
+        # the final state, unless the last epoch's checkpoint holds it (the
+        # same answer on every rank: a save under DP is a collective)
+        if tc.checkpoint_dir and self._saved_step != self.step:
             self.save()
         return self.evaluate()

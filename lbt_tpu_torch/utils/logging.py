@@ -54,6 +54,15 @@ def get_logger(path: Optional[str] = None,
     return logger
 
 
+def null_logger() -> logging.Logger:
+    """A logger that writes nothing: a data-parallel rank other than 0."""
+    logger = logging.getLogger("lbt_tpu_torch.rank")
+    if not logger.handlers:
+        logger.addHandler(logging.NullHandler())
+    logger.propagate = False
+    return logger
+
+
 def _to_scalar(v):
     if isinstance(v, (torch.Tensor, np.ndarray, np.generic)):
         return float(v.item())

@@ -6,6 +6,8 @@ absent:
     python -m pytest --noconftest tests/test_torch_cuda.py -q
 """
 
+import math
+
 import numpy as np
 import pytest
 import torch
@@ -1127,3 +1129,140 @@ def test_loss_outside_the_head_gives_nan_without_device_assert(dev):
     assert torch.isfinite(gg).all()
     torch.testing.assert_close(gg, gc, rtol=1e-6, atol=1e-7)
     assert (torch.ones(4, device=dev) * 2).sum().item() == 8.0
+
+
+# ---------------------------------------------------------------------------
+# data parallelism: the noise counter's offset, the low-bit all-reduce and
+# NCCL at world size 1
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("shared", [False, True])
+@pytest.mark.parametrize("mode", ["hash", "hash1", "threefry"])
+@pytest.mark.parametrize("shape", [(4097,), (6, 5, 7), (8, 32, 32, 16)])
+def test_k1_counter_offset_matches_plain(dev, shape, mode, shared):
+    """K1 at a non-zero counter offset (a data-parallel eval rank's rows
+    of a global batch; any offset, added before the shared draw's
+    modulo) equals its plain version bitwise, and rows ``3..`` drawn at
+    offset ``3 * prod(shape[1:])`` equal those rows of the whole draw."""
+    inner = math.prod(shape[1:]) if shared else 0
+    x = (torch.randn(shape, generator=torch.Generator().manual_seed(1))
+         * 2).to(dev)
+    for offset in (1, 3 * math.prod(shape[1:]) + 5, 2 ** 31 + 7):
+        noise = _noise(mode, 0x51ED + offset, inner)._replace(offset=offset)
+        got = quant.quantize_codes(x, 8, 1, noise, stats=True)
+        _same(got, quant.quantize_codes_plain(x, 8, 1, noise, stats=True))
+    if len(shape) > 1:
+        whole = quant.quantize_codes(x, 8, 1, _noise(mode, 9, inner))[0]
+        part = x[3:].contiguous()
+        noise = _noise(mode, 9, inner)._replace(
+            offset=0 if shared else 3 * math.prod(shape[1:]))
+        assert torch.equal(quant.quantize_codes(part, 8, 1, noise)[0],
+                           whole[3:])
+
+
+@pytest.mark.parametrize("shared", [False, True])
+@pytest.mark.parametrize("mode", ["hash", "hash1", "threefry"])
+@pytest.mark.parametrize("case", range(len(FUSED_SHAPES)))
+def test_conv_fused_counter_offset_matches_plain(dev, case, mode, shared):
+    """#4 / #5 at a non-zero counter offset (a whole number of draws when
+    shared) equal their plain version bitwise."""
+    xshape, wshape, s = FUSED_SHAPES[case]
+    g = torch.Generator().manual_seed(case)
+    xc = torch.randint(-128, 128, xshape, generator=g,
+                       dtype=torch.int8).to(dev)
+    wc = torch.randint(-128, 128, wshape, generator=g,
+                       dtype=torch.int8).to(dev)
+    inv = torch.tensor([2.0 ** -16], device=dev)
+    mult = torch.tensor([2.0 ** -3], device=dev)
+    pads = qops.conv_pads("SAME", xshape[1:3], wshape[:2], (s, s))
+    ho, wo = qops.out_hw(xshape[1], xshape[2], wshape[:2], (s, s), pads)
+    inner = ho * wo * wshape[3]
+    noise = _noise(mode, 0xC0FFEE + case, inner if shared else 0)._replace(
+        offset=3 * inner + (0 if shared else 5))
+    fused = (conv_fused.conv3x3_fused if wshape[0] == 3
+             else conv_fused.conv1x1_fused)
+    kw = dict(strides=(s, s), pads=pads, noise=noise)
+    got = fused(xc, wc, inv, mult, **kw)
+    torch.cuda.synchronize()
+    for a, b in zip(got, conv_fused.conv_fused_plain(xc, wc, inv, mult,
+                                                       **kw)):
+        assert a.dtype == b.dtype and torch.equal(a, b)
+
+
+def _lowbit_inputs(dev):
+    rng = np.random.default_rng(0)
+    shapes = {"a": (5, 7), "b": (33,), "c": (3, 3, 16, 16)}
+    grads = {k: torch.from_numpy((rng.normal(0, 1, s) * 10.0 ** -i)
+                                 .astype(np.float32)).to(dev)
+             for i, (k, s) in enumerate(shapes.items())}
+    bufs = {k: torch.from_numpy((rng.normal(0, 1e-3, v.shape))
+                                .astype(np.float32)).to(dev)
+            for k, v in grads.items()}
+    return grads, bufs
+
+
+def _reduce_all(group, grads, bufs):
+    """Every transport of the low-bit all-reduce, then one collective of
+    each dtype the DP step sends (f32 and int64 sums, f32 max)."""
+    from lbt_tpu_torch.parallel import lowbit_allreduce, ring_lowbit_allreduce
+    out = {"psum": lowbit_allreduce(grads, bufs, group)}
+    for wire in ("int16", "int8"):
+        out[wire] = ring_lowbit_allreduce(grads, bufs, group, wire=wire)
+    dev = next(iter(grads.values())).device
+    out["sums"] = (group.all_reduce(torch.arange(5., device=dev)),
+                   group.all_reduce(torch.arange(5, device=dev)),
+                   group.all_reduce(torch.arange(5., device=dev), "max"))
+    return out
+
+
+def _flat(out):
+    if isinstance(out, dict):
+        return [t for k in sorted(out) for t in _flat(out[k])]
+    if isinstance(out, (tuple, list)):
+        return [t for v in out for t in _flat(v)]
+    return [out]
+
+
+@pytest.fixture
+def world_of_one(dev, tmp_path):
+    import torch.distributed as dist
+
+    def init(backend):
+        kw = ({"device_id": torch.device("cuda", torch.cuda.current_device())}
+              if backend == "nccl" else {})
+        dist.init_process_group(backend, init_method=f"file://{tmp_path}/s",
+                                world_size=1, rank=0, **kw)
+    yield init
+    if dist.is_initialized():
+        dist.destroy_process_group()
+
+
+def test_lowbit_allreduce_over_gloo_with_cuda_tensors(dev, world_of_one):
+    """Over gloo at world size 1, CUDA tensors (staged through host
+    memory): every transport returns the quantized leaves on the card,
+    bitwise the same as on the CPU."""
+    from lbt_tpu_torch.parallel import Group
+    world_of_one("gloo")
+    group = Group(device=dev)
+    grads, bufs = _lowbit_inputs(dev)
+    card = _reduce_all(group, grads, bufs)
+    cpu = _reduce_all(group, *({k: v.cpu() for k, v in t.items()}
+                               for t in (grads, bufs)))
+    for a, b in zip(_flat(card), _flat(cpu)):
+        assert a.device.type == "cuda" and torch.equal(a.cpu(), b)
+
+
+def test_nccl_world_of_one_refuses_nothing(dev, world_of_one):
+    """An NCCL group of world size 1 takes every collective the DP step
+    and the low-bit all-reduce make, dtypes included, and gives what a
+    gloo group of world size 1 gives, bitwise."""
+    import torch.distributed as dist
+    from lbt_tpu_torch.parallel import Group
+    world_of_one("nccl")
+    grads, bufs = _lowbit_inputs(dev)
+    nccl = _reduce_all(Group(device=dev), grads, bufs)
+    gloo = _reduce_all(Group(dist.new_group(backend="gloo"), device=dev),
+                       grads, bufs)
+    torch.cuda.synchronize()
+    for a, b in zip(_flat(nccl), _flat(gloo)):
+        assert torch.equal(a, b)

@@ -176,7 +176,8 @@ def test_wrappers_refuse_devices_without_a_kernel():
 
 def test_port_imports_no_jax():
     """The port (its trainer, data sources and host build, checkpoint,
-    logging, CLI, deployment and every registry model included), and chip_smoke.py's own imports
+    logging, CLI, data parallelism, deployment and every registry model
+    included), and chip_smoke.py's own imports
     and walk of the serving path, load no JAX, and nothing of
     ``lbt_tpu``: the card's machine has no JAX, and the port owns its
     config."""
@@ -190,6 +191,9 @@ def test_port_imports_no_jax():
         "import lbt_tpu_torch.data.build, lbt_tpu_torch.data.native\n"
         "import lbt_tpu_torch.data.tfrecord, lbt_tpu_torch.data.imagefolder\n"
         "from lbt_tpu_torch.train.step import debug_nans\n"
+        "import lbt_tpu_torch.parallel, lbt_tpu_torch.parallel.dp\n"
+        "import lbt_tpu_torch.parallel.lowbit\n"
+        "import lbt_tpu_torch.parallel.multihost\n"
         "import lbt_tpu_torch.train.checkpoint, lbt_tpu_torch.utils.tb\n"
         "import lbt_tpu_torch.utils.logging, lbt_tpu_torch.utils.profiling\n"
         "from lbt_tpu_torch.infer import (fold_batchnorm,\n"

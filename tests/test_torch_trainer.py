@@ -579,17 +579,29 @@ def test_cli_trains_and_writes(tmp_path):
 
 
 @pytest.mark.parametrize("tc_kw,trainer_kw,item", [
-    ({"data_parallel": True}, {}, "item 12"),
-    ({"tensor_parallel": 2}, {}, "item 12"),
-    ({"lowbit_allreduce": True}, {}, "item 12"),
+    ({"tensor_parallel": 2}, {}, "item 14"),
     ({"scan_steps": 4}, {}, "item 13"),
-    ({"lowbit_wire": "int8"}, {}, "item 12"),
 ])
 def test_trainer_refuses_what_it_cannot_run(tc_kw, trainer_kw, item):
     cfg = tconfig.QuantConfig.uniform(8, noise_mode="hash")
     with pytest.raises(NotImplementedError, match=f"ROADMAP queue 1 {item}"):
         Trainer(cifar10_resnet(cfg, 8), tconfig.TrainConfig(**tc_kw), {},
                 device="cpu", **trainer_kw)
+
+
+@pytest.mark.parametrize("tc_kw", [
+    {"data_parallel": True}, {"lowbit_allreduce": True},
+    {"data_parallel": True, "lowbit_allreduce": True, "lowbit_wire": "int8"},
+])
+def test_trainer_runs_data_parallel_flags_on_one_process(tc_kw):
+    """The data-parallel flags in one process (no group of more than one
+    rank) train on one device, as ``lbt_tpu``'s Trainer does on a single
+    device: the plain step, no ``ebuf`` (``tests/test_torch_parallel*.py``
+    hold the ranks)."""
+    cfg = tconfig.QuantConfig.uniform(8, noise_mode="hash")
+    tr = Trainer(cifar10_resnet(cfg, 8), tconfig.TrainConfig(**tc_kw), {},
+                 device="cpu")
+    assert not tr.dp and tr.ebuf is None and tr.group is None
 
 
 def test_entry_points_default_to_the_card(monkeypatch):
@@ -650,18 +662,21 @@ def test_step_profiler_writes_a_chrome_trace(tmp_path):
     (["--noise_mode", "hash", "--engine", "sim_bf16"], None),
     (["--noise_mode", "hash", "--stem_s2d"], None),
     (["--noise_mode", "hash", "--scan_steps", "4"], "--scan_steps 4"),
-    (["--noise_mode", "hash", "--data_parallel"], "--data_parallel"),
+    (["--noise_mode", "hash", "--data_parallel"], None),
     (["--noise_mode", "hash", "--model", "MNIST"], None),
     (["--noise_mode", "hash", "--gradient_buffer"], None),
     (["--remat_bn"], "--remat_bn"),
     (["--bn_residual_q16"], "--bn_residual_q16"),
+    (["--noise_mode", "hash", "--tensor_parallel", "2"],
+     "--tensor_parallel 2"),
 ])
 def test_cli_refuses_what_it_cannot_run(tmp_path, capsys, argv, msg):
     """What the port cannot run exits with status 2 before any work,
     naming the value and the ROADMAP item.  main.py's defaults (``prng``
     noise), the FP32 arm, the sim engines, the s2d stem, the reference's
-    small models and ``--gradient_buffer``, refused before they were
-    ported, have no refusal now and give main.py's config."""
+    small models, ``--gradient_buffer`` and ``--data_parallel``, refused
+    before they were ported, have no refusal now and give main.py's
+    config."""
     from lbt_tpu_torch.main import build_parser, quant_config, refusals
     if msg is None:
         args = build_parser().parse_args(argv)
