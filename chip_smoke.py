@@ -7,8 +7,11 @@ VGG-16 / CIFAR-100 under int4w-int8a and serve it folded and exported,
 train the reference's small models through the CLI, train the
 headline through the CLI from TFRecord shards and an ImageFolder tree of
 ImageNet-like JPEGs, ResNet-20 through the C++ loader, with ``--debug_nans``
-checked, and train data parallel on ``torch.distributed``: two ranks
-sharing the card, NCCL at world size 1, the CLI under torchrun.
+checked, train data parallel on ``torch.distributed``: two ranks
+sharing the card, NCCL at world size 1, the CLI under torchrun, and
+train tensor parallel: the headline's large weights in column slices
+over two ranks, a 2 x 2 data x model layout, the CLI with
+``--tensor_parallel 2``.
 
 Run from the root of a checkout, on a machine with one CUDA card:
 
@@ -214,6 +217,31 @@ the line on stdout) and exits 1, with no result line.
            run to 2 epochs that resumes: exit 0, rank 0 alone logging.
            Phases K1-stats and fused also run each stochastic check at a
            non-zero noise counter offset (``CHECK_ROW0``).
+16. tp     tensor parallelism (``parallel.mesh``), the ranks sharing the
+           card over gloo (``chip_smoke.py --tp-worker``, a data x model
+           layout by ``parallel.make_groups``).  (a) the headline (phase
+           resnet50's config, batch 128) at tp = 2 in 2 ranks: the
+           one-rank step on the model cut by ``shard_model``, phase
+           resnet50's 3 gate steps (counters reset just before, K1, K2
+           and #4/#5 each required to launch; the calls recorded) equal
+           to phase resnet50's one-rank kernel route in every tensor (the
+           sharded ones gathered; tolerance 0) and on both ranks; then 2
+           timed steps: ms a step a rank, the model group's host ms,
+           calls and MB a step by kind (gather: the joins; dx: the
+           partial dx sums; stats: the controllers' min / max), peak
+           memory, launches a step.  (b) ResNet-20 at 2 x 2 in 4 ranks
+           with the low-bit all-reduce: 3 steps through the kernels equal
+           to the plain route on every rank in every tensor, and (c)
+           ``torch.distributed.run --nproc_per_node 2 -m
+           lbt_tpu_torch.main --data_parallel --tensor_parallel 2`` on
+           ResNet-20, 1 epoch of 10 steps and an eval, then a run to 2
+           that resumes; (b) and (c) side by side.  Then each kernel's
+           column-window form (K1 at the sharded weights, #4/#5 at the
+           sharded convs' BN inputs) at (a)'s shapes against its plain
+           version bitwise (rank 0's window and the last rank's, that one
+           at the counter offset ``CHECK_ROW0``), and K2 at the shapes a
+           one-rank step does not have, timed with bounds and library
+           calls as in 7.
 
 Prints the card, then one JSON line of kernels (launches from the trainer
 phase, the threefry rows' from its run of main.py's defaults; ms,
@@ -221,7 +249,8 @@ plain_ms, bound_ms and library_ms a training step; the same keys under
 ``resnet50`` for the headline's path, under ``baseline50`` for the
 baseline's K1, under ``vgg16`` for V's, and under ``records`` the
 launches of each CLI run of phase records, under ``dp`` rank 0's launches
-in phase dp), then, last, one JSON line
+in phase dp, under ``tp`` rank 0's in phase tp leg (a) and the
+column-window forms' times), then, last, one JSON line
 ``{"ok": true, "device": {...}}``.
 """
 
@@ -1716,11 +1745,11 @@ def _r50_train(qmod, qops, quant, gemm, fused) -> dict:
     return train_leg("resnet50", build_resnet50, R50_GATE_STEPS,
                      R50_TIMED_STEPS, (qmod, qops, quant, gemm, fused),
                      launched, ((0, 1 / 8), (1, 7 / 8)),
-                     ("k1", "conv3x3", "conv1x1"))
+                     ("k1", "conv3x3", "conv1x1"), digest=True)
 
 
 def train_leg(tag, build, gate_steps, timed_steps, modules, launched,
-              record_steps, required, batches=None) -> dict:
+              record_steps, required, batches=None, digest=False) -> dict:
     """One training leg from ``build``'s model on ``batches`` (default
     ``gate_steps`` of ResNet-50's, 224 px at batch 128): its kernel calls
     recorded (``record_steps``), ``gate_steps`` steps through the kernels
@@ -1729,7 +1758,9 @@ def train_leg(tag, build, gate_steps, timed_steps, modules, launched,
     plain versions in every tensor, the first loss at batch
     ``R50_CPU_BATCH`` equal to the CPU route's at rtol 1e-5,
     ``timed_steps`` timed steps with the peak memory, and a 2-step profile
-    (one launch a K1 and #4/#5 call; the kinds in ``required`` called)."""
+    (one launch a K1 and #4/#5 call; the kinds in ``required`` called).
+    ``digest``: the result holds the kernel route's state after the gate
+    (``gate_digest``), which phase tp's layout must reproduce."""
     qmod, qops, quant, gemm, fused = modules
     batches = batches or r50_batches(gate_steps)
     n_batch, image = batches[0][0].shape[0], batches[0][0].shape[1]
@@ -1768,6 +1799,7 @@ def train_leg(tag, build, gate_steps, timed_steps, modules, launched,
           f"{diff[:5]} ({len(diff)} tensors)")
     print(f"{tag} train: losses {losses}; kernel and plain routes equal "
           f"in all {len(got)} tensors (tolerance 0)", flush=True)
+    gate_digest = _digest(card, card_vel) if digest else None
     del plain, plain_vel, plain_run, got, want
 
     small = (batches[0][0][:R50_CPU_BATCH], batches[0][1][:R50_CPU_BATCH])
@@ -1816,7 +1848,8 @@ def train_leg(tag, build, gate_steps, timed_steps, modules, launched,
             "samples_ms": times, "max_memory_allocated": peak,
             "memory_allocated_before": held,
             "profile": prof, "k1_calls": k1, "k2_calls": k2,
-            "tn_calls": tn, "conv_calls": conv}
+            "tn_calls": tn, "conv_calls": conv,
+            **({"gate_digest": gate_digest} if digest else {})}
 
 
 def _r50_serve(qmod, qops, quant, gemm) -> dict:
@@ -2994,6 +3027,474 @@ def phase_dp(qmod, qops, quant, gemm, fused) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# tensor parallelism
+# ---------------------------------------------------------------------------
+
+TP_DIR = REPO / "experiments" / "smoke_tp"
+TP_R50_TIMED = 2        # the headline's timed steps at tp = 2 (gate off)
+TP_R20_STEPS = 3        # ResNet-20 steps at 2 x 2: kernel route, plain route
+TP_CLI = ["--model", "CIFAR10_Resnet20", "--data_parallel",
+          "--tensor_parallel", "2", "--noise_mode", "hash", "--batch_size",
+          "128", "--n_train", "1280", "--n_test", "300", "--log_every",
+          "5", "--checkpoint_every", "1"]
+
+
+def _whole_digest(model, velocity, specs, tp, ebuf=None) -> dict:
+    """:func:`_digest`'s keys and hashes for a model cut over the model
+    group ``tp``: its slices gathered first (every rank calls it)."""
+    import hashlib
+    from lbt_tpu_torch.parallel.mesh import gather_params
+    sd = dict(model.net.state_dict())
+    state = {f"net.{k}": v for k, v in gather_params(
+        sd, {k: specs.get(k, ()) for k in sd}, tp).items()}
+    state.update({f"velocity.{k}": v for k, v in
+                  gather_params(velocity, specs, tp).items()})
+    if ebuf is not None:
+        state.update({f"ebuf.{k}": v for k, v in
+                      gather_params(ebuf, specs, tp).items()})
+    return {k: hashlib.sha256(v.detach().cpu().contiguous().numpy()
+                              .tobytes()).hexdigest()
+            for k, v in state.items()}
+
+
+def _window_key(noise) -> tuple:
+    """``(n_global, col0)`` of a call's column window, ``(0, 0)`` for
+    none."""
+    return (0, 0) if noise is None else (noise.n_global, noise.col0)
+
+
+def record_tp_calls(qmod, qops, quant, gemm, fused, run, steps):
+    """``(losses, calls)``: one rank's kernel calls in ``run``'s steps
+    (``(step index, weight, batch)``, a call counting ``weight`` times as
+    in :func:`record_train_calls`), keyed as there with the column window
+    ``(n_global, col0)`` last in K1's and #4/#5's keys."""
+    k1, k2, tn, conv = (collections.Counter() for _ in range(4))
+    weight = [1.0]
+
+    def k1_rec(t, bits, exp, noise=None, stats=False):
+        k1[(tuple(t.shape), bits, *noise_key(noise), bool(stats),
+            *_window_key(noise))] += weight[0]
+        return quant.quantize_codes(t, bits, exp, noise, stats)
+
+    def k2_rec(a, b, inv=None):
+        k2[(a.shape[0], a.shape[1], b.shape[1], inv is not None)] += \
+            weight[0]
+        return gemm.int8_matmul(a, b, inv)
+
+    def tn_rec(a, b):
+        tn[(a.shape[0], a.shape[1], b.shape[1])] += weight[0]
+        return gemm.int8_matmul_tn(a, b)
+
+    def conv_rec(kind):
+        def rec(xc, wc, inv, mult, *, strides, pads, bits_out=8,
+                noise=None, round_bf16=False):
+            conv[(kind, tuple(xc.shape), str(xc.dtype), tuple(wc.shape),
+                  tuple(strides), tuple(pads), *noise_key(noise),
+                  bool(round_bf16), *_window_key(noise))] += weight[0]
+            return getattr(fused, kind)(xc, wc, inv, mult, strides=strides,
+                                        pads=pads, bits_out=bits_out,
+                                        noise=noise, round_bf16=round_bf16)
+        return rec
+
+    with mock.patch.object(qmod, "quantize_codes", k1_rec), \
+            mock.patch.object(qops, "int8_matmul", k2_rec), \
+            mock.patch.object(qops, "int8_matmul_tn", tn_rec), \
+            mock.patch.object(qops, "conv3x3_fused",
+                              conv_rec("conv3x3_fused")), \
+            mock.patch.object(qops, "conv1x1_fused",
+                              conv_rec("conv1x1_fused")):
+        losses = []
+        for i, w, batch in steps:
+            weight[0] = w
+            losses.append(run(i, batch).item())
+    torch.cuda.synchronize()
+    return losses, (k1, k2, tn, conv)
+
+
+def _tp_rank_r50(data, tp, modules) -> dict:
+    """Leg (a) on one rank: the headline (ResNet-50/224, batch 128,
+    lean-a8) at tp = 2, the one-rank step on the model cut by
+    ``shard_model``: phase resnet50's 3 gate steps (every counter reset
+    just before, each kernel required to launch; their calls recorded,
+    weighted as a step at the bench's cadence: the controllers on in one
+    step of 8), the whole state's digest; then ``TP_R50_TIMED`` timed
+    steps (host ms a step, synced; the model group's collectives by
+    kind; launches a step; peak memory)."""
+    qmod, qops, quant, gemm, fused = modules
+    from lbt_tpu_torch.parallel.mesh import shard_model
+    batches = r50_batches(R50_GATE_STEPS)
+    model = build_resnet50(SEED).to("cuda")
+    specs = shard_model(model, tp)
+    vel, run = make_trainer(model)
+    reset_counters(quant, gemm, fused)
+    losses, calls = record_tp_calls(
+        qmod, qops, quant, gemm, fused, run,
+        [(i, w, b) for i, (w, b) in enumerate(zip((1 / 8, 7 / 16, 7 / 16),
+                                                   batches))])
+    launches = train_counters(quant, gemm, fused)
+    for k, v in launches.items():
+        check(v > 0, f"{k} never launched on the tensor-parallel path")
+    digest = _whole_digest(model, vel, specs, tp)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    kinds0 = {k: list(v) for k, v in tp.by_kind.items()}
+    zero = [0.0, 0, 0]
+    reset_counters(quant, gemm, fused)
+    samples = []
+    for i in range(TP_R50_TIMED):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        run(R50_GATE_STEPS + i, batches[i % len(batches)])
+        torch.cuda.synchronize()
+        samples.append((time.perf_counter() - t0) * 1e3)
+    n = TP_R50_TIMED
+    kinds = {k: {"ms": (v[0] - kinds0.get(k, zero)[0]) * 1e3 / n,
+                 "calls": (v[1] - kinds0.get(k, zero)[1]) / n,
+                 "mb": (v[2] - kinds0.get(k, zero)[2]) / 1e6 / n}
+             for k, v in tp.by_kind.items()}
+    per_step = {k: v / n for k, v in train_counters(quant, gemm,
+                                                   fused).items()}
+    peak = torch.cuda.max_memory_allocated()
+    n_sharded = sum(bool(v) for v in specs.values())
+    return {"losses": losses, "launches": launches, "digest": digest,
+            "samples_ms": samples, "ms_per_step": statistics.median(samples),
+            "collectives_per_step": kinds, "launches_per_step": per_step,
+            "max_memory_gib": peak / 2 ** 30, "calls": calls,
+            "sharded_leaves": n_sharded}
+
+
+def _tp_run(model, data, tp, batches):
+    """``(run, velocity, ebuf)``: ``run(i)`` is step ``i`` of the
+    data-parallel step on the layout with the low-bit all-reduce (psum
+    transport), this data index's rows of ``batches[i % len]``."""
+    from lbt_tpu_torch.config import TrainConfig
+    from lbt_tpu_torch.dfxp.keys import base_key
+    from lbt_tpu_torch.parallel import init_error_buffers, make_dp_train_step
+    from lbt_tpu_torch.train.optim import momentum_init
+    params = dict(model.net.named_parameters())
+    vel, ebuf = momentum_init(params), init_error_buffers(params)
+    step = make_dp_train_step(model, TrainConfig(), data, lowbit_bits=8,
+                              tp=tp)
+    dev, per = model.device, batches[0][0].shape[0] // data.world
+    rows = slice(data.rank * per, (data.rank + 1) * per)
+
+    def run(i):
+        x, y = batches[i % len(batches)]
+        return step(model, vel, ebuf, x[rows].to(dev), y[rows].to(dev), i,
+                    TRAIN_LR, base_key(TRAIN_KEY_SEED))["loss"]
+    return run, vel, ebuf
+
+
+def _tp_rank_r20(data, tp, modules) -> dict:
+    """Leg (b) on one rank: ResNet-20 at dp x tp = 2 x 2, global batch
+    128, the low-bit all-reduce: ``TP_R20_STEPS`` steps through the
+    kernels (counters reset just before, each required to rise), then
+    through the plain versions from the same start; the whole states'
+    digests (ebuf included)."""
+    qmod, qops, quant, gemm, fused = modules
+    from lbt_tpu_torch.parallel.mesh import shard_model
+    batches = train_batches(TP_R20_STEPS)
+    out = {}
+    for route in ("kernel", "plain"):
+        model = build_train_model(SEED).to("cuda")
+        specs = shard_model(model, tp)
+        run, vel, ebuf = _tp_run(model, data, tp, batches)
+        reset_counters(quant, gemm, fused)
+        with (plain_route(qmod, qops, quant, gemm) if route == "plain"
+              else contextlib.nullcontext()):
+            losses = [run(i).item() for i in range(TP_R20_STEPS)]
+        torch.cuda.synchronize()
+        out[route] = {"losses": losses,
+                      "launches": train_counters(quant, gemm, fused),
+                      "digest": _whole_digest(model, vel, specs, tp, ebuf)}
+    for k, v in out["kernel"]["launches"].items():
+        check(v > 0, f"{k} never launched at 2 x 2")
+    check(not any(out["plain"]["launches"].values()),
+          "the plain route launched a kernel")
+    return out
+
+
+def tp_worker(argv) -> int:
+    """One rank of phase tp (``chip_smoke.py --tp-worker STORE RANK WORLD
+    OUT LEG``): joins the world through ``parallel.initialize`` (ranks
+    sharing the card: gloo), cuts it into leg ``r50``'s 1 x 2 or leg
+    ``r20``'s 2 x 2 layout (``parallel.make_groups``), runs the leg and
+    writes its results to OUT."""
+    import pickle
+    store, rank, world, out_path, leg = argv
+    os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
+    qmod, qops, _, gemm, quant = port_modules()
+    from lbt_tpu_torch.ops.kernels import conv_fused
+    from lbt_tpu_torch.parallel import initialize, make_groups
+    world_group = initialize("cuda", init_method=f"file://{store}",
+                             world_size=int(world), rank=int(rank))
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.use_deterministic_algorithms(True)
+    data, tp = make_groups(*{"r50": (1, 2), "r20": (2, 2)}[leg],
+                           device=world_group.device)
+    modules = (qmod, qops, quant, gemm, conv_fused)
+    out = {"backend": tp.backend, "data_index": data.rank,
+           "model_index": tp.rank}
+    out.update((_tp_rank_r50 if leg == "r50" else _tp_rank_r20)(
+        data, tp, modules))
+    with open(out_path, "wb") as f:
+        pickle.dump(out, f)
+    torch.distributed.destroy_process_group()
+    return 0
+
+
+def _tp_ranks(leg: str, world: int):
+    """Start leg ``leg``'s ``world`` rank processes; returns a function
+    that waits for them and gives each rank's results."""
+    import pickle
+    procs = [subprocess.Popen(
+        [sys.executable, str(REPO / "chip_smoke.py"), "--tp-worker",
+         str(TP_DIR / f"store_{leg}"), str(r), str(world),
+         str(TP_DIR / f"{leg}{r}.pkl"), leg], cwd=REPO,
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        for r in range(world)]
+
+    def wait():
+        try:
+            logs = [p.communicate(timeout=600)[0] for p in procs]
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+        for r, p in enumerate(procs):
+            check(p.returncode == 0, f"tp {leg} rank {r} exit "
+                  f"{p.returncode}:\n{logs[r][-3000:]}")
+        out = []
+        for r in range(world):
+            with open(TP_DIR / f"{leg}{r}.pkl", "rb") as f:
+                out.append(pickle.load(f))
+        return out
+    return wait
+
+
+def _tp_cli() -> dict:
+    """Leg (c): the CLI under ``torch.distributed.run`` with 2 ranks on
+    the card, ``--tensor_parallel 2``: 1 epoch of 10 steps and an eval of
+    300, then a second run to 2 epochs that resumes."""
+    exp = TP_DIR / "cli"
+    out = {}
+    for n_epoch in (1, 2):
+        t0 = time.perf_counter()
+        cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone",
+               "--nproc_per_node", "2", "-m", "lbt_tpu_torch.main", *TP_CLI,
+               "--n_epoch", str(n_epoch), "--exp_path", str(exp)]
+        p = subprocess.run(cmd, cwd=REPO, capture_output=True, text=True,
+                           timeout=300)
+        check(p.returncode == 0, f"torchrun exit {p.returncode}: "
+              f"{p.stderr[-3000:]}")
+        out[f"epochs_{n_epoch}_s"] = time.perf_counter() - t0
+    log = (exp / "experiment.log").read_text()
+    rows = _rows(exp / "metrics.jsonl")
+    losses = [r["train/loss"] for r in rows if "train/loss" in r]
+    tests = [r["test/accuracy"] for r in rows if "test/accuracy" in r]
+    check(log.count("Start of experiment") == 2, "rank 0 alone logs")
+    check("column slices" in log, "the run was not tensor parallel")
+    check("Resumed from" in log and "@ step 10" in log,
+          "the second run did not resume at step 10")
+    check(len(losses) == 4 and all(math.isfinite(v) for v in losses),
+          f"logged losses {losses}")
+    check(len(tests) == 2, f"evals logged {tests}")
+    check(sorted(int(d) for d in os.listdir(exp / "ckpt")) == [10, 20],
+          "checkpoints")
+    out.update(losses=losses, test_accuracy=tests)
+    return out
+
+
+def _tp_noise(quant, mode, shape, shared, n_global, col0, row0=0):
+    """:func:`noise_of` for a column slice of ``shape`` at ``col0`` of
+    ``n_global`` columns (the shared draw and the offset the whole
+    tensor's)."""
+    full = (*shape[:-1], n_global)
+    inner = math.prod(full[1:]) if shared else 0
+    offset = (row0 * inner) if shared else row0 * math.prod(full[1:])
+    return quant.Noise(mode, NOISE_K0, NOISE_K1, inner, offset, n_global,
+                       col0)
+
+
+def phase_tp_kernels(quant, gemm, fused, calls, r50_k2_rows) -> dict:
+    """Each kernel's tensor-parallel form at leg (a)'s shapes: K1 at
+    every windowed call (the sharded weights), #4 / #5 at every windowed
+    call (the sharded convs' BN inputs), each against its plain version
+    bitwise at rank 0's window and at the last rank's, the latter at the
+    counter offset of rows ``CHECK_ROW0..``, and timed; K2 at the shapes
+    that a one-rank step does not have (the slices' contractions, the
+    partial dx), as phase K2-train."""
+    from lbt_tpu_torch.ops.im2col import out_hw
+    from lbt_tpu_torch.ops.kernels import work
+    k1_calls, k2_calls, tn_calls, conv_calls = calls
+    gen = torch.Generator().manual_seed(SEED + 8)
+    rate = CARD["issue_per_s"]
+    exp = torch.tensor(1, dtype=torch.int32, device="cuda")
+    out = {}
+    err, rows = 0.0, []
+    for (shape, bits, mode, shared, stats, ng, col0), count in sorted(
+            k1_calls.items()):
+        if not ng:
+            continue
+        x = (torch.randn(shape, generator=gen) * 2).cuda()
+        for c0, row0 in ((col0, 0), (ng - shape[-1], CHECK_ROW0)):
+            noise = _tp_noise(quant, mode, shape, shared, ng, c0, row0)
+            got = quant.quantize_codes(x, bits, exp, noise, True)
+            want = quant.quantize_codes_plain(x, bits, exp, noise, True)
+            torch.cuda.synchronize()
+            err = max(err, max(_max_err(g, w) for g, w in zip(got, want)))
+            check(_equal_outputs(got, want), f"K1 (window) differs from "
+                  f"its plain version at {shape} noise={noise}")
+        noise = _tp_noise(quant, mode, shape, shared, ng, col0)
+        code_bytes = torch.empty((), dtype=quant.code_dtype(bits)) \
+            .element_size()
+        rows.append({"shape": list(shape), "n_global": ng,
+                     "mode": MODE_NAMES[mode], "stats": stats,
+                     "calls": count, **_timings(
+                         lambda x, e, n=noise: quant.quantize_codes(
+                             x, bits, e, n, stats),
+                         lambda x, e, n=noise: quant.quantize_codes_plain(
+                             x, bits, e, n, stats),
+                         (x, exp), x.numel() * (4 + code_bytes),
+                         work.quantize_work(x.numel(), code_bytes, stats,
+                                            mode, rate), reps=FAST_REPS)})
+    out["k1"] = {"max_abs_err": err, **_print_rows(
+        "TP K1 window", rows, lambda r: f"{r['shape']} of {r['n_global']} "
+        f"{r['mode']}{' mm' if r['stats'] else ''}"), "shapes": rows}
+    for kind in ("conv3x3_fused", "conv1x1_fused"):
+        fn = getattr(fused, kind)
+        err, rows = 0.0, []
+        for key, count in sorted(conv_calls.items()):
+            (k, xshape, xdtype, wshape, strides, pads, mode, shared, rbf,
+             ng, col0) = key
+            if k != kind or not ng:
+                continue
+            lim = 256 if xdtype == str(torch.int16) else 128
+            xc = torch.randint(-lim, lim, xshape, generator=gen,
+                               dtype=torch.int16 if lim == 256
+                               else torch.int8).cuda()
+            wc = torch.randint(-128, 128, wshape, generator=gen,
+                               dtype=torch.int8).cuda()
+            inv = torch.tensor([2.0 ** -14], device="cuda")
+            mult = torch.tensor([2.0 ** -2], device="cuda")
+            yshape = (xshape[0], *out_hw(xshape[1], xshape[2], wshape[:2],
+                                         strides, pads), wshape[3])
+            for c0, row0 in ((col0, 0), (ng - wshape[3], CHECK_ROW0)):
+                kw = dict(strides=strides, pads=pads, round_bf16=rbf,
+                          noise=_tp_noise(quant, mode, yshape, shared, ng,
+                                          c0, row0))
+                got = fn(xc, wc, inv, mult, **kw)
+                want = fused.conv_fused_plain(xc, wc, inv, mult, **kw)
+                torch.cuda.synchronize()
+                for g, w in zip(got, want):
+                    err = max(err, _max_err(g, w))
+                    check(g.dtype == w.dtype and torch.equal(g, w),
+                          f"{kind} (window) differs from its plain version "
+                          f"at x {xshape} w {wshape} noise={kw['noise']}")
+            kw = dict(strides=strides, pads=pads, round_bf16=rbf,
+                      noise=_tp_noise(quant, mode, yshape, shared, ng, col0))
+            rows.append({"x": list(xshape), "w": list(wshape),
+                         "n_global": ng, "mode": MODE_NAMES[mode],
+                         "calls": count, **_timings(
+                             lambda x, w, kw=kw: fn(x, w, inv, mult, **kw),
+                             lambda x, w, kw=kw: fused.conv_fused_plain(
+                                 x, w, inv, mult, **kw),
+                             (xc, wc), xc.numel() * xc.element_size()
+                             + math.prod(yshape),
+                             work.conv_fused_work(
+                                 xshape, xc.element_size(), wshape, strides,
+                                 pads, mode, rate),
+                             lib_conv(xc, wc, strides, pads), FAST_REPS)})
+        out[kind] = {"max_abs_err": err, **_print_rows(
+            f"TP {kind} window", rows, lambda r: f"x{r['x']} w{r['w']} of "
+            f"{r['n_global']} {r['mode']}"), "shapes": rows}
+    one_rank = {(r["form"], r["m"], r["k"], r["n"]) for r in r50_k2_rows}
+    out["k2"] = phase_k2_train(
+        gemm, collections.Counter({k: v for k, v in k2_calls.items()
+                                   if ("AB", *k[:3]) not in one_rank}),
+        collections.Counter({k: v for k, v in tn_calls.items()
+                             if ("ATB", k[1], k[0], k[2]) not in one_rank}),
+        R50_K2_REPS, "TP K2")
+    return out
+
+
+def phase_tp(qmod, qops, quant, gemm, fused, r50) -> dict:
+    """Tensor parallelism on the card, the ranks sharing it over gloo:
+    (a) the headline at tp = 2 in 2 rank processes, equal to phase
+    resnet50's one-rank kernel route in every tensor, then timed; (b)
+    ResNet-20 at 2 x 2 with the low-bit all-reduce in 4, kernel route
+    equal to plain route, and (c) the CLI under torchrun with
+    ``--tensor_parallel 2`` and a resume, (b) and (c) side by side; then
+    each kernel's column-window form at (a)'s shapes against its plain
+    version, timed."""
+    t0 = time.perf_counter()
+    shutil.rmtree(TP_DIR, ignore_errors=True)
+    TP_DIR.mkdir(parents=True)
+    torch.cuda.empty_cache()
+    a = _tp_ranks("r50", 2)()
+    check(a[0]["backend"] == "gloo", "2 ranks on one card: gloo")
+    check(a[0]["digest"] == a[1]["digest"] and
+          a[0]["losses"] == a[1]["losses"], "tp (a): the ranks differ")
+    diff = [k for k, v in r50["gate_digest"].items()
+            if a[0]["digest"].get(k) != v]
+    check(set(a[0]["digest"]) == set(r50["gate_digest"]) and not diff,
+          f"tp (a): the tp = 2 steps differ from phase resnet50's one-rank "
+          f"kernel route in {diff[:5]} ({len(diff)} tensors)")
+    check(a[0]["losses"] == r50["losses"],
+          f"tp (a): losses {a[0]['losses']}, one rank {r50['losses']}")
+    print(f"tp (a): the headline at tp = 2 (1 x 2, {a[0]['sharded_leaves']} "
+          f"sharded leaves), {R50_GATE_STEPS} steps equal to phase "
+          f"resnet50's one-rank kernel route in all {len(r50['gate_digest'])}"
+          f" tensors (tolerance 0), ranks equal; losses {a[0]['losses']}; "
+          f"launches {a[0]['launches']}", flush=True)
+    for r, res in enumerate(a):
+        kinds = ", ".join(f"{k} {v['ms']:.1f} ms in {v['calls']:g} calls "
+                          f"of {v['mb']:.1f} MB" for k, v in sorted(
+                              res["collectives_per_step"].items())
+                          if v["calls"])
+        print(f"tp (a) rank {r}: median {res['ms_per_step']:.1f} ms a step "
+              f"(samples {[round(v, 1) for v in res['samples_ms']]}; two "
+              f"ranks sharing one card over gloo: not a scaling number); "
+              f"model-group collectives a step: {kinds}; peak "
+              f"{res['max_memory_gib']:.2f} GiB; launches a step "
+              f"{res['launches_per_step']}", flush=True)
+    torch.cuda.empty_cache()
+    wait_b = _tp_ranks("r20", 4)
+    try:
+        cli = _tp_cli()
+    finally:
+        b = wait_b()
+    for r, res in enumerate(b):
+        check(res["kernel"]["digest"] == res["plain"]["digest"] and
+              res["kernel"]["losses"] == res["plain"]["losses"],
+              f"tp (b) rank {r}: kernel and plain routes differ")
+        twin = b[r ^ 1]  # the other model index of this data index
+        check(twin["kernel"]["digest"] == res["kernel"]["digest"],
+              f"tp (b) rank {r}: the model ranks of one data index differ")
+    print(f"tp (b): ResNet-20 at dp x tp = 2 x 2, 4 ranks, global batch "
+          f"{BATCH}, --lowbit_allreduce, {TP_R20_STEPS} steps: kernel route"
+          f" == plain route on every rank in all "
+          f"{len(b[0]['kernel']['digest'])} tensors (tolerance 0), model "
+          f"ranks equal; losses {b[0]['kernel']['losses']}; rank 0 "
+          f"launches {b[0]['kernel']['launches']}", flush=True)
+    print(f"tp (c): torchrun 2 ranks on the card, --data_parallel "
+          f"--tensor_parallel 2: 1 epoch ({cli['epochs_1_s']:.1f} s), "
+          f"resumed to 2 ({cli['epochs_2_s']:.1f} s); losses "
+          f"{cli['losses']}, test accuracy {cli['test_accuracy']}",
+          flush=True)
+    out = {"r50": a[0], "r50_rank1": {k: v for k, v in a[1].items()
+                                      if k != "calls"},
+           "r20": b[0], "cli": cli}
+    out["kernels"] = phase_tp_kernels(quant, gemm, fused,
+                                      out["r50"].pop("calls"),
+                                      r50["k2"]["shapes"])
+    out["seconds"] = time.perf_counter() - t0
+    print(f"tp: phase took {out['seconds']:.1f} s", flush=True)
+    return out
+
+
 def port_modules():
     """Import every module of the port that this script drives and check
     that none of them loaded JAX, which the card's machine does not have,
@@ -3035,7 +3536,10 @@ def kernel_lines(report) -> list:
     native loader), whose shapes are those of ``resnet50`` and the
     trainer's; ``dp`` rank 0's launches in phase dp (ResNet-20's 4
     counted steps, the headline's a step), at the shapes of half the
-    batch."""
+    batch; ``tp`` rank 0's launches in phase tp leg (a) (the headline at
+    tp = 2: its 3 counted steps, and a timed step's) and each kernel's
+    column-window form at its shapes (K2: the shapes a one-rank step does
+    not have)."""
     k1, k2, fused = report["k1_train"], report["k2_train"], report["fused"]
     launches = report["trainer"]["launches"]
     rec = report["records"]
@@ -3064,6 +3568,18 @@ def kernel_lines(report) -> list:
     def at_r50(t, n, library=True, **extra):
         return {"launches": n, "max_abs_err": t["max_abs_err"],
                 **times(t, library), **extra}
+
+    tp = report["tp"]
+
+    def at_tp(t, kinds, library=True, **extra):
+        """Phase tp leg (a)'s launches on rank 0 (its 3 counted steps, and
+        a timed step's), and the column-window form at its shapes."""
+        return {"launches": sum(tp["r50"]["launches"][k] for k in kinds),
+                "launches_a_step": sum(tp["r50"]["launches_per_step"][k]
+                                       for k in kinds),
+                "max_abs_err": t["max_abs_err"], **times(t, library),
+                **extra}
+    tpk = tp["kernels"]
 
     v = report["vgg16"]
     v_launches = v["launches"]
@@ -3106,7 +3622,8 @@ def kernel_lines(report) -> list:
          "serve_8bit": report["k1"]["library_8bit"],
          "resnet50": at_r50(r50["k1"], r50_launches["k1"], False),
          "vgg16": at_r50(v["k1"], v_launches["k1"], False),
-         "records": at_records("k1"), "dp": at_dp("k1")},
+         "records": at_records("k1"), "dp": at_dp("k1"),
+         "tp": at_tp(tpk["k1"], ("k1",), False)},
         {"name": "k2_int8_gemm", "route": "cuda",
          "source": "lbt_tpu_torch/csrc/int8_gemm.cu",
          "replaces": "lbt_tpu/ops/pallas/quant_kernels.py:187",
@@ -3119,7 +3636,8 @@ def kernel_lines(report) -> list:
                             forms=r50["k2"]["forms"]),
          "vgg16": at_r50(v["k2"], v_launches["k2"] + v_launches["k2_tn"],
                          forms=v["k2"]["forms"]),
-         "records": at_records("k2", "k2_tn"), "dp": at_dp("k2", "k2_tn")},
+         "records": at_records("k2", "k2_tn"), "dp": at_dp("k2", "k2_tn"),
+         "tp": at_tp(tpk["k2"], ("k2", "k2_tn"))},
         {"name": "conv3x3_fused", "route": "cuda",
          "source": "lbt_tpu_torch/csrc/conv_fused.cu",
          "replaces": "lbt_tpu/ops/pallas/conv_kernels.py:170",
@@ -3131,7 +3649,9 @@ def kernel_lines(report) -> list:
                             conv_library_ms=r3["lib_ms"]),
          "vgg16": at_r50(v3, v_launches["conv3x3"], False,
                          conv_library_ms=v3["lib_ms"]),
-         "records": at_records("conv3x3"), "dp": at_dp("conv3x3")},
+         "records": at_records("conv3x3"), "dp": at_dp("conv3x3"),
+         "tp": at_tp(tpk["conv3x3_fused"], ("conv3x3",), False,
+                     conv_library_ms=tpk["conv3x3_fused"]["lib_ms"])},
         {"name": "conv1x1_fused", "route": "cuda",
          "source": "lbt_tpu_torch/csrc/conv_fused.cu",
          "replaces": "lbt_tpu/ops/pallas/conv1x1_kernels.py:146",
@@ -3140,7 +3660,9 @@ def kernel_lines(report) -> list:
          **times(c1, library=False), "conv_library_ms": c1["lib_ms"],
          "resnet50": at_r50(r1, r50_launches["conv1x1"], False,
                             conv_library_ms=r1["lib_ms"]),
-         "records": at_records("conv1x1"), "dp": at_dp("conv1x1")},
+         "records": at_records("conv1x1"), "dp": at_dp("conv1x1"),
+         "tp": at_tp(tpk["conv1x1_fused"], ("conv1x1",), False,
+                     conv_library_ms=tpk["conv1x1_fused"]["lib_ms"])},
     ]
 
 
@@ -3213,6 +3735,8 @@ def main(argv=None) -> int:
     phase("records", phase_records, quant, gemm, conv_fused,
           report["resnet50"]["ms_per_step"])
     phase("dp", phase_dp, qmod, qops, quant, gemm, conv_fused)
+    phase("tp", phase_tp, qmod, qops, quant, gemm, conv_fused,
+          report["resnet50"])
 
     PHASE[0] = "report"
     kernels = kernel_lines(report)
@@ -3236,6 +3760,8 @@ def run() -> int:
     faulthandler.enable()
     if sys.argv[1:2] == ["--dp-worker"]:
         return dp_worker(sys.argv[2:])
+    if sys.argv[1:2] == ["--tp-worker"]:
+        return tp_worker(sys.argv[2:])
     try:
         return main()
     except Exception as e:  # noqa: BLE001 -- reported, then exit 1

@@ -11,12 +11,16 @@ K1 of a version that had one beside this checkout's CUDA K1.
         [lbt_tpu_torch/ops/kernels/quant_triton.py] \\
         | tar -x -C lbt_tpu_torch/_build/old
     python3 compare_csrc.py lbt_tpu_torch/_build/old/lbt_tpu_torch/csrc \\
-        [--pre-threefry | --pre-offset] [--resnet50] [--kernels k1,fused] \\
+        [--pre-threefry | --pre-offset | --pre-window] [--resnet50] \\
+        [--kernels k1,fused] \\
         [--old-k1 lbt_tpu_torch/_build/old/lbt_tpu_torch/ops/kernels/quant_triton.py] \\
         [--out chiprun_out/compare.json]
 
 The other sources must keep the C interface of ``ops/kernels/build.py``,
-or with ``--pre-offset`` the one before the noise counter's offset was
+or with ``--pre-window`` the one before the noise counter's column window
+was added (1dd7f99 and older: K1 and #4/#5 took no window; every call
+here has none), or with ``--pre-offset`` the one before the noise
+counter's offset was
 added (6563fe7 and older: K1 and #4/#5 took no offset; every call here
 has offset 0), or with ``--pre-threefry`` the one before threefry noise
 was added (K1 took a seed and a mode, #4/#5 a seed and two flags): then
@@ -62,6 +66,64 @@ def _no_offset(offset):
                          "offset 0 only")
 
 
+def _no_window_k1(a):
+    """K1's arguments without the column window ``(cols, n_global,
+    col0)``, which must be off."""
+    if a[15]:
+        raise ValueError("sources from before the column window draw "
+                         "without one only")
+    return a[:14] + a[17:]
+
+
+def _no_window_conv(a):
+    """#4/#5's arguments without the column window ``(n_global, col0)``,
+    which must be off."""
+    if a[12]:
+        raise ValueError("sources from before the column window draw "
+                         "without one only")
+    return a[:12] + a[14:]
+
+
+def _pre_window(build, csrc: Path) -> dict:
+    """The K1 and #4/#5 libraries of ``csrc``, sources from before the
+    noise counter's column window, behind this checkout's C interface
+    (their entry points take no window; one that is on raises)."""
+    k1_lib = ctypes.CDLL(str(build.build_library(
+        "quantize", ["quantize.cu"], csrc=csrc)))
+    fn = k1_lib["lbt_quantize"]
+    fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
+                   ctypes.c_ulonglong, ctypes.c_void_p, ctypes.c_void_p,
+                   ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
+                   ctypes.c_int, ctypes.c_uint32, ctypes.c_uint32,
+                   ctypes.c_uint32, ctypes.c_uint32, ctypes.c_int,
+                   ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+
+    def lbt_quantize(*a, fn=fn):
+        return fn(*_no_window_k1(a))
+
+    conv_lib = ctypes.CDLL(str(build.build_library(
+        "conv_fused", ["conv_fused.cu"], csrc=csrc)))
+    entries = {}
+    for name in ("lbt_conv3x3_fused", "lbt_conv1x1_fused"):
+        fn = conv_lib[name]
+        fn.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p,
+                       ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+                       ctypes.c_void_p, ctypes.c_void_p, ctypes.c_uint32,
+                       ctypes.c_uint32, ctypes.c_uint32, ctypes.c_uint32,
+                       ctypes.c_int, ctypes.c_int, ctypes.c_int,
+                       ctypes.POINTER(ctypes.c_int), ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+
+        def entry(*a, fn=fn):
+            return fn(*_no_window_conv(a))
+
+        entries[name] = staticmethod(entry)
+    return {"quantize_library": type("K1", (), {
+                "lbt_quantize": staticmethod(lbt_quantize)}),
+            "conv_fused_library": type("Fused", (), entries)}
+
+
 def _pre_offset(build, csrc: Path) -> dict:
     """The K1 and #4/#5 libraries of ``csrc``, sources from before the
     noise counter's offset, behind this checkout's C interface (their
@@ -77,7 +139,7 @@ def _pre_offset(build, csrc: Path) -> dict:
     fn.restype = ctypes.c_int
 
     def lbt_quantize(*a, fn=fn):
-        *head, offset, mode, stream = a
+        *head, offset, mode, stream = _no_window_k1(a)
         _no_offset(offset)
         return fn(*head, mode, stream)
 
@@ -95,6 +157,7 @@ def _pre_offset(build, csrc: Path) -> dict:
         fn.restype = ctypes.c_int
 
         def entry(*a, fn=fn):
+            a = _no_window_conv(a)
             _no_offset(a[11])
             return fn(*a[:11], *a[12:])
 
@@ -127,7 +190,7 @@ def _pre_threefry(build, csrc: Path) -> dict:
     fn.restype = ctypes.c_int
 
     def lbt_quantize(*a, fn=fn):
-        *head, seed, k1, inner, offset, mode, stream = a
+        *head, seed, k1, inner, offset, mode, stream = _no_window_k1(a)
         unshared_hash(k1, inner, mode)
         _no_offset(offset)
         return fn(*head, seed, mode, stream)
@@ -148,6 +211,7 @@ def _pre_threefry(build, csrc: Path) -> dict:
         fn.restype = ctypes.c_int
 
         def entry(*a, fn=fn):
+            a = _no_window_conv(a)
             (k0, k1, inner, offset, mode), tail = a[8:13], a[13:]
             unshared_hash(k1, inner, mode)
             _no_offset(offset)
@@ -319,6 +383,9 @@ def main(argv=None) -> int:
     ap.add_argument("--pre-threefry", action="store_true",
                     help="the other sources have the C interface from "
                          "before threefry noise")
+    ap.add_argument("--pre-window", action="store_true",
+                    help="the other sources have the C interface from "
+                         "before the noise counter's column window")
     ap.add_argument("--pre-offset", action="store_true",
                     help="the other sources have the C interface from "
                          "before the noise counter's offset")
@@ -343,6 +410,8 @@ def main(argv=None) -> int:
         old_libs.update(_pre_threefry(build, csrc))
     elif args.pre_offset:
         old_libs.update(_pre_offset(build, csrc))
+    elif args.pre_window:
+        old_libs.update(_pre_window(build, csrc))
     else:
         old_libs["conv_fused_library"] = build.conv_fused_library(csrc)
         if (csrc / "quantize.cu").exists():

@@ -17,7 +17,9 @@
 // The noise u is one of lbt_tpu's streams (dfxp.cuh) at the flat NHWC
 // output index plus offset (the codes' place in a larger batch's draw;
 // modulo inner for a draw shared along axis 0, offset then a multiple of
-// inner and so of no effect): its counter
+// inner and so of no effect), the index taken in rows n_global wide with
+// this call's Cout at columns col0.. (a tensor-parallel rank's slice of
+// the output channels; n_global = Cout and col0 = 0 otherwise): its counter
 // hash (lowbias32, or one multiply-xorshift round for hash1) xor the BN
 // site's seed, or jax.random.uniform's threefry under the site's key.  So
 // the codes equal lbt_tpu's quantize_int(conv(x, w), backend='xla_hash' /
@@ -25,8 +27,10 @@
 // adds at least 69 integer instructions an output element to the
 // epilogue; its kernels are template instances of their own (TF), since
 // inlined beside the hash it cost the other modes registers and spills
-// (#4 and #5 took 6-11% longer at ResNet-50's shapes).  A shared draw
-// costs an unshared one a subtraction an element.
+// (#4 and #5 took 6-11% longer at ResNet-50's shapes).  The counter is a
+// base for each pixel, formed once a pixel (the shared draw's modulo, the
+// offset, the column window's row width and first column), plus the
+// channel: an addition an element.
 //
 // Widened past the TPU kernels' asserts (C, K multiples of 128, stride 1)
 // to every conv -> BN of ResNet-20 and ResNet-50: Cin = 3..2048, Cout =
@@ -123,6 +127,7 @@ struct Args {
   int mode, round_bf16, vec;     // mode 0 rounds half to even
   float limit;
   unsigned int offset;  // the counter's offset (0 when shared)
+  unsigned int ng, col0;  // the counter's row width and first column
 };
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
@@ -391,13 +396,15 @@ __global__ void __launch_bounds__(kThreads) conv_fused_kernel(Args p) {
   for (int h = 0; h < 2; ++h) {
     const int64_t pix = pix0 + warp * 16 + g + 8 * h;
     if (pix >= npix) continue;
-    // the noise's counter is idx - coff: idx + offset (coff = -offset,
-    // mod 2^32), or with a draw shared along axis 0 idx % inner, which is
-    // idx less the first index of pix's image (inner = ho*wo*cout; offset
-    // 0); the test, the division and the offset run once a pixel
-    const unsigned int coff =
-        p.inner ? static_cast<unsigned int>(pix / (p.ho * p.wo)) * p.inner
-                : 0u - p.offset;
+    // the noise's counter is cbase + k: pix * ng + col0 + k + offset, or
+    // with a draw shared along axis 0 (pix % (ho*wo)) * ng + col0 + k, the
+    // index in pix's image (inner = ho*wo*ng; offset 0); ng = cout and
+    // col0 = 0 but in a column slice.  The test, the modulo and the
+    // multiply-add run once a pixel
+    const unsigned int cbase =
+        static_cast<unsigned int>(p.inner ? pix % (p.ho * p.wo) : pix) *
+            p.ng +
+        p.col0 + (p.inner ? 0u : p.offset);
 #pragma unroll
     for (int j = 0; j < CT / 8; ++j) {
 #pragma unroll
@@ -412,7 +419,7 @@ __global__ void __launch_bounds__(kThreads) conv_fused_kernel(Args p) {
         const int64_t idx = pix * p.cout + k;
         float v;
         if (p.mode) {
-          const unsigned int c = static_cast<unsigned int>(idx) - coff;
+          const unsigned int c = cbase + static_cast<unsigned int>(k);
           const float u = TF ? threefry_uniform(p.k0, p.k1, c)
                              : hash_uniform(c, p.k0, p.mode == 2);
           v = floorf(fminf(fmaxf(__fadd_rn(scaled, u), -p.limit),
@@ -521,7 +528,8 @@ template <int KH, int KW>
 int entry(const void* x, int x_int16, const void* w, void* codes,
           void* moments, void* minmax, const void* inv_scale,
           const void* mult, unsigned int k0, unsigned int k1,
-          unsigned int inner, unsigned int offset, int mode, int round_bf16,
+          unsigned int inner, unsigned int offset, unsigned int n_global,
+          unsigned int col0, int mode, int round_bf16,
           int bits_out, const int* dims, void* stream) {
   // dims: b, h, w, cin, ho, wo, cout, sh, sw, ph, pw
   Args a;
@@ -539,15 +547,19 @@ int entry(const void* x, int x_int16, const void* w, void* codes,
   a.k1 = k1;
   a.inner = inner;
   a.offset = offset;
+  a.ng = n_global ? n_global : static_cast<unsigned int>(a.cout);
+  a.col0 = n_global ? col0 : 0u;
   a.mode = mode;
   a.round_bf16 = round_bf16;
   a.vec = a.cin % 16 == 0 && reinterpret_cast<uintptr_t>(x) % 16 == 0;
   if (a.b < 1 || a.ho < 1 || a.wo < 1 || a.cin < 1 || a.cout < 1 ||
       bits_out < 1 || bits_out > 8 || mode < 0 || mode > 3 ||
+      static_cast<int64_t>(a.col0) + a.cout > static_cast<int64_t>(a.ng) ||
       (inner != 0 &&
        (offset != 0 || static_cast<int64_t>(inner) !=
-                           static_cast<int64_t>(a.ho) * a.wo * a.cout)) ||
-      static_cast<int64_t>(a.b) * a.ho * a.wo * a.cout + offset >
+                           static_cast<int64_t>(a.ho) * a.wo * a.ng)) ||
+      (static_cast<int64_t>(a.b) * a.ho * a.wo - 1) * a.ng + a.col0 +
+              a.cout + offset >
           (1ll << 32) ||
       static_cast<int64_t>(a.b) * a.ho * a.wo > INT32_MAX)
     return static_cast<int>(cudaErrorInvalidValue);
@@ -572,20 +584,23 @@ int entry(const void* x, int x_int16, const void* w, void* codes,
 // out; inv_scale, mult: one float each on the device; mode 0 rounds half
 // to even, 1-3 stochastically (hash, hash1, threefry; dfxp.cuh) with the
 // key words k0 (the hashes' seed) and k1, at the counter idx + offset, or
-// idx % inner when inner > 0 (which must then be ho*wo*cout, with offset
-// 0); round_bf16 != 0 rounds the conv output to bfloat16 before
-// min/max and the quantize.  One launch; returns cudaGetLastError() after
+// idx % inner when inner > 0 (which must then be ho*wo*n_global, with
+// offset 0), idx the flat NHWC index with rows n_global wide and this
+// call's channels at columns col0.. (n_global = 0: rows cout wide, col0
+// 0); round_bf16 != 0 rounds the conv output to bfloat16 before min/max
+// and the quantize.  One launch; returns cudaGetLastError() after
 // it.
 extern "C" int lbt_conv3x3_fused(const void* x, int x_int16, const void* w,
                                  void* codes, void* moments, void* minmax,
                                  const void* inv_scale, const void* mult,
                                  unsigned int k0, unsigned int k1,
                                  unsigned int inner, unsigned int offset,
+                                 unsigned int n_global, unsigned int col0,
                                  int mode, int round_bf16, int bits_out,
                                  const int* dims, void* stream) {
   return entry<3, 3>(x, x_int16, w, codes, moments, minmax, inv_scale, mult,
-                     k0, k1, inner, offset, mode, round_bf16, bits_out, dims,
-                     stream);
+                     k0, k1, inner, offset, n_global, col0, mode, round_bf16,
+                     bits_out, dims, stream);
 }
 
 extern "C" int lbt_conv1x1_fused(const void* x, int x_int16, const void* w,
@@ -593,9 +608,10 @@ extern "C" int lbt_conv1x1_fused(const void* x, int x_int16, const void* w,
                                  const void* inv_scale, const void* mult,
                                  unsigned int k0, unsigned int k1,
                                  unsigned int inner, unsigned int offset,
+                                 unsigned int n_global, unsigned int col0,
                                  int mode, int round_bf16, int bits_out,
                                  const int* dims, void* stream) {
   return entry<1, 1>(x, x_int16, w, codes, moments, minmax, inv_scale, mult,
-                     k0, k1, inner, offset, mode, round_bf16, bits_out, dims,
-                     stream);
+                     k0, k1, inner, offset, n_global, col0, mode, round_bf16,
+                     bits_out, dims, stream);
 }

@@ -69,12 +69,18 @@ __device__ __forceinline__ float threefry_uniform(unsigned int k0,
 // prod(shape[1:])) (i + offset) % inner.  offset places a slice of rows
 // in a larger tensor's draw: a rank that evaluates rows row0.. of a
 // global batch draws at row0 * inner + i, as the global tensor would
-// (0 otherwise).  SHARED is a compile-time choice, so an unshared draw
-// pays nothing for it.  Counters stay below 2^32 in every caller.
-template <bool SHARED>
-__device__ __forceinline__ unsigned int noise_index(unsigned int i,
-                                                    unsigned int inner,
-                                                    unsigned int offset) {
+// (0 otherwise).  WINDOW places a slice of columns: the tensor is read as
+// rows of cols elements, columns col0.. of rows cols + gap wide, so
+// element (r, j) first takes the counter r * (cols + gap) + col0 + j, the
+// place its element has in the whole tensor (a tensor-parallel rank's
+// slice of a weight).  SHARED and WINDOW are compile-time choices, so a
+// draw without them pays nothing for them.  Counters stay below 2^32 in
+// every caller.
+template <bool SHARED, bool WINDOW = false>
+__device__ __forceinline__ unsigned int noise_index(
+    unsigned int i, unsigned int inner, unsigned int offset,
+    unsigned int cols = 1u, unsigned int gap = 0u, unsigned int col0 = 0u) {
+  if (WINDOW) i += (i / cols) * gap + col0;
   return SHARED ? (i + offset) % inner : i + offset;
 }
 

@@ -12,8 +12,11 @@
 // The noise u_i is one of lbt_tpu's three streams, drawn at the counter
 // c_i = i + offset (or (i + offset) % inner for a draw shared along axis
 // 0, inner = prod(shape[1:]); offset places the tensor's rows in a larger
-// batch's draw, 0 unless a rank evaluates a slice of rows): its counter hash (lowbias32, or one multiply-xorshift
-// round for hash1) of c_i ^ seed, the top 24 bits times 2^-24; or
+// batch's draw, 0 unless a rank evaluates a slice of rows; with a column
+// window, i first becomes r * n_global + col0 + j for element (r, j) of x
+// read as rows of cols, its place in the whole tensor of which x is the
+// columns col0.. of a tensor-parallel rank): its counter hash (lowbias32,
+// or one multiply-xorshift round for hash1) of c_i ^ seed, the top 24 bits times 2^-24; or
 // jax.random.uniform's threefry (mode 3: Threefry-2x32 of the counter
 // (0, c_i) under the site key (seed, k1), the two words xored, 23 bits of
 // mantissa).  All in 32-bit integer lanes, so the codes equal lbt_tpu's
@@ -35,8 +38,9 @@
 // an element: at the SMs' issue rate (4 warp instructions an SM a clock)
 // that is more than the bytes' time, so mode 3 is bound by operations.
 // Each mode, and each with its draw shared along axis 0 (a modulo an
-// element), is a template instance of its own, so modes 0-2 unshared
-// compile as they did before threefry.
+// element) or a column window (a division an element), is a template
+// instance of its own, so modes 0-2 unshared and unwindowed compile as
+// they did before threefry.
 // The design:
 //   * 256 threads a block, each with two float4 loads in flight before
 //     any arithmetic (32 registers, so 8 blocks fit an SM and its warps
@@ -105,6 +109,9 @@ struct Args {
   unsigned int k1;     // threefry's second key word
   unsigned int inner;  // the counter is i % inner in a SHARED instance
   unsigned int offset;  // added to i before that
+  // the column window (a WINDOW instance): i becomes i + (i / cols) * gap
+  // + col0 first, gap = n_global - cols
+  unsigned int cols, gap, col0;
   int bits;
   int vec;       // x 16-byte and codes 4-code aligned
   float lo, hi;  // -L and L-1, as the plain version's f32 clamp bounds
@@ -138,11 +145,12 @@ __device__ __forceinline__ float mult_of(int exp, int bits) {
 }
 
 // MODE 0: round half to even; 1: floor(+hash); 2: floor(+hash1);
-// 3: floor(+threefry); SHARED: the noise at i % inner.  Codes
+// 3: floor(+threefry); SHARED: the noise at i % inner; WINDOW: at the
+// element's index in the whole tensor of a column slice.  Codes
 // of at most 16 bits (|v| <= 2^15) round by the magic-number addition in
 // round-to-nearest or round-down mode, on the FP32 pipe; int32 codes
 // through the conversion unit.
-template <typename T, int MODE, bool SHARED>
+template <typename T, int MODE, bool SHARED, bool WINDOW>
 __device__ __forceinline__ T code_of(float scaled, unsigned int idx,
                                      const Args& p) {
   float v;
@@ -152,8 +160,11 @@ __device__ __forceinline__ T code_of(float scaled, unsigned int idx,
     return static_cast<T>(__float_as_int(__fadd_rn(v, kMagic)) -
                           __float_as_int(kMagic));
   }
-  const float u = noise_uniform(MODE, noise_index<SHARED>(idx, p.inner, p.offset),
-                                p.seed, p.k1);
+  const float u = noise_uniform(
+      MODE,
+      noise_index<SHARED, WINDOW>(idx, p.inner, p.offset, p.cols, p.gap,
+                                  p.col0),
+      p.seed, p.k1);
   v = fminf(fmaxf(__fadd_rn(scaled, u), p.lo), p.hi);
   if (sizeof(T) == 4) return static_cast<T>(__float2int_rd(v));
   return static_cast<T>(__float_as_int(__fadd_rd(v, kMagic)) -
@@ -237,7 +248,7 @@ __device__ __forceinline__ void finish_minmax(unsigned int ticket,
   *p.ticket = 0u;
 }
 
-template <typename T, int MODE, bool SHARED, bool STATS>
+template <typename T, int MODE, bool SHARED, bool WINDOW, bool STATS>
 __global__ void __launch_bounds__(kThreads) k1_quantize_kernel(Args p) {
   float lo = __uint_as_float(0x7F800000u);  // +inf
   float hi = __uint_as_float(0xFF800000u);  // -inf
@@ -258,7 +269,8 @@ __global__ void __launch_bounds__(kThreads) k1_quantize_kernel(Args p) {
       lo = fminf(lo, s);
       hi = fmaxf(hi, s);
     }
-    out[i] = code_of<T, MODE, SHARED>(s, static_cast<unsigned int>(i), p);
+    out[i] = code_of<T, MODE, SHARED, WINDOW>(
+        s, static_cast<unsigned int>(i), p);
   }
 
   // the vector loop; the block's last pass draws the min/max ticket
@@ -298,10 +310,10 @@ __global__ void __launch_bounds__(kThreads) k1_quantize_kernel(Args p) {
       const unsigned int k = b + j * kThreads;
       if (k >= nvec) break;
       V c;
-      c.x = code_of<T, MODE, SHARED>(v[j].x, 4 * k, p);
-      c.y = code_of<T, MODE, SHARED>(v[j].y, 4 * k + 1, p);
-      c.z = code_of<T, MODE, SHARED>(v[j].z, 4 * k + 2, p);
-      c.w = code_of<T, MODE, SHARED>(v[j].w, 4 * k + 3, p);
+      c.x = code_of<T, MODE, SHARED, WINDOW>(v[j].x, 4 * k, p);
+      c.y = code_of<T, MODE, SHARED, WINDOW>(v[j].y, 4 * k + 1, p);
+      c.z = code_of<T, MODE, SHARED, WINDOW>(v[j].z, 4 * k + 2, p);
+      c.w = code_of<T, MODE, SHARED, WINDOW>(v[j].w, 4 * k + 3, p);
       o4[k] = c;
     }
   }
@@ -313,32 +325,40 @@ __global__ void __launch_bounds__(kThreads) k1_quantize_kernel(Args p) {
   }
 }
 
-template <typename T, int MODE, bool SHARED>
+template <typename T, int MODE, bool SHARED, bool WINDOW>
 cudaError_t launch_mode(const Args& a, bool stats, int grid,
                         cudaStream_t stream) {
   if (stats)
-    k1_quantize_kernel<T, MODE, SHARED, true>
+    k1_quantize_kernel<T, MODE, SHARED, WINDOW, true>
         <<<grid, kThreads, 0, stream>>>(a);
   else
-    k1_quantize_kernel<T, MODE, SHARED, false>
+    k1_quantize_kernel<T, MODE, SHARED, WINDOW, false>
         <<<grid, kThreads, 0, stream>>>(a);
   return cudaGetLastError();
 }
 
+template <typename T, int MODE, bool WINDOW>
+cudaError_t launch_shared(const Args& a, bool stats, int grid,
+                          cudaStream_t stream) {
+  return a.inner
+             ? launch_mode<T, MODE, true, WINDOW>(a, stats, grid, stream)
+             : launch_mode<T, MODE, false, WINDOW>(a, stats, grid, stream);
+}
+
 template <typename T, int MODE>
-cudaError_t launch_noise(const Args& a, bool stats, int grid,
+cudaError_t launch_noise(const Args& a, bool window, bool stats, int grid,
                          cudaStream_t stream) {
-  return a.inner ? launch_mode<T, MODE, true>(a, stats, grid, stream)
-                 : launch_mode<T, MODE, false>(a, stats, grid, stream);
+  return window ? launch_shared<T, MODE, true>(a, stats, grid, stream)
+                : launch_shared<T, MODE, false>(a, stats, grid, stream);
 }
 
 template <typename T>
-cudaError_t launch(const Args& a, int mode, bool stats, int grid,
-                   cudaStream_t stream) {
-  if (mode == 1) return launch_noise<T, 1>(a, stats, grid, stream);
-  if (mode == 2) return launch_noise<T, 2>(a, stats, grid, stream);
-  if (mode == 3) return launch_noise<T, 3>(a, stats, grid, stream);
-  return launch_mode<T, 0, false>(a, stats, grid, stream);
+cudaError_t launch(const Args& a, int mode, bool window, bool stats,
+                   int grid, cudaStream_t stream) {
+  if (mode == 1) return launch_noise<T, 1>(a, window, stats, grid, stream);
+  if (mode == 2) return launch_noise<T, 2>(a, window, stats, grid, stream);
+  if (mode == 3) return launch_noise<T, 3>(a, window, stats, grid, stream);
+  return launch_mode<T, 0, false, false>(a, stats, grid, stream);
 }
 
 }  // namespace
@@ -352,18 +372,35 @@ cudaError_t launch(const Args& a, int mode, bool stats, int grid,
 // stochastically with the hash and hash1 noise of seed, 3 with the
 // threefry uniforms of the key (seed, k1); the noise of element i is drawn
 // at the counter i + offset, or (i + offset) % inner when inner > 0
-// (offset + n <= 2^32).  One launch of at most max_blocks blocks on
-// stream; returns cudaGetLastError() after it.
+// (offset + n <= 2^32); n_global > 0 places x, read as rows of cols
+// elements, at columns col0.. of rows n_global wide: i is first r *
+// n_global + col0 + j for element (r, j), as the whole tensor's draw
+// (n_global = 0: no window; the last counter must stay below 2^32).  One
+// launch of at most max_blocks blocks on stream; returns
+// cudaGetLastError() after it.
 extern "C" int lbt_quantize(const void* x, void* codes, int code_bytes,
                             unsigned long long n, const void* exp,
                             void* mult, void* minmax, void* scratch,
                             int max_blocks, int bits, unsigned int seed,
                             unsigned int k1, unsigned int inner,
-                            unsigned int offset, int mode, void* stream) {
+                            unsigned int offset, unsigned int cols,
+                            unsigned int n_global, unsigned int col0,
+                            int mode, void* stream) {
   const int want_bytes = bits <= 8 ? 1 : (bits <= 16 ? 2 : 4);
+  const bool window = n_global != 0 && mode != 0;
+  // one past the last counter: n + offset, or with the window that of the
+  // last row's last column, (rows - 1) * n_global + col0 + cols + offset
+  const unsigned long long end =
+      !window || n == 0 || cols == 0
+          ? n + offset
+          : (n / cols - 1) * static_cast<unsigned long long>(n_global) +
+                col0 + cols + offset;
   if (bits < 1 || bits > 31 || code_bytes != want_bytes || mode < 0 ||
       mode > 3 || max_blocks < 1 || n >= (1ull << 32) ||
-      n + offset > (1ull << 32) ||
+      end > (1ull << 32) ||
+      (window && (cols == 0 || n % cols != 0 ||
+                  static_cast<unsigned long long>(col0) + cols >
+                      n_global)) ||
       (minmax != nullptr && (scratch == nullptr || n == 0)))
     return static_cast<int>(cudaErrorInvalidValue);
   Args a;
@@ -379,6 +416,9 @@ extern "C" int lbt_quantize(const void* x, void* codes, int code_bytes,
   a.k1 = k1;
   a.inner = inner;
   a.offset = offset;
+  a.cols = window ? cols : 1u;
+  a.gap = window ? n_global - cols : 0u;
+  a.col0 = window ? col0 : 0u;
   a.bits = bits;
   a.vec = reinterpret_cast<uintptr_t>(x) % 16 == 0 &&
           reinterpret_cast<uintptr_t>(codes) % (4 * code_bytes) == 0;
@@ -400,10 +440,10 @@ extern "C" int lbt_quantize(const void* x, void* codes, int code_bytes,
   auto st = static_cast<cudaStream_t>(stream);
   cudaError_t err;
   if (code_bytes == 1)
-    err = launch<int8_t>(a, mode, stats, grid, st);
+    err = launch<int8_t>(a, mode, window, stats, grid, st);
   else if (code_bytes == 2)
-    err = launch<int16_t>(a, mode, stats, grid, st);
+    err = launch<int16_t>(a, mode, window, stats, grid, st);
   else
-    err = launch<int32_t>(a, mode, stats, grid, st);
+    err = launch<int32_t>(a, mode, window, stats, grid, st);
   return static_cast<int>(err);
 }

@@ -25,7 +25,7 @@ and statistics stay device tensors: a controller step needs no host sync.
 from __future__ import annotations
 
 import math
-from typing import Optional, Sequence
+from typing import Optional, Sequence, Tuple
 
 import torch
 
@@ -34,8 +34,9 @@ from lbt_tpu_torch.ops.kernels.quant import (HASH, HASH1, THREEFRY, Exp,
                                              hash_uniform_flat, multiplier,
                                              quantize_codes)
 
-__all__ = ["EXP_MIN", "Noise", "code_dtype", "dequantize", "hash_uniform",
-           "key_seed", "multiplier", "noise_spec", "overflow_indicators",
+__all__ = ["EXP_MIN", "Noise", "code_dtype", "counts_to_rates",
+           "dequantize", "hash_uniform", "key_seed", "multiplier",
+           "noise_spec", "overflow_counts", "overflow_indicators",
            "overflow_rates", "overflow_stats", "quantize", "quantize_int",
            "quantize_ste", "straight_through", "update_exponent"]
 
@@ -69,7 +70,8 @@ def hash_uniform(key: KeyData, shape, light: bool = False,
 
 def noise_spec(key: Optional[KeyData], stochastic: bool, backend: str,
                shape: Sequence[int], shared_axis0: bool = False,
-               row0: int = 0) -> Optional[Noise]:
+               row0: int = 0,
+               window: Optional[Tuple[int, int]] = None) -> Optional[Noise]:
     """The :class:`Noise` of a quantize site of ``shape``, or None to
     round to nearest.  ``backend`` is ``lbt_tpu``'s: ``'xla'`` draws
     ``jax.random.uniform``'s threefry under the key, ``'xla_hash'`` /
@@ -81,7 +83,12 @@ def noise_spec(key: Optional[KeyData], stochastic: bool, backend: str,
     ``row0 * prod(shape[1:])`` (a whole number of shared draws, so a
     shared draw is unchanged).  A data-parallel eval rank passes its
     first row (``Ctx.row0``), as ``lbt_tpu``'s GSPMD eval draws over the
-    global batch; weights and training steps draw at 0."""
+    global batch; weights and training steps draw at 0.  ``window``
+    ``(col0, n_global)`` says that the tensor is columns ``col0..`` of a
+    tensor ``n_global`` wide along its last dim (a tensor-parallel rank's
+    slice, ``parallel/mesh.py``) and draws them where that tensor would:
+    the shared draw, the row offset and every counter are the whole
+    tensor's."""
     if not stochastic:
         return None
     if key is None:
@@ -90,12 +97,17 @@ def noise_spec(key: Optional[KeyData], stochastic: bool, backend: str,
         raise ValueError(f"unknown quantize backend {backend!r}; the port "
                          f"draws noise for {sorted(_BACKEND_MODES)}")
     mode = _BACKEND_MODES[backend]
+    col0, n_global = window or (0, 0)
+    if window is not None and (col0, n_global) == (0, shape[-1]):
+        n_global = 0  # the whole tensor: no window
+    if n_global:
+        shape = (*shape[:-1], n_global)
     inner = math.prod(shape[1:]) if shared_axis0 and len(shape) else 0
     offset = 0 if inner else row0 * math.prod(shape[1:])
     k0, k1 = (int(v) & 0xFFFFFFFF for v in key)
     if mode == THREEFRY:
-        return Noise(mode, k0, k1, inner, offset)
-    return Noise(mode, key_seed(key), 0, inner, offset)
+        return Noise(mode, k0, k1, inner, offset, n_global, col0)
+    return Noise(mode, key_seed(key), 0, inner, offset, n_global, col0)
 
 
 def quantize_int(
@@ -109,6 +121,7 @@ def quantize_int(
     noise_shared_axis0: bool = False,
     stats: bool = False,
     row0: int = 0,
+    window: Optional[Tuple[int, int]] = None,
 ):
     """Quantize to integer codes: ``(codes, multiplier)`` with
     ``dequantized = codes / multiplier`` and codes in :func:`code_dtype`.
@@ -119,11 +132,12 @@ def quantize_int(
     ``noise_shared_axis0``.  ``bits`` must be < 32.  ``stats=True``
     returns ``(codes, multiplier, minmax)``, ``minmax`` the f32 ``[min,
     max]`` of ``x * multiplier`` from the same K1 pass.  ``row0`` places
-    ``x``'s rows in a larger batch's noise (:func:`noise_spec`)."""
+    ``x``'s rows in a larger batch's noise, ``window`` its columns in a
+    wider tensor's (:func:`noise_spec`)."""
     if bits >= 32:
         raise ValueError("quantize_int needs bits < 32")
     noise = noise_spec(key, stochastic, backend, x.shape, noise_shared_axis0,
-                       row0)
+                       row0, window)
     x = x.to(torch.float32).contiguous()
     return quantize_codes(x, bits, exp, noise, stats=stats)
 
@@ -209,17 +223,29 @@ def quantize_ste(
 # ---------------------------------------------------------------------------
 
 
-def overflow_rates(x: torch.Tensor, bits: int, exp: Exp) -> torch.Tensor:
-    """``[overflow(x), overflow(2x)]``: the fractions of elements whose
-    ``x * multiplier`` clips at the full and at half range (f32 ``(2,)``)."""
+def overflow_counts(x: torch.Tensor, bits: int, exp: Exp) -> torch.Tensor:
+    """The counts behind :func:`overflow_rates` (f32 ``(2,)``, exact
+    below 2**24 elements): summed over the ranks that hold slices of one
+    tensor, they are the whole tensor's."""
     scaled = x.detach().to(torch.float32) * multiplier(bits, exp, x.device)
     limit = float(2 ** (bits - 1))
     over = (scaled >= limit) | (scaled < -limit)
     over2 = (scaled >= limit / 2) | (scaled < -limit / 2)
-    # exact counts times the f32 reciprocal of n: XLA's mean rounds so
-    inv_n = torch.tensor(1.0, device=x.device) / max(x.numel(), 1)
-    return torch.stack([over.to(torch.float32).sum() * inv_n,
-                        over2.to(torch.float32).sum() * inv_n])
+    return torch.stack([over.to(torch.float32).sum(),
+                        over2.to(torch.float32).sum()])
+
+
+def counts_to_rates(counts: torch.Tensor, numel: int) -> torch.Tensor:
+    """Overflow counts of ``numel`` elements as fractions: the exact
+    counts times the f32 reciprocal of ``numel``, as XLA's mean rounds."""
+    inv_n = torch.tensor(1.0, device=counts.device) / max(numel, 1)
+    return counts * inv_n
+
+
+def overflow_rates(x: torch.Tensor, bits: int, exp: Exp) -> torch.Tensor:
+    """``[overflow(x), overflow(2x)]``: the fractions of elements whose
+    ``x * multiplier`` clips at the full and at half range (f32 ``(2,)``)."""
+    return counts_to_rates(overflow_counts(x, bits, exp), x.numel())
 
 
 def overflow_indicators(minmax: torch.Tensor, bits: int) -> torch.Tensor:

@@ -15,6 +15,9 @@ plus ``--device``.
     python -m torch.distributed.run --nproc_per_node 2 \
         -m lbt_tpu_torch.main --data_parallel --lowbit_allreduce \
         --lowbit_wire int8          # one process a rank (parallel/)
+    python -m torch.distributed.run --nproc_per_node 4 \
+        -m lbt_tpu_torch.main --data_parallel --tensor_parallel 2
+                                    # a 2 x 2 data x model layout
 
 A command line of ``main.py`` runs here unchanged where the port has what
 it asks for, its defaults included (``--noise_mode prng`` draws
@@ -41,6 +44,7 @@ from lbt_tpu_torch.data.imagefolder import streaming_dataset
 from lbt_tpu_torch.data.tfrecord import tfrecord_dataset
 from lbt_tpu_torch.models import build_model
 from lbt_tpu_torch.models.zoo import MODEL_DATASET, MODEL_REGISTRY
+from lbt_tpu_torch.parallel.mesh import tp_refusal
 from lbt_tpu_torch.train.step import debug_nans
 from lbt_tpu_torch.train.trainer import Trainer
 from lbt_tpu_torch.utils.logging import get_logger, null_logger
@@ -183,8 +187,9 @@ def refusals(args) -> List[str]:
         if getattr(args, flag):
             out.append(f"--{flag} is not ported (ROADMAP {item})")
     if args.tensor_parallel > 1:
-        out.append(f"--tensor_parallel {args.tensor_parallel}: tensor "
-                   f"parallelism is not ported (ROADMAP queue 1 item 14)")
+        why = tp_refusal(quant_config(args))
+        if why:
+            out.append(f"--tensor_parallel {args.tensor_parallel}: {why}")
     if args.scan_steps > 1:
         out.append(f"--scan_steps {args.scan_steps}: the scanned block is "
                    f"not to be ported (ROADMAP queue 1 item 13)")
@@ -276,6 +281,7 @@ def main(argv: Optional[List[str]] = None) -> Trainer:
         checkpoint_every_epochs=args.checkpoint_every,
         checkpoint_dir=os.path.join(exp, "ckpt"),
         data_parallel=args.data_parallel or args.lowbit_allreduce,
+        tensor_parallel=args.tensor_parallel,
         lowbit_allreduce=args.lowbit_allreduce,
         lowbit_wire=args.lowbit_wire,
     )

@@ -30,8 +30,10 @@ from torch import nn
 from lbt_tpu_torch.config import QuantConfig, check_supported
 from lbt_tpu_torch.dfxp.barrier import make_sink
 from lbt_tpu_torch.dfxp.keys import site_keys
-from lbt_tpu_torch.dfxp.quantize import (overflow_indicators, overflow_stats,
-                                         quantize_ste, update_exponent)
+from lbt_tpu_torch.dfxp.quantize import (counts_to_rates, multiplier,
+                                         overflow_counts, overflow_indicators,
+                                         overflow_stats, quantize_ste,
+                                         update_exponent)
 
 _RESERVED = {"exp", "state", "grad", "buffer"}
 N_SITES = 5  # site indices folded into a layer key: x, w, b, g, dropout
@@ -55,7 +57,16 @@ class Ctx:
     statistics are averaged over the ranks and BN takes the moments of the
     global batch.  ``row0`` is the first row of this rank's slice of a
     global batch in a data-parallel eval: the activations' noise is drawn
-    there, as ``lbt_tpu``'s GSPMD eval draws over the whole batch."""
+    there, as ``lbt_tpu``'s GSPMD eval draws over the whole batch.
+
+    Under tensor parallelism ``dist`` is this rank's data group, and a
+    controller of a tensor that this rank holds a column slice of (a
+    sharded ``W``, the BN input of a sharded conv) reads the whole
+    tensor's statistics: :meth:`stage_ctrl` with the model group waits
+    for :meth:`commit`, which takes the min of the slices' minima
+    and the max of their maxima (or sums their overflow counts) over the
+    model group in one all-reduce, then averages over the data group as
+    for any site."""
 
     train: bool
     key: Optional[np.ndarray] = None
@@ -68,6 +79,7 @@ class Ctx:
     _keys: Optional[np.ndarray] = dataclasses.field(default=None, repr=False)
     _staged: list = dataclasses.field(default_factory=list, repr=False)
     _ctrl: list = dataclasses.field(default_factory=list, repr=False)
+    _sharded: list = dataclasses.field(default_factory=list, repr=False)
     _means: list = dataclasses.field(default_factory=list, repr=False)
     _taken: set = dataclasses.field(default_factory=set, repr=False)
 
@@ -118,18 +130,51 @@ class Ctx:
             self._staged.append((buf, value.detach()))
 
     def stage_ctrl(self, exp: torch.Tensor, rates: torch.Tensor, bits: int,
-                   target: float) -> None:
+                   target: float, model=None, numel: int = 0) -> None:
         """Stage a controller step of ``exp`` from this rank's overflow
         ``rates``.  On one device it is staged at once; under ``dist`` the
         rates of every site wait for :meth:`commit`, which averages them
-        over the ranks in one all-reduce."""
-        if self.dist is None:
+        over the ranks in one all-reduce.  With a ``model`` group (the
+        site's tensor is sharded over it) ``rates`` is this rank's
+        slice's statistic, ``[min, max]`` of the scaled slice at a zero
+        target, else its overflow counts of the whole tensor's ``numel``
+        elements, and waits for the model group's."""
+        if model is not None:
+            self._sharded.append((exp, rates, bits, target, model, numel))
+        elif self.dist is None:
             self.stage(exp, update_exponent(exp, rates, bits, target))
         else:
             self._ctrl.append((exp, rates, bits, target))
 
+    def _whole_rates(self) -> None:
+        """The sharded sites' statistics over the model group (one MAX
+        all-reduce of every ``[-min, max]``, one SUM of every count pair),
+        as rates, staged as a whole tensor's would be."""
+        group = self._sharded[0][4]
+        for zero in (True, False):
+            sites = [e for e in self._sharded if (e[3] == 0.0) == zero]
+            if not sites:
+                continue
+            stats = torch.stack([s[1].to(torch.float32) for s in sites])
+            if zero:
+                stats[:, 0] = -stats[:, 0]
+                whole = group.all_reduce(stats, "max", kind="stats")
+                whole[:, 0] = -whole[:, 0]
+            else:
+                whole = group.all_reduce(stats, kind="stats")
+            for (exp, _, bits, target, _, numel), w in zip(sites, whole):
+                rates = (overflow_indicators(w, bits) if zero else
+                         counts_to_rates(w, numel))
+                if self.dist is None:
+                    exp.copy_(update_exponent(exp, rates, bits, target))
+                else:
+                    self._ctrl.append((exp, rates, bits, target))
+        self._sharded.clear()
+
     def commit(self) -> None:
         with torch.no_grad():
+            if self._sharded:
+                self._whole_rates()
             if self._ctrl:
                 rates = self.dist.mean(torch.stack(
                     [r.to(torch.float32) for _, r, _, _ in self._ctrl]))
@@ -230,15 +275,29 @@ class Layer(nn.Module):
                     noise_shared_axis0=self.cfg.noise_shared_axis0)
 
     def _ctrl(self, ctx: Ctx, site: str, bits: int, x: torch.Tensor,
-              minmax: Optional[torch.Tensor] = None) -> None:
+              minmax: Optional[torch.Tensor] = None, shard=None) -> None:
         """Stage one controller step of ``site``, measured on the
         pre-quantization tensor ``x`` at the current exponent (from K1's
-        ``minmax`` of ``x * multiplier`` when given).  No-op unless the
-        controllers run."""
+        ``minmax`` of ``x * multiplier`` when given).  With a ``shard``
+        (``parallel.mesh.Shard``) ``x`` / ``minmax`` are of this rank's
+        column slice, and the step reads the whole tensor's statistics
+        (:meth:`Ctx.stage_ctrl`).  No-op unless the controllers run."""
         if not ctx.controls or bits >= 32 or site not in self.exp_sites():
             return
         target = self.cfg.target_overflow_rate
         exp = self.exp(site)
+        if shard is not None:
+            if target != 0.0:
+                stat = overflow_counts(x, bits, exp)
+            elif minmax is not None:
+                stat = minmax
+            else:
+                scaled = x.detach().to(torch.float32) * multiplier(
+                    bits, exp, x.device)
+                stat = torch.stack([scaled.amin(), scaled.amax()])
+            numel = 0 if x is None else x.numel() // shard.width * shard.n
+            ctx.stage_ctrl(exp, stat, bits, target, shard.group, numel)
+            return
         if minmax is not None and target == 0.0:
             rates = overflow_indicators(minmax, bits)
         else:

@@ -53,12 +53,18 @@ def barrier(layer: Layer, y: torch.Tensor, ctx: Ctx) -> torch.Tensor:
 class _QuantLeaf(Layer):
     """Shared shape of Dense and Conv2d: weight ``W``, optional bias ``b``,
     exponent sites x, w, grad (and b).  ``W`` decays by ``weight_decay``,
-    ``b`` does not."""
+    ``b`` does not.  Under tensor parallelism ``shard``
+    (``parallel.mesh.Shard``, set by ``parallel.mesh.shard_model``) says
+    which output columns this rank's ``W`` holds: the layer contracts the
+    whole input with them and joins the model group's outputs along the
+    channel dim (``ops.qops``), so what follows the contraction (bias,
+    barrier, carrier) runs on the whole output."""
 
     def __init__(self, name, cfg, wshape, bits_x, use_bias, weight_decay):
         super().__init__(name, cfg)
         self.use_bias = use_bias
         self.weight_decay = weight_decay
+        self.shard = None
         self.W = nn.Parameter(torch.zeros(wshape))
         sites = [("x", bits_x), ("w", cfg.bits_w), ("grad", cfg.bits_g)]
         if use_bias:
@@ -92,14 +98,16 @@ class _QuantLeaf(Layer):
                     engine=cfg.engine,
                     key_x=ctx.layer_key(self.uid, SITE_X),
                     key_w=ctx.layer_key(self.uid, SITE_W),
-                    stats=ctx.controls, row0=ctx.row0, **self._qkw(ctx))
+                    stats=ctx.controls, row0=ctx.row0, shard=self.shard,
+                    **self._qkw(ctx))
 
     def _finish(self, x, out, ctx: Ctx, bits_x: int) -> torch.Tensor:
         """Controllers of x and W, the bias, the barrier, the carrier."""
         if ctx.controls:
             y, mm_x, mm_w = out
             self._ctrl(ctx, "x", bits_x, x, mm_x)
-            self._ctrl(ctx, "w", self.cfg.bits_w, self.W, mm_w)
+            self._ctrl(ctx, "w", self.cfg.bits_w, self.W, mm_w,
+                       shard=self.shard)
         else:
             y = out
         if self.use_bias:

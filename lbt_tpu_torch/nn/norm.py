@@ -149,7 +149,9 @@ def _conv_input(layer: Layer, conv: Conv2d, x, ctx: Ctx):
     :class:`~lbt_tpu_torch.ops.qops.BNInput`, with the conv's and the
     input site's controller steps staged.  The conv's sink and barrier
     are the conv's own; its output rounds to the conv's carrier dtype
-    before the quantize, as ``Conv2d`` casts it."""
+    before the quantize, as ``Conv2d`` casts it.  A sharded conv's BN
+    input comes back whole (its codes and moments joined over the model
+    group), so the BN that follows runs as on one rank."""
     cfg, ccfg = layer.cfg, conv.cfg
     x = x.to(torch.float32)
     r = qconv2d_bn_input(
@@ -162,12 +164,16 @@ def _conv_input(layer: Layer, conv: Conv2d, x, ctx: Ctx):
         key_w=ctx.layer_key(conv.uid, SITE_W),
         target_overflow_rate=ccfg.target_overflow_rate,
         gate=ctx.update_gate, stats=ctx.controls,
-        carrier=carrier_dtype(ccfg), row0=ctx.row0, **conv._qkw(ctx))
+        carrier=carrier_dtype(ccfg), row0=ctx.row0, shard=conv.shard,
+        **conv._qkw(ctx))
     if ctx.controls:
         conv._ctrl(ctx, "x", ccfg.bits_a_conv, x, r.minmax_x)
-        conv._ctrl(ctx, "w", ccfg.bits_w, conv.W, r.minmax_w)
-        # max(y * mult) == max(y) * mult: mult is a power of two
-        layer._ctrl(ctx, "x", cfg.bits_a, None, r.minmax * r.mult)
+        conv._ctrl(ctx, "w", ccfg.bits_w, conv.W, r.minmax_w,
+                   shard=conv.shard)
+        # max(y * mult) == max(y) * mult: mult is a power of two; a
+        # sharded conv's is its slice's, reduced over the model group
+        layer._ctrl(ctx, "x", cfg.bits_a, None, r.minmax * r.mult,
+                    shard=conv.shard)
     return r
 
 

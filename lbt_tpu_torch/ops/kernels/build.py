@@ -108,6 +108,7 @@ def quantize_library(csrc: Path = CSRC_DIR) -> ctypes.CDLL:
                    ctypes.c_ulonglong, ctypes.c_void_p, ctypes.c_void_p,
                    ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
                    ctypes.c_int, ctypes.c_uint32, ctypes.c_uint32,
+                   ctypes.c_uint32, ctypes.c_uint32, ctypes.c_uint32,
                    ctypes.c_uint32, ctypes.c_uint32, ctypes.c_int,
                    ctypes.c_void_p]
     fn.restype = ctypes.c_int
@@ -126,6 +127,7 @@ def conv_fused_library(csrc: Path = CSRC_DIR) -> ctypes.CDLL:
                        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
                        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_uint32,
                        ctypes.c_uint32, ctypes.c_uint32, ctypes.c_uint32,
+                       ctypes.c_uint32, ctypes.c_uint32,
                        ctypes.c_int, ctypes.c_int, ctypes.c_int,
                        ctypes.POINTER(ctypes.c_int), ctypes.c_void_p]
         fn.restype = ctypes.c_int

@@ -88,13 +88,18 @@ def _check(xc, wc, inv_scale, mult_out, strides, pads, bits_out, ksize,
     if b * ho * wo * wc.shape[3] >= 2 ** 32 or xc.numel() >= 2 ** 31:
         raise ValueError("the noise counter and the kernel's int32 indices "
                          "cover smaller tensors")
-    # a shared draw is one of the BN input's shape[1:], and the offset of
-    # a slice of rows is then a whole number of draws
-    inner = ho * wo * wc.shape[3]
+    # a shared draw is one of the BN input's shape[1:] (of the whole
+    # tensor, for a column slice of it), and the offset of a slice of rows
+    # is then a whole number of draws
+    cout = wc.shape[3]
+    width = noise.n_global if noise is not None and noise.n_global else cout
+    inner = ho * wo * width
     if noise is not None and (
             noise.mode not in (1, 2, 3) or noise.inner not in (0, inner)
             or noise.offset < 0 or (noise.inner and noise.offset % inner)
-            or noise.offset + b * inner > 2 ** 32):
+            or not 0 <= noise.col0 <= width - cout
+            or (b * ho * wo - 1) * width + noise.col0 + cout + noise.offset
+            > 2 ** 32):
         raise ValueError(f"bad noise {noise}")
 
 
@@ -118,10 +123,10 @@ def _launch(entry: str, xc, wc, inv_scale, mult_out, strides, pads,
         rc = fn(xc.data_ptr(), int(xc.dtype == torch.int16), wc.data_ptr(),
                 codes.data_ptr(), moments.data_ptr(), minmax.data_ptr(),
                 inv_scale.data_ptr(), mult_out.data_ptr(),
-                *((0, 0, 0, 0, 0) if noise is None else
+                *((0, 0, 0, 0, 0, 0, 0) if noise is None else
                   (noise.k0 & 0xFFFFFFFF, noise.k1 & 0xFFFFFFFF,
                    noise.inner, 0 if noise.inner else noise.offset,
-                   noise.mode)),
+                   noise.n_global, noise.col0, noise.mode)),
                 int(round_bf16), bits_out, dims, stream)
     if rc != 0:
         raise RuntimeError(f"{entry} launch failed: cudaError {rc} at x "
@@ -157,7 +162,8 @@ def conv3x3_fused(xc, wc, inv_scale, mult_out, *, strides, pads,
     kernel contracts them as split-9 int8 planes.
     ``noise=None`` rounds half-to-even, a :class:`~lbt_tpu_torch.ops.
     kernels.quant.Noise` stochastically with its stream over the flat
-    NHWC index of the output.  ``round_bf16`` as in
+    NHWC index of the output (with a column window, of the whole output
+    of which these are channels ``col0..``).  ``round_bf16`` as in
     :func:`conv_fused_plain`."""
     return _fused((3, 3), "lbt_conv3x3_fused", conv3x3_fused, xc, wc,
                   inv_scale, mult_out, strides, pads, bits_out, noise,

@@ -33,7 +33,7 @@ from __future__ import annotations
 
 import functools
 import math
-from typing import NamedTuple, Optional, Union
+from typing import NamedTuple, Optional, Tuple, Union
 
 import torch
 
@@ -63,12 +63,20 @@ class Noise(NamedTuple):
     ``inner = prod(shape[1:])``, broadcast along axis 0).  ``offset`` is
     added to every counter first (before the ``% inner``): it places the
     tensor's rows in a larger batch's draw, ``row0 * prod(shape[1:])`` for
-    rows ``row0..`` of a global batch (``dfxp.quantize.noise_spec``)."""
+    rows ``row0..`` of a global batch (``dfxp.quantize.noise_spec``).
+    ``n_global > 0`` places a column slice: the tensor, read as rows of
+    its last dim ``cols``, holds columns ``col0..`` of rows ``n_global``
+    wide, and element ``(r, j)`` draws at ``r * n_global + col0 + j``
+    (then the offset and the ``% inner``), where the whole tensor draws
+    it: a tensor-parallel rank's slice of a weight or of a conv's output
+    channels (``parallel/mesh.py``).  0 is no window."""
     mode: int
     k0: int
     k1: int = 0
     inner: int = 0
     offset: int = 0
+    n_global: int = 0
+    col0: int = 0
 
 
 def code_dtype(bits: int) -> torch.dtype:
@@ -101,22 +109,35 @@ def _mul32(h: torch.Tensor, c: int) -> torch.Tensor:
     return (lo + hi) & _MASK32
 
 
-def _counters(n: int, inner: int, device, offset: int = 0) -> torch.Tensor:
+Window = Optional[Tuple[int, int, int]]
+
+
+def _counters(n: int, inner: int, device, offset: int = 0,
+              window: Window = None) -> torch.Tensor:
     """int64 counters of ``n`` flat indices: ``i + offset``, or that
-    ``% inner``."""
-    i = torch.arange(offset, offset + n, dtype=torch.int64, device=device)
+    ``% inner``; a ``window`` ``(cols, n_global, col0)`` first takes
+    ``i`` of element ``(r, j)`` of rows ``cols`` long to ``r * n_global +
+    col0 + j`` (:class:`Noise`)."""
+    i = torch.arange(n, dtype=torch.int64, device=device)
+    if window is not None:
+        cols, n_global, col0 = window
+        i = (torch.div(i, cols, rounding_mode="floor") * n_global + col0
+             + i % cols)
+    i += offset
     return i % inner if inner else i
 
 
 def hash_uniform_flat(seed: int, n: int, light: bool, device=None,
-                      inner: int = 0, offset: int = 0) -> torch.Tensor:
+                      inner: int = 0, offset: int = 0,
+                      window: Window = None) -> torch.Tensor:
     """Uniform [0, 1) f32 noise: the top 24 bits of the uint32 counter
     hash of ``arange(n) ^ seed``, as ``lbt_tpu/dfxp/quantize.py:
     _hash_uniform`` computes it — the lowbias32 finalizer
     (``noise_mode='hash'``) or, with ``light``, one multiply-xorshift
     round (``'hash1'``).  The counters are ``arange(n) + offset``, ``%
-    inner`` when ``inner > 0``."""
-    x = _counters(n, inner, device, offset) ^ (seed & _MASK32)
+    inner`` when ``inner > 0``, the indices first placed by ``window``
+    (:func:`_counters`)."""
+    x = _counters(n, inner, device, offset, window) ^ (seed & _MASK32)
     if not light:
         x = x ^ (x >> 16)
     x = _mul32(x, _HASH_M1)
@@ -133,15 +154,17 @@ def _rotl32(v: torch.Tensor, r: int) -> torch.Tensor:
 
 
 def threefry_uniform_flat(k0: int, k1: int, n: int, inner: int = 0,
-                          device=None, offset: int = 0) -> torch.Tensor:
+                          device=None, offset: int = 0,
+                          window: Window = None) -> torch.Tensor:
     """Uniform [0, 1) f32 noise equal to ``jax.random.uniform(key, shape,
     float32)`` for a key of raw data ``(k0, k1)`` and ``n = prod(shape)``,
     under ``jax_threefry_partitionable`` (JAX's default): element ``i`` is
     the Threefry-2x32 cipher of the counter ``(hi32(c), lo32(c))``, ``c =
-    i + offset`` (or that ``% inner``), its two words xored, the top 23 bits as the
-    mantissa of 1.0, minus 1.  In int64 torch ops masked to 32 bits, as
-    ``dfxp/keys.py:threefry2x32`` runs the cipher in numpy."""
-    c = _counters(n, inner, device, offset)
+    i + offset`` (or that ``% inner``; ``i`` placed by ``window`` first),
+    its two words xored, the top 23 bits as the mantissa of 1.0, minus 1.
+    In int64 torch ops masked to 32 bits, as ``dfxp/keys.py:threefry2x32``
+    runs the cipher in numpy."""
+    c = _counters(n, inner, device, offset, window)
     ks = (k0 & _MASK32, k1 & _MASK32, (k0 ^ k1 ^ _KS_PARITY) & _MASK32)
     x0 = (c >> 32).add_(ks[0]).bitwise_and_(_MASK32)
     x1 = c.bitwise_and_(_MASK32).add_(ks[1]).bitwise_and_(_MASK32)
@@ -155,25 +178,30 @@ def threefry_uniform_flat(k0: int, k1: int, n: int, inner: int = 0,
     return bits.to(torch.int32).view(torch.float32) - 1.0
 
 
-def noise_uniform(noise: Noise, n: int, device=None) -> torch.Tensor:
-    """The ``n`` uniforms of ``noise``'s stream over the flat index."""
+def noise_uniform(noise: Noise, n: int, device=None,
+                  cols: int = 0) -> torch.Tensor:
+    """The ``n`` uniforms of ``noise``'s stream over the flat index of a
+    tensor whose last dim is ``cols`` (which places a column window)."""
+    window = (cols, noise.n_global, noise.col0) if noise.n_global else None
     if noise.mode == THREEFRY:
         return threefry_uniform_flat(noise.k0, noise.k1, n, noise.inner,
-                                     device, noise.offset)
+                                     device, noise.offset, window)
     return hash_uniform_flat(noise.k0, n, noise.mode == HASH1, device,
-                             noise.inner, noise.offset)
+                             noise.inner, noise.offset, window)
 
 
 def round_codes(scaled: torch.Tensor, bits: int,
                 noise: Optional[Noise] = None) -> torch.Tensor:
     """Codes of an already scaled f32 tensor ``x * mult``: clipped, then
     rounded half-to-even (``noise=None``) or as ``floor(scaled + u)`` with
-    ``noise``'s uniforms over the flat index (any device)."""
+    ``noise``'s uniforms over the flat index (any device; a column window
+    reads ``scaled`` as rows of its last dim)."""
     limit = float(2 ** (bits - 1))
     if noise is None:
         codes = torch.round(torch.clamp(scaled, -limit, limit - 1))
     else:
-        u = noise_uniform(noise, scaled.numel(), scaled.device)
+        u = noise_uniform(noise, scaled.numel(), scaled.device,
+                          scaled.shape[-1] if scaled.dim() else 1)
         codes = torch.floor(
             torch.clamp(scaled + u.view(scaled.shape), -limit, limit - 1))
     return codes.to(code_dtype(bits))
@@ -189,6 +217,21 @@ def quantize_codes_plain(x: torch.Tensor, bits: int, exp: Exp,
     if stats:
         return codes, mult, torch.stack([scaled.amin(), scaled.amax()])
     return codes, mult
+
+
+def noise_end(noise: Noise, x: torch.Tensor) -> int:
+    """One past the largest counter that ``noise`` draws for ``x`` (the
+    counters must stay below 2**32); raises ``ValueError`` on a column
+    window that does not fit ``x``."""
+    n = x.numel()
+    if not noise.n_global:
+        return noise.offset + n
+    cols = x.shape[-1] if x.dim() else 1
+    if not cols or noise.col0 < 0 or noise.col0 + cols > noise.n_global:
+        raise ValueError(f"column window {noise} does not fit "
+                         f"{tuple(x.shape)}")
+    return ((n // cols - 1) * noise.n_global + noise.col0 + cols
+            + noise.offset) if n else noise.offset
 
 
 @functools.cache
@@ -247,9 +290,10 @@ def _launch(x: torch.Tensor, bits: int, exp: Exp, noise: Optional[Noise],
             None if minmax is None else minmax.data_ptr(),
             None if scratch is None else scratch.data_ptr(),
             _max_blocks(dev.index), bits,
-            *((0, 0, 0, 0, 0) if noise is None else
+            *((0, 0, 0, 0, 0, 0, 0, 0) if noise is None else
               (noise.k0 & _MASK32, noise.k1 & _MASK32, noise.inner,
-               noise.offset, noise.mode)), stream)
+               noise.offset, x.shape[-1] if x.dim() else 1,
+               noise.n_global, noise.col0, noise.mode)), stream)
     if rc != 0:
         raise RuntimeError(f"K1 launch failed: cudaError {rc} at "
                            f"{tuple(x.shape)} bits={bits}")
@@ -265,7 +309,8 @@ def quantize_codes(x: torch.Tensor, bits: int, exp: Exp,
     integer tensor is converted there) or a Python int.  Returns
     ``(codes, mult)``, ``mult`` the f32 multiplier ``2**(bits-1-exp)`` in
     ``exp``'s shape.  ``noise=None`` rounds half-to-even; a
-    :class:`Noise` rounds stochastically with its stream.  ``stats=True``
+    :class:`Noise` rounds stochastically with its stream (its column
+    window reads ``x`` as rows of its last dim).  ``stats=True``
     returns ``(codes, mult, minmax)`` with
     ``minmax`` the f32 ``[min, max]`` of ``x * mult`` (``x`` must not be
     empty)."""
@@ -284,7 +329,7 @@ def quantize_codes(x: torch.Tensor, bits: int, exp: Exp,
     if noise is not None and (noise.mode not in (HASH, HASH1, THREEFRY)
                               or not 0 <= noise.inner < 2 ** 32
                               or noise.offset < 0
-                              or noise.offset + x.numel() > 2 ** 32):
+                              or noise_end(noise, x) > 2 ** 32):
         raise ValueError(f"bad noise {noise}")
     if stats and not x.numel():
         raise ValueError("min / max of an empty tensor")

@@ -54,6 +54,17 @@ none quantized, ``bits_g = 32``) take ``lbt_tpu``'s float backward, ``dx =
 g . Wq^T`` and ``dW = Xq^T . g`` in f32 on the dequantized codes.  The
 straight-through estimator passes the cotangent through the operand
 quantizers.
+
+Tensor parallel (``shard``, a ``parallel.mesh.Shard``: this rank holds
+columns ``col0..`` of ``W``), the integer route only: ``W``'s codes draw
+their noise at their counters in the whole ``W`` (the column window), the
+contraction gives this rank's output channels, and :func:`join` gathers
+the model group's channels into the whole output; a conv fused with its
+BN input joins the BN input's codes and moments.  Backward: the join
+hands on this rank's columns of the cotangent (every rank holds the whole
+one, so nothing is summed), ``dW`` is the slice's own, and ``dx`` is the
+int32 sum over the model group of each rank's partial contraction, added
+before the dequantize, so it is the one-rank ``dx`` bit for bit.
 """
 
 from __future__ import annotations
@@ -84,12 +95,56 @@ def int_route(engine: str, bits_x: int, bits_w: int) -> bool:
     return engine in INT_ENGINES and max(bits_x, bits_w) <= 9
 
 
-def _codes(t, bits, exp, key, stochastic, backend, shared, stats, row0=0):
-    """``(codes, mult, minmax or None)`` of one operand."""
+def _codes(t, bits, exp, key, stochastic, backend, shared, stats, row0=0,
+           shard=None):
+    """``(codes, mult, minmax or None)`` of one operand (a ``shard``'s
+    columns of a weight draw their noise where the whole weight does)."""
     out = quantize_int(t, bits, exp, key, stochastic=stochastic,
                        backend=backend, noise_shared_axis0=shared,
-                       stats=stats, row0=row0)
+                       stats=stats, row0=row0, window=_window(shard))
     return out if stats else (*out, None)
+
+
+def _window(shard):
+    return None if shard is None else (shard.col0, shard.n)
+
+
+def join(t: torch.Tensor, shard) -> torch.Tensor:
+    """The model group's column slices of a tensor joined along the last
+    dim: each padded to ``ceil(n / tp)`` columns, all-gathered, the
+    padding cut."""
+    group = shard.group
+    w = -(-shard.n // group.world)
+    if t.shape[-1] < w:
+        t = torch.cat([t, t.new_zeros((*t.shape[:-1], w - t.shape[-1]))],
+                      -1)
+    out = group.all_gather(t, -1, kind="gather")
+    # slices are ceil(n / tp) wide but the last: the whole is out[..., :n]
+    return out if out.shape[-1] == shard.n else \
+        out[..., :shard.n].contiguous()
+
+
+class _Join(torch.autograd.Function):
+    """:func:`join` in the forward; the backward takes this rank's
+    columns of the cotangent, which every rank of the model group holds
+    whole: no sum over the group (that would scale the gradient by its
+    size)."""
+
+    @staticmethod
+    def forward(ctx, t, shard):
+        ctx.shard = shard
+        return join(t, shard)
+
+    @staticmethod
+    def backward(ctx, g):
+        s = ctx.shard
+        return g[..., s.col0:s.col0 + s.width].contiguous(), None
+
+
+def _joined(y: torch.Tensor, shard) -> torch.Tensor:
+    """``y`` (this rank's output channels) joined through :class:`_Join`,
+    or ``y`` itself when its layer is not sharded."""
+    return y if shard is None else _Join.apply(y, shard)
 
 
 def _float_conv(x, w, strides, pads) -> torch.Tensor:
@@ -143,6 +198,18 @@ def _int_sum_to_f32(acc: torch.Tensor, inv: torch.Tensor) -> torch.Tensor:
     return acc.to(torch.float32) * inv
 
 
+def _partial_dx(a: torch.Tensor, b: torch.Tensor, inv: torch.Tensor,
+                tp) -> torch.Tensor:
+    """``a @ b`` dequantized by ``inv``: K2 with its epilogue on one
+    rank; under tensor parallelism each rank's int32 partial sum over its
+    columns, summed over the model group ``tp``, then dequantized (the
+    same bits as one rank's epilogue)."""
+    if tp is None:
+        return int8_matmul(a, b, inv)
+    acc = tp.all_reduce(int8_matmul(a, b), kind="dx")
+    return _int_sum_to_f32(acc, inv)
+
+
 # ---------------------------------------------------------------------------
 # quantized matmul
 # ---------------------------------------------------------------------------
@@ -151,9 +218,9 @@ def _int_sum_to_f32(acc: torch.Tensor, inv: torch.Tensor) -> torch.Tensor:
 class _QMatmul(torch.autograd.Function):
 
     @staticmethod
-    def forward(ctx, x, w, xc, wc, mx, mw, exp_g, bits_g):
+    def forward(ctx, x, w, xc, wc, mx, mw, exp_g, bits_g, tp):
         ctx.save_for_backward(xc, wc, mx, mw)
-        ctx.exp_g, ctx.bits_g = exp_g, bits_g
+        ctx.exp_g, ctx.bits_g, ctx.tp = exp_g, bits_g, tp
         return int8_matmul(xc, wc, (1.0 / (mx * mw)).reshape(1))
 
     @staticmethod
@@ -166,15 +233,15 @@ class _QMatmul(torch.autograd.Function):
                 dx = g @ dequantize(wc, mw).t()
             if ctx.needs_input_grad[1]:
                 dw = dequantize(xc, mx).t() @ g
-            return dx, dw, None, None, None, None, None, None
+            return dx, dw, None, None, None, None, None, None, None
         mg = multiplier(ctx.bits_g, ctx.exp_g, g.device)
         gc = _recover_codes(g, mg)
         if ctx.needs_input_grad[0]:
-            dx = int8_matmul(gc, wc.t().contiguous(),
-                             (1.0 / (mg * mw)).reshape(1))
+            dx = _partial_dx(gc, wc.t().contiguous(),
+                             (1.0 / (mg * mw)).reshape(1), ctx.tp)
         if ctx.needs_input_grad[1]:
             dw = _int_sum_to_f32(int8_matmul_tn(xc, gc), 1.0 / (mx * mg))
-        return dx, dw, None, None, None, None, None, None
+        return dx, dw, None, None, None, None, None, None, None
 
 
 def qmatmul(x: torch.Tensor, w: torch.Tensor, exp_x: Exp, exp_w: Exp, *,
@@ -182,13 +249,15 @@ def qmatmul(x: torch.Tensor, w: torch.Tensor, exp_x: Exp, exp_w: Exp, *,
             engine: str = "int8", key_x: Optional[KeyData] = None,
             key_w: Optional[KeyData] = None, stochastic: bool = False,
             backend: str = "xla", noise_shared_axis0: bool = False,
-            stats: bool = False, row0: int = 0):
+            stats: bool = False, row0: int = 0, shard=None):
     """Quantized ``x @ w`` for ``[M, K] @ [K, N]`` on ``engine``'s route;
     f32 result.  Differentiable when ``x`` or ``w`` requires grad; on the
     integer route with ``bits_g <= 8`` the cotangent must lie on the
     ``(bits_g, exp_g)`` grid.  ``stats=True`` returns ``(y, minmax_x,
     minmax_w)`` (None for a 32-bit operand).  ``row0`` places ``x``'s
-    rows in a larger batch's noise (``dfxp.quantize.noise_spec``)."""
+    rows in a larger batch's noise (``dfxp.quantize.noise_spec``).  With a
+    ``shard`` ``w`` is its columns of the weight and ``y`` the whole
+    output, joined over the model group (``minmax_w`` is the slice's)."""
     kw = dict(bits_x=bits_x, bits_w=bits_w, key_x=key_x, key_w=key_w,
               stochastic=stochastic, shared=noise_shared_axis0, stats=stats,
               row0=row0)
@@ -202,11 +271,13 @@ def qmatmul(x: torch.Tensor, w: torch.Tensor, exp_x: Exp, exp_w: Exp, *,
     xc, mx, mm_x = _codes(x, bits_x, exp_x, key_x, stochastic, backend,
                           noise_shared_axis0, stats, row0)
     wc, mw, mm_w = _codes(w, bits_w, exp_w, key_w, stochastic, backend,
-                          noise_shared_axis0, stats)
+                          noise_shared_axis0, stats, shard=shard)
     if torch.is_grad_enabled() and (x.requires_grad or w.requires_grad):
-        y = _QMatmul.apply(x, w, xc, wc, mx, mw, exp_g, bits_g)
+            y = _QMatmul.apply(x, w, xc, wc, mx, mw, exp_g, bits_g,
+                           None if shard is None else shard.group)
     else:
         y = int8_matmul(xc, wc, (1.0 / (mx * mw)).reshape(1))
+    y = _joined(y, shard)
     return (y, mm_x, mm_w) if stats else y
 
 
@@ -230,9 +301,12 @@ def _conv_forward(xc, wc, mx, mw, strides, pads) -> torch.Tensor:
     return _int_sum_to_f32(acc, inv)
 
 
-def _conv_backward(gc, mg, xc, wc, mx, mw, strides, pads, need_dx, need_dw):
+def _conv_backward(gc, mg, xc, wc, mx, mw, strides, pads, need_dx, need_dw,
+                   tp=None):
     """``(dx, dW)`` of a conv from the cotangent's int8 codes ``gc``
-    ``[B, Ho, Wo, Cout]`` (``None`` where not needed)."""
+    ``[B, Ho, Wo, Cout]`` (``None`` where not needed); under tensor
+    parallelism ``wc`` and ``gc`` hold this rank's output channels, and
+    ``dx`` sums the model group ``tp``'s partial contractions."""
     b, h, w, cin = xc.shape
     kh, kw, _, cout = wc.shape
     dx = dw = None
@@ -241,8 +315,8 @@ def _conv_backward(gc, mg, xc, wc, mx, mw, strides, pads, need_dx, need_dw):
             (h, w), (kh, kw), strides, pads, gc.shape[1:3]))
         wflip = wc.flip((0, 1)).permute(0, 1, 3, 2).contiguous().reshape(
             kh * kw * cout, cin)
-        dx = int8_matmul(im2col(gd, (kh, kw), (1, 1), ((0, 0), (0, 0))),
-                         wflip, (1.0 / (mg * mw)).reshape(1)).view(
+        dx = _partial_dx(im2col(gd, (kh, kw), (1, 1), ((0, 0), (0, 0))),
+                         wflip, (1.0 / (mg * mw)).reshape(1), tp).view(
                              b, h, w, cin)
     if need_dw:
         g2 = gc.reshape(-1, cout)
@@ -273,7 +347,7 @@ class _QConv2d(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, x, w, xc, wc, mx, mw, exp_g, opts):
-        bits_g, strides, pads = opts
+        bits_g, strides, pads, _ = opts
         ctx.save_for_backward(xc, wc, mx, mw)
         ctx.exp_g, ctx.opts = exp_g, opts
         b, h, wd, _ = xc.shape
@@ -284,7 +358,7 @@ class _QConv2d(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g):
         xc, wc, mx, mw = ctx.saved_tensors
-        bits_g, strides, pads = ctx.opts
+        bits_g, strides, pads, tp = ctx.opts
         if bits_g > 8:  # lbt_tpu's float backward
             dx, dw = _float_conv_backward(
                 g, dequantize(xc, mx), dequantize(wc, mw), strides, pads,
@@ -293,7 +367,7 @@ class _QConv2d(torch.autograd.Function):
         mg = multiplier(bits_g, ctx.exp_g, g.device)
         dx, dw = _conv_backward(_recover_codes(g, mg), mg, xc, wc, mx, mw,
                                 strides, pads, ctx.needs_input_grad[0],
-                                ctx.needs_input_grad[1])
+                                ctx.needs_input_grad[1], tp)
         return dx, dw, None, None, None, None, None, None
 
 
@@ -303,12 +377,12 @@ def qconv2d(x: torch.Tensor, w: torch.Tensor, exp_x: Exp, exp_w: Exp, *,
             key_x: Optional[KeyData] = None,
             key_w: Optional[KeyData] = None, stochastic: bool = False,
             backend: str = "xla", noise_shared_axis0: bool = False,
-            stats: bool = False, row0: int = 0):
+            stats: bool = False, row0: int = 0, shard=None):
     """Quantized 2-d convolution, NHWC activations x HWIO weights, on
     ``engine``'s route; f32 NHWC result.  The integer route contracts
     activations of up to 9-bit codes (split-9) with 8-bit weights.
     Differentiable as :func:`qmatmul`; ``stats=True`` returns ``(y,
-    minmax_x, minmax_w)``; ``row0`` as there."""
+    minmax_x, minmax_w)``; ``row0`` and ``shard`` as there."""
     strides = tuple(strides)
     pads = conv_pads(padding, x.shape[1:3], w.shape[0:2], strides)
     kw = dict(bits_x=bits_x, bits_w=bits_w, key_x=key_x, key_w=key_w,
@@ -328,8 +402,11 @@ def qconv2d(x: torch.Tensor, w: torch.Tensor, exp_x: Exp, exp_w: Exp, *,
     xc, mx, mm_x = _codes(x, bits_x, exp_x, key_x, stochastic, backend,
                           noise_shared_axis0, stats, row0)
     wc, mw, mm_w = _codes(w, bits_w, exp_w, key_w, stochastic, backend,
-                          noise_shared_axis0, stats)
-    y = _QConv2d.apply(x, w, xc, wc, mx, mw, exp_g, (bits_g, strides, pads))
+                          noise_shared_axis0, stats, shard=shard)
+    y = _QConv2d.apply(x, w, xc, wc, mx, mw, exp_g,
+                       (bits_g, strides, pads,
+                        None if shard is None else shard.group))
+    y = _joined(y, shard)
     return (y, mm_x, mm_w) if stats else y
 
 
@@ -358,7 +435,7 @@ class _ConvBNInput(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, x, w, sink, xc, wc, mx, mw, mult_out, opts):
-        strides, pads, bits_out, noise, carrier, barrier = opts
+        strides, pads, bits_out, noise, carrier, barrier, shard = opts
         ctx.save_for_backward(xc, wc, mx, mw)
         ctx.opts, ctx.has_sink = opts, sink is not None
         fused = conv3x3_fused if wc.shape[0] == 3 else conv1x1_fused
@@ -366,20 +443,30 @@ class _ConvBNInput(torch.autograd.Function):
             xc, wc, (1.0 / (mx * mw)).reshape(1), mult_out.reshape(1),
             strides=strides, pads=pads, bits_out=bits_out, noise=noise,
             round_bf16=carrier == torch.bfloat16)
+        if shard is not None:
+            # BN is per channel: the whole BN input's codes and moments
+            codes, moments = join(codes, shard), join(moments, shard)
         ctx.mark_non_differentiable(codes, moments, minmax)
         return dequantize(codes, mult_out), codes, moments, minmax
 
     @staticmethod
     def backward(ctx, g, *_):
         xc, wc, mx, mw = ctx.saved_tensors
-        strides, pads, _, _, carrier, (bits_g, exp_g, key_g, kw) = ctx.opts
+        (strides, pads, _, _, carrier, (bits_g, exp_g, key_g, kw),
+         shard) = ctx.opts
         # the cotangent crosses the carrier between the conv and the BN
         # site, as the unfused route's two casts round it
         g = g.to(carrier).to(torch.float32)
+        # the barrier sees the whole cotangent; a shard's conv backward
+        # takes its columns
         gc, mg, stats = quantize_cotangent(g, bits_g, exp_g, key_g, **kw)
+        tp = None
+        if shard is not None:
+            gc = gc[..., shard.col0:shard.col0 + shard.width].contiguous()
+            tp = shard.group
         dx, dw = _conv_backward(gc, mg, xc, wc, mx, mw, strides, pads,
                                 ctx.needs_input_grad[0],
-                                ctx.needs_input_grad[1])
+                                ctx.needs_input_grad[1], tp)
         return (dx, dw, stats if ctx.has_sink else None, None, None, None,
                 None, None, None)
 
@@ -404,7 +491,7 @@ def qconv2d_bn_input(
     backend: str = "xla", noise_shared_axis0: bool = False,
     target_overflow_rate: float = 0.0, gate: bool = True,
     stats: bool = False, carrier: torch.dtype = torch.float32,
-    row0: int = 0,
+    row0: int = 0, shard=None,
 ) -> BNInput:
     """A bias-free quantized conv followed by the next site's quantize at
     ``(bits_out, exp_out, key_out)``, in one kernel: the BN input's codes,
@@ -419,7 +506,11 @@ def qconv2d_bn_input(
     sentinel when ``gate`` is off), then the integer conv backward.
     ``stats=True`` also returns the conv operands' ``[min, max]``;
     ``row0`` places ``x``'s and the output's rows in a larger batch's
-    noise (``dfxp.quantize.noise_spec``)."""
+    noise (``dfxp.quantize.noise_spec``).  With a ``shard`` ``w`` is its
+    output columns: the kernel quantizes those channels of the BN input,
+    drawing their noise where the whole tensor does, and the codes and
+    moments returned are the model group's joined (``minmax`` and
+    ``minmax_w`` are this rank's slice's)."""
     if not fusable(w.shape, bits_out, "int8", bits_x, bits_w, bits_g):
         raise NotImplementedError(
             f"no fused kernel for a {tuple(w.shape[:2])} conv of codes "
@@ -429,12 +520,12 @@ def qconv2d_bn_input(
     xc, mx, mm_x = _codes(x, bits_x, exp_x, key_x, stochastic, backend,
                           noise_shared_axis0, stats, row0)
     wc, mw, mm_w = _codes(w, bits_w, exp_w, key_w, stochastic, backend,
-                          noise_shared_axis0, stats)
+                          noise_shared_axis0, stats, shard=shard)
     mult_out = multiplier(bits_out, exp_out, x.device)
     out_shape = (x.shape[0], *out_hw(x.shape[1], x.shape[2], w.shape[:2],
                                      strides, pads), w.shape[3])
     noise = noise_spec(key_out, stochastic, backend, out_shape,
-                       noise_shared_axis0, row0)
+                       noise_shared_axis0, row0, _window(shard))
     barrier = (bits_g, exp_g, key_g,
                dict(stochastic=stochastic, backend=backend,
                     noise_shared_axis0=noise_shared_axis0,
@@ -442,5 +533,5 @@ def qconv2d_bn_input(
                     gate=bool(gate)))
     xq, codes, moments, minmax = _ConvBNInput.apply(
         x, w, sink, xc, wc, mx, mw, mult_out,
-        (strides, pads, bits_out, noise, carrier, barrier))
+        (strides, pads, bits_out, noise, carrier, barrier, shard))
     return BNInput(xq, codes, mult_out, moments, minmax, mm_x, mm_w)

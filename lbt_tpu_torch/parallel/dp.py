@@ -11,6 +11,13 @@ all-reduce with error feedback (``parallel/lowbit.py``).  The loss is
 scaled by 1/N before the backward, so the summed gradient is the global
 batch's mean-loss gradient.  Only ``ebuf``, the low-bit all-reduce's
 residual, is each rank's own.
+
+On a data x model layout (``parallel/mesh.py``) the step's ``dist`` is
+the rank's data group and ``tp`` its model group: the ranks of one data
+index run one program on the same rows, as ``lbt_tpu``'s per-data-shard
+GSPMD program does, so the noise key folds in the data index, and every
+sum and mean above is over the data group only (a sharded leaf's
+gradient, velocity and ``ebuf`` are its slice's).
 """
 
 from __future__ import annotations
@@ -35,7 +42,8 @@ __all__ = ["make_dp_train_step"]
 
 def make_dp_train_step(model: Model, tc: TrainConfig, dist,
                        lowbit_bits: Optional[int] = None,
-                       lowbit_wire: Optional[str] = None) -> Callable:
+                       lowbit_wire: Optional[str] = None,
+                       tp=None) -> Callable:
     """``step(model, velocity, ebuf, x, y, step, lr, base_key) ->
     {'loss', 'accuracy'}`` of the global batch, on ``dist`` (a
     :class:`~lbt_tpu_torch.parallel.multihost.Group`); ``x``, ``y`` are
@@ -43,9 +51,11 @@ def make_dp_train_step(model: Model, tc: TrainConfig, dist,
     low-bit all-reduce's error feedback, updated in place, and unused
     without ``lowbit_bits``.  ``lowbit_wire`` None sums the codes with
     one all-reduce; ``'int16'`` / ``'int8'`` run the ring at that width.
-    The step's noise key is ``fold_in(fold_in(base_key, step), rank)``;
-    the controller cadence is chosen on the host, as ``lbt_tpu`` picks
-    its gate-on or gate-off program."""
+    The step's noise key is ``fold_in(fold_in(base_key, step), rank)``,
+    ``rank`` the data index (``dist.rank``); the controller cadence is
+    chosen on the host, as ``lbt_tpu`` picks its gate-on or gate-off
+    program.  ``tp`` is the model group of a tensor-parallel layout
+    (``model`` cut by ``parallel.mesh.shard_model``), or None."""
     gate = gate_of(model)
     decays = dict(model.decays())
     n_uids = model.num_layers()
@@ -73,11 +83,11 @@ def make_dp_train_step(model: Model, tc: TrainConfig, dist,
             else:
                 if lowbit_wire is None:
                     grads, new = lowbit_allreduce(grads, ebuf, dist,
-                                                  bits=lowbit_bits)
+                                                  bits=lowbit_bits, tp=tp)
                 else:
                     grads, new = ring_lowbit_allreduce(
                         grads, ebuf, dist, bits=lowbit_bits,
-                        wire=lowbit_wire)
+                        wire=lowbit_wire, tp=tp)
                 for k, v in new.items():
                     ebuf[k].copy_(v)
             # psum of the 1/N-scaled loss, pmean of the accuracy

@@ -14,7 +14,12 @@ For each gradient leaf, on every rank:
 
 The leaves travel together: one MAX all-reduce of every leaf's maximum,
 then one bucket of every leaf's codes.  Sums and maxima are exact, so
-this equals ``lbt_tpu``'s per-leaf collectives bit for bit.
+this equals ``lbt_tpu``'s per-leaf collectives bit for bit.  Under tensor
+parallelism (``tp``, the model group) a rank holds column slices of the
+sharded leaves, and the maxima are first taken over the model group, so
+the shared exponent is the whole leaf's, as ``lbt_tpu``'s ``max |total|``
+of a leaf sharded over ``'model'`` is; the codes and residuals are the
+slice's own, summed over the data group.
 
 Transports:
 
@@ -60,11 +65,14 @@ def init_error_buffers(params) -> Tensors:
 
 
 def _quantize(grads: Tensors, buffers: Tensors, group, bits: int,
-              extra: int):
+              extra: int, tp=None):
     """``(codes, mults, residuals)`` of every leaf, at the exponents the
-    ranks agree on (one MAX all-reduce of the stacked local maxima)."""
+    ranks agree on (one MAX all-reduce of the stacked local maxima, over
+    the model group ``tp`` first)."""
     totals = {k: g + buffers[k] for k, g in grads.items()}
     local = torch.stack([t.abs().max() for t in totals.values()])
+    if tp is not None:
+        local = tp.all_reduce(local, "max", kind="stats")
     gmax = group.all_reduce(local, "max")
     e = torch.frexp(torch.clamp(gmax, min=1e-30))[1].to(torch.int32) + extra
     limit = float(2 ** (bits - 1))
@@ -89,13 +97,14 @@ def _unflatten(summed: torch.Tensor, grads: Tensors, mults: Tensors,
 
 
 def lowbit_allreduce(grads: Tensors, buffers: Tensors, group,
-                     bits: int = 8, reduce: str = "sum"
+                     bits: int = 8, reduce: str = "sum", tp=None
                      ) -> Tuple[Tensors, Tensors]:
     """``(reduced grads, new error buffers)`` over ``group`` (a
     :class:`~lbt_tpu_torch.parallel.multihost.Group`), the codes summed
     by one int32 SUM all-reduce.  ``reduce='sum'`` fits the DP step's
-    1/N loss scaling; ``'mean'`` divides by N."""
-    codes, mults, residuals = _quantize(grads, buffers, group, bits, 0)
+    1/N loss scaling; ``'mean'`` divides by N.  ``tp`` is the model group
+    of a tensor-parallel layout (the leaves' maxima over it first)."""
+    codes, mults, residuals = _quantize(grads, buffers, group, bits, 0, tp)
     flat = torch.cat([c.reshape(-1) for c in codes.values()]).to(torch.int32)
     summed = group.all_reduce(flat).to(torch.float32)
     out = _unflatten(summed, grads, mults, 1.0)
@@ -106,11 +115,13 @@ def lowbit_allreduce(grads: Tensors, buffers: Tensors, group,
 
 def ring_lowbit_allreduce(grads: Tensors, buffers: Tensors, group,
                           bits: int = 8, wire: str = "int16",
-                          reduce: str = "sum") -> Tuple[Tensors, Tensors]:
+                          reduce: str = "sum", tp=None
+                          ) -> Tuple[Tensors, Tensors]:
     """The low-bit all-reduce as an explicit ring over one flat bucket of
     every leaf's codes, in the ``wire`` dtype (``'int16'`` exact,
     ``'int8'`` with each exponent widened by ``ceil(log2 N)``).  Each of
-    the ``2 (N - 1)`` hops moves ``bucket / N`` elements of ``wire``."""
+    the ``2 (N - 1)`` hops moves ``bucket / N`` elements of ``wire``.
+    ``tp`` as in :func:`lowbit_allreduce`."""
     n = group.world
     if wire == "int8":
         if bits > 8:
@@ -125,7 +136,8 @@ def ring_lowbit_allreduce(grads: Tensors, buffers: Tensors, group,
         extra = 0
     else:
         raise ValueError(f"unknown wire {wire!r}")
-    codes, mults, residuals = _quantize(grads, buffers, group, bits, extra)
+    codes, mults, residuals = _quantize(grads, buffers, group, bits, extra,
+                                        tp)
     flat = torch.cat([c.reshape(-1) for c in codes.values()])
     size = flat.numel()
     csize = -(-size // n)

@@ -1,5 +1,5 @@
-"""Process groups for data parallelism on ``torch.distributed`` (PyTorch
-port of ``lbt_tpu/parallel/multihost.py``).
+"""Process groups for data and tensor parallelism on ``torch.distributed``
+(PyTorch port of ``lbt_tpu/parallel/multihost.py``).
 
 One process per rank.  Launch every rank with the same command, for
 example under ``torch.distributed.run``:
@@ -11,9 +11,10 @@ example under ``torch.distributed.run``:
 ``WORLD_SIZE`` / ``RANK`` / ``LOCAL_RANK`` (or ``lbt_tpu``'s
 ``COORDINATOR_ADDRESS`` / ``NUM_PROCESSES`` / ``PROCESS_ID``), joins the
 group and returns a :class:`Group`: this rank's device, and the
-collectives the data-parallel step calls.  Each rank reads and decodes
-only its own rows of a global batch (:func:`host_batch_slice`); no rank
-decodes the whole batch.
+collectives the data-parallel step calls (``parallel/mesh.py`` cuts the
+world into data and model groups for tensor parallelism).  Each rank
+reads and decodes only its own rows of a global batch
+(:func:`host_batch_slice`); no rank decodes the whole batch.
 
 The backend follows one rule: ``nccl`` when every rank on the host owns a
 card of its own, ``gloo`` on the CPU or when ranks share a card (NCCL
@@ -30,7 +31,7 @@ from __future__ import annotations
 import logging
 import os
 import time
-from typing import Optional, Tuple
+from typing import Dict, List, Optional, Tuple
 
 import torch
 import torch.distributed as dist
@@ -57,13 +58,15 @@ def pick_backend(device: torch.device, local_world: int) -> str:
 
 
 class Group:
-    """A data-parallel group as one rank sees it: ``rank``, ``world``,
+    """A group of ranks as one of them sees it: ``rank``, ``world``,
     ``device`` and ``backend``, and the collectives of the step, each on
-    this rank's tensor and returning the reduced tensor.  Under gloo a
-    CUDA tensor is copied to host memory, reduced there and copied back
-    (gloo's own CUDA paths cover all-reduce only).  ``seconds`` and
-    ``calls`` count the host time spent in collectives and their number,
-    for the step's metrics."""
+    this rank's tensor and returning the result.  Under gloo a CUDA
+    tensor is copied to host memory, reduced there and copied back
+    (gloo's own CUDA paths cover all-reduce only).  ``by_kind`` records,
+    for the ``kind`` each call names, the host time spent in collectives,
+    their number and the bytes of this rank's tensors (``[seconds, calls,
+    bytes]``), for the step's metrics; ``seconds`` and ``calls`` are its
+    totals."""
 
     def __init__(self, pg=None, device=None):
         self.pg = pg
@@ -71,13 +74,27 @@ class Group:
         self.world = dist.get_world_size(pg)
         self.backend = str(dist.get_backend(pg))
         self.device = torch.device(device if device is not None else "cpu")
-        self.seconds = 0.0
-        self.calls = 0
+        self.by_kind: Dict[str, List[float]] = {}
+
+    @property
+    def seconds(self) -> float:
+        return sum(k[0] for k in self.by_kind.values())
+
+    @property
+    def calls(self) -> int:
+        return sum(k[1] for k in self.by_kind.values())
 
     def _staged(self, t: torch.Tensor) -> bool:
         return self.backend == "gloo" and t.device.type == "cuda"
 
-    def all_reduce(self, t: torch.Tensor, op: str = "sum") -> torch.Tensor:
+    def _count(self, kind: str, t0: float, t: torch.Tensor) -> None:
+        k = self.by_kind.setdefault(kind, [0.0, 0, 0])
+        k[0] += time.perf_counter() - t0
+        k[1] += 1
+        k[2] += t.numel() * t.element_size()
+
+    def all_reduce(self, t: torch.Tensor, op: str = "sum",
+                   kind: str = "reduce") -> torch.Tensor:
         """``t`` reduced over the ranks (``op`` ``'sum'`` or ``'max'``);
         ``t`` itself is not written."""
         t0 = time.perf_counter()
@@ -89,8 +106,7 @@ class Group:
         else:
             out = t.detach().clone(memory_format=torch.contiguous_format)
             dist.all_reduce(out, rop, group=self.pg)
-        self.seconds += time.perf_counter() - t0
-        self.calls += 1
+        self._count(kind, t0, t)
         return out
 
     def all_reduce_each(self, tensors) -> list:
@@ -104,6 +120,21 @@ class Group:
         """XLA's ``pmean``: the sum over ranks, then divided by their
         number (exact for {0, 1} indicators)."""
         return self.all_reduce(t) / self.world
+
+    def all_gather(self, t: torch.Tensor, dim: int = -1,
+                   kind: str = "gather") -> torch.Tensor:
+        """The ranks' tensors (one shape) joined along ``dim`` in rank
+        order; under gloo a CUDA tensor goes through host memory."""
+        t0 = time.perf_counter()
+        src = t.detach().to("cpu") if self._staged(t) else t.detach()
+        src = src.contiguous()
+        parts = [torch.empty_like(src) for _ in range(self.world)]
+        dist.all_gather(parts, src, group=self.pg)
+        out = torch.cat(parts, dim)
+        if self._staged(t):
+            out = out.to(t.device)
+        self._count(kind, t0, t)
+        return out
 
     def ring_pass(self, send: torch.Tensor) -> torch.Tensor:
         """One hop of a ring: ``send`` goes to rank ``rank + 1``, and what
@@ -124,8 +155,7 @@ class Group:
         out = recv.view(send.dtype).view(send.shape)
         if staged:
             out = out.to(send.device)
-        self.seconds += time.perf_counter() - t0
-        self.calls += 1
+        self._count("ring", t0, send)
         return out
 
     def _global(self, rank: int) -> int:
@@ -144,10 +174,17 @@ def initialize(device: Optional[str] = None,
     the rendezvous is ``init_method`` (``'tcp://host:port'``,
     ``'file:///path'``), else ``tcp://MASTER_ADDR:MASTER_PORT``, else
     ``tcp://COORDINATOR_ADDRESS``.  ``device`` ``'cpu'`` runs on the CPU;
-    otherwise the rank's card is ``cuda:LOCAL_RANK % device_count()``
-    (``LOCAL_RANK`` defaults to the rank).  The backend is
-    :func:`pick_backend`'s, logged on rank 0; an NCCL start that fails
-    raises."""
+    otherwise the rank's card is ``cuda:LOCAL_RANK % device_count()``.
+    ``LOCAL_RANK`` and ``LOCAL_WORLD_SIZE`` (torchrun sets both) default
+    to the rank and the world, ranks on one host; under ``lbt_tpu``'s
+    variables they default to 0 and 1: those count hosts, one process a
+    host, so each process takes card 0 of its host and NCCL (several
+    ranks a host: launch with torchrun, which sets ``LOCAL_*``).  The
+    backend is :func:`pick_backend`'s, logged on rank 0; an NCCL start
+    that fails raises."""
+    # lbt_tpu's variables name the world: one process a host
+    per_host = (world_size is None and _env("WORLD_SIZE") is None
+                and _env("NUM_PROCESSES") is not None)
     world = int(world_size if world_size is not None
                 else _env("WORLD_SIZE", "NUM_PROCESSES") or 1)
     rank = int(rank if rank is not None
@@ -162,8 +199,8 @@ def initialize(device: Optional[str] = None,
             raise RuntimeError(
                 "no rendezvous: set MASTER_ADDR and MASTER_PORT (torchrun "
                 "does) or COORDINATOR_ADDRESS, or pass init_method")
-    local_rank = int(_env("LOCAL_RANK") or rank)
-    local_world = int(_env("LOCAL_WORLD_SIZE") or world)
+    local_rank = int(_env("LOCAL_RANK") or (0 if per_host else rank))
+    local_world = int(_env("LOCAL_WORLD_SIZE") or (1 if per_host else world))
     dev = torch.device("cuda" if device is None else device)
     if dev.type == "cuda":
         if not torch.cuda.is_available():

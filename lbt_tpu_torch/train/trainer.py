@@ -26,6 +26,19 @@ low-bit all-reduce's ``ebuf`` joins the checkpoint.  Only rank 0 writes
 logs, metrics, traces and checkpoints.  Evaluation pads each eval batch
 to a multiple of the world size, each rank evaluates its rows
 (``make_masked_eval_step``) and the sums are added over the ranks.
+
+Tensor parallel (``TrainConfig.tensor_parallel = T > 1`` with
+``data_parallel``, as in ``lbt_tpu``): the world is a ``data x T`` layout
+(``parallel.mesh.make_groups``), each rank holds its model index's
+columns of every large weight (``parallel.mesh.shard_model``, after the
+whole model's seeded init), and the rows of a global batch, the eval's
+padding and every reduction above go by data index: the ``T`` ranks of
+one data index feed the same rows.  With one data index (``T`` ranks in
+all) the run is not data parallel, as ``lbt_tpu``'s Trainer is not on
+``T`` devices: the one-rank steps run on the sharded model, so the run
+is the one-process run bit for bit.  A checkpoint holds the whole tensors
+(gathered over the model group; rank 0 writes them), so it restores at
+any ``T`` over as many data indices (one data index: in one process too).
 """
 
 from __future__ import annotations
@@ -74,22 +87,24 @@ class Trainer:
     :class:`~lbt_tpu_torch.parallel.multihost.Group` (by default one over
     the whole world) and ``device`` this rank's; the streaming sources
     take ``rows=(start, size)`` and ``augment`` takes ``rows=(row0,
-    n_global)`` (``data.datasets.augment_crop_flip``)."""
+    n_global)`` (``data.datasets.augment_crop_flip``).  With
+    ``tc.tensor_parallel > 1`` the Trainer builds its own data and model
+    groups over the whole world (``group`` is then not used):
+    ``self.tp`` is the model group and ``self.group`` the data group
+    (None with one data index)."""
 
     def __init__(self, model: Model, tc: TrainConfig, dataset: Dict,
                  augment: Optional[Callable] = None, logger=None,
                  logdir: Optional[str] = None, profile_steps: int = 0,
                  native_loader: bool = False,
                  aug_spec: Optional[Dict] = None, device=None, group=None):
-        if tc.tensor_parallel > 1:
-            raise NotImplementedError(
-                f"tensor_parallel={tc.tensor_parallel}: tensor parallelism "
-                f"is not ported (ROADMAP queue 1 item 14); the port runs "
-                f"data parallel")
         world = (torch.distributed.get_world_size()
                  if torch.distributed.is_initialized() else 1)
-        self.dp = bool(tc.data_parallel) and world > 1
-        if world > 1 and not self.dp:
+        tp = (max(int(tc.tensor_parallel), 1)
+              if tc.data_parallel and world > 1 else 1)
+        # data parallel past one data shard, as lbt_tpu's rule
+        self.dp = bool(tc.data_parallel) and world // tp > 1
+        if world > 1 and not tc.data_parallel:
             raise ValueError(
                 "multi-process runs require data_parallel=True (each "
                 "process only holds its own batch shard)")
@@ -98,15 +113,23 @@ class Trainer:
                 f"scan_steps={tc.scan_steps}: the scanned K-step block is "
                 f"not to be ported (ROADMAP queue 1 item 13); steps run one "
                 f"by one")
-        self.group = None
-        if self.dp:
+        self.group = self.tp = None
+        if tp > 1:
+            from lbt_tpu_torch.parallel import mesh
+            if world % tp:
+                raise ValueError(f"tensor_parallel {tp} does not divide "
+                                 f"the {world} ranks")
+            data, self.tp = mesh.make_groups(world // tp, tp,
+                                             resolve_device(device))
+            self.group = data if self.dp else None
+        elif self.dp:
             from lbt_tpu_torch.parallel.multihost import Group
             self.group = group if group is not None else Group(device=device)
-            if tc.batch_size % self.group.world:
-                raise ValueError(
-                    f"batch_size {tc.batch_size} must divide across "
-                    f"{self.group.world} ranks")
-        self.is_main = self.group is None or self.group.rank == 0
+        if self.dp and tc.batch_size % self.group.world:
+            raise ValueError(
+                f"batch_size {tc.batch_size} must divide across "
+                f"{self.group.world} data shards")
+        self.is_main = world == 1 or torch.distributed.get_rank() == 0
         self.model = model
         self.tc = tc
         self.dataset = dataset
@@ -133,6 +156,11 @@ class Trainer:
             f"{logdir}/profile" if logdir else None, profile_steps)
 
         model.init(torch.Generator().manual_seed(tc.seed)).to(self.device)
+        n_params = sum(p.numel() for p in model.net.parameters())
+        self.pspecs = None
+        if self.tp is not None:
+            from lbt_tpu_torch.parallel.mesh import shard_model
+            self.pspecs = shard_model(model, self.tp)
         self.params = dict(model.net.named_parameters())
         self.velocity = momentum_init(self.params)
         self.base_key = keys.base_key(tc.seed)
@@ -146,7 +174,7 @@ class Trainer:
             self.train_step = make_dp_train_step(
                 model, tc, self.group,
                 lowbit_bits=8 if tc.lowbit_allreduce else None,
-                lowbit_wire=tc.lowbit_wire)
+                lowbit_wire=tc.lowbit_wire, tp=self.tp)
             self.ebuf = init_error_buffers(self.params)
             self.eval_step = make_masked_eval_step(
                 model, faithful_eval=self.faithful)
@@ -162,9 +190,11 @@ class Trainer:
         # and seconds the loop waited on the input
         self.epoch_time = {}
 
-        n_params = sum(p.numel() for p in self.params.values())
-        self.logger.info("Model %s: %d params on %s", model.name, n_params,
-                         self.device)
+        self.logger.info("Model %s: %d params on %s%s", model.name, n_params,
+                         self.device, "" if self.tp is None else
+                         f", large weights in {self.tp.world} column "
+                         f"slices over a {world // self.tp.world} x "
+                         f"{self.tp.world} layout")
         self.logger.info(
             "Trainer: lr %g decay %g @ %s, momentum %g, wd %g, bs %d, "
             "%d epochs", tc.lr, tc.lr_decay_factor,
@@ -172,12 +202,34 @@ class Trainer:
             tc.batch_size, tc.n_epoch)
 
     # -- checkpoint ---------------------------------------------------------
+    def _specs(self, tensors):
+        return {k: self.pspecs.get(k, ()) for k in tensors}
+
+    def _whole(self, tensors: Dict[str, torch.Tensor]):
+        """``tensors`` (keyed by parameter or state name) with every
+        sharded weight's slices gathered over the model group: a
+        collective under tensor parallelism."""
+        if self.tp is None:
+            return tensors
+        from lbt_tpu_torch.parallel.mesh import gather_params
+        return gather_params(tensors, self._specs(tensors), self.tp)
+
+    def _mine(self, tensors: Dict[str, torch.Tensor]):
+        """This rank's slices of whole ``tensors`` (as :meth:`_whole`)."""
+        if self.tp is None:
+            return tensors
+        from lbt_tpu_torch.parallel.mesh import shard_params
+        return shard_params(tensors, self._specs(tensors), self.tp.world,
+                            self.tp.rank)
+
     def _state(self, ebuf=None):
-        state = {"model": self.model.net.state_dict(),
-                 "velocity": self.velocity,
+        """The checkpoint's state, whole tensors (a collective under
+        tensor parallelism)."""
+        state = {"model": self._whole(self.model.net.state_dict()),
+                 "velocity": self._whole(self.velocity),
                  "epoch": self.epoch, "step": self.step}
         if self.dp:
-            state["ebuf"] = self.ebuf if ebuf is None else ebuf
+            state["ebuf"] = self._whole(self.ebuf if ebuf is None else ebuf)
         return state
 
     def _saved_ebuf(self) -> Dict[str, torch.Tensor]:
@@ -187,7 +239,8 @@ class Trainer:
         slice ``k`` of ``world`` along the first axis that divides by
         ``world`` (replica 0 the whole leaf where none does).  So each
         leaf here is rank ``k``'s slice ``k`` there, put together with one
-        all-reduce (the other ranks add zeros)."""
+        all-reduce (the other ranks add zeros); under tensor parallelism
+        the ranks are the data group's and the leaves their slices."""
         g = self.group
         mine = {}
         for k, v in self.ebuf.items():
@@ -211,11 +264,11 @@ class Trainer:
         directory = directory or self.tc.checkpoint_dir
         if not directory:
             return
-        ebuf = self._saved_ebuf() if self.dp else None
+        state = self._state(self._saved_ebuf() if self.dp else None)
         self._saved_step = self.step
         if not self.is_main:
             return
-        ckpt.save_checkpoint(directory, self.step, self._state(ebuf))
+        ckpt.save_checkpoint(directory, self.step, state)
         self.logger.info("Saved checkpoint @ step %d to %s",
                          self.step, directory)
 
@@ -228,13 +281,16 @@ class Trainer:
             return False
         state = ckpt.restore_checkpoint(d, self._state(), step)
         with torch.no_grad():
+            model_sd = self._mine(state["model"])
             for k, t in self.model.net.state_dict().items():
-                t.copy_(state["model"][k])
+                t.copy_(model_sd[k])
+            velocity = self._mine(state["velocity"])
             for k, v in self.velocity.items():
-                v.copy_(state["velocity"][k])
+                v.copy_(velocity[k])
             if self.dp and "ebuf" in state:
+                ebuf = self._mine(state["ebuf"])
                 for k, v in self.ebuf.items():
-                    v.copy_(state["ebuf"][k])
+                    v.copy_(ebuf[k])
         self.epoch = int(state["epoch"])
         self.step = int(state["step"])
         self._saved_step = self.step

@@ -116,15 +116,36 @@ class MetricsWriter:
     def write_param_means(self, step: int, model: Model,
                           prefix: str = "param/"):
         """The mean of every parameter (the reference's ``W_mean`` /
-        ``b_mean`` / ``g_mean`` scalars)."""
-        if self._f is None:
+        ``b_mean`` / ``g_mean`` scalars).  A tensor-parallel layer's
+        ``W`` slice is one part of its weight: its mean is the sum over
+        the model group (a collective, so every rank calls this) over the
+        whole weight's count."""
+        layers = layer_paths(model.net)
+        if self._f is None and all(getattr(layer, "shard", None) is None
+                                   for _, layer in layers):
             return
-        tags, means = [], []
+        tags, means, parts = [], [], []
         with torch.no_grad():
-            for path, layer in layer_paths(model.net):
+            for path, layer in layers:
+                shard = getattr(layer, "shard", None)
                 for k, p in layer.named_parameters(recurse=False):
                     tags.append(f"{prefix}{path}/{k}_mean")
-                    means.append(p.to(torch.float32).mean())
+                    p = p.to(torch.float32)
+                    if shard is not None and k == "W":
+                        parts.append((len(means), shard,
+                                      p.numel() // shard.width * shard.n))
+                        means.append(p.sum())
+                    else:
+                        means.append(p.mean())
+            if parts:
+                group = parts[0][1].group
+                sums = group.all_reduce(
+                    torch.stack([means[i] for i, _, _ in parts]),
+                    kind="metrics")
+                for (i, _, n), v in zip(parts, sums):
+                    means[i] = v / n
+        if self._f is None:
+            return
         self._write_stacked(step, tags, means)
 
     def close(self):

@@ -1266,3 +1266,56 @@ def test_nccl_world_of_one_refuses_nothing(dev, world_of_one):
     torch.cuda.synchronize()
     for a, b in zip(_flat(nccl), _flat(gloo)):
         assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("row0", [0, 3])
+@pytest.mark.parametrize("shared", [False, True])
+@pytest.mark.parametrize("mode", ["hash", "hash1", "threefry"])
+@pytest.mark.parametrize("shape,n_global,col0", [
+    ((3, 3, 256, 128), 256, 128), ((2048, 500), 1000, 500),
+    ((1, 1, 512, 33), 130, 97), ((7, 5, 13), 40, 21), ((4097, 1), 3, 2)])
+def test_k1_column_window_matches_plain(dev, shape, n_global, col0, mode,
+                                        shared, row0):
+    """K1 on a tensor-parallel column slice (the window's division an
+    element, with the shared draw and a row offset) equals its plain
+    version, codes, multiplier and min/max."""
+    g = torch.Generator().manual_seed(n_global + col0)
+    x = (torch.randn(shape, generator=g) * 3).to(dev)
+    full = (*shape[:-1], n_global)
+    inner = math.prod(full[1:]) if shared else 0
+    noise = _noise(mode, 17, inner)._replace(
+        offset=row0 * math.prod(full[1:]), n_global=n_global, col0=col0)
+    _same(quant.quantize_codes(x, 8, 1, noise, True),
+          quant.quantize_codes_plain(x, 8, 1, noise, True))
+
+
+@pytest.mark.parametrize("row0", [0, 3])
+@pytest.mark.parametrize("shared", [False, True])
+@pytest.mark.parametrize("mode", ["hash", "hash1", "threefry"])
+@pytest.mark.parametrize("k,cin,cout,n_global,col0,stride", [
+    (3, 64, 32, 64, 32, 1), (1, 256, 64, 128, 64, 2),
+    (3, 32, 17, 40, 23, 1), (1, 48, 33, 130, 97, 1)])
+def test_conv_fused_column_window_matches_plain(dev, k, cin, cout, n_global,
+                                                col0, stride, mode, shared,
+                                                row0):
+    """#4 / #5 on a tensor-parallel slice of the output channels, the
+    epilogue's counter at the whole BN input's index (shared draw and row
+    offset too), equal their plain version: codes, moments, min/max."""
+    from lbt_tpu_torch.ops.im2col import conv_pads, out_hw
+    g = torch.Generator().manual_seed(cin + col0)
+    xc = torch.randint(-128, 128, (4, 14, 14, cin), generator=g,
+                       dtype=torch.int8)
+    wc = torch.randint(-128, 128, (k, k, cin, cout), generator=g,
+                       dtype=torch.int8)
+    pads = conv_pads("SAME", (14, 14), (k, k), (stride, stride))
+    ho, wo = out_hw(14, 14, (k, k), (stride, stride), pads)
+    inner = ho * wo * n_global if shared else 0
+    noise = _noise(mode, 23, inner)._replace(
+        offset=row0 * ho * wo * n_global, n_global=n_global, col0=col0)
+    inv, mult = torch.tensor([2.0 ** -14]), torch.tensor([2.0 ** -2])
+    fn = conv_fused.conv3x3_fused if k == 3 else conv_fused.conv1x1_fused
+    kw = dict(strides=(stride, stride), pads=pads, noise=noise)
+    got = fn(xc.to(dev), wc.to(dev), inv.to(dev), mult.to(dev), **kw)
+    want = conv_fused.conv_fused_plain(xc, wc, inv, mult, **kw)
+    for a, b in zip(got, want):
+        assert a.dtype == b.dtype and torch.equal(a.cpu(), b)

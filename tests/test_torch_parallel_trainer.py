@@ -11,7 +11,7 @@ a 2-device mesh:
    bitwise, and the low-bit all-reduce's ``ebuf`` restored as
    ``lbt_tpu`` restores it;
 6. the CLI under ``torch.distributed.run``, and its refusal of tensor
-   parallelism.
+   parallelism on the float route.
 """
 
 import json
@@ -314,17 +314,20 @@ def test_cli_trains_data_parallel_under_torchrun(tmp_path):
 
 
 def test_cli_refuses_tensor_parallelism(tmp_path, capsys):
-    """``--tensor_parallel 2`` exits with status 2 before any work, naming
-    its ROADMAP item; the data-parallel flags are accepted."""
+    """``--tensor_parallel 2`` on the float route (``--engine sim``) exits
+    with status 2 before any work, naming its ROADMAP item; the
+    data-parallel flags, and tensor parallelism on the integer route,
+    are accepted (``tests/test_torch_tp*.py``)."""
     from lbt_tpu_torch.main import build_parser, main, refusals
     for argv in (["--data_parallel"], ["--lowbit_allreduce"],
-                 ["--lowbit_allreduce", "--lowbit_wire", "int16"]):
+                 ["--lowbit_allreduce", "--lowbit_wire", "int16"],
+                 ["--data_parallel", "--tensor_parallel", "2"]):
         assert refusals(build_parser().parse_args(argv)) == []
     with pytest.raises(SystemExit) as e:
-        main(["--tensor_parallel", "2", "--device", "cpu", "--exp_path",
-              str(tmp_path / "exp")])
+        main(["--tensor_parallel", "2", "--engine", "sim", "--device", "cpu",
+              "--exp_path", str(tmp_path / "exp")])
     assert e.value.code == 2
     err = capsys.readouterr().err
     assert "--tensor_parallel 2" in err
-    assert "ROADMAP queue 1 item 14" in err
+    assert "ROADMAP queue 1 item 15" in err
     assert not (tmp_path / "exp").exists()

@@ -579,7 +579,6 @@ def test_cli_trains_and_writes(tmp_path):
 
 
 @pytest.mark.parametrize("tc_kw,trainer_kw,item", [
-    ({"tensor_parallel": 2}, {}, "item 14"),
     ({"scan_steps": 4}, {}, "item 13"),
 ])
 def test_trainer_refuses_what_it_cannot_run(tc_kw, trainer_kw, item):
@@ -667,7 +666,7 @@ def test_step_profiler_writes_a_chrome_trace(tmp_path):
     (["--noise_mode", "hash", "--gradient_buffer"], None),
     (["--remat_bn"], "--remat_bn"),
     (["--bn_residual_q16"], "--bn_residual_q16"),
-    (["--noise_mode", "hash", "--tensor_parallel", "2"],
+    (["--noise_mode", "hash", "--tensor_parallel", "2", "--engine", "sim"],
      "--tensor_parallel 2"),
 ])
 def test_cli_refuses_what_it_cannot_run(tmp_path, capsys, argv, msg):

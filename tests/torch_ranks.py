@@ -1,6 +1,7 @@
-"""The ranks of the port's data-parallel tests: one process per rank,
-started by ``tests/test_torch_parallel*.py`` through :func:`start_ranks`;
-torch and the port only, never JAX.
+"""The ranks of the port's data- and tensor-parallel tests: one process
+per rank, started by ``tests/test_torch_parallel*.py`` and
+``tests/test_torch_tp*.py`` through :func:`start_ranks`; torch and the
+port only, never JAX.
 
     python tests/torch_ranks.py JOBS.pkl RANK WORLD STORE OUT.pkl
 
@@ -27,16 +28,18 @@ import torch.distributed as dist
 from lbt_tpu_torch import config as tconfig
 from lbt_tpu_torch import convert
 from lbt_tpu_torch.models import cifar10_resnet
-from lbt_tpu_torch.nn.layers import (Conv2d, Dense, Flatten, GradientBuffer,
-                                    ReLU)
+from lbt_tpu_torch.nn.layers import (AvgPool, Conv2d, Dense, Flatten,
+                                    GradientBuffer, ReLU)
 from lbt_tpu_torch.nn.model import Model
 from lbt_tpu_torch.nn.norm import BatchNorm
-from lbt_tpu_torch.parallel import (Group, init_error_buffers,
-                                    lowbit_allreduce, make_dp_train_step,
-                                    ring_lowbit_allreduce)
+from lbt_tpu_torch.parallel import (Group, gather_params,
+                                    init_error_buffers, lowbit_allreduce,
+                                    make_dp_train_step, make_groups,
+                                    param_pspecs, ring_lowbit_allreduce,
+                                    shard_model)
 from lbt_tpu_torch.train import checkpoint as ckpt
 from lbt_tpu_torch.train.optim import momentum_init
-from lbt_tpu_torch.train.step import make_masked_eval_step
+from lbt_tpu_torch.train.step import make_masked_eval_step, make_train_step
 from lbt_tpu_torch.train.trainer import Trainer
 
 WD = 2e-4
@@ -85,10 +88,29 @@ def build(spec: dict) -> Model:
     decay 2e-4), ``"bnnet"`` (a conv, a BatchNorm, a Dense on 8x8x3
     inputs), ``"toy"`` (``tests/test_parallel.py``'s two Dense layers) or
     ``"gbnet"`` (the toy with a GradientBuffer of a rank's 4 rows between
-    them), initialized from seed 0."""
+    them), initialized from seed 0.  The tensor-parallel twins:
+    ``"tp_toy"`` (``tests/test_parallel.py``'s 20-256-128-4 Dense toy,
+    its 256 x 128 layer sharded), ``"tp_toy130"`` (the same with a 256 x
+    130 layer, uneven over 4) and ``"tp_convtoy"`` (its conv toy, a
+    3x3x64x64 conv fused with its BN sharded)."""
     cfg = tconfig.QuantConfig.uniform(spec.get("bits", 8), **spec["cfg"])
     if spec["kind"] == "resnet8":
         model = cifar10_resnet(cfg, 8, weight_decay=WD)
+    elif spec["kind"] in ("tp_toy", "tp_toy130"):
+        n = 130 if spec["kind"] == "tp_toy130" else 128
+        model = Model(spec["kind"], [
+            Dense("d1", cfg, 20, 256), ReLU(), Dense("d2", cfg, 256, n),
+            ReLU(), Dense("d3", cfg, n, 4)],
+            input_shape=(20,), num_classes=4, cfg=cfg)
+    elif spec["kind"] == "tp_convtoy":
+        model = Model("convtoy", [
+            Conv2d("c1", cfg, (3, 3, 3, 64), use_bias=False),
+            BatchNorm("bn1", cfg, 64), ReLU(),
+            Conv2d("c2", cfg, (3, 3, 64, 64), use_bias=False),
+            BatchNorm("bn2", cfg, 64), ReLU(),
+            AvgPool(ksize=(8, 8), strides=(8, 8)), Flatten(),
+            Dense("fc", cfg, 64, 4)],
+            input_shape=(8, 8, 3), num_classes=4, cfg=cfg)
     elif spec["kind"] == "bnnet":
         model = Model("bnnet", [
             Conv2d("c1", cfg, (3, 3, 3, 8), use_bias=False), BatchNorm(
@@ -148,6 +170,73 @@ def dp_steps(job, group):
     return {"init": init, "steps": out}
 
 
+def sub_layout(data: int, model: int):
+    """``(data group, model group)`` of this rank in a ``data x model``
+    layout of the world's first ``data * model`` ranks (``mesh.
+    make_groups``' order), or ``(None, None)`` outside it; every rank
+    calls it."""
+    if data * model == dist.get_world_size():
+        return make_groups(data, model, "cpu")
+    grid = np.arange(data * model).reshape(data, model)
+    mine = {}
+    for axis, lines in (("model", list(grid)), ("data", list(grid.T))):
+        for line in lines:
+            pg = dist.new_group([int(r) for r in line])
+            if dist.get_rank() in line:
+                mine[axis] = pg
+    if not mine:
+        return None, None
+    return (Group(mine["data"], device="cpu"),
+            Group(mine["model"], device="cpu"))
+
+
+def tp_steps(job, group):
+    """Train steps on each of ``job["data"]``'s global batches from the
+    model's init on a ``job["layout"]`` ``(data, model)`` layout of the
+    first ranks (``make_dp_train_step`` with the model cut by
+    ``shard_model``), or with ``job["single"]`` the one-rank
+    ``make_train_step`` on rank 0; the whole state after each step
+    (sharded leaves gathered), and the model group's collectives by
+    kind."""
+    d, m = job.get("layout", (1, 1))
+    data_g, model_g = sub_layout(d, m)
+    if data_g is None:
+        return None
+    model = build(job["model"])
+    init = convert.to_jax_numpy(model)
+    specs = param_pspecs(init[0])
+    tp = None
+    if m > 1:
+        shard_model(model, model_g)
+        tp = model_g
+    params = dict(model.net.named_parameters())
+    vel, ebuf = momentum_init(params), init_error_buffers(params)
+    tc = tconfig.TrainConfig()
+    if job.get("single"):
+        one = make_train_step(model, tc)
+
+        def step(model, vel, ebuf, *a):
+            return one(model, vel, *a)
+    else:
+        step = make_dp_train_step(model, tc, data_g,
+                                  lowbit_bits=job.get("lowbit_bits"),
+                                  lowbit_wire=job.get("lowbit_wire"), tp=tp)
+    per = job["batch"] // d
+    rows = slice(data_g.rank * per, (data_g.rank + 1) * per)
+    out = []
+    for s, (x, y) in enumerate(job["data"]):
+        r = step(model, vel, ebuf, torch.from_numpy(x[rows]),
+                 torch.from_numpy(y[rows]), s, job["lr"],
+                 np.asarray(job["key"], np.uint32))
+        p, q, v, e = convert.to_jax_numpy(model, vel, ebuf)
+        if tp is not None:
+            p, v, e = (gather_params(t, specs, tp) for t in (p, v, e))
+        out.append({"loss": r["loss"].item(), "acc": r["accuracy"].item(),
+                    "params": p, "qstate": q, "velocity": v, "ebuf": e})
+    return {"init": init, "steps": out, "specs": specs,
+            "kinds": None if tp is None else dict(tp.by_kind)}
+
+
 def masked_eval(job, group):
     """``Trainer._evaluate_dp``'s sums through ``make_masked_eval_step``:
     this rank's rows of each padded eval batch at its ``row0``."""
@@ -204,10 +293,17 @@ def trainer(job, group):
             for e in range(job["epochs"]):
                 tr.train_epoch(e)
             ev = tr.evaluate()
-    p, q, v, e = convert.to_jax_numpy(tr.model, tr.velocity, tr.ebuf)
+    p, q, v, *e = convert.to_jax_numpy(tr.model, tr.velocity, tr.ebuf)
+    e = e[0] if tr.ebuf is not None else None
+    # the whole state, as a checkpoint holds it (a collective under
+    # tensor parallelism), each rank's own ebuf
+    state = {k: {kk: vv.detach().numpy().copy() for kk, vv in t.items()}
+             for k, t in tr._state().items() if isinstance(t, dict)}
     tr.metrics.close()
     return {"eval": ev, "params": p, "qstate": q, "velocity": v,
-            "ebuf": e, "step": tr.step, "saves": saves}
+            "ebuf": e, "step": tr.step, "saves": saves, "state": state,
+            "layout": None if tr.tp is None else (
+                None if tr.group is None else tr.group.world, tr.tp.world)}
 
 
 def main(argv) -> None:
@@ -221,7 +317,8 @@ def main(argv) -> None:
     with open(jobs_path, "rb") as f:
         jobs = pickle.load(f)
     kinds = {"collectives": collectives, "dp_steps": dp_steps,
-             "masked_eval": masked_eval, "trainer": trainer}
+             "masked_eval": masked_eval, "trainer": trainer,
+             "tp_steps": tp_steps}
     out = {name: kinds[job["kind"]](job, group)
            for name, job in jobs.items()}
     with open(f"{out_path}.{rank}", "wb") as f:
