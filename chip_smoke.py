@@ -198,14 +198,14 @@ the line on stdout) and exits 1, with no result line.
            card.  Then 2 rank processes (``chip_smoke.py --dp-worker``,
            ``parallel.initialize``: gloo, the ranks share the card):
            (a) ResNet-20 under uniform(8, noise_mode='hash'), global batch
-           128 (64 a rank), 4 steps through the kernels (counters reset
-           just before, each required to rise) equal to the same 4
+           128 (64 a rank), 2 steps through the kernels (counters reset
+           just before, each required to rise) equal to the same 2
            through the plain versions and to the other rank in every
            tensor (deterministic algorithms, tolerance 0), the first loss
            against the 2-rank CPU route at rtol 1e-5, then 2 steps with
            each low-bit transport (losses finite, ranks equal); (c) the
            headline (phase resnet50's config) at 2 x 64 with the low-bit
-           all-reduce: 3 steps, then 6 timed ones: median ms a step
+           all-reduce: 3 steps, then 3 timed ones: median ms a step
            (two ranks sharing one card: not a scaling number), host ms
            and calls a step in collectives, kernel launches a step, each
            rank's peak memory; the ranks' states equal; then the low-bit
@@ -225,12 +225,28 @@ the line on stdout) and exits 1, with no result line.
            resnet50's 3 gate steps (counters reset just before, K1, K2
            and #4/#5 each required to launch; the calls recorded) equal
            to phase resnet50's one-rank kernel route in every tensor (the
-           sharded ones gathered; tolerance 0) and on both ranks; then 2
-           timed steps: ms a step a rank, the model group's host ms,
-           calls and MB a step by kind (gather: the joins; dx: the
-           partial dx sums; stats: the controllers' min / max), peak
-           memory, launches a step.  (b) ResNet-20 at 2 x 2 in 4 ranks
-           with the low-bit all-reduce: 3 steps through the kernels equal
+           sharded ones gathered; tolerance 0) and on both ranks; the
+           last gate step (controllers off) timed: ms a step a rank, the
+           model group's host ms, calls and MB a step by kind (gather:
+           the joins; dx: the partial dx sums; stats: the controllers'
+           min / max), peak memory, launches a step.  (d) configuration
+           A (phase baseline50's config: sim_bf16 + prng, the float
+           route) at tp = 2 in 2 ranks, its 46 large weights in column
+           slices: phase baseline50's 2 gate steps from its seed, weights
+           and batches (K1 required to launch, in threefry mode at every
+           call; the calls recorded; the last step timed as (a)'s), the
+           ranks' state equal bitwise; against phase baseline50's steps,
+           step 0's loss at rtol 1e-5, the exponents after it bitwise and
+           every parameter leaf within 0.1 relative L2 after step 0 and
+           after the gate; phase baseline50 held the same way against a
+           float64 witness in this process (the library's calls in
+           float64 on the bf16 operands, each result rounded once to
+           bf16: the contraction by other code than the port's); printed,
+           not gated: cuDNN's and cuBLAS's own bf16 calls on one rank
+           against phase baseline50, and how far A's steps move the
+           weights with 8-bit and with 16-bit cotangents.
+           (b) ResNet-20 at 2 x 2 in 4 ranks with the low-bit
+           all-reduce: 3 steps through the kernels equal
            to the plain route on every rank in every tensor, and (c)
            ``torch.distributed.run --nproc_per_node 2 -m
            lbt_tpu_torch.main --data_parallel --tensor_parallel 2`` on
@@ -241,7 +257,8 @@ the line on stdout) and exits 1, with no result line.
            version bitwise (rank 0's window and the last rank's, that one
            at the counter offset ``CHECK_ROW0``), and K2 at the shapes a
            one-rank step does not have, timed with bounds and library
-           calls as in 7.
+           calls as in 7; then K1 in threefry mode at (d)'s windowed
+           calls, the same way.
 
 Prints the card, then one JSON line of kernels (launches from the trainer
 phase, the threefry rows' from its run of main.py's defaults; ms,
@@ -250,7 +267,8 @@ plain_ms, bound_ms and library_ms a training step; the same keys under
 baseline's K1, under ``vgg16`` for V's, and under ``records`` the
 launches of each CLI run of phase records, under ``dp`` rank 0's launches
 in phase dp, under ``tp`` rank 0's in phase tp leg (a) and the
-column-window forms' times), then, last, one JSON line
+column-window forms' times, under ``tp_baseline50`` K1's in leg (d)),
+then, last, one JSON line
 ``{"ok": true, "device": {...}}``.
 """
 
@@ -1749,7 +1767,8 @@ def _r50_train(qmod, qops, quant, gemm, fused) -> dict:
 
 
 def train_leg(tag, build, gate_steps, timed_steps, modules, launched,
-              record_steps, required, batches=None, digest=False) -> dict:
+              record_steps, required, batches=None, digest=False,
+              snapshot=False) -> dict:
     """One training leg from ``build``'s model on ``batches`` (default
     ``gate_steps`` of ResNet-50's, 224 px at batch 128): its kernel calls
     recorded (``record_steps``), ``gate_steps`` steps through the kernels
@@ -1760,7 +1779,10 @@ def train_leg(tag, build, gate_steps, timed_steps, modules, launched,
     ``timed_steps`` timed steps with the peak memory, and a 2-step profile
     (one launch a K1 and #4/#5 call; the kinds in ``required`` called).
     ``digest``: the result holds the kernel route's state after the gate
-    (``gate_digest``), which phase tp's layout must reproduce."""
+    (``gate_digest``), which phase tp's layout must reproduce;
+    ``snapshot``: it holds the exponents and parameters after step 0 and
+    after the gate (``gate_state``, host copies), which phase tp's leg
+    (d) is held against."""
     qmod, qops, quant, gemm, fused = modules
     batches = batches or r50_batches(gate_steps)
     n_batch, image = batches[0][0].shape[0], batches[0][0].shape[1]
@@ -1773,7 +1795,11 @@ def train_leg(tag, build, gate_steps, timed_steps, modules, launched,
     card = build(SEED).to("cuda")
     card_vel, card_run = make_trainer(card)
     reset_counters(quant, gemm, fused)
-    losses = [card_run(i, b).item() for i, b in enumerate(batches)]
+    losses = []
+    for i, b in enumerate(batches):
+        losses.append(card_run(i, b).item())
+        if snapshot and i == 0:
+            exps0, params0 = _exponents(card), _host_params(card)
     torch.cuda.synchronize()
     launches = train_counters(quant, gemm, fused)
     threefry = threefry_counters(quant, fused)
@@ -1800,6 +1826,9 @@ def train_leg(tag, build, gate_steps, timed_steps, modules, launched,
     print(f"{tag} train: losses {losses}; kernel and plain routes equal "
           f"in all {len(got)} tensors (tolerance 0)", flush=True)
     gate_digest = _digest(card, card_vel) if digest else None
+    gate_state = {"exps": [exps0, _exponents(card)],
+                  "params": [params0, _host_params(card)]} \
+        if snapshot else None
     del plain, plain_vel, plain_run, got, want
 
     small = (batches[0][0][:R50_CPU_BATCH], batches[0][1][:R50_CPU_BATCH])
@@ -1849,7 +1878,24 @@ def train_leg(tag, build, gate_steps, timed_steps, modules, launched,
             "memory_allocated_before": held,
             "profile": prof, "k1_calls": k1, "k2_calls": k2,
             "tn_calls": tn, "conv_calls": conv,
-            **({"gate_digest": gate_digest} if digest else {})}
+            **({"gate_digest": gate_digest} if digest else {}),
+            **({"gate_state": gate_state} if snapshot else {})}
+
+
+def _exponents(model) -> dict:
+    """Every exponent buffer of ``model``, as ints."""
+    return {k: int(v) for k, v in model.net.named_buffers()
+            if k.rsplit(".", 1)[-1].startswith("exp_")}
+
+
+def _host_params(model, specs=None, tp=None) -> dict:
+    """Host copies of ``model``'s parameters (with ``tp``, its slices
+    gathered over the model group: a collective)."""
+    params = dict(model.net.named_parameters())
+    if tp is not None:
+        from lbt_tpu_torch.parallel.mesh import gather_params
+        params = gather_params(params, specs, tp)
+    return {k: v.detach().cpu().clone() for k, v in params.items()}
 
 
 def _r50_serve(qmod, qops, quant, gemm) -> dict:
@@ -1912,6 +1958,9 @@ def _r50_serve(qmod, qops, quant, gemm) -> dict:
 
 B50_GATE_STEPS = 2      # kernel route vs plain route, bitwise
 B50_TIMED_STEPS = 8
+# phase baseline50's state after its gate (host copies), for phase tp's
+# leg (d); kept out of the report
+B50_GATE = {}
 
 
 def b50_config():
@@ -1923,12 +1972,13 @@ def b50_config():
     return QuantConfig.uniform(8, engine="sim_bf16", noise_mode="prng")
 
 
-def build_baseline50(seed: int):
+def build_baseline50(seed: int, cfg=None):
     """``Imagenet_Resnet50`` at full width and depth under the baseline
-    config, weights from ``seed``, the default recipe's weight decay."""
+    config (or ``cfg``), weights from ``seed``, the default recipe's
+    weight decay."""
     from lbt_tpu_torch.config import TrainConfig
     from lbt_tpu_torch.models import build_model
-    return build_model("Imagenet_Resnet50", b50_config(),
+    return build_model("Imagenet_Resnet50", cfg or b50_config(),
                        num_classes=R50_CLASSES, image_size=R50_IMAGE,
                        weight_decay=TrainConfig().weight_decay).init(
                            torch.Generator().manual_seed(seed))
@@ -1977,7 +2027,8 @@ def _b50_train(qmod, qops, quant, gemm, fused) -> dict:
 
     out = train_leg("baseline50", build_baseline50, B50_GATE_STEPS,
                     B50_TIMED_STEPS, (qmod, qops, quant, gemm, fused),
-                    launched, ((0, 1.0),), ("k1",))
+                    launched, ((0, 1.0),), ("k1",), snapshot=True)
+    B50_GATE.update(out.pop("gate_state"), losses=out["losses"])
     for k in ("k2_calls", "tn_calls", "conv_calls"):
         check(not out.pop(k), f"the baseline's path made {k}")
     return out
@@ -2707,11 +2758,11 @@ def records_debug_nans(legs: dict, tree: Path) -> dict:
 # ---------------------------------------------------------------------------
 
 DP_RANKS = 2
-DP_STEPS = 4            # ResNet-20 steps: kernel route, then plain route
+DP_STEPS = 2            # ResNet-20 steps: kernel route, then plain route
 DP_LOWBIT_STEPS = 2     # each low-bit transport's ResNet-20 steps
 DP_WIRES = (None, "int16", "int8")   # psum transport, then the two rings
 DP_R50_GATE = 3         # headline steps before the timed ones (on, off, off)
-DP_R50_TIMED = 6
+DP_R50_TIMED = 3
 DP_DIR = REPO / "experiments" / "smoke_dp"
 DP_CLI = ["--model", "CIFAR10_Resnet20", "--data_parallel",
           "--lowbit_allreduce", "--noise_mode", "hash", "--batch_size",
@@ -3032,7 +3083,6 @@ def phase_dp(qmod, qops, quant, gemm, fused) -> dict:
 # ---------------------------------------------------------------------------
 
 TP_DIR = REPO / "experiments" / "smoke_tp"
-TP_R50_TIMED = 2        # the headline's timed steps at tp = 2 (gate off)
 TP_R20_STEPS = 3        # ResNet-20 steps at 2 x 2: kernel route, plain route
 TP_CLI = ["--model", "CIFAR10_Resnet20", "--data_parallel",
           "--tensor_parallel", "2", "--noise_mode", "hash", "--batch_size",
@@ -3112,15 +3162,55 @@ def record_tp_calls(qmod, qops, quant, gemm, fused, run, steps):
     return losses, (k1, k2, tn, conv)
 
 
+def _tp_gate(run, steps, tp, modules, after=None) -> tuple:
+    """``(losses, calls, timing)`` of a leg's gate ``steps`` (``(step
+    index, weight, batch)``) on one rank of a layout, each recorded by
+    :func:`record_tp_calls`, ``after(step index)`` called after each.
+    The last step is timed: host ms (synced; the recorders' bookkeeping
+    included), the model group's collectives in it by kind, its
+    launches and its peak memory."""
+    qmod, qops, quant, gemm, fused = modules
+    losses, calls = [], None
+    for n, (i, w, batch) in enumerate(steps):
+        if n == len(steps) - 1:
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            kinds0 = {k: list(v) for k, v in tp.by_kind.items()}
+            before = train_counters(quant, gemm, fused)
+            t0 = time.perf_counter()
+        loss, c = record_tp_calls(qmod, qops, quant, gemm, fused, run,
+                                  [(i, w, batch)])
+        if n == len(steps) - 1:
+            ms = (time.perf_counter() - t0) * 1e3
+            zero = [0.0, 0, 0]
+            timing = {
+                "samples_ms": [ms], "ms_per_step": ms,
+                "collectives_per_step": {
+                    k: {"ms": (v[0] - kinds0.get(k, zero)[0]) * 1e3,
+                        "calls": v[1] - kinds0.get(k, zero)[1],
+                        "mb": (v[2] - kinds0.get(k, zero)[2]) / 1e6}
+                    for k, v in tp.by_kind.items()},
+                "launches_per_step": {
+                    k: v - before[k] for k, v in
+                    train_counters(quant, gemm, fused).items()},
+                "max_memory_gib": torch.cuda.max_memory_allocated()
+                / 2 ** 30}
+        losses += loss
+        calls = c if calls is None else tuple(
+            x + y for x, y in zip(calls, c))
+        if after is not None:
+            after(i)
+    return losses, calls, timing
+
+
 def _tp_rank_r50(data, tp, modules) -> dict:
     """Leg (a) on one rank: the headline (ResNet-50/224, batch 128,
     lean-a8) at tp = 2, the one-rank step on the model cut by
     ``shard_model``: phase resnet50's 3 gate steps (every counter reset
     just before, each kernel required to launch; their calls recorded,
     weighted as a step at the bench's cadence: the controllers on in one
-    step of 8), the whole state's digest; then ``TP_R50_TIMED`` timed
-    steps (host ms a step, synced; the model group's collectives by
-    kind; launches a step; peak memory)."""
+    step of 8; the last, controllers off, timed by :func:`_tp_gate`),
+    the whole state's digest."""
     qmod, qops, quant, gemm, fused = modules
     from lbt_tpu_torch.parallel.mesh import shard_model
     batches = r50_batches(R50_GATE_STEPS)
@@ -3128,40 +3218,55 @@ def _tp_rank_r50(data, tp, modules) -> dict:
     specs = shard_model(model, tp)
     vel, run = make_trainer(model)
     reset_counters(quant, gemm, fused)
-    losses, calls = record_tp_calls(
-        qmod, qops, quant, gemm, fused, run,
-        [(i, w, b) for i, (w, b) in enumerate(zip((1 / 8, 7 / 16, 7 / 16),
-                                                   batches))])
+    losses, calls, timing = _tp_gate(
+        run, [(i, w, b) for i, (w, b) in enumerate(zip(
+            (1 / 8, 7 / 16, 7 / 16), batches))], tp, modules)
     launches = train_counters(quant, gemm, fused)
     for k, v in launches.items():
         check(v > 0, f"{k} never launched on the tensor-parallel path")
-    digest = _whole_digest(model, vel, specs, tp)
-    torch.cuda.empty_cache()
-    torch.cuda.reset_peak_memory_stats()
-    kinds0 = {k: list(v) for k, v in tp.by_kind.items()}
-    zero = [0.0, 0, 0]
+    return {"losses": losses, "launches": launches, "calls": calls,
+            "digest": _whole_digest(model, vel, specs, tp),
+            "sharded_leaves": sum(bool(v) for v in specs.values()),
+            **timing}
+
+
+def _tp_rank_b50(data, tp, modules) -> dict:
+    """Leg (d) on one rank: configuration A (phase baseline50's config,
+    sim_bf16 + prng: K1 in threefry mode, the contractions in bf16) at
+    tp = 2, the one-rank step on the model cut by ``shard_model``: phase
+    baseline50's ``B50_GATE_STEPS`` gate steps from its seed and batches
+    (every counter reset just before, K1 required to launch, in threefry
+    mode at every call; the calls recorded, a step's; the last timed by
+    :func:`_tp_gate`), the exponents and (rank 0) the whole parameters
+    after each step, the whole state's digest."""
+    qmod, qops, quant, gemm, fused = modules
+    from lbt_tpu_torch.parallel.mesh import shard_model
+    batches = r50_batches(B50_GATE_STEPS)
+    model = build_baseline50(SEED).to("cuda")
+    specs = shard_model(model, tp)
+    vel, run = make_trainer(model)
+    snaps = {}
+
+    def snapshot(i):
+        snaps[i] = (_exponents(model), _host_params(model, specs, tp))
     reset_counters(quant, gemm, fused)
-    samples = []
-    for i in range(TP_R50_TIMED):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        run(R50_GATE_STEPS + i, batches[i % len(batches)])
-        torch.cuda.synchronize()
-        samples.append((time.perf_counter() - t0) * 1e3)
-    n = TP_R50_TIMED
-    kinds = {k: {"ms": (v[0] - kinds0.get(k, zero)[0]) * 1e3 / n,
-                 "calls": (v[1] - kinds0.get(k, zero)[1]) / n,
-                 "mb": (v[2] - kinds0.get(k, zero)[2]) / 1e6 / n}
-             for k, v in tp.by_kind.items()}
-    per_step = {k: v / n for k, v in train_counters(quant, gemm,
-                                                   fused).items()}
-    peak = torch.cuda.max_memory_allocated()
-    n_sharded = sum(bool(v) for v in specs.values())
-    return {"losses": losses, "launches": launches, "digest": digest,
-            "samples_ms": samples, "ms_per_step": statistics.median(samples),
-            "collectives_per_step": kinds, "launches_per_step": per_step,
-            "max_memory_gib": peak / 2 ** 30, "calls": calls,
-            "sharded_leaves": n_sharded}
+    losses, calls, timing = _tp_gate(
+        run, [(i, 1 / B50_GATE_STEPS, b) for i, b in enumerate(batches)],
+        tp, modules, snapshot)
+    launches = train_counters(quant, gemm, fused)
+    threefry = threefry_counters(quant, fused)
+    check(launches["k1"] > 0 and threefry["k1"] == launches["k1"],
+          "K1 did not launch in threefry mode at every call of leg (d)")
+    check(not any(v for k, v in launches.items() if k != "k1"),
+          f"leg (d) launched {launches}: its path has K1 only")
+    exps, params = (list(v) for v in zip(*(snaps[i] for i in
+                                            range(B50_GATE_STEPS))))
+    return {"losses": losses, "launches": launches, "threefry": threefry,
+            "digest": _whole_digest(model, vel, specs, tp),
+            "exps": exps, "params": None if tp.rank else params,
+            "calls": calls,
+            "sharded_leaves": sum(bool(v) for v in specs.values()),
+            **timing}
 
 
 def _tp_run(model, data, tp, batches):
@@ -3232,13 +3337,13 @@ def tp_worker(argv) -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     torch.use_deterministic_algorithms(True)
-    data, tp = make_groups(*{"r50": (1, 2), "r20": (2, 2)}[leg],
-                           device=world_group.device)
+    data, tp = make_groups(*{"r50": (1, 2), "b50": (1, 2),
+                             "r20": (2, 2)}[leg], device=world_group.device)
     modules = (qmod, qops, quant, gemm, conv_fused)
     out = {"backend": tp.backend, "data_index": data.rank,
            "model_index": tp.rank}
-    out.update((_tp_rank_r50 if leg == "r50" else _tp_rank_r20)(
-        data, tp, modules))
+    out.update({"r50": _tp_rank_r50, "b50": _tp_rank_b50,
+                "r20": _tp_rank_r20}[leg](data, tp, modules))
     with open(out_path, "wb") as f:
         pickle.dump(out, f)
     torch.distributed.destroy_process_group()
@@ -3318,21 +3423,13 @@ def _tp_noise(quant, mode, shape, shared, n_global, col0, row0=0):
                        col0)
 
 
-def phase_tp_kernels(quant, gemm, fused, calls, r50_k2_rows) -> dict:
-    """Each kernel's tensor-parallel form at leg (a)'s shapes: K1 at
-    every windowed call (the sharded weights), #4 / #5 at every windowed
-    call (the sharded convs' BN inputs), each against its plain version
-    bitwise at rank 0's window and at the last rank's, the latter at the
-    counter offset of rows ``CHECK_ROW0..``, and timed; K2 at the shapes
-    that a one-rank step does not have (the slices' contractions, the
-    partial dx), as phase K2-train."""
-    from lbt_tpu_torch.ops.im2col import out_hw
+def _tp_k1_rows(quant, k1_calls, gen, tag) -> dict:
+    """K1 at every windowed call of ``k1_calls`` against its plain
+    version bitwise (rank 0's window and the last rank's, that one at the
+    counter offset ``CHECK_ROW0``), and timed against its bound."""
     from lbt_tpu_torch.ops.kernels import work
-    k1_calls, k2_calls, tn_calls, conv_calls = calls
-    gen = torch.Generator().manual_seed(SEED + 8)
     rate = CARD["issue_per_s"]
     exp = torch.tensor(1, dtype=torch.int32, device="cuda")
-    out = {}
     err, rows = 0.0, []
     for (shape, bits, mode, shared, stats, ng, col0), count in sorted(
             k1_calls.items()):
@@ -3360,9 +3457,27 @@ def phase_tp_kernels(quant, gemm, fused, calls, r50_k2_rows) -> dict:
                          (x, exp), x.numel() * (4 + code_bytes),
                          work.quantize_work(x.numel(), code_bytes, stats,
                                             mode, rate), reps=FAST_REPS)})
-    out["k1"] = {"max_abs_err": err, **_print_rows(
-        "TP K1 window", rows, lambda r: f"{r['shape']} of {r['n_global']} "
+    return {"max_abs_err": err, **_print_rows(
+        tag, rows, lambda r: f"{r['shape']} of {r['n_global']} "
         f"{r['mode']}{' mm' if r['stats'] else ''}"), "shapes": rows}
+
+
+def phase_tp_kernels(quant, gemm, fused, calls, r50_k2_rows,
+                     b50_k1_calls) -> dict:
+    """Each kernel's tensor-parallel form at leg (a)'s shapes: K1 at
+    every windowed call (the sharded weights), #4 / #5 at every windowed
+    call (the sharded convs' BN inputs), each against its plain version
+    bitwise at rank 0's window and at the last rank's, the latter at the
+    counter offset of rows ``CHECK_ROW0..``, and timed; K2 at the shapes
+    that a one-rank step does not have (the slices' contractions, the
+    partial dx), as phase K2-train; then K1 at leg (d)'s windowed calls
+    (configuration A's sharded weights, threefry), as leg (a)'s."""
+    from lbt_tpu_torch.ops.im2col import out_hw
+    from lbt_tpu_torch.ops.kernels import work
+    k1_calls, k2_calls, tn_calls, conv_calls = calls
+    gen = torch.Generator().manual_seed(SEED + 8)
+    rate = CARD["issue_per_s"]
+    out = {"k1": _tp_k1_rows(quant, k1_calls, gen, "TP K1 window")}
     for kind in ("conv3x3_fused", "conv1x1_fused"):
         fn = getattr(fused, kind)
         err, rows = 0.0, []
@@ -3417,13 +3532,201 @@ def phase_tp_kernels(quant, gemm, fused, calls, r50_k2_rows) -> dict:
         collections.Counter({k: v for k, v in tn_calls.items()
                              if ("ATB", k[1], k[0], k[2]) not in one_rank}),
         R50_K2_REPS, "TP K2")
+    out["k1_threefry"] = _tp_k1_rows(quant, b50_k1_calls, gen,
+                                     "TP K1 window (d)")
     return out
+
+
+def _print_tp_rank(tag, r, res) -> None:
+    kinds = ", ".join(f"{k} {v['ms']:.1f} ms in {v['calls']:g} calls "
+                      f"of {v['mb']:.1f} MB" for k, v in sorted(
+                          res["collectives_per_step"].items())
+                      if v["calls"])
+    print(f"{tag} rank {r}: median {res['ms_per_step']:.1f} ms a step "
+          f"(samples {[round(v, 1) for v in res['samples_ms']]}; two "
+          f"ranks sharing one card over gloo: not a scaling number); "
+          f"model-group collectives a step: {kinds}; peak "
+          f"{res['max_memory_gib']:.2f} GiB; launches a step "
+          f"{res['launches_per_step']}", flush=True)
+
+
+# leg (d)'s bound on each parameter leaf's relative L2 distance:
+# tests/test_torch_imagenet.py's for bf16 ResNet-50 cascades (ROADMAP
+# queue 3 item 2)
+TP_B50_REL_L2 = 0.1
+
+
+def _rel_l2(got, want) -> dict:
+    """The largest and the median over the leaves of ``||got - want|| /
+    ||want||`` (host tensors), and the largest one's name."""
+    check(set(got) == set(want), "tp (d): parameter names")
+    rel = {k: float((got[k].double() - w.double()).norm()
+                    / max(w.double().norm().item(), 1e-30))
+           for k, w in want.items()}
+    worst = max(rel, key=rel.get)
+    return {"largest_leaf": worst, "largest": rel[worst],
+            "median": statistics.median(rel.values())}
+
+
+class _LibraryBF16:
+    """A stand-in for ``ops/qops.py:_BF16Contract`` on one rank, for leg
+    (d)'s witnesses: the library's calls (``@``, ``F.conv2d``) through
+    autograd on the bf16 operands taken to ``dtype``, the product rounded
+    to bf16.  In float64 every sum of 8-bit codes is exact and autograd's
+    casts round each gradient once to bf16: what ``lbt_tpu``'s bf16 dot
+    with f32 sums computes, by other code than the port's.  In bf16:
+    cuDNN's and cuBLAS's bf16 calls, whose wgrad rounds partial sums at
+    some of A's shapes."""
+    dtype = torch.float64
+
+    @classmethod
+    def apply(cls, xq, wq, geom, partial):
+        from lbt_tpu_torch.ops.qops import _float_conv
+        check(not partial, "the witnesses run on one rank")
+        a, b = (t.to(torch.bfloat16).to(cls.dtype) for t in (xq, wq))
+        y = a @ b if geom is None else _float_conv(a, b, *geom)
+        return y.to(torch.bfloat16)
+
+
+class _CudnnBF16(_LibraryBF16):
+    dtype = torch.bfloat16
+
+
+def _b50_one_rank(contract=None, cfg=None) -> dict:
+    """Configuration A's gate steps on one rank in this process, from
+    phase baseline50's seed, weights and batches, with ``qops``'s
+    ``_BF16Contract`` replaced by ``contract`` and the config by ``cfg``
+    where given: the losses, and after each step the exponents and the
+    parameters (host copies)."""
+    from lbt_tpu_torch.ops import qops
+    saved = qops._BF16Contract
+    torch.use_deterministic_algorithms(True)
+    try:
+        qops._BF16Contract = contract or saved
+        model = build_baseline50(SEED, cfg).to("cuda")
+        vel, run = make_trainer(model)
+        out = {"losses": [], "exps": [], "params": []}
+        for i, batch in enumerate(r50_batches(B50_GATE_STEPS)):
+            out["losses"].append(run(i, batch).item())
+            out["exps"].append(_exponents(model))
+            out["params"].append(_host_params(model))
+    finally:
+        qops._BF16Contract = saved
+        torch.use_deterministic_algorithms(False)
+    del model, vel, run
+    torch.cuda.empty_cache()
+    return out
+
+
+def _held(tag, got, want, gate=True) -> dict:
+    """``got``'s gate steps against ``want``'s (``losses``, and after each
+    step ``exps`` and ``params``): with ``gate``, step 0's loss at rtol
+    1e-5, the exponents after it bitwise, and every parameter leaf within
+    ``TP_B50_REL_L2`` relative L2 after step 0 and after the last step.
+    The distances after each step, and how many exponents and parameter
+    elements differ."""
+    out = {"losses": got["losses"],
+           "exps_differ": [sum(h.get(k) != v for k, v in w.items())
+                           for h, w in zip(got["exps"], want["exps"])],
+           "elements_differ": [sum(int((g[k] != v).sum()) for k, v in
+                                   w.items())
+                               for g, w in zip(got["params"],
+                                               want["params"])],
+           "rel_l2": [_rel_l2(g, w) for g, w in
+                      zip(got["params"], want["params"])]}
+    print(f"tp (d): {tag}: losses {got['losses']} / {want['losses']}; "
+          f"exponents differing after each step {out['exps_differ']} of "
+          f"{len(want['exps'][0])}; parameter elements differing "
+          f"{out['elements_differ']} of "
+          f"{sum(v.numel() for v in want['params'][0].values())}; leaves' "
+          f"relative L2 after each step "
+          + "; ".join(f"largest {r['largest']:.3g} ({r['largest_leaf']}), "
+                      f"median {r['median']:.3g}" for r in out["rel_l2"])
+          + (f" (gated: bound {TP_B50_REL_L2})" if gate else
+             " (not a gate)"), flush=True)
+    if gate:
+        check(math.isclose(got["losses"][0], want["losses"][0],
+                           rel_tol=1e-5),
+              f"tp (d): {tag}: step 0's loss {got['losses'][0]} against "
+              f"{want['losses'][0]}")
+        check(set(got["exps"][0]) == set(want["exps"][0])
+              and not out["exps_differ"][0],
+              f"tp (d): {tag}: {out['exps_differ'][0]} exponents differ "
+              f"after step 0")
+        for s in (0, -1):
+            r = out["rel_l2"][s]
+            check(r["largest"] <= TP_B50_REL_L2,
+                  f"tp (d): {tag}: {r['largest_leaf']} is {r['largest']} "
+                  f"away in relative L2 after step "
+                  f"{s % B50_GATE_STEPS} (bound {TP_B50_REL_L2})")
+    return out
+
+
+def _steps_taken(start, steps) -> list:
+    """For each step, the median and the largest over the weight leaves
+    (``W``) of ``||W after it - W before it|| / ||W at init||``."""
+    out = []
+    for before, after in zip([start] + steps[:-1], steps):
+        r = [float((after[k] - before[k]).norm() / start[k].norm())
+             for k in start if k.endswith(".W")]
+        out.append({"median": statistics.median(r), "largest": max(r)})
+    return out
+
+
+def _tp_leg_b50() -> list:
+    """Leg (d): configuration A at tp = 2 in 2 ranks.  The ranks'
+    replicated state equal bitwise, and held by :func:`_held` against
+    phase baseline50's one-rank steps on the same seed, weights and
+    batches.  Phase baseline50 is held the same way against a witness
+    that contracts by other code, the library's calls in float64
+    (:class:`_LibraryBF16`).  Printed, not gated: how far cuDNN's and
+    cuBLAS's bf16 calls on one rank (:class:`_CudnnBF16`) lie from phase
+    baseline50, and how far A's steps move the weights, with 8-bit
+    cotangents and with 16-bit ones."""
+    gate = dict(B50_GATE)
+    start = _host_params(build_baseline50(SEED))
+    witness = _b50_one_rank(_LibraryBF16)
+    cudnn = _b50_one_rank(_CudnnBF16)
+    g16 = _b50_one_rank(cfg=dataclasses.replace(b50_config(), bits_g=16))
+    d = _tp_ranks("b50", 2)()
+    check(d[0]["digest"] == d[1]["digest"] and
+          d[0]["losses"] == d[1]["losses"] and
+          d[0]["exps"] == d[1]["exps"], "tp (d): the ranks differ")
+    got = d[0]
+    d[1].pop("params")
+    tp2 = {"losses": got["losses"], "exps": got["exps"],
+           "params": got.pop("params")}
+    print(f"tp (d): configuration A (sim_bf16 + prng) at tp = 2 (1 x 2, "
+          f"{got['sharded_leaves']} sharded leaves), {B50_GATE_STEPS} "
+          f"steps, ranks equal in all {len(got['digest'])} tensors; "
+          f"launches {got['launches']}, in threefry mode "
+          f"{got['threefry']}", flush=True)
+    got["held"] = {
+        "tp2": _held("tp = 2 against phase baseline50", tp2, gate),
+        "witness": _held("phase baseline50 against the float64 witness",
+                         gate, witness),
+        "cudnn": _held("cuDNN's bf16 calls against phase baseline50",
+                       cudnn, gate, gate=False)}
+    got["steps_taken"] = {"a": _steps_taken(start, gate["params"]),
+                          "bits_g16": _steps_taken(start, g16["params"])}
+    print("tp (d): A's steps move the weights (||W after - W before|| / "
+          "||W at init||, over the weight leaves): "
+          + "; ".join(f"{k}: " + ", ".join(
+              f"step {i} median {v['median']:.3g} largest "
+              f"{v['largest']:.3g}" for i, v in enumerate(steps))
+              for k, steps in got["steps_taken"].items())
+          + f" (16-bit cotangents: losses {g16['losses']})", flush=True)
+    for r, res in enumerate(d):
+        _print_tp_rank("tp (d)", r, res)
+    return d
 
 
 def phase_tp(qmod, qops, quant, gemm, fused, r50) -> dict:
     """Tensor parallelism on the card, the ranks sharing it over gloo:
     (a) the headline at tp = 2 in 2 rank processes, equal to phase
-    resnet50's one-rank kernel route in every tensor, then timed; (b)
+    resnet50's one-rank kernel route in every tensor, then timed; (d)
+    configuration A at tp = 2, held against phase baseline50's one-rank
+    steps (:func:`_tp_leg_b50`), then timed; (b)
     ResNet-20 at 2 x 2 with the low-bit all-reduce in 4, kernel route
     equal to plain route, and (c) the CLI under torchrun with
     ``--tensor_parallel 2`` and a resume, (b) and (c) side by side; then
@@ -3450,16 +3753,9 @@ def phase_tp(qmod, qops, quant, gemm, fused, r50) -> dict:
           f" tensors (tolerance 0), ranks equal; losses {a[0]['losses']}; "
           f"launches {a[0]['launches']}", flush=True)
     for r, res in enumerate(a):
-        kinds = ", ".join(f"{k} {v['ms']:.1f} ms in {v['calls']:g} calls "
-                          f"of {v['mb']:.1f} MB" for k, v in sorted(
-                              res["collectives_per_step"].items())
-                          if v["calls"])
-        print(f"tp (a) rank {r}: median {res['ms_per_step']:.1f} ms a step "
-              f"(samples {[round(v, 1) for v in res['samples_ms']]}; two "
-              f"ranks sharing one card over gloo: not a scaling number); "
-              f"model-group collectives a step: {kinds}; peak "
-              f"{res['max_memory_gib']:.2f} GiB; launches a step "
-              f"{res['launches_per_step']}", flush=True)
+        _print_tp_rank("tp (a)", r, res)
+    torch.cuda.empty_cache()
+    d = _tp_leg_b50()
     torch.cuda.empty_cache()
     wait_b = _tp_ranks("r20", 4)
     try:
@@ -3486,10 +3782,13 @@ def phase_tp(qmod, qops, quant, gemm, fused, r50) -> dict:
           flush=True)
     out = {"r50": a[0], "r50_rank1": {k: v for k, v in a[1].items()
                                       if k != "calls"},
+           "b50": d[0], "b50_rank1": {k: v for k, v in d[1].items()
+                                      if k != "calls"},
            "r20": b[0], "cli": cli}
     out["kernels"] = phase_tp_kernels(quant, gemm, fused,
                                       out["r50"].pop("calls"),
-                                      r50["k2"]["shapes"])
+                                      r50["k2"]["shapes"],
+                                      out["b50"].pop("calls")[0])
     out["seconds"] = time.perf_counter() - t0
     print(f"tp: phase took {out['seconds']:.1f} s", flush=True)
     return out
@@ -3534,12 +3833,14 @@ def kernel_lines(report) -> list:
     ``records`` the launches of each CLI run of phase records (the
     headline from each streaming source that ran, ResNet-20 through the
     native loader), whose shapes are those of ``resnet50`` and the
-    trainer's; ``dp`` rank 0's launches in phase dp (ResNet-20's 4
+    trainer's; ``dp`` rank 0's launches in phase dp (ResNet-20's 2
     counted steps, the headline's a step), at the shapes of half the
     batch; ``tp`` rank 0's launches in phase tp leg (a) (the headline at
-    tp = 2: its 3 counted steps, and a timed step's) and each kernel's
+    tp = 2: its 3 counted steps, and the last one's) and each kernel's
     column-window form at its shapes (K2: the shapes a one-rank step does
-    not have)."""
+    not have); ``tp_baseline50`` the same for K1 in threefry mode in leg
+    (d) (configuration A at tp = 2: its 2 counted steps, and the last
+    one's)."""
     k1, k2, fused = report["k1_train"], report["k2_train"], report["fused"]
     launches = report["trainer"]["launches"]
     rec = report["records"]
@@ -3573,13 +3874,17 @@ def kernel_lines(report) -> list:
 
     def at_tp(t, kinds, library=True, **extra):
         """Phase tp leg (a)'s launches on rank 0 (its 3 counted steps, and
-        a timed step's), and the column-window form at its shapes."""
+        the last one's), and the column-window form at its shapes."""
         return {"launches": sum(tp["r50"]["launches"][k] for k in kinds),
                 "launches_a_step": sum(tp["r50"]["launches_per_step"][k]
                                        for k in kinds),
                 "max_abs_err": t["max_abs_err"], **times(t, library),
                 **extra}
     tpk = tp["kernels"]
+    tp_b50 = {"launches": tp["b50"]["launches"]["k1"],
+              "launches_a_step": tp["b50"]["launches_per_step"]["k1"],
+              "max_abs_err": tpk["k1_threefry"]["max_abs_err"],
+              **times(tpk["k1_threefry"], library=False)}
 
     v = report["vgg16"]
     v_launches = v["launches"]
@@ -3594,10 +3899,11 @@ def kernel_lines(report) -> list:
          "replaces": "lbt_tpu/ops/pallas/quant_kernels.py:126",
          "launches": tf["k1"],
          "max_abs_err": max(report["k1"]["max_abs_err"], k1["max_abs_err"],
-                            b50["k1"]["max_abs_err"]),
+                            b50["k1"]["max_abs_err"],
+                            tp_b50["max_abs_err"]),
          **times(k1["threefry"], library=False),
          "baseline50": at_r50(b50["k1"], b50["threefry_launches"]["k1"],
-                              False)},
+                              False), "tp_baseline50": tp_b50},
         {"name": "conv3x3_fused_threefry", "route": "cuda",
          "source": "lbt_tpu_torch/csrc/conv_fused.cu",
          "replaces": "lbt_tpu/ops/pallas/conv_kernels.py:170",

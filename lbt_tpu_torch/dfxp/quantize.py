@@ -202,10 +202,11 @@ def quantize_ste(
     noise_shared_axis0: bool = False,
     stats: bool = False,
     row0: int = 0,
+    window: Optional[Tuple[int, int]] = None,
 ):
     """Fake-quantize with a straight-through gradient.  ``stats=True``
     returns ``(xq, minmax)`` (``minmax`` as in :func:`quantize_int`);
-    ``row0`` as there."""
+    ``row0`` and ``window`` as there."""
     if bits >= 32:
         if stats:
             raise ValueError("no statistics of a passthrough site")
@@ -213,7 +214,7 @@ def quantize_ste(
     out = quantize_int(x, bits, exp, key, stochastic=stochastic,
                        backend=backend,
                        noise_shared_axis0=noise_shared_axis0, stats=stats,
-                       row0=row0)
+                       row0=row0, window=window)
     xq = straight_through(x, dequantize(out[0], out[1]))
     return (xq, out[2]) if stats else xq
 

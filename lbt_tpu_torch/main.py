@@ -44,7 +44,6 @@ from lbt_tpu_torch.data.imagefolder import streaming_dataset
 from lbt_tpu_torch.data.tfrecord import tfrecord_dataset
 from lbt_tpu_torch.models import build_model
 from lbt_tpu_torch.models.zoo import MODEL_DATASET, MODEL_REGISTRY
-from lbt_tpu_torch.parallel.mesh import tp_refusal
 from lbt_tpu_torch.train.step import debug_nans
 from lbt_tpu_torch.train.trainer import Trainer
 from lbt_tpu_torch.utils.logging import get_logger, null_logger
@@ -186,10 +185,6 @@ def refusals(args) -> List[str]:
                        ("remat_bn", "queue 1 item 13, not to port")):
         if getattr(args, flag):
             out.append(f"--{flag} is not ported (ROADMAP {item})")
-    if args.tensor_parallel > 1:
-        why = tp_refusal(quant_config(args))
-        if why:
-            out.append(f"--tensor_parallel {args.tensor_parallel}: {why}")
     if args.scan_steps > 1:
         out.append(f"--scan_steps {args.scan_steps}: the scanned block is "
                    f"not to be ported (ROADMAP queue 1 item 13)")

@@ -56,15 +56,30 @@ straight-through estimator passes the cotangent through the operand
 quantizers.
 
 Tensor parallel (``shard``, a ``parallel.mesh.Shard``: this rank holds
-columns ``col0..`` of ``W``), the integer route only: ``W``'s codes draw
-their noise at their counters in the whole ``W`` (the column window), the
+columns ``col0..`` of ``W``), on either route: ``W``'s codes draw their
+noise at their counters in the whole ``W`` (the column window), the
 contraction gives this rank's output channels, and :func:`join` gathers
 the model group's channels into the whole output; a conv fused with its
 BN input joins the BN input's codes and moments.  Backward: the join
 hands on this rank's columns of the cotangent (every rank holds the whole
 one, so nothing is summed), ``dW`` is the slice's own, and ``dx`` is the
-int32 sum over the model group of each rank's partial contraction, added
-before the dequantize, so it is the one-rank ``dx`` bit for bit.
+sum over the model group of each rank's partial contraction, once per
+sharded layer.  The integer route adds the int32 partial sums before the
+dequantize, so its ``dx`` is the one-rank ``dx`` bit for bit; its float
+backward (``bits_g > 8``) sums the f32 partials.  The float route puts
+:class:`_ReduceGrad` on ``x`` before its fake-quant, so the STE and
+everything upstream see the summed gradient: f32 partials summed in f32.
+A float ``dx`` therefore adds the partials in another order than one
+rank's contraction: f32 tolerance, not bitwise.
+
+``sim_bf16`` contracts through :class:`_BF16Contract`, sharded or not:
+bf16 operands into a bf16 product whose sums are exact wherever they fit
+f32 (8-bit codes), as ``lbt_tpu``'s bf16 dot with f32 sums.  A sharded
+layer's partial ``dx`` stays f32 and its sum over the model group is
+rounded once to bf16, where one rank's product rounds, so ``sim_bf16``
+at tp = 2 equals one rank's step up to the order of the f32 sums
+(``lbt_tpu``'s GSPMD step instead all-reduces the ranks' bf16-rounded
+partials as bf16, rounding twice).
 """
 
 from __future__ import annotations
@@ -165,21 +180,112 @@ def _fake_quant(t, bits, exp, key, stats, kw):
     return quantize_ste(t, bits, exp, key, **kw), None
 
 
+class _ReduceGrad(torch.autograd.Function):
+    """Identity in the forward.  In the backward the cotangent of ``x``,
+    this rank's partial contraction with its columns of ``W``, summed
+    over the model group ``tp`` in f32; with ``bf16`` the sum is rounded
+    once to bf16, where one rank's bf16 product rounds."""
+
+    @staticmethod
+    def forward(ctx, x, tp, bf16):
+        ctx.tp, ctx.bf16 = tp, bf16
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        total = ctx.tp.all_reduce(g.to(torch.float32), kind="dx")
+        if ctx.bf16:
+            total = total.to(torch.bfloat16)
+        return total.to(g.dtype), None, None
+
+
+def _dx_operands(g: torch.Tensor, w: torch.Tensor, x_hw, strides, pads):
+    """The input gradient of an NHWC x HWIO conv as one GEMM's operands:
+    the im2col of the lhs-dilated cotangent ``g`` and the flipped,
+    HIO-transposed kernel ``w`` (``[kh*kw*Cout, Cin]``)."""
+    kh, kw, cin, cout = w.shape
+    gd = dilate_pad(g, strides, dx_pads(x_hw, (kh, kw), strides, pads,
+                                        g.shape[1:3]))
+    return (im2col(gd, (kh, kw), (1, 1), ((0, 0), (0, 0))),
+            w.flip((0, 1)).permute(0, 1, 3, 2).contiguous().reshape(
+                kh * kw * cout, cin))
+
+
+class _BF16Contract(torch.autograd.Function):
+    """``sim_bf16``'s contraction of ``x`` with ``W`` (a matmul, or a conv
+    with ``geom = (strides, pads)``): the operands rounded to bf16 into a
+    bf16 product whose sums are exact wherever they fit f32, as
+    ``lbt_tpu``'s bf16 dot with f32 sums.  The library's bf16 calls are
+    not all exact on the card (cuDNN's bf16 wgrad rounds partial sums at
+    ResNet-50's 28x28 1x1 shapes, cuBLAS's bf16 GEMM at the head's
+    500-column slice), so only the conv's forward is one (exact at every
+    shape of ResNet-50); a matmul's forward is the f32 GEMM of the bf16
+    values rounded once, the backward two f32 GEMMs (im2col for a conv:
+    cuDNN's f32 dgrad is not exact at some 3x3 shapes), ``dW`` rounded
+    once to bf16.  ``x``'s gradient is rounded once too, or with
+    ``partial`` (this rank's columns of a sharded ``W``) left f32 for
+    :class:`_ReduceGrad` to sum over the model group and round."""
+
+    @staticmethod
+    def forward(ctx, xq, wq, geom, partial):
+        xb, wb = xq.to(torch.bfloat16), wq.to(torch.bfloat16)
+        ctx.save_for_backward(xb, wb)
+        ctx.geom, ctx.partial = geom, partial
+        if geom is None:
+            return (xb.to(torch.float32) @ wb.to(torch.float32)).to(
+                torch.bfloat16)
+        return _float_conv(xb, wb, *geom)
+
+    @staticmethod
+    def backward(ctx, g):
+        xb, wb = ctx.saved_tensors
+        x, w, g = (t.to(torch.float32) for t in (xb, wb, g))
+        dx = dw = None
+        if ctx.geom is None:
+            if ctx.needs_input_grad[0]:
+                dx = g @ w.t()
+            if ctx.needs_input_grad[1]:
+                dw = x.reshape(-1, x.shape[-1]).t() @ g.reshape(
+                    -1, g.shape[-1])
+        else:
+            strides, pads = ctx.geom
+            if ctx.needs_input_grad[0]:
+                cols, wflip = _dx_operands(g, w, x.shape[1:3], strides, pads)
+                dx = (cols @ wflip).view(x.shape)
+            if ctx.needs_input_grad[1]:
+                cols = im2col(x, w.shape[:2], strides, pads)
+                dw = (cols.t() @ g.reshape(-1, g.shape[-1])).view(w.shape)
+        if dx is not None and not ctx.partial:
+            dx = dx.to(torch.bfloat16).to(torch.float32)
+        if dw is not None:
+            dw = dw.to(torch.bfloat16).to(torch.float32)
+        return dx, dw, None, None
+
+
 def _float_route(contract, x, w, exp_x, exp_w, *, bits_x, bits_w, key_x,
-                 key_w, stochastic, backend, shared, stats, bf16, row0):
+                 key_w, stochastic, backend, shared, stats, bf16, row0,
+                 shard, geom=None):
     """Both operands fake-quantized (STE), then ``contract`` in f32, or
-    with ``bf16`` on bf16 operands into a bf16 product upcast after;
-    autograd differentiates it."""
+    with ``bf16`` :class:`_BF16Contract` (``geom``: a conv's ``(strides,
+    pads)``, ``None`` for a matmul) into a bf16 product upcast after;
+    autograd differentiates it.  With a ``shard`` ``w`` is its columns:
+    they draw their noise through the window, the product (bf16 under
+    ``bf16``) is joined over the model group, and ``x``'s gradient is
+    summed over it (:class:`_ReduceGrad`)."""
     kw = dict(stochastic=stochastic, backend=backend,
               noise_shared_axis0=shared)
+    if shard is not None and torch.is_grad_enabled() and x.requires_grad:
+        x = _ReduceGrad.apply(x, shard.group, bf16)
     xq, mm_x = _fake_quant(x, bits_x, exp_x, key_x, stats,
                            dict(kw, row0=row0))
-    wq, mm_w = _fake_quant(w, bits_w, exp_w, key_w, stats, kw)
+    wq, mm_w = _fake_quant(w, bits_w, exp_w, key_w, stats,
+                           dict(kw, window=_window(shard)))
     if bf16:
-        y = contract(xq.to(torch.bfloat16),
-                     wq.to(torch.bfloat16)).to(torch.float32)
+        y = _joined(_BF16Contract.apply(xq, wq, geom, shard is not None),
+                    shard).to(torch.float32)
     else:
-        y = contract(xq.to(torch.float32), wq.to(torch.float32))
+        y = _joined(contract(xq.to(torch.float32), wq.to(torch.float32)),
+                    shard)
     return (y, mm_x, mm_w) if stats else y
 
 
@@ -196,6 +302,12 @@ def _split9(xc: torch.Tensor):
 
 def _int_sum_to_f32(acc: torch.Tensor, inv: torch.Tensor) -> torch.Tensor:
     return acc.to(torch.float32) * inv
+
+
+def _summed(dx: torch.Tensor, tp) -> torch.Tensor:
+    """A float backward's partial ``dx`` summed over the model group
+    ``tp`` (f32), or itself on one rank."""
+    return dx if tp is None else tp.all_reduce(dx, kind="dx")
 
 
 def _partial_dx(a: torch.Tensor, b: torch.Tensor, inv: torch.Tensor,
@@ -230,7 +342,7 @@ class _QMatmul(torch.autograd.Function):
         if ctx.bits_g > 8:  # lbt_tpu's float backward
             g = g.to(torch.float32)
             if ctx.needs_input_grad[0]:
-                dx = g @ dequantize(wc, mw).t()
+                dx = _summed(g @ dequantize(wc, mw).t(), ctx.tp)
             if ctx.needs_input_grad[1]:
                 dw = dequantize(xc, mx).t() @ g
             return dx, dw, None, None, None, None, None, None, None
@@ -260,7 +372,7 @@ def qmatmul(x: torch.Tensor, w: torch.Tensor, exp_x: Exp, exp_w: Exp, *,
     output, joined over the model group (``minmax_w`` is the slice's)."""
     kw = dict(bits_x=bits_x, bits_w=bits_w, key_x=key_x, key_w=key_w,
               stochastic=stochastic, shared=noise_shared_axis0, stats=stats,
-              row0=row0)
+              row0=row0, shard=shard)
     if not int_route(engine, bits_x, bits_w):
         return _float_route(
             torch.matmul, x, w, exp_x, exp_w, backend="xla",
@@ -273,7 +385,7 @@ def qmatmul(x: torch.Tensor, w: torch.Tensor, exp_x: Exp, exp_w: Exp, *,
     wc, mw, mm_w = _codes(w, bits_w, exp_w, key_w, stochastic, backend,
                           noise_shared_axis0, stats, shard=shard)
     if torch.is_grad_enabled() and (x.requires_grad or w.requires_grad):
-            y = _QMatmul.apply(x, w, xc, wc, mx, mw, exp_g, bits_g,
+        y = _QMatmul.apply(x, w, xc, wc, mx, mw, exp_g, bits_g,
                            None if shard is None else shard.group)
     else:
         y = int8_matmul(xc, wc, (1.0 / (mx * mw)).reshape(1))
@@ -311,13 +423,9 @@ def _conv_backward(gc, mg, xc, wc, mx, mw, strides, pads, need_dx, need_dw,
     kh, kw, _, cout = wc.shape
     dx = dw = None
     if need_dx:
-        gd = dilate_pad(gc, strides, dx_pads(
-            (h, w), (kh, kw), strides, pads, gc.shape[1:3]))
-        wflip = wc.flip((0, 1)).permute(0, 1, 3, 2).contiguous().reshape(
-            kh * kw * cout, cin)
-        dx = _partial_dx(im2col(gd, (kh, kw), (1, 1), ((0, 0), (0, 0))),
-                         wflip, (1.0 / (mg * mw)).reshape(1), tp).view(
-                             b, h, w, cin)
+        cols, wflip = _dx_operands(gc, wc, (h, w), strides, pads)
+        dx = _partial_dx(cols, wflip, (1.0 / (mg * mw)).reshape(1),
+                         tp).view(b, h, w, cin)
     if need_dw:
         g2 = gc.reshape(-1, cout)
         if xc.dtype == torch.int8:
@@ -363,6 +471,8 @@ class _QConv2d(torch.autograd.Function):
             dx, dw = _float_conv_backward(
                 g, dequantize(xc, mx), dequantize(wc, mw), strides, pads,
                 ctx.needs_input_grad[:2])
+            if dx is not None:
+                dx = _summed(dx, tp)
             return dx, dw, None, None, None, None, None, None
         mg = multiplier(bits_g, ctx.exp_g, g.device)
         dx, dw = _conv_backward(_recover_codes(g, mg), mg, xc, wc, mx, mw,
@@ -387,7 +497,7 @@ def qconv2d(x: torch.Tensor, w: torch.Tensor, exp_x: Exp, exp_w: Exp, *,
     pads = conv_pads(padding, x.shape[1:3], w.shape[0:2], strides)
     kw = dict(bits_x=bits_x, bits_w=bits_w, key_x=key_x, key_w=key_w,
               stochastic=stochastic, shared=noise_shared_axis0, stats=stats,
-              row0=row0)
+              row0=row0, shard=shard)
 
     def conv(a, b):
         return _float_conv(a, b, strides, pads)
@@ -395,7 +505,8 @@ def qconv2d(x: torch.Tensor, w: torch.Tensor, exp_x: Exp, exp_w: Exp, *,
     if not int_route(engine, bits_x, bits_w):
         return _float_route(
             conv, x, w, exp_x, exp_w, backend="xla",
-            bf16=engine == "sim_bf16" and max(bits_x, bits_w) < 32, **kw)
+            bf16=engine == "sim_bf16" and max(bits_x, bits_w) < 32,
+            geom=(strides, pads), **kw)
     if bits_w > 8:  # 9-bit weight codes: K2 takes int8 only
         return _float_route(conv, x, w, exp_x, exp_w, backend=backend,
                             bf16=False, **kw)

@@ -15,19 +15,25 @@ contracts the whole input with its slice of ``W`` and all-gathers the
 slices of its output along the channel dim (the join); a sharded conv
 fused with its BatchNorm's input (kernels #4 / #5) joins the BN input's
 int8 codes and their per-channel moments, so every layer after the join
-runs on the whole tensor, as on one rank.  The join's backward takes this
-rank's columns of the (whole, replicated) cotangent; the input's
-gradient is the int32 sum over the model group of each rank's partial
-contraction, added before the dequantize; the weight's gradient is the
-slice's own.  Every quantity of a slice that ``lbt_tpu`` computes over
-the whole tensor is the whole tensor's here: the stochastic codes draw at
-their counters in the whole tensor (the column window of
-``ops/kernels/quant.Noise``), the controllers read min of mins and max of
-maxes (or counts summed) over the model group (``nn/core.Ctx``), and the
-low-bit all-reduce's shared exponent takes the max over the model group
-first (``parallel/lowbit.py``).  The integer sums are exact and the
-statistics are minima, maxima and exact counts, so a step on this layout
-equals the one-rank step on the same data bit for bit.
+runs on the whole tensor, as on one rank.  Every route shards: the
+integer route (K1, K2, #4 / #5) and the float route (``sim``,
+``sim_bf16``, 32-bit or wider operands, a float backward).  The join's
+backward takes this rank's columns of the (whole, replicated) cotangent;
+the input's gradient is the sum over the model group of each rank's
+partial contraction (int32 sums added before the dequantize on the
+integer route, f32 on the float route: ``ops/qops.py``); the weight's
+gradient is the slice's own.  Every quantity of a slice that
+``lbt_tpu`` computes over the whole tensor is the whole tensor's here:
+the stochastic codes draw at their counters in the whole tensor (the
+column window of ``ops/kernels/quant.Noise``), the controllers read min
+of mins and max of maxes (or counts summed) over the model group
+(``nn/core.Ctx``), and the low-bit all-reduce's shared exponent takes
+the max over the model group first (``parallel/lowbit.py``).  The
+integer sums are exact and the statistics are minima, maxima and exact
+counts, so on the integer route a step on this layout equals the
+one-rank step on the same data bit for bit; the float route's partial
+``dx`` add in another order than one rank's contraction, so it equals
+it at f32 tolerance.
 
 A Cout that ``model`` does not divide still shards, as GSPMD pads it:
 slices of ``ceil(Cout / model)`` columns, the last one shorter.
@@ -42,18 +48,14 @@ import torch
 import torch.distributed as dist
 from torch import nn
 
-from lbt_tpu_torch.config import INT_ENGINES
 from lbt_tpu_torch.nn.core import walk
 from lbt_tpu_torch.parallel.multihost import Group
 
 __all__ = ["Shard", "column_slice", "gather_params", "make_groups",
-           "param_pspecs", "shard_model", "shard_params", "tp_refusal"]
+           "param_pspecs", "shard_model", "shard_params"]
 
 # minimum size before a weight is worth sharding over 'model'
 TP_MIN_ELEMS = 32 * 1024
-
-# what the float route under tensor parallelism waits for
-FLOAT_ROUTE_ITEM = "ROADMAP queue 1 item 15"
 
 
 class Shard(NamedTuple):
@@ -167,33 +169,13 @@ def gather_params(params, pspecs, group: Group):
     return build(params)
 
 
-def tp_refusal(cfg) -> str:
-    """Why a model of ``cfg`` cannot run tensor parallel, or ``''``.  A
-    sharded layer runs the integer route with 8-bit weight and cotangent
-    codes (and 8-bit dense activations): K1, K2 and #4 / #5, whose sums
-    are exact.  The float route (``sim``, ``sim_bf16``, a 32-bit or wider
-    operand), whose partial sums over the model group would be f32, waits
-    for its own item."""
-    if cfg is None:
-        return f"an FP32 model runs the float route ({FLOAT_ROUTE_ITEM})"
-    if (cfg.engine not in INT_ENGINES or cfg.bits_w > 8 or cfg.bits_g > 8
-            or cfg.bits_a > 8 or cfg.bits_a_conv > 9):
-        return (f"tensor parallelism runs the integer route (engine int8 "
-                f"or pallas, weights, activations and cotangents of at "
-                f"most 8 bits); engine {cfg.engine!r} with bits_w "
-                f"{cfg.bits_w}, bits_a {cfg.bits_a}, bits_g {cfg.bits_g} "
-                f"takes the float route ({FLOAT_ROUTE_ITEM})")
-    return ""
-
-
 def shard_model(model, group: Group) -> Dict[str, tuple]:
     """Cut ``model`` (whole, as ``Model.init`` or ``convert`` leaves it)
     to model rank ``group.rank``'s slices, in place: every ``W`` that
     :func:`param_pspecs` shards becomes its columns of the whole, and its
     layer gets a :class:`Shard` (``layer.shard``).  Returns the specs of
     ``model.net.named_parameters()``, for the optimizer's state, the
-    checkpoint and the converter.  Raises ``NotImplementedError`` for a
-    model whose sharded layers would take the float route."""
+    checkpoint and the converter."""
     named = dict(model.net.named_parameters())
     specs = param_pspecs(named)
     owner = {id(p): (layer, k) for layer in walk(model.net)
@@ -202,9 +184,6 @@ def shard_model(model, group: Group) -> Dict[str, tuple]:
         if not specs[name]:
             continue
         layer, k = owner[id(p)]
-        why = tp_refusal(layer.cfg)
-        if why:
-            raise NotImplementedError(f"{name}: {why}")
         n = p.shape[-1]
         col0, width = column_slice(n, group.world, group.rank)
         if width < 1:

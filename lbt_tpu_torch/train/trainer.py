@@ -36,9 +36,11 @@ padding and every reduction above go by data index: the ``T`` ranks of
 one data index feed the same rows.  With one data index (``T`` ranks in
 all) the run is not data parallel, as ``lbt_tpu``'s Trainer is not on
 ``T`` devices: the one-rank steps run on the sharded model, so the run
-is the one-process run bit for bit.  A checkpoint holds the whole tensors
-(gathered over the model group; rank 0 writes them), so it restores at
-any ``T`` over as many data indices (one data index: in one process too).
+is the one-process run, bit for bit on the integer route and at f32
+tolerance on the float route (``ops/qops.py``).  A checkpoint holds the
+whole tensors (gathered over the model group; rank 0 writes them), so it
+restores at any ``T`` over as many data indices (one data index: in one
+process too).
 """
 
 from __future__ import annotations

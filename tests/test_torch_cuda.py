@@ -1319,3 +1319,107 @@ def test_conv_fused_column_window_matches_plain(dev, k, cin, cout, n_global,
     want = conv_fused.conv_fused_plain(xc, wc, inv, mult, **kw)
     for a, b in zip(got, want):
         assert a.dtype == b.dtype and torch.equal(a.cpu(), b)
+
+
+class _SliceGroup:
+    """Model rank ``rank`` of a group of ``world`` run alone: the join
+    puts this rank's columns among zeros, and the partial-dx sum hands
+    back this rank's partial, which the test adds up itself."""
+
+    def __init__(self, rank, world=2):
+        self.rank, self.world = rank, world
+
+    def all_gather(self, t, dim=-1, kind=""):
+        return torch.cat([t if r == self.rank else torch.zeros_like(t)
+                          for r in range(self.world)], dim)
+
+    def all_reduce(self, t, op="sum", kind=""):
+        return t.clone()
+
+
+def _float_route_slices(device, layer, engine):
+    """A Dense (96 -> 70) or a 3x3 conv (16 -> 24 channels) on the float
+    route, its ``W`` cut into 2 column slices that run one after the
+    other: each slice's output columns and ``dW``, and the sum of the
+    two partial ``dx``.  Operands draw threefry noise (the sharded
+    weight through its column window); the cotangent is on an 8-bit
+    grid, so every contraction sums exactly in f32."""
+    from lbt_tpu_torch.parallel.mesh import Shard, column_slice
+    g = torch.Generator().manual_seed(7)
+    if layer == "dense":
+        x = torch.randn(16, 96, generator=g)
+        w = torch.randn(96, 70, generator=g) * 0.1
+        op, kw = qops.qmatmul, {}
+    else:
+        x = torch.randn(2, 8, 8, 16, generator=g)
+        w = torch.randn(3, 3, 16, 24, generator=g) * 0.1
+        op, kw = qops.qconv2d, dict(strides=(1, 1), padding="SAME")
+    n = w.shape[-1]
+    y_shape = (*x.shape[:-1], n)
+    cot = torch.randint(-127, 128, y_shape, generator=g).float() * 2 ** -9
+    outs, dws, dx = [], [], 0
+    for m in range(2):
+        col0, width = column_slice(n, 2, m)
+        xs = x.clone().to(device).requires_grad_(True)
+        ws = w[..., col0:col0 + width].contiguous().to(device) \
+            .requires_grad_(True)
+        y = op(xs, ws, 1, 0, bits_x=8, bits_w=8, engine=engine,
+               key_x=(1, 2), key_w=(3, 4), stochastic=True,
+               shard=Shard(_SliceGroup(m), col0, width, n), **kw)
+        (y * cot.to(device)).sum().backward()
+        outs.append(y[..., col0:col0 + width].detach().cpu())
+        dws.append(ws.grad.cpu())
+        dx = dx + xs.grad.cpu()
+    return outs, dws, dx
+
+
+@pytest.mark.parametrize("engine", ["sim", "sim_bf16"])
+@pytest.mark.parametrize("layer", ["dense", "conv"])
+def test_float_route_column_slices_card_equal_cpu(dev, layer, engine):
+    """A sharded Dense and 3x3 Conv2d on the float route, 2 column
+    slices run in turn on the card: each slice's output and ``dW``, and
+    the two partial ``dx`` summed, equal the same run on the CPU at rtol
+    1e-5 (TF32 off)."""
+    got = _float_route_slices(dev, layer, engine)
+    want = _float_route_slices(torch.device("cpu"), layer, engine)
+    for a, b in zip(got[0] + got[1] + [got[2]], want[0] + want[1] + [want[2]]):
+        torch.testing.assert_close(a, b, rtol=1e-5, atol=0)
+
+
+@pytest.mark.parametrize("x_shape,w_shape,stride", [
+    ((128, 28, 28, 512), (1, 1, 512, 128), 1),
+    ((128, 56, 56, 64), (3, 3, 64, 64), 1),
+    ((128, 56, 56, 128), (3, 3, 128, 128), 2),
+    ((128, 2048), (2048, 1000), None)])
+def test_bf16_contraction_is_exact_on_the_card(dev, x_shape, w_shape,
+                                              stride):
+    """``sim_bf16``'s contraction (``qops._BF16Contract``) on the card at
+    shapes of configuration A (ResNet-50/224 at batch 128: a 28x28 1x1
+    conv, where cuDNN's own bf16 wgrad rounds partial sums, 3x3 convs at
+    stride 1 and 2, the head): the output, ``dx`` and ``dW`` equal the
+    float64 contraction of the same bf16 values rounded once to bf16,
+    bitwise (8-bit codes: every float64 sum is exact)."""
+    from lbt_tpu_torch.ops.im2col import conv_pads
+    g = torch.Generator(device=dev).manual_seed(11)
+
+    def codes(shape, scale):
+        return torch.randint(-128, 128, shape, generator=g, device=dev,
+                             dtype=torch.int32).float() * scale
+    x, w = codes(x_shape, 2 ** -7), codes(w_shape, 2 ** -9)
+    geom = None if stride is None else ((stride, stride), conv_pads(
+        "SAME", x_shape[1:3], w_shape[:2], (stride, stride)))
+    outs = []
+    for exact in (True, False):
+        xs, ws = x.clone().requires_grad_(), w.clone().requires_grad_()
+        if exact:
+            y = qops._BF16Contract.apply(xs, ws, geom, False)
+        else:
+            a, b = (t.to(torch.bfloat16).double() for t in (xs, ws))
+            y = (a @ b if geom is None else
+                 qops._float_conv(a, b, *geom)).to(torch.bfloat16)
+        if not outs:
+            cot = codes(tuple(y.shape), 2 ** -10)
+        y.float().backward(cot)
+        outs.append((y.detach(), xs.grad, ws.grad))
+    for got, want in zip(*outs):
+        assert got.dtype == want.dtype and torch.equal(got, want)

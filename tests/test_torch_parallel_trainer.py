@@ -314,20 +314,26 @@ def test_cli_trains_data_parallel_under_torchrun(tmp_path):
 
 
 def test_cli_refuses_tensor_parallelism(tmp_path, capsys):
-    """``--tensor_parallel 2`` on the float route (``--engine sim``) exits
-    with status 2 before any work, naming its ROADMAP item; the
-    data-parallel flags, and tensor parallelism on the integer route,
-    are accepted (``tests/test_torch_tp*.py``)."""
+    """``--tensor_parallel 2`` is accepted on every route, the float
+    route (``--engine sim`` / ``sim_bf16``, ``--bits 32``, 16-bit
+    cotangents) as the integer one, beside the data-parallel flags; what
+    the CLI still refuses, exiting with status 2 before any work, is
+    ROADMAP queue 1 item 13's flags, each named, under tensor
+    parallelism too."""
     from lbt_tpu_torch.main import build_parser, main, refusals
+    tp = ["--data_parallel", "--tensor_parallel", "2"]
     for argv in (["--data_parallel"], ["--lowbit_allreduce"],
-                 ["--lowbit_allreduce", "--lowbit_wire", "int16"],
-                 ["--data_parallel", "--tensor_parallel", "2"]):
+                 ["--lowbit_allreduce", "--lowbit_wire", "int16"], tp,
+                 tp + ["--engine", "sim"], tp + ["--engine", "sim_bf16"],
+                 tp + ["--bits", "32"], tp + ["--bits_g", "16"]):
         assert refusals(build_parser().parse_args(argv)) == []
-    with pytest.raises(SystemExit) as e:
-        main(["--tensor_parallel", "2", "--engine", "sim", "--device", "cpu",
-              "--exp_path", str(tmp_path / "exp")])
-    assert e.value.code == 2
-    err = capsys.readouterr().err
-    assert "--tensor_parallel 2" in err
-    assert "ROADMAP queue 1 item 15" in err
+    for flag in (["--remat_bn"], ["--bn_residual_q16"],
+                 ["--scan_steps", "4"]):
+        with pytest.raises(SystemExit) as e:
+            main(tp + ["--engine", "sim_bf16", "--device", "cpu",
+                       "--exp_path", str(tmp_path / "exp"), *flag])
+        assert e.value.code == 2
+        err = capsys.readouterr().err
+        assert flag[0] in err and "ROADMAP queue 1 item 13" in err
+        assert "--tensor_parallel" not in err
     assert not (tmp_path / "exp").exists()

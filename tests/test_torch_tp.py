@@ -15,10 +15,14 @@ GSPMD step, ``test_torch_tp_trainer.py`` the Trainer and the CLI):
    step) against dp 2 on the same rows: parameters,
    velocity, exponents, BN state and loss equal at tolerance 0, on the
    Dense toy and on ResNet-8 (batch 4), and a 256 x 130 layer at tp = 4;
+   on the float route (``sim_bf16`` on the toy and ResNet-8, the
+   toy's 9-bit dense operands on ``int8``, ``sim`` at a 1% overflow
+   target, ResNet-8 on ``int8`` with 16-bit cotangents), the same
+   comparisons at f32
+   tolerance, with one partial-dx sum a sharded layer a step;
 4. tp x the low-bit all-reduce: 2 x 2 with ``lowbit_allreduce``, psum
    and int8 ring, equal to dp 2 bitwise;
-5. ``param_pspecs``, ``shard_params`` / ``gather_params`` and the
-   refusal of the float route.
+5. ``param_pspecs`` and ``shard_params`` / ``gather_params``.
 
 The ranks are processes of ``tests/torch_ranks.py`` (gloo over a
 ``FileStore``, one thread each), one launch of 4 for every layout.
@@ -214,11 +218,18 @@ def _batches(model_kind, batch, seed):
             np.int32)) for _ in range(N_STEPS)]
 
 
-def _job(kind, batch, layout, seed, **kw):
-    return {"kind": "tp_steps", "model": {"kind": kind, "cfg": HASH},
+def _job(kind, batch, layout, seed, cfg=HASH, **kw):
+    return {"kind": "tp_steps", "model": {"kind": kind, "cfg": cfg},
             "layout": layout, "data": _batches(kind, batch, seed),
             "batch": batch, "lr": LR,
             "key": keys.base_key(13).tolist(), **kw}
+
+
+BF16 = dict(HASH, engine="sim_bf16")
+A9 = dict(HASH, bits_a=9)   # 9-bit dense operands: int8's float route
+# sim with the controllers at a non-zero target: overflow counts
+SIM_OVF = dict(HASH, engine="sim", target_overflow_rate=0.01)
+G16 = dict(HASH, bits_g=16)  # int8's float backward
 
 
 LAYOUT_JOBS = {
@@ -238,6 +249,19 @@ LAYOUT_JOBS = {
                                           "lowbit_wire": "int8"}),
     "lb_int8_2x2": ("tp_toy", 8, (2, 2), {"lowbit_bits": 8,
                                           "lowbit_wire": "int8"}),
+    "bftoy_single": ("tp_toy", 8, (1, 1), {"single": True, "cfg": BF16}),
+    "bftoy_1x2": ("tp_toy", 8, (1, 2), {"single": True, "cfg": BF16}),
+    "bftoy_2x1": ("tp_toy", 8, (2, 1), {"cfg": BF16}),
+    "bftoy_2x2": ("tp_toy", 8, (2, 2), {"cfg": BF16}),
+    "bfr8_single": ("resnet8", 4, (1, 1), {"single": True, "cfg": BF16}),
+    "bfr8_1x2": ("resnet8", 4, (1, 2), {"single": True, "cfg": BF16}),
+    "a9toy_single": ("tp_toy", 8, (1, 1), {"single": True, "cfg": A9}),
+    "a9toy_1x2": ("tp_toy", 8, (1, 2), {"single": True, "cfg": A9}),
+    "ovtoy_single": ("tp_toy", 8, (1, 1), {"single": True,
+                                           "cfg": SIM_OVF}),
+    "ovtoy_1x2": ("tp_toy", 8, (1, 2), {"single": True, "cfg": SIM_OVF}),
+    "g16r8_single": ("resnet8", 4, (1, 1), {"single": True, "cfg": G16}),
+    "g16r8_1x2": ("resnet8", 4, (1, 2), {"single": True, "cfg": G16}),
 }
 
 
@@ -260,6 +284,19 @@ def _equal_trees(a, b, path=""):
             _equal_trees(a[k], b[k], f"{path}/{k}")
     else:
         np.testing.assert_array_equal(a, b, err_msg=path)
+
+
+def _close_trees(a, b, path=""):
+    """Integer leaves (exponents) bitwise, float leaves at rtol 1e-5,
+    atol 1e-6."""
+    if isinstance(a, dict):
+        assert set(a) == set(b), path
+        for k in a:
+            _close_trees(a[k], b[k], f"{path}/{k}")
+    elif np.asarray(b).dtype == np.int32:
+        np.testing.assert_array_equal(a, b, err_msg=path)
+    else:
+        np.testing.assert_allclose(a, b, rtol=1e-5, atol=1e-6, err_msg=path)
 
 
 def _assert_same_run(got, want, ebuf=False):
@@ -290,6 +327,43 @@ def test_dp_tp_2x2_equals_dp_2(layouts, model):
     for r in range(4):
         _assert_same_run(layouts[r][f"{model}_2x2"],
                          layouts[r // 2][f"{model}_2x1"])
+
+
+@pytest.mark.parametrize("run,want", [
+    ("bftoy_1x2", "bftoy_single"), ("bfr8_1x2", "bfr8_single"),
+    ("bftoy_2x2", "bftoy_2x1"), ("a9toy_1x2", "a9toy_single"),
+    ("ovtoy_1x2", "ovtoy_single"), ("g16r8_1x2", "g16r8_single")])
+def test_float_route_tp_equals_one_rank_and_dp_steps(layouts, run, want):
+    """The float route on the layout: ``sim_bf16`` (each rank's exact
+    f32 partial dx, summed in f32 and rounded once to bf16, as one
+    rank's bf16 dot rounds; ``tests/test_torch_tp_jax.py`` says how
+    ``lbt_tpu``'s GSPMD step rounds), ``int8``'s 9-bit dense operands
+    (f32 partials), ``sim`` with the controllers at a 1% overflow
+    target (the sharded weight's overflow counts summed over the model
+    group, over the whole tensor's size), and ``int8`` with 16-bit
+    cotangents on ResNet-8 (the integer forward, the sharded conv's
+    float backward summing its f32 partial dx).  At 1 x 2 against the
+    one-rank step, at 2 x 2 against dp 2 on the same rows: exponents
+    bitwise, the loss at rtol 1e-5, the state at rtol 1e-5, atol 1e-6,
+    on every rank.  The model group sums one partial dx a sharded layer
+    a step: a sum left out would halve the input's gradient, a second
+    one double it."""
+    dp = run.endswith("2x2")
+    for r in range(4 if dp else 2):
+        got = layouts[r][run]
+        ref = layouts[r // 2 if dp else 0][want]
+        for s, (g, w) in enumerate(zip(got["steps"], ref["steps"])):
+            np.testing.assert_allclose(g["loss"], w["loss"], rtol=1e-5,
+                                       err_msg=f"rank {r} step {s}")
+            for part in ("params", "qstate", "velocity"):
+                _close_trees(g[part], w[part], f"rank {r} step {s} {part}")
+    assert ref["steps"][-1]["qstate"] != ref["init"][1]
+
+    def n_sharded(specs):
+        return sum(n_sharded(v) if isinstance(v, dict) else bool(v)
+                   for v in specs.values())
+    assert layouts[0][run]["kinds"]["dx"][1] == N_STEPS * n_sharded(
+        layouts[0][run]["specs"])
 
 
 def test_tp_uneven_columns_equal_one_rank_step(layouts):
@@ -327,8 +401,92 @@ def test_tp_lowbit_allreduce_equals_dp_2(layouts, wire):
 
 
 # ---------------------------------------------------------------------------
-# 5. the specs, the slices, the refusal
+# 5. the specs and the slices
 # ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("geom", [
+    None, ((1, 1), "SAME", 3), ((2, 2), "SAME", 3), ((2, 2), "VALID", 1),
+    ((1, 1), "VALID", 3)])
+def test_sharded_bf16_contraction_equals_the_whole(geom):
+    """``sim_bf16``'s contraction (``qops._BF16Contract``) whole, and on 2
+    column slices of 8-bit codes (the joined forward, each slice's
+    ``dW``, and the two f32 partial ``dx`` summed and rounded once to
+    bf16), equals the library's bf16 contraction on the CPU, whose sums
+    are exact, bitwise (a matmul; convs at stride 1 and 2, SAME and
+    VALID, an odd input size)."""
+    from lbt_tpu_torch.ops import qops
+    gen = torch.Generator().manual_seed(3)
+
+    def codes(shape, lim, scale):
+        return torch.randint(-lim, lim, shape, generator=gen).float() * scale
+    if geom is None:
+        x, w = codes((12, 40), 128, 2 ** -7), codes((40, 18), 128, 2 ** -8)
+        args, contract = None, torch.matmul
+    else:
+        strides, padding, k = geom
+        x = codes((2, 9, 9, 6), 256, 2 ** -8)
+        w = codes((k, k, 6, 18), 128, 2 ** -8)
+        pads = conv_pads(padding, (9, 9), (k, k), strides)
+        args = (strides, pads)
+
+        def contract(a, b):
+            return qops._float_conv(a, b, strides, pads)
+    xb, wb = x.bfloat16().requires_grad_(), w.bfloat16().requires_grad_()
+    y = contract(xb, wb)
+    g = codes(tuple(y.shape), 128, 2 ** -10).bfloat16()
+    y.backward(g)
+    xw, ww = x.clone().requires_grad_(), w.clone().requires_grad_()
+    whole = qops._BF16Contract.apply(xw, ww, args, False)
+    whole.backward(g)
+    assert torch.equal(whole, y)
+    assert torch.equal(ww.grad, wb.grad.float())
+    assert torch.equal(xw.grad, xb.grad.float())
+    ys, dws, dx = [], [], 0
+    for col0, width in _slices(18, 2):
+        xs = x.clone().requires_grad_()
+        ws = w[..., col0:col0 + width].clone().requires_grad_()
+        part = qops._BF16Contract.apply(xs, ws, args, True)
+        part.backward(g[..., col0:col0 + width])
+        ys.append(part)
+        dws.append(ws.grad)
+        dx = dx + xs.grad
+    assert torch.equal(torch.cat(ys, -1), y)
+    assert torch.equal(torch.cat(dws, -1), wb.grad.float())
+    assert torch.equal(dx.bfloat16(), xb.grad)
+
+
+class _TwinSlices:
+    """A model group of 2 whose other rank holds a slice equal to this
+    one's: a sum over it is twice this rank's."""
+    world, rank = 2, 0
+
+    def all_reduce(self, t, op="sum", kind=""):
+        return t * 2 if op == "sum" else t
+
+
+def test_sharded_weight_controller_rates_the_whole_tensor():
+    """A sharded ``W``'s controller at a non-zero overflow target sums
+    the slices' overflow counts over the model group and rates them over
+    the whole ``W``'s size, as one rank's controller on the whole ``W``:
+    one clipping element in each 40 x 5 half is a rate of 0.005 (under
+    the 0.006 target: the exponent tightens), where rating the summed
+    counts over a slice's size would read 0.01 and widen it."""
+    from lbt_tpu_torch.nn.core import Ctx, site_init_exp
+    from lbt_tpu_torch.nn.layers import Dense
+    cfg = tconfig.QuantConfig.uniform(8, engine="sim",
+                                      target_overflow_rate=0.006)
+    exps = []
+    for shard in (None, mesh.Shard(_TwinSlices(), 0, 5, 10)):
+        layer = Dense("d", cfg, 40, 10)
+        half = torch.full((40, 5), 0.01)
+        half[3, 2] = 1e3      # clips at any exponent the layer starts at
+        w = half if shard is not None else torch.cat([half, half], -1)
+        ctx = Ctx(train=True, update=True)
+        layer._ctrl(ctx, "w", 8, w, shard=shard)
+        ctx.commit()
+        exps.append(int(layer.exp("w")))
+    assert exps[0] == exps[1] == site_init_exp(cfg, "w") - 1
+
 
 def test_param_pspecs_is_lbt_tpus_rule():
     """``W`` leaves of at least 2 dims and 32K elements shard their last
@@ -389,17 +547,3 @@ def test_shard_and_gather_round_trip_converter_trees():
     convert.from_jax_numpy(twin, parts[3], qstate)
     assert twin.net.layers[2].W.shape == (256, 31)
     assert twin.net.layers[2].shard[1:] == (99, 31, 130)
-
-
-@pytest.mark.parametrize("cfg", [
-    {"engine": "sim"}, {"engine": "sim_bf16"},
-])
-def test_float_route_is_refused_under_tp(cfg):
-    """The float route's partial sums over the model group would be f32:
-    a sharded layer on it is refused, naming its ROADMAP item."""
-    model = build({"kind": "tp_toy", "cfg": dict(HASH, **cfg)})
-    with pytest.raises(NotImplementedError, match="queue 1 item 15"):
-        mesh.shard_model(model, None)
-    fp32 = tconfig.QuantConfig.fp32()
-    assert "item 15" in mesh.tp_refusal(fp32)
-    assert mesh.tp_refusal(tconfig.QuantConfig.uniform(8)) == ""

@@ -11,7 +11,8 @@ processes of ``tests/torch_ranks.py``:
    (tp = 1) on 2 ranks, bit for bit: the data-parallel step, the masked
    eval and the checkpoint's ebuf on the layout;
 3. ``python -m lbt_tpu_torch.main --data_parallel --tensor_parallel 2``
-   under ``torch.distributed.run``: trains, evaluates, and a second run
+   under ``torch.distributed.run``, on the integer route and on the float
+   route (``--engine sim_bf16``): trains, evaluates, and a second run
    resumes from its checkpoint.
 """
 
@@ -165,10 +166,11 @@ def test_dp_tp_2x2_trainer_equals_dp_2(runs):
         assert math.isfinite(got["eval"]["loss"])
 
 
-def test_cli_trains_tensor_parallel_under_torchrun(tmp_path):
+def _cli_tp2_resumes(tmp_path, extra):
     """``torch.distributed.run`` with 2 ranks on the CPU, ``--data_parallel
-    --tensor_parallel 2`` on ResNet-20 (its 3x3x64x64 convs sharded): 1
-    epoch, an eval, a checkpoint; then 2 epochs resume from it."""
+    --tensor_parallel 2`` on ResNet-20 (its 3x3x64x64 convs sharded) with
+    ``extra`` flags: 1 epoch, an eval, a checkpoint; then 2 epochs resume
+    from it."""
     exp = tmp_path / "exp"
     for n_epoch in (1, 2):
         cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone",
@@ -177,7 +179,7 @@ def test_cli_trains_tensor_parallel_under_torchrun(tmp_path):
                "--model", "CIFAR10_Resnet20", "--noise_mode", "hash",
                "--n_train", "32", "--n_test", "20", "--batch_size", "8",
                "--n_epoch", str(n_epoch), "--log_every", "1",
-               "--exp_path", str(exp)]
+               "--exp_path", str(exp), *extra]
         out = subprocess.run(cmd, cwd=tmp_path, env=rank_env(),
                              capture_output=True, text=True, timeout=240)
         assert out.returncode == 0, out.stdout[-3000:] + out.stderr[-3000:]
@@ -190,3 +192,17 @@ def test_cli_trains_tensor_parallel_under_torchrun(tmp_path):
     assert log.count("Start of experiment") == 2
     assert "column slices" in log and "Resumed from" in log
     assert sorted(int(d) for d in os.listdir(exp / "ckpt")) == [4, 8]
+    return log
+
+
+def test_cli_trains_tensor_parallel_under_torchrun(tmp_path):
+    """The integer route (``main.py``'s default engine, int8)."""
+    _cli_tp2_resumes(tmp_path, [])
+
+
+def test_cli_trains_float_route_tensor_parallel_under_torchrun(tmp_path):
+    """The float route: ``--engine sim_bf16`` (the bench's baseline
+    engine), its sharded convs contracted in bf16 and their partial dx
+    summed over the model group."""
+    log = _cli_tp2_resumes(tmp_path, ["--engine", "sim_bf16"])
+    assert '"engine": "sim_bf16"' in log

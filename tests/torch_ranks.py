@@ -14,6 +14,7 @@ trees in ``lbt_tpu``'s layout.
 
 from __future__ import annotations
 
+import dataclasses
 import os
 import pickle
 import subprocess
@@ -82,9 +83,22 @@ def start_ranks(tmp: Path, jobs: dict, world: int):
     return wait
 
 
+WIDTHS = ("bits_w", "bits_a", "bits_b", "bits_g")
+
+
+def quant_config(bits: int, kw: dict, qc=tconfig.QuantConfig):
+    """``qc.uniform(bits, **kw)`` with the widths in ``kw`` (which
+    ``uniform`` sets itself) replaced after; ``qc`` is the port's
+    ``QuantConfig`` or ``lbt_tpu``'s."""
+    kw = dict(kw)
+    widths = {k: kw.pop(k) for k in WIDTHS if k in kw}
+    return dataclasses.replace(qc.uniform(bits, **kw), **widths)
+
+
 def build(spec: dict) -> Model:
     """The model of a job: ``{"kind": "resnet8", "cfg": {...}}`` (the
-    CIFAR ResNet-8 under ``uniform(spec.get("bits", 8), **cfg)``, weight
+    CIFAR ResNet-8 under ``uniform(spec.get("bits", 8), **cfg)``, a
+    width in ``cfg`` replacing uniform's (:func:`quant_config`), weight
     decay 2e-4), ``"bnnet"`` (a conv, a BatchNorm, a Dense on 8x8x3
     inputs), ``"toy"`` (``tests/test_parallel.py``'s two Dense layers) or
     ``"gbnet"`` (the toy with a GradientBuffer of a rank's 4 rows between
@@ -93,7 +107,7 @@ def build(spec: dict) -> Model:
     its 256 x 128 layer sharded), ``"tp_toy130"`` (the same with a 256 x
     130 layer, uneven over 4) and ``"tp_convtoy"`` (its conv toy, a
     3x3x64x64 conv fused with its BN sharded)."""
-    cfg = tconfig.QuantConfig.uniform(spec.get("bits", 8), **spec["cfg"])
+    cfg = quant_config(spec.get("bits", 8), spec["cfg"])
     if spec["kind"] == "resnet8":
         model = cifar10_resnet(cfg, 8, weight_decay=WD)
     elif spec["kind"] in ("tp_toy", "tp_toy130"):
