@@ -1,9 +1,11 @@
 #!/usr/bin/env python3
 """Smoke run of lbt_tpu_torch on one NVIDIA GPU: serve and train DFXP-INT8
-ResNet-20, the last through the port's Trainer and CLI (main.py's defaults
-among its runs), then train and serve the bench headline, ResNet-50 at 224
-px and batch 128, train the bench's baseline leg at the same size, train
-VGG-16 / CIFAR-100 under int4w-int8a and serve it folded and exported,
+ResNet-20, under ``noise_impl='unsafe_rbg'`` keys too (XLA's Philox stream
+in K1 and #4/#5), the last through the port's Trainer and CLI (main.py's
+defaults among its runs), then train and serve the bench headline,
+ResNet-50 at 224 px and batch 128, train the bench's baseline leg at the
+same size, train VGG-16 / CIFAR-100 under int4w-int8a and serve it folded
+and exported,
 train the reference's small models through the CLI, train the
 headline through the CLI from TFRecord shards and an ImageFolder tree of
 ImageNet-like JPEGs, ResNet-20 through the C++ loader, with ``--debug_nans``
@@ -25,12 +27,15 @@ the line on stdout) and exits 1, with no result line.
            reads the SM count and maximum SM clock for the issue rate
            (4 warp instructions an SM a clock) that bounds the noise's
            integer work.
-2. build   builds K1, K2 and kernels #4/#5 from the sources in the
-           checkout (one nvcc per source, started together, sm_90a);
-           prints the seconds each took and each kernel's registers,
-           shared memory and spills (ptxas -v) and, for K2 and #4/#5,
-           its count of IMMA (int8 tensor-core) instructions in the SASS
-           ("not available" without cuobjdump).
+2. build   builds K1, K2 and kernels #4/#5 (a source a noise kind: none
+           and the hashes, threefry, Philox) from the sources in the
+           checkout (one nvcc per source, started together, sm_90a, each
+           followed in its thread by its IMMA count); prints the seconds
+           each took
+           and each kernel's registers, shared memory and spills (ptxas
+           -v) and, for K2 and #4/#5, its count of IMMA (int8
+           tensor-core) instructions in the SASS ("not available"
+           without cuobjdump).
 3. K1      quantize kernel vs its plain PyTorch version on the card,
            bitwise (codes and the multiplier it builds from the
            exponent), at every quantize shape of the serving path (batch
@@ -86,7 +91,29 @@ the line on stdout) and exits 1, with no result line.
            call of their wrappers (and run no other kernel of theirs);
            device launches a step, beside the count measured before K1
            took the multiplier and the min/max into its one launch.
-9. trainer ``python -m lbt_tpu_torch.main``'s ``main`` in-process, the
+9. rbg     ``benchmarks/ablate.py:90-91``'s ``rbg-int8``: ResNet-20 at full
+           width and depth, batch 512 (its ``--batch``), under
+           uniform(8, int8, prng) with ``noise_impl='unsafe_rbg'`` keys:
+           K1 and #4/#5 draw XLA's Philox4x32-10 stream (mode 4).  Gate:
+           2 steps through the kernels (counters reset just before; K1,
+           #4 and #5 each launched, in mode 4 only) equal to the same 2
+           through the plain versions in every tensor (tolerance 0); step
+           0 at batch 32 on the card and on the CPU: loss at rtol 1e-5,
+           every exponent equal.  Then 4 steps beside 4 of ablate's
+           ``prng-int8`` (threefry) in turns: median host ms a step; a
+           2-step profile of each (busy share, device launches a step,
+           each kernel's device ms, one launch a K1 and #4/#5 call).
+           Then K1 and #4/#5 at the step's shapes as in 7 (fewer
+           repetitions), each stochastic check in modes 0, 3 and 4 and
+           at the counter offset ``CHECK_ROW0``, with the bound by mode
+           4's instructions and, as a yardstick of the generator alone,
+           ``torch.rand`` of as many uniforms on the card's own Philox
+           (another stream, nothing quantized), beside each kernel's
+           device ms a step in the two legs' profiles (threefry: the
+           prng-int8 leg's); and mode 4's offset and column-window forms
+           against the plain versions at a data-parallel eval rank's and
+           a tensor-parallel rank's shapes.
+10. trainer ``python -m lbt_tpu_torch.main``'s ``main`` in-process, the
            user's entry point: ResNet-20 at batch 128, 2560 synthetic
            CIFAR images (20 steps an epoch), 2 epochs with an LR decay at
            1, augmentation on, batch-statistic eval (--faithful_eval), every
@@ -96,7 +123,8 @@ the line on stdout) and exits 1, with no result line.
            directory runs 1 epoch, then 2, resuming: its final parameters,
            buffers and velocity must equal the first run's bit for bit.
            The first run's checkpoint, restored on the CPU, must evaluate
-           as on the card (rtol 1e-5).  Prints epoch 2's img/s, the input
+           its first 250 test images as the card does (rtol 1e-5).
+           Prints epoch 2's img/s, the input
            stall share, eval ms per batch, checkpoint save / restore ms.
            Then main.py's defaults: the same command line without
            ``--noise_mode`` (``prng``, threefry), 1 epoch, every counter
@@ -105,25 +133,26 @@ the line on stdout) and exits 1, with no result line.
            ``sim``): 2 ResNet-20 steps on the card and on the CPU, losses
            equal at rtol 1e-5.
            Logs and metrics stay under experiments/smoke_trainer.
-10. resnet50  ``Imagenet_Resnet50`` at full width and depth, 224 px,
+11. resnet50  ``Imagenet_Resnet50`` at full width and depth, 224 px,
            batch 128, weights from a seed, seeded images with labels in
            0..999, under ``bench.py``'s headline (uniform(8, int8, hash1),
            fused BN, controllers every 8th step, bf16 carriers, 8-bit conv
-           activations), deterministic algorithms on, TF32 off.  Gate: 3
-           steps (controllers on, off, off) through the kernels, every
+           activations), deterministic algorithms on, TF32 off.  Gate: 2
+           steps (controllers on, off) through the kernels, every
            launch counter reset just before and each required to rise,
-           equal to the same 3 steps through the plain versions in every
+           equal to the same 2 steps through the plain versions in every
            tensor (tolerance 0); the first loss at batch 8 equal to the CPU
            route's at rtol 1e-5.  Then 8 timed steps at the bench's
            cadence (median ms, img/s, ``max_memory_allocated``), a 2-step
            profile (busy share, device launches a step, one launch a K1
            and #4/#5 call), and every kernel at the step's shapes as in 7
            (calls of a step weighted 1/8 controllers-on, 7/8 off; fewer
-           repetitions; K2's X^T.g library calls once a shape).  Serving: a
+           repetitions; K1 and #4/#5 checked in the path's mode at
+           offset 0 only; K2's X^T.g library calls once a shape).  Serving: a
            ``Predictor`` at batch 128, K1 and K2 launched, logits and
            labels of the kernel route equal to the plain route's; ms a
            request of both routes.  Prints the phase's seconds.
-11. baseline50  ``bench.py:305``'s baseline leg: ``Imagenet_Resnet50``
+12. baseline50  ``bench.py:305``'s baseline leg: ``Imagenet_Resnet50``
            at 224 px, batch 128, under uniform(8, engine="sim_bf16",
            noise_mode="prng") (f32 carriers, unfused BN, 9-bit conv
            activations, controllers every step; K1 in threefry mode at
@@ -132,14 +161,15 @@ the line on stdout) and exits 1, with no result line.
            the kernels (counters reset just before; every K1 call in
            threefry mode) equal to the same 2 steps through the plain
            versions in every tensor; the first loss at batch 8 equal to
-           the CPU route's at rtol 1e-5.  Then 8 timed steps (median ms,
+           the CPU route's at rtol 1e-5.  Then 4 timed steps (median ms,
            img/s, ``max_memory_allocated``), a 2-step profile (busy share,
            device launches a step, one launch a K1 call, K1's device ms a
-           step) and K1 at every call shape of the step against its bound.
+           step) and K1 at every call shape of the step against its bound
+           (checked in threefry mode at offset 0 only).
            Then the headline's img/s over this phase's: the port's first
            reading of ``bench.py``'s ``vs_baseline``.
 
-12. vgg16  configuration V: ``VGG16_CIFAR100`` at full width and depth,
+13. vgg16  configuration V: ``VGG16_CIFAR100`` at full width and depth,
            batch 256, under ``benchmarks/vgg_bench.py``'s ``int4w-int8a``
            (uniform(8, int8, hash) with 4-bit weights: 8-bit biases, BN
            parameters and gradients, 9-bit conv activations, unfused BN,
@@ -160,14 +190,14 @@ the line on stdout) and exits 1, with no result line.
            (at most 0.3 of them), the restored export serving the same
            logits; the share of labels the folded and unfolded models
            agree on (recorded, not gated) and ms a request of 128.
-13. zoo    ``lbt_tpu_torch.main`` on the card, 4 steps of 128 and an eval
+14. zoo    ``lbt_tpu_torch.main`` on the card, 4 steps of 128 and an eval
            each, counters reset just before: ``PI_MNIST``, ``MNIST`` and
            ``CIFAR10`` under main.py's defaults (prng, dropout keep 0.5),
            ``CIFAR10_VGG --bits_w 4 --bits_a 8`` and ``CIFAR10_Resnet20
            --gradient_buffer --noise_mode hash``; losses finite, each
            kernel of the path launched (K1 in threefry mode under prng),
            the gradient buffers nonzero.
-14. records  first probes ``g++``, libjpeg (``jpeglib.h`` through ``g++
+15. records  first probes ``g++``, libjpeg (``jpeglib.h`` through ``g++
            -E``, ``-ljpeg`` linking) and PIL; a leg whose prerequisite is
            missing does not run, and a line says so.  Writes 1,280
            training and 300 validation images from a seed (short side
@@ -190,7 +220,7 @@ the line on stdout) and exits 1, with no result line.
            tree raises FloatingPointError at step 0, without the flag logs
            NaN losses and finishes; a clean run with it finishes.  The data
            is deleted after.
-15. dp     data parallelism (``lbt_tpu_torch.parallel``).  (b) in this
+16. dp     data parallelism (``lbt_tpu_torch.parallel``).  (b) in this
            process: 2 ResNet-20 steps of ``make_dp_train_step`` over an
            NCCL group of world size 1, plain and with the low-bit
            all-reduce's psum transport and both rings, each equal bit for
@@ -205,7 +235,7 @@ the line on stdout) and exits 1, with no result line.
            against the 2-rank CPU route at rtol 1e-5, then 2 steps with
            each low-bit transport (losses finite, ranks equal); (c) the
            headline (phase resnet50's config) at 2 x 64 with the low-bit
-           all-reduce: 3 steps, then 3 timed ones: median ms a step
+           all-reduce: 3 steps, then 1 timed one: ms a step
            (two ranks sharing one card: not a scaling number), host ms
            and calls a step in collectives, kernel launches a step, each
            rank's peak memory; the ranks' states equal; then the low-bit
@@ -217,12 +247,12 @@ the line on stdout) and exits 1, with no result line.
            run to 2 epochs that resumes: exit 0, rank 0 alone logging.
            Phases K1-stats and fused also run each stochastic check at a
            non-zero noise counter offset (``CHECK_ROW0``).
-16. tp     tensor parallelism (``parallel.mesh``), the ranks sharing the
+17. tp     tensor parallelism (``parallel.mesh``), the ranks sharing the
            card over gloo (``chip_smoke.py --tp-worker``, a data x model
            layout by ``parallel.make_groups``).  (a) the headline (phase
            resnet50's config, batch 128) at tp = 2 in 2 ranks: the
            one-rank step on the model cut by ``shard_model``, phase
-           resnet50's 3 gate steps (counters reset just before, K1, K2
+           resnet50's 2 gate steps (counters reset just before, K1, K2
            and #4/#5 each required to launch; the calls recorded) equal
            to phase resnet50's one-rank kernel route in every tensor (the
            sharded ones gathered; tolerance 0) and on both ranks; the
@@ -238,13 +268,7 @@ the line on stdout) and exits 1, with no result line.
            ranks' state equal bitwise; against phase baseline50's steps,
            step 0's loss at rtol 1e-5, the exponents after it bitwise and
            every parameter leaf within 0.1 relative L2 after step 0 and
-           after the gate; phase baseline50 held the same way against a
-           float64 witness in this process (the library's calls in
-           float64 on the bf16 operands, each result rounded once to
-           bf16: the contraction by other code than the port's); printed,
-           not gated: cuDNN's and cuBLAS's own bf16 calls on one rank
-           against phase baseline50, and how far A's steps move the
-           weights with 8-bit and with 16-bit cotangents.
+           after the gate.
            (b) ResNet-20 at 2 x 2 in 4 ranks with the low-bit
            all-reduce: 3 steps through the kernels equal
            to the plain route on every rank in every tensor, and (c)
@@ -261,7 +285,8 @@ the line on stdout) and exits 1, with no result line.
            calls, the same way.
 
 Prints the card, then one JSON line of kernels (launches from the trainer
-phase, the threefry rows' from its run of main.py's defaults; ms,
+phase, the threefry rows' from its run of main.py's defaults, the rbg
+rows' from phase rbg's counted steps; ms,
 plain_ms, bound_ms and library_ms a training step; the same keys under
 ``resnet50`` for the headline's path, under ``baseline50`` for the
 baseline's K1, under ``vgg16`` for V's, and under ``records`` the
@@ -316,7 +341,9 @@ LAUNCHES_BEFORE = {"step": 11343, "request": 1845}
 CARD = {}
 
 # the noise of a timed or compared call of each mode: fixed key words
+# (an unsafe_rbg key's other two beside them)
 NOISE_K0, NOISE_K1 = 0x5DEECE66, 0x2545F491
+NOISE_K2, NOISE_K3 = 0x9ABCDEF0, 0xFFFFFFFF
 
 
 def noise_of(quant, mode: int, shape, shared: bool = False,
@@ -329,7 +356,10 @@ def noise_of(quant, mode: int, shape, shared: bool = False,
         return None
     inner = math.prod(shape[1:]) if shared else 0
     offset = 0 if shared else row0 * math.prod(shape[1:])
-    return quant.Noise(mode, NOISE_K0, NOISE_K1, inner, offset)
+    noise = quant.Noise(mode, NOISE_K0, NOISE_K1, inner, offset)
+    if mode == quant.RBG:
+        noise = noise._replace(k2=NOISE_K2, k3=NOISE_K3)
+    return noise
 
 
 # the row a compared call's slice starts at in its global batch: every
@@ -342,7 +372,7 @@ def noise_key(noise) -> tuple:
     return (0, False) if noise is None else (noise.mode, noise.inner > 0)
 
 
-MODE_NAMES = {0: "rn", 1: "hash", 2: "hash1", 3: "threefry"}
+MODE_NAMES = {0: "rn", 1: "hash", 2: "hash1", 3: "threefry", 4: "rbg"}
 
 
 def check(cond: bool, msg: str) -> None:
@@ -557,40 +587,49 @@ def phase_device() -> dict:
             "torch": torch.__version__, "cuda": torch.version.cuda}
 
 
-CUDA_SOURCES = (("k1", "quantize", "quantize.cu", "quantize_library"),
-                ("k2", "int8_gemm", "int8_gemm.cu", "int8_gemm_library"),
-                ("fused", "conv_fused", "conv_fused.cu",
-                 "conv_fused_library"))
+# (tag, source, its loader): #4/#5's noise kinds in a source each
+CUDA_SOURCES = (("k1", "quantize.cu", lambda b: b.quantize_library()),
+                ("k2", "int8_gemm.cu", lambda b: b.int8_gemm_library()),
+                ("fused", "conv_fused.cu",
+                 lambda b: b.conv_fused_library(0)),
+                ("fused_threefry", "conv_fused_threefry.cu",
+                 lambda b: b.conv_fused_library(1)),
+                ("fused_rbg", "conv_fused_rbg.cu",
+                 lambda b: b.conv_fused_library(2)))
 
 
 def phase_build(build) -> dict:
-    """nvcc for each CUDA source, all started together; each kernel's
-    ptxas report, and the SASS's IMMA count for the int8 tensor-core
-    kernels (K2, #4/#5)."""
-    def timed(fn):
+    """nvcc for each CUDA source, all started together, each followed in
+    its own thread by the count of IMMA instructions in its SASS for the
+    int8 tensor-core kernels (K2, #4/#5); each kernel's ptxas report."""
+    def built(tag, src, load):
         t0 = time.perf_counter()
-        fn()
-        return time.perf_counter() - t0
-
-    t0 = time.perf_counter()
-    with ThreadPoolExecutor(len(CUDA_SOURCES)) as pool:
-        futures = {tag: pool.submit(timed, getattr(build, loader))
-                   for tag, _, _, loader in CUDA_SOURCES}
-        secs = {tag: f.result() for tag, f in futures.items()}
-    nvcc_s = time.perf_counter() - t0
-    print(f"build: nvcc K1 {secs['k1']:.1f} s, K2 {secs['k2']:.1f} s and "
-          f"#4/#5 {secs['fused']:.1f} s in parallel ({nvcc_s:.1f} s)",
-          flush=True)
-    kernels, tensor_core = {}, []
-    for tag, name, src, _ in CUDA_SOURCES:
-        lib = build.build_library(name, [src])
+        load(build)
+        secs = time.perf_counter() - t0
         imma = None
         if tag != "k1":
             try:
-                imma = build.sass_counts(lib)
+                imma = build.sass_counts(build.build_library(src[:-3],
+                                                             [src]))
             except (OSError, subprocess.CalledProcessError) as e:
                 print(f"  {src}: cuobjdump failed ({e}); IMMA count not "
                       f"available")
+        return secs, imma
+
+    t0 = time.perf_counter()
+    with ThreadPoolExecutor(len(CUDA_SOURCES)) as pool:
+        futures = {src[0]: pool.submit(built, *src) for src in CUDA_SOURCES}
+        done = {tag: f.result() for tag, f in futures.items()}
+    secs = {tag: v[0] for tag, v in done.items()}
+    nvcc_s = time.perf_counter() - t0
+    print("build: nvcc " + ", ".join(f"{src} {secs[tag]:.1f} s" for
+                                      tag, src, _ in CUDA_SOURCES)
+          + f" in parallel, the IMMA counts beside them ({nvcc_s:.1f} s)",
+          flush=True)
+    kernels, tensor_core = {}, []
+    for tag, src, _ in CUDA_SOURCES:
+        lib = build.build_library(src[:-3], [src])
+        imma = done[tag][1]
         for k, v in sorted(build.ptxas_report(lib).items()):
             v = {**v, "imma": None if imma is None else imma.get(k)}
             kernels[build.short_name(k)] = v
@@ -967,11 +1006,18 @@ def make_trainer(model):
     velocity = momentum_init(dict(model.net.named_parameters()))
     dev = model.device
 
+    key = base_key(TRAIN_KEY_SEED, model_impl(model))
+
     def run(i, batch):
         x, y = batch
         return step(model, velocity, x.to(dev), y.to(dev), i, TRAIN_LR,
-                    base_key(TRAIN_KEY_SEED))["loss"]
+                    key)["loss"]
     return velocity, run
+
+
+def model_impl(model) -> str:
+    """The key impl of ``model``'s config (``QuantConfig.noise_impl``)."""
+    return "threefry2x32" if model.cfg is None else model.cfg.noise_impl
 
 
 def train_counters(quant, gemm, fused) -> dict:
@@ -982,11 +1028,16 @@ def train_counters(quant, gemm, fused) -> dict:
             "conv1x1": fused.conv1x1_fused.launches}
 
 
+def mode_counters(quant, fused, mode: int) -> dict:
+    """The launches in noise mode ``mode`` of K1, #4 and #5."""
+    return {"k1": quant.quantize_codes.launches_by_mode[mode],
+            "conv3x3": fused.conv3x3_fused.launches_by_mode[mode],
+            "conv1x1": fused.conv1x1_fused.launches_by_mode[mode]}
+
+
 def threefry_counters(quant, fused) -> dict:
     """The launches in threefry mode of K1, #4 and #5."""
-    return {"k1": quant.quantize_codes.launches_by_mode[3],
-            "conv3x3": fused.conv3x3_fused.launches_by_mode[3],
-            "conv1x1": fused.conv1x1_fused.launches_by_mode[3]}
+    return mode_counters(quant, fused, quant.THREEFRY)
 
 
 def reset_counters(quant, gemm, fused) -> None:
@@ -995,7 +1046,7 @@ def reset_counters(quant, gemm, fused) -> None:
         fn.launches = 0
     for fn in (quant.quantize_codes, fused.conv3x3_fused,
                fused.conv1x1_fused):
-        fn.launches_by_mode = [0, 0, 0, 0]
+        fn.launches_by_mode = [0] * (1 + len(quant.NOISE_MODES))
 
 
 def record_train_calls(qmod, qops, quant, gemm, fused, model=None,
@@ -1096,15 +1147,29 @@ def _max_err(got, want) -> float:
     return d.max().item() if d.numel() else 0.0
 
 
+def _checks(mode: int, offsets: bool) -> list:
+    """``(noise mode, row0)`` of a call's checks against its plain
+    version: round to nearest, the path's mode and threefry, each
+    stochastic one at offsets 0 and ``CHECK_ROW0``; without ``offsets``
+    the path's mode at 0 alone."""
+    if not offsets:
+        return [(mode, 0)]
+    return [(m, r) for m in sorted({0, mode, 3})
+            for r in ((0, CHECK_ROW0) if m else (0,))]
+
+
 def phase_k1_train(quant, k1_calls, reps=REPS, tag="K1-stats",
-                   threefry_twins=False) -> dict:
+                   threefry_twins=False, offsets=True) -> dict:
     """K1 at every quantize call of the training step, with the path's
     rounding mode and its min/max output, bitwise against the plain
     version (codes, multiplier, min/max), and again with threefry noise,
-    each stochastic call also at a non-zero counter offset (a
-    data-parallel eval rank's rows, ``CHECK_ROW0``); timed per shape.  ``threefry_twins`` also times each stochastic call
-    with threefry noise in place of its hash (``threefry`` in the result:
-    the step under ``noise_mode='prng'``)."""
+    with ``offsets`` each stochastic call also at a non-zero counter
+    offset (a data-parallel eval rank's rows, ``CHECK_ROW0``); timed per
+    shape.  ``threefry_twins`` also times each stochastic call with
+    threefry noise in place of its hash (``threefry`` in the result: the
+    step under ``noise_mode='prng'``).  ``offsets=False`` (the ImageNet
+    shapes, where threefry's plain version takes seconds a step) checks
+    the path's mode at offset 0 only."""
     from lbt_tpu_torch.ops.kernels import work
     gen = torch.Generator().manual_seed(SEED + 4)
     err, rows, tf_rows = 0.0, [], []
@@ -1129,8 +1194,7 @@ def phase_k1_train(quant, k1_calls, reps=REPS, tag="K1-stats",
     for (shape, bits, mode, shared, stats), count in sorted(
             k1_calls.items()):
         x = (torch.randn(shape, generator=gen) * 2).cuda()
-        for m, row0 in [(m, r) for m in sorted({0, mode, 3})
-                        for r in ((0, CHECK_ROW0) if m else (0,))]:
+        for m, row0 in _checks(mode, offsets):
             noise = noise_of(quant, m, shape, shared, row0)
             if shared and row0:  # any offset, K1 takes it before % inner
                 noise = noise._replace(offset=row0 * noise.inner + 5)
@@ -1214,13 +1278,13 @@ def phase_k2_train(gemm, k2_calls, tn_calls, reps=REPS,
     return {"max_abs_err": err, **tot, "forms": forms, "shapes": rows}
 
 
-def phase_fused(fused, conv_calls, reps=REPS, threefry_twins=False
-                ) -> dict:
+def phase_fused(fused, conv_calls, reps=REPS, threefry_twins=False,
+                offsets=True) -> dict:
     """#4 and #5 at every conv -> BN shape of the step (batch 128):
     codes (deterministic, stochastic with the path's noise, and with
     threefry noise, each stochastic call also at the counter offset of
-    rows ``CHECK_ROW0..``), moments and min/max equal to the plain
-    version's;
+    rows ``CHECK_ROW0..``; with ``offsets=False`` the path's mode at
+    offset 0 only), moments and min/max equal to the plain version's;
     timed per shape, and with ``threefry_twins`` again with threefry noise
     in place of the path's hash (``threefry`` in each kind's result)."""
     from lbt_tpu_torch.ops.im2col import out_hw
@@ -1248,8 +1312,7 @@ def phase_fused(fused, conv_calls, reps=REPS, threefry_twins=False
             mult = torch.tensor([2.0 ** -2], device="cuda")
             yshape = (xshape[0], *out_hw(xshape[1], xshape[2], wshape[:2],
                                          strides, pads), wshape[3])
-            for m, row0 in [(m, r) for m in sorted({0, mode, 3})
-                            for r in ((0, CHECK_ROW0) if m else (0,))]:
+            for m, row0 in _checks(mode, offsets):
                 kw = dict(strides=strides, pads=pads, round_bf16=rbf,
                           noise=noise_of(quant, m, yshape, shared, row0))
                 if shared and row0:  # a whole number of shared draws
@@ -1472,6 +1535,274 @@ def _phase_train(qmod, qops, quant, gemm, fused) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# rbg: noise_impl='unsafe_rbg', XLA's Philox stream in K1 and #4/#5
+# ---------------------------------------------------------------------------
+
+RBG_BATCH = 512          # benchmarks/ablate.py:104's --batch
+RBG_GATE_STEPS = 2       # kernel route vs plain route, bitwise
+RBG_TIMED_STEPS = 4      # each of rbg-int8 and prng-int8, in turns
+RBG_CPU_BATCH = 32       # step 0 against the CPU route
+
+
+def rbg_config(impl: str = "unsafe_rbg"):
+    """``benchmarks/ablate.py:90-91``'s ``rbg-int8``: ``uniform(8,
+    engine='int8', noise_mode='prng', noise_impl='unsafe_rbg')``; with
+    ``impl='threefry2x32'`` its ``prng-int8`` (``:84``)."""
+    from lbt_tpu_torch.config import QuantConfig
+    return QuantConfig.uniform(8, engine="int8", noise_mode="prng",
+                               noise_impl=impl)
+
+
+def build_rbg(seed: int, impl: str = "unsafe_rbg"):
+    """CIFAR10_Resnet20 at full width and depth under :func:`rbg_config`,
+    weights from ``seed``, the default recipe's weight decay."""
+    from lbt_tpu_torch.config import TrainConfig
+    from lbt_tpu_torch.models import build_model
+    return build_model("CIFAR10_Resnet20", rbg_config(impl),
+                       weight_decay=TrainConfig().weight_decay).init(
+                           torch.Generator().manual_seed(seed))
+
+
+def rbg_batches(n: int) -> list:
+    rng = np.random.default_rng(SEED + 13)
+    return [(torch.from_numpy(rng.normal(0, 1, (RBG_BATCH, 32, 32, 3))
+                              .astype(np.float32)),
+             torch.from_numpy(rng.integers(0, 10, (RBG_BATCH,))))
+            for _ in range(n)]
+
+
+def phase_rbg(qmod, qops, quant, gemm, fused) -> dict:
+    """``rbg-int8`` on the card: ResNet-20 at batch 512, gated, timed in
+    turns with ``prng-int8`` and profiled; then K1 and #4/#5 in mode 4 at
+    the step's shapes against their plain versions, bounds and
+    ``torch.rand`` of the same count, beside their device ms in both
+    legs' profiles; then their counter-offset and column-window forms."""
+    t0 = time.perf_counter()
+    torch.use_deterministic_algorithms(True)
+    try:
+        out = _rbg_train(qmod, qops, quant, gemm, fused)
+    finally:
+        torch.use_deterministic_algorithms(False)
+    torch.cuda.empty_cache()
+    out["k1"] = phase_k1_train(quant, out.pop("k1_calls"), FAST_REPS,
+                               "RBG K1")
+    out["fused"] = phase_fused(fused, out.pop("conv_calls"), FAST_REPS)
+    in_step = {name: out[name]["profile"]["kernel_ms_per_step"]
+               for name in ("rbg", "prng")}
+    _rbg_yardstick(out["k1"], lambda r: math.prod(r["shape"]), in_step,
+                   "k1")
+    for kind, res in out["fused"].items():
+        _rbg_yardstick(res, lambda r: (r["x"][0] * r["x"][1] * r["x"][2]
+                                       // (r["strides"][0]
+                                           * r["strides"][1])
+                                       * r["w"][3]), in_step,
+                       kind.split("_")[0])
+    out["forms"] = _rbg_forms(quant, fused)
+    out["seconds"] = time.perf_counter() - t0
+    print(f"rbg: phase took {out['seconds']:.1f} s", flush=True)
+    return out
+
+
+def _rbg_yardstick(res, count, in_step, kind) -> None:
+    """Beside a kernel's rows a step: ``rng_ms``, ``torch.rand`` of each
+    call's count of uniforms on the card's own Philox generator (another
+    stream, nothing quantized), replayed from a CUDA graph; and the
+    kernel's device ms a step in the two legs' profiles (``in_step``):
+    ``profile_ms`` under rbg-int8, ``threefry_ms`` under prng-int8, the
+    same calls in threefry mode."""
+    for r in res["shapes"]:
+        n = count(r)
+        r["rng_ms"] = device_ms(lambda n=n: torch.rand(n, device="cuda"),
+                                [()], *FAST_REPS[0])
+    res["rng_ms"] = sum(r["calls"] * r["rng_ms"] for r in res["shapes"])
+    res["profile_ms"] = in_step["rbg"][kind]
+    res["threefry_ms"] = in_step["prng"][kind]
+    print(f"RBG {kind}: a step {res['ms']:.4f} ms in mode 4 replayed out of "
+          f"L2 (bound {res['bound_ms']:.4f} by {res['bound_by']}), "
+          f"torch.rand of the same counts {res['rng_ms']:.4f}; in the "
+          f"steps' profiles {res['profile_ms']:.4f} in mode 4 and "
+          f"{res['threefry_ms']:.4f} in threefry mode", flush=True)
+
+
+def _rbg_train(qmod, qops, quant, gemm, fused) -> dict:
+    batches = rbg_batches(RBG_GATE_STEPS)
+    probe = build_rbg(SEED).to("cuda")
+    k1, _, _, conv = record_train_calls(qmod, qops, quant, gemm, fused,
+                                        probe, batches[0])
+    del probe
+
+    card = build_rbg(SEED).to("cuda")
+    card_vel, card_run = make_trainer(card)
+    reset_counters(quant, gemm, fused)
+    losses = [card_run(i, b).item() for i, b in enumerate(batches)]
+    torch.cuda.synchronize()
+    launches = train_counters(quant, gemm, fused)
+    rbg = mode_counters(quant, fused, quant.RBG)
+    others = [mode_counters(quant, fused, m) for m in quant.NOISE_MODES
+              if m != quant.RBG]
+    print(f"rbg train: {RBG_GATE_STEPS} steps of {RBG_BATCH} through the "
+          f"kernels; launches {launches}, in mode 4 {rbg}", flush=True)
+    for k in ("k1", "k2", "k2_tn", "conv3x3", "conv1x1"):
+        check(launches[k] > 0, f"rbg: {k} never launched")
+    for k in ("k1", "conv3x3", "conv1x1"):
+        check(rbg[k] > 0 and all(o[k] == 0 for o in others),
+              f"rbg: {k} launched in mode 4 {rbg[k]} times, in other "
+              f"noise modes {[o[k] for o in others]}")
+    check(all(math.isfinite(x) for x in losses), f"losses {losses}")
+
+    plain = build_rbg(SEED).to("cuda")
+    plain_vel, plain_run = make_trainer(plain)
+    with plain_route(qmod, qops, quant, gemm):
+        plain_losses = [plain_run(i, b).item()
+                        for i, b in enumerate(batches)]
+    torch.cuda.synchronize()
+    check(train_counters(quant, gemm, fused) == launches,
+          "the plain route launched a kernel")
+    check(plain_losses == losses,
+          f"rbg: losses differ: kernels {losses}, plain {plain_losses}")
+    got, want = _state(card, card_vel), _state(plain, plain_vel)
+    diff = [k for k in want if not torch.equal(got[k], want[k])]
+    check(not diff, f"rbg: the kernel and plain routes differ in "
+          f"{diff[:5]} ({len(diff)} tensors)")
+    print(f"rbg train: losses {losses}; kernel and plain routes equal in "
+          f"all {len(got)} tensors (tolerance 0)", flush=True)
+    del plain, plain_vel, plain_run, got, want
+
+    small = [(batches[0][0][:RBG_CPU_BATCH], batches[0][1][:RBG_CPU_BATCH])]
+    first = {}
+    for route, dev in (("card", "cuda"), ("cpu", "cpu")):
+        model = build_rbg(SEED).to(dev)
+        _, run = make_trainer(model)
+        first[route] = (run(0, small[0]).item(), _exponents(model))
+    check(math.isclose(first["card"][0], first["cpu"][0], rel_tol=1e-5)
+          and first["card"][1] == first["cpu"][1],
+          f"rbg: step 0 at batch {RBG_CPU_BATCH}: card loss "
+          f"{first['card'][0]}, CPU {first['cpu'][0]}; exponents equal "
+          f"{first['card'][1] == first['cpu'][1]}")
+    print(f"rbg train: step 0 at batch {RBG_CPU_BATCH} on the card and on "
+          f"the CPU: losses {first['card'][0]} / {first['cpu'][0]}, all "
+          f"{len(first['cpu'][1])} exponents equal", flush=True)
+
+    # host cost of one step's site keys under the unsafe_rbg key: one
+    # Philox fold of the step, xored into the cached uid x site table
+    from lbt_tpu_torch.dfxp import keys
+    t1 = time.perf_counter()
+    for i in range(50):
+        keys.site_keys(keys.fold_in(keys.base_key(TRAIN_KEY_SEED,
+                                                  "unsafe_rbg"), i),
+                       card.num_layers(), 5)
+    site_keys_us = (time.perf_counter() - t1) / 50 * 1e6
+    print(f"rbg train: host time of one step's site-key table "
+          f"({card.num_layers()} uids x 5 sites) {site_keys_us:.1f} us",
+          flush=True)
+
+    # rbg-int8 (the gated model, on from its last step) and prng-int8
+    # (threefry), one step each in turns: host ms, then a profile each
+    legs = {"rbg": {"run": card_run, "step": RBG_GATE_STEPS},
+            "prng": {"run": make_trainer(
+                build_rbg(SEED, "threefry2x32").to("cuda"))[1], "step": 0}}
+    legs["prng"]["run"](0, batches[0])  # its first call's set-up
+    legs["prng"]["step"] = 1
+    times = {k: [] for k in legs}
+    for name in ("rbg", "prng", "prng", "rbg") * (RBG_TIMED_STEPS // 2):
+        leg = legs[name]
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        leg["run"](leg["step"], batches[leg["step"] % len(batches)])
+        torch.cuda.synchronize()
+        times[name].append((time.perf_counter() - t1) * 1e3)
+        leg["step"] += 1
+    out = {"launches": launches, "mode4_launches": rbg, "losses": losses,
+           "plain_losses": plain_losses, "first_loss_card": first["card"][0],
+           "first_loss_cpu": first["cpu"][0], "k1_calls": k1,
+           "conv_calls": conv, "batch": RBG_BATCH,
+           "site_keys_us": site_keys_us}
+    for name, leg in legs.items():
+        med = statistics.median(times[name])
+        before = train_counters(quant, gemm, fused)
+        prof = _profile_steps(leg["run"], batches, leg["step"])
+        calls = {k: v - before[k] for k, v in
+                 train_counters(quant, gemm, fused).items()}
+        one_launch_a_call(prof.pop("rows"), calls)
+        out[name] = {"ms_per_step": med, "samples_ms": times[name],
+                     "img_per_s": RBG_BATCH / med * 1e3, "profile": prof}
+        print(f"rbg {name}-int8: median {med:.3f} ms a step of {RBG_BATCH}"
+              f" ({RBG_BATCH / med * 1e3:.1f} img/s) over "
+              f"{len(times[name])} steps in turns; profile: wall "
+              f"{prof['wall_ms']:.2f} ms for 2 steps, device "
+              f"{prof['device_ms']} ms (busy share {prof['busy_share']}), "
+              f"kernels a step {prof['kernel_ms_per_step']}, "
+              f"{prof['launches_per_step']} device launches a step",
+              flush=True)
+    return out
+
+
+def _rbg_forms(quant, fused) -> dict:
+    """Mode 4's counter-offset and column-window forms against their plain
+    versions: a data-parallel eval rank's rows ``CHECK_ROW0..`` of a
+    stage-1 BN input (K1 and #4: an offset that is a multiple of 4, a
+    block serving four) and of the logits (K1: 30, a block an element);
+    a tensor-parallel rank's slice: K1 at the last rank's half of
+    stage 3's 3x3 weight (a block an element) and #4 / #5 at half of
+    stage 3's output channels (a lane's block serving four)."""
+    from lbt_tpu_torch.ops.im2col import conv_pads, out_hw
+    gen = torch.Generator().manual_seed(SEED + 14)
+    exp = torch.tensor(1, dtype=torch.int32, device="cuda")
+    err, n = 0.0, 0
+
+    def k1(shape, noise):
+        nonlocal err, n
+        x = (torch.randn(shape, generator=gen) * 2).cuda()
+        got = quant.quantize_codes(x, 8, exp, noise, True)
+        want = quant.quantize_codes_plain(x, 8, exp, noise, True)
+        err = max(err, max(_max_err(g, w) for g, w in zip(got, want)))
+        check(_equal_outputs(got, want), f"rbg: K1 differs from its plain "
+              f"version at {shape} noise={noise}")
+        n += 1
+
+    def conv(kind, xshape, wshape, stride, noise_of_y):
+        nonlocal err, n
+        xc = torch.randint(-256, 256, xshape, generator=gen,
+                           dtype=torch.int16).cuda()
+        wc = torch.randint(-128, 128, wshape, generator=gen,
+                           dtype=torch.int8).cuda()
+        pads = conv_pads("SAME", xshape[1:3], wshape[:2], (stride,) * 2)
+        ho, wo = out_hw(xshape[1], xshape[2], wshape[:2], (stride,) * 2,
+                        pads)
+        kw = dict(strides=(stride, stride), pads=pads,
+                  noise=noise_of_y((xshape[0], ho, wo)))
+        inv = torch.tensor([2.0 ** -14], device="cuda")
+        mult = torch.tensor([2.0 ** -2], device="cuda")
+        got = getattr(fused, kind)(xc, wc, inv, mult, **kw)
+        want = fused.conv_fused_plain(xc, wc, inv, mult, **kw)
+        for g, w in zip(got, want):
+            err = max(err, _max_err(g, w))
+            check(g.dtype == w.dtype and torch.equal(g, w), f"rbg: {kind} "
+                  f"differs from its plain version at x {xshape} w "
+                  f"{wshape} noise={kw['noise']}")
+        n += 1
+
+    rows = RBG_BATCH // 2
+    k1((rows, 32, 32, 16),
+       noise_of(quant, quant.RBG, (rows, 32, 32, 16), False, CHECK_ROW0))
+    k1((rows, 10), noise_of(quant, quant.RBG, (rows, 10), False, CHECK_ROW0))
+    conv("conv3x3_fused", (rows, 32, 32, 16), (3, 3, 16, 16), 1,
+         lambda y: noise_of(quant, quant.RBG, (*y, 16), False, CHECK_ROW0))
+    k1((3, 3, 64, 32),
+       noise_of(quant, quant.RBG, (3, 3, 64, 64))._replace(n_global=64,
+                                                            col0=32))
+    for kind, xshape, wshape, stride in (
+            ("conv3x3_fused", (RBG_BATCH, 8, 8, 64), (3, 3, 64, 32), 1),
+            ("conv1x1_fused", (RBG_BATCH, 16, 16, 32), (1, 1, 32, 32), 2)):
+        conv(kind, xshape, wshape, stride,
+             lambda y: noise_of(quant, quant.RBG, (*y, 64))._replace(
+                 n_global=64, col0=32))
+    print(f"rbg forms: {n} offset and column-window calls of K1 and #4/#5 "
+          f"in mode 4 equal their plain versions", flush=True)
+    return {"max_abs_err": err, "calls": n}
+
+
+# ---------------------------------------------------------------------------
 # trainer: the port's entry point, python -m lbt_tpu_torch.main
 # ---------------------------------------------------------------------------
 
@@ -1488,6 +1819,8 @@ TRAINER_ARGV = ["--model", "CIFAR10_Resnet20", "--bits", "8",
 # command line with --device cpu reached 0.274 after epoch 1 and 0.348
 # after epoch 2
 TRAINER_MIN_ACC = 0.25
+# test images the final checkpoint re-evaluates on the CPU and the card
+TRAINER_CPU_EVAL = 250
 TRAINER_DIR = REPO / "experiments" / "smoke_trainer"
 
 
@@ -1574,22 +1907,28 @@ def phase_trainer(quant, gemm, fused, card: str, device: str = "cuda"
     print(f"trainer: 1 epoch + resumed epoch equal the uninterrupted run "
           f"in all {len(want)} tensors (tolerance 0)", flush=True)
 
+    # the CPU re-evaluates the first TRAINER_CPU_EVAL test images, and the
+    # card the same ones
+    subset = {**run.dataset, "test": tuple(
+        a[:TRAINER_CPU_EVAL] for a in run.dataset["test"])}
+    run.dataset = subset
+    card_subset = run.evaluate()
     cpu = Trainer(build_model("CIFAR10_Resnet20", run.model.cfg),
                   TrainConfig(checkpoint_dir=str(TRAINER_DIR / "a" / "ckpt")),
-                  run.dataset,
-                  logger=quiet, device="cpu")
+                  subset, logger=quiet, device="cpu")
     check(cpu.maybe_restore() and cpu.step == run.step,
           "the card's checkpoint did not restore on the CPU")
     t0 = time.perf_counter()
     cpu_final = cpu.evaluate()
     cpu_eval_ms = (time.perf_counter() - t0) * 1e3
     for k in ("loss", "accuracy"):
-        check(math.isclose(cpu_final[k], final[k], rel_tol=1e-5),
+        check(math.isclose(cpu_final[k], card_subset[k], rel_tol=1e-5),
               f"CPU re-evaluation {cpu_final} differs from the card's "
-              f"{final}")
-    print(f"trainer: the card's final checkpoint evaluates on the CPU "
-          f"({cpu_eval_ms / 1e3:.1f} s) as on the card: card {final}, CPU "
-          f"{cpu_final}", flush=True)
+              f"{card_subset}")
+    print(f"trainer: the card's final checkpoint evaluates the first "
+          f"{TRAINER_CPU_EVAL} test images on the CPU "
+          f"({cpu_eval_ms / 1e3:.1f} s) as on the card: card {card_subset}, "
+          f"CPU {cpu_final}", flush=True)
     for d in ("a/ckpt", "b/ckpt", "timing"):
         shutil.rmtree(TRAINER_DIR / d, ignore_errors=True)
 
@@ -1597,7 +1936,8 @@ def phase_trainer(quant, gemm, fused, card: str, device: str = "cuda"
     fp32 = _trainer_fp32(device)
     out = {"launches": launches, "losses": losses, "test_accuracy": accs,
            "defaults": defaults, "fp32": fp32,
-           "final_eval": final, "cpu_final_eval": cpu_final,
+           "final_eval": final, "card_subset_eval": card_subset,
+           "cpu_subset_eval": cpu_final,
            "epoch2": epoch2, "epoch2_img_per_s": img_s,
            "input_stall_frac": stalls, "eval_ms_per_batch":
            eval_ms / n_eval_batches, "eval_batch": run.tc.eval_batch_size,
@@ -1679,7 +2019,7 @@ def _trainer_fp32(device: str) -> dict:
 
 R50_IMAGE = 224
 R50_CLASSES = 1000
-R50_GATE_STEPS = 3      # kernel route vs plain route, bitwise
+R50_GATE_STEPS = 2      # kernel route vs plain route, bitwise
 R50_TIMED_STEPS = 8     # at the bench's cadence, after the gate's steps
 R50_CPU_BATCH = 8       # the first loss against the CPU route
 R50_REQUESTS = 4
@@ -1740,12 +2080,12 @@ def phase_resnet50(qmod, qops, quant, gemm, fused) -> dict:
     torch.cuda.empty_cache()
     for tag, fn, args in (
             ("k1", phase_k1_train, (quant, out.pop("k1_calls"), FAST_REPS,
-                                    "R50 K1")),
+                                    "R50 K1", False, False)),
             ("k2", phase_k2_train, (gemm, out.pop("k2_calls"),
                                     out.pop("tn_calls"), R50_K2_REPS,
                                     "R50 K2")),
             ("fused", phase_fused, (fused, out.pop("conv_calls"),
-                                    FAST_REPS))):
+                                    FAST_REPS, False, False))):
         out[tag] = fn(*args)
     out["serve"] = _r50_serve(qmod, qops, quant, gemm)
     out["seconds"] = time.perf_counter() - t0
@@ -1957,7 +2297,7 @@ def _r50_serve(qmod, qops, quant, gemm) -> dict:
 # ---------------------------------------------------------------------------
 
 B50_GATE_STEPS = 2      # kernel route vs plain route, bitwise
-B50_TIMED_STEPS = 8
+B50_TIMED_STEPS = 4
 # phase baseline50's state after its gate (host copies), for phase tp's
 # leg (d); kept out of the report
 B50_GATE = {}
@@ -1990,7 +2330,8 @@ def first_loss(model, batch) -> float:
     from lbt_tpu_torch.dfxp.keys import base_key, fold_in
     from lbt_tpu_torch.nn.core import Ctx
     x, y = (t.to(model.device) for t in batch)
-    ctx = Ctx(train=True, key=fold_in(base_key(TRAIN_KEY_SEED), 0),
+    ctx = Ctx(train=True, key=fold_in(base_key(TRAIN_KEY_SEED,
+                                               model_impl(model)), 0),
               update=True, sinks=model.make_sinks(),
               n_uids=model.num_layers())
     with torch.no_grad():
@@ -2008,7 +2349,7 @@ def phase_baseline50(qmod, qops, quant, gemm, fused) -> dict:
         torch.use_deterministic_algorithms(False)
     torch.cuda.empty_cache()
     out["k1"] = phase_k1_train(quant, out.pop("k1_calls"), FAST_REPS,
-                               "B50 K1")
+                               "B50 K1", offsets=False)
     k1_dev = out["profile"]["kernel_ms_per_step"]["k1"]
     print(f"baseline50: K1 {k1_dev:.3f} ms of device time a step in the "
           f"profile ({out['k1']['ms']:.3f} replayed out of L2) against a "
@@ -2762,7 +3103,7 @@ DP_STEPS = 2            # ResNet-20 steps: kernel route, then plain route
 DP_LOWBIT_STEPS = 2     # each low-bit transport's ResNet-20 steps
 DP_WIRES = (None, "int16", "int8")   # psum transport, then the two rings
 DP_R50_GATE = 3         # headline steps before the timed ones (on, off, off)
-DP_R50_TIMED = 3
+DP_R50_TIMED = 1
 DP_DIR = REPO / "experiments" / "smoke_dp"
 DP_CLI = ["--model", "CIFAR10_Resnet20", "--data_parallel",
           "--lowbit_allreduce", "--noise_mode", "hash", "--batch_size",
@@ -3568,60 +3909,10 @@ def _rel_l2(got, want) -> dict:
             "median": statistics.median(rel.values())}
 
 
-class _LibraryBF16:
-    """A stand-in for ``ops/qops.py:_BF16Contract`` on one rank, for leg
-    (d)'s witnesses: the library's calls (``@``, ``F.conv2d``) through
-    autograd on the bf16 operands taken to ``dtype``, the product rounded
-    to bf16.  In float64 every sum of 8-bit codes is exact and autograd's
-    casts round each gradient once to bf16: what ``lbt_tpu``'s bf16 dot
-    with f32 sums computes, by other code than the port's.  In bf16:
-    cuDNN's and cuBLAS's bf16 calls, whose wgrad rounds partial sums at
-    some of A's shapes."""
-    dtype = torch.float64
-
-    @classmethod
-    def apply(cls, xq, wq, geom, partial):
-        from lbt_tpu_torch.ops.qops import _float_conv
-        check(not partial, "the witnesses run on one rank")
-        a, b = (t.to(torch.bfloat16).to(cls.dtype) for t in (xq, wq))
-        y = a @ b if geom is None else _float_conv(a, b, *geom)
-        return y.to(torch.bfloat16)
-
-
-class _CudnnBF16(_LibraryBF16):
-    dtype = torch.bfloat16
-
-
-def _b50_one_rank(contract=None, cfg=None) -> dict:
-    """Configuration A's gate steps on one rank in this process, from
-    phase baseline50's seed, weights and batches, with ``qops``'s
-    ``_BF16Contract`` replaced by ``contract`` and the config by ``cfg``
-    where given: the losses, and after each step the exponents and the
-    parameters (host copies)."""
-    from lbt_tpu_torch.ops import qops
-    saved = qops._BF16Contract
-    torch.use_deterministic_algorithms(True)
-    try:
-        qops._BF16Contract = contract or saved
-        model = build_baseline50(SEED, cfg).to("cuda")
-        vel, run = make_trainer(model)
-        out = {"losses": [], "exps": [], "params": []}
-        for i, batch in enumerate(r50_batches(B50_GATE_STEPS)):
-            out["losses"].append(run(i, batch).item())
-            out["exps"].append(_exponents(model))
-            out["params"].append(_host_params(model))
-    finally:
-        qops._BF16Contract = saved
-        torch.use_deterministic_algorithms(False)
-    del model, vel, run
-    torch.cuda.empty_cache()
-    return out
-
-
-def _held(tag, got, want, gate=True) -> dict:
+def _held(tag, got, want) -> dict:
     """``got``'s gate steps against ``want``'s (``losses``, and after each
-    step ``exps`` and ``params``): with ``gate``, step 0's loss at rtol
-    1e-5, the exponents after it bitwise, and every parameter leaf within
+    step ``exps`` and ``params``): step 0's loss at rtol 1e-5, the
+    exponents after it bitwise, and every parameter leaf within
     ``TP_B50_REL_L2`` relative L2 after step 0 and after the last step.
     The distances after each step, and how many exponents and parameter
     elements differ."""
@@ -3642,34 +3933,20 @@ def _held(tag, got, want, gate=True) -> dict:
           f"relative L2 after each step "
           + "; ".join(f"largest {r['largest']:.3g} ({r['largest_leaf']}), "
                       f"median {r['median']:.3g}" for r in out["rel_l2"])
-          + (f" (gated: bound {TP_B50_REL_L2})" if gate else
-             " (not a gate)"), flush=True)
-    if gate:
-        check(math.isclose(got["losses"][0], want["losses"][0],
-                           rel_tol=1e-5),
-              f"tp (d): {tag}: step 0's loss {got['losses'][0]} against "
-              f"{want['losses'][0]}")
-        check(set(got["exps"][0]) == set(want["exps"][0])
-              and not out["exps_differ"][0],
-              f"tp (d): {tag}: {out['exps_differ'][0]} exponents differ "
-              f"after step 0")
-        for s in (0, -1):
-            r = out["rel_l2"][s]
-            check(r["largest"] <= TP_B50_REL_L2,
-                  f"tp (d): {tag}: {r['largest_leaf']} is {r['largest']} "
-                  f"away in relative L2 after step "
-                  f"{s % B50_GATE_STEPS} (bound {TP_B50_REL_L2})")
-    return out
-
-
-def _steps_taken(start, steps) -> list:
-    """For each step, the median and the largest over the weight leaves
-    (``W``) of ``||W after it - W before it|| / ||W at init||``."""
-    out = []
-    for before, after in zip([start] + steps[:-1], steps):
-        r = [float((after[k] - before[k]).norm() / start[k].norm())
-             for k in start if k.endswith(".W")]
-        out.append({"median": statistics.median(r), "largest": max(r)})
+          + f" (bound {TP_B50_REL_L2})", flush=True)
+    check(math.isclose(got["losses"][0], want["losses"][0], rel_tol=1e-5),
+          f"tp (d): {tag}: step 0's loss {got['losses'][0]} against "
+          f"{want['losses'][0]}")
+    check(set(got["exps"][0]) == set(want["exps"][0])
+          and not out["exps_differ"][0],
+          f"tp (d): {tag}: {out['exps_differ'][0]} exponents differ after "
+          f"step 0")
+    for s in (0, -1):
+        r = out["rel_l2"][s]
+        check(r["largest"] <= TP_B50_REL_L2,
+              f"tp (d): {tag}: {r['largest_leaf']} is {r['largest']} away "
+              f"in relative L2 after step {s % B50_GATE_STEPS} (bound "
+              f"{TP_B50_REL_L2})")
     return out
 
 
@@ -3677,17 +3954,7 @@ def _tp_leg_b50() -> list:
     """Leg (d): configuration A at tp = 2 in 2 ranks.  The ranks'
     replicated state equal bitwise, and held by :func:`_held` against
     phase baseline50's one-rank steps on the same seed, weights and
-    batches.  Phase baseline50 is held the same way against a witness
-    that contracts by other code, the library's calls in float64
-    (:class:`_LibraryBF16`).  Printed, not gated: how far cuDNN's and
-    cuBLAS's bf16 calls on one rank (:class:`_CudnnBF16`) lie from phase
-    baseline50, and how far A's steps move the weights, with 8-bit
-    cotangents and with 16-bit ones."""
-    gate = dict(B50_GATE)
-    start = _host_params(build_baseline50(SEED))
-    witness = _b50_one_rank(_LibraryBF16)
-    cudnn = _b50_one_rank(_CudnnBF16)
-    g16 = _b50_one_rank(cfg=dataclasses.replace(b50_config(), bits_g=16))
+    batches."""
     d = _tp_ranks("b50", 2)()
     check(d[0]["digest"] == d[1]["digest"] and
           d[0]["losses"] == d[1]["losses"] and
@@ -3701,21 +3968,8 @@ def _tp_leg_b50() -> list:
           f"steps, ranks equal in all {len(got['digest'])} tensors; "
           f"launches {got['launches']}, in threefry mode "
           f"{got['threefry']}", flush=True)
-    got["held"] = {
-        "tp2": _held("tp = 2 against phase baseline50", tp2, gate),
-        "witness": _held("phase baseline50 against the float64 witness",
-                         gate, witness),
-        "cudnn": _held("cuDNN's bf16 calls against phase baseline50",
-                       cudnn, gate, gate=False)}
-    got["steps_taken"] = {"a": _steps_taken(start, gate["params"]),
-                          "bits_g16": _steps_taken(start, g16["params"])}
-    print("tp (d): A's steps move the weights (||W after - W before|| / "
-          "||W at init||, over the weight leaves): "
-          + "; ".join(f"{k}: " + ", ".join(
-              f"step {i} median {v['median']:.3g} largest "
-              f"{v['largest']:.3g}" for i, v in enumerate(steps))
-              for k, steps in got["steps_taken"].items())
-          + f" (16-bit cotangents: losses {g16['losses']})", flush=True)
+    got["held"] = {"tp2": _held("tp = 2 against phase baseline50", tp2,
+                                dict(B50_GATE))}
     for r, res in enumerate(d):
         _print_tp_rank("tp (d)", r, res)
     return d
@@ -3827,7 +4081,7 @@ def kernel_lines(report) -> list:
     ``torch.quantize_per_tensor``); #4/#5 have no library call that
     computes their function: ``conv_library_ms`` is cuDNN's conv alone.
     ``resnet50`` holds the same keys for the headline's path: launches of
-    its 3 counted training steps, ms a step at its shapes and cadence;
+    its 2 counted training steps, ms a step at its shapes and cadence;
     ``vgg16`` for configuration V's (K1, K2, #4; its path has no 1x1
     conv): launches of its 2 counted steps, ms a step at its shapes;
     ``records`` the launches of each CLI run of phase records (the
@@ -3836,11 +4090,13 @@ def kernel_lines(report) -> list:
     trainer's; ``dp`` rank 0's launches in phase dp (ResNet-20's 2
     counted steps, the headline's a step), at the shapes of half the
     batch; ``tp`` rank 0's launches in phase tp leg (a) (the headline at
-    tp = 2: its 3 counted steps, and the last one's) and each kernel's
+    tp = 2: its 2 counted steps, and the last one's) and each kernel's
     column-window form at its shapes (K2: the shapes a one-rank step does
     not have); ``tp_baseline50`` the same for K1 in threefry mode in leg
     (d) (configuration A at tp = 2: its 2 counted steps, and the last
-    one's)."""
+    one's).  The ``_rbg`` rows are K1 and #4/#5 in mode 4 (an
+    unsafe_rbg key's Philox stream) from phase rbg: ResNet-20 at batch
+    512, launches of its 2 counted steps, ms a step at its shapes."""
     k1, k2, fused = report["k1_train"], report["k2_train"], report["fused"]
     launches = report["trainer"]["launches"]
     rec = report["records"]
@@ -3873,7 +4129,7 @@ def kernel_lines(report) -> list:
     tp = report["tp"]
 
     def at_tp(t, kinds, library=True, **extra):
-        """Phase tp leg (a)'s launches on rank 0 (its 3 counted steps, and
+        """Phase tp leg (a)'s launches on rank 0 (its 2 counted steps, and
         the last one's), and the column-window form at its shapes."""
         return {"launches": sum(tp["r50"]["launches"][k] for k in kinds),
                 "launches_a_step": sum(tp["r50"]["launches_per_step"][k]
@@ -3905,19 +4161,48 @@ def kernel_lines(report) -> list:
          "baseline50": at_r50(b50["k1"], b50["threefry_launches"]["k1"],
                               False), "tp_baseline50": tp_b50},
         {"name": "conv3x3_fused_threefry", "route": "cuda",
-         "source": "lbt_tpu_torch/csrc/conv_fused.cu",
+         "source": "lbt_tpu_torch/csrc/conv_fused.cuh",
          "replaces": "lbt_tpu/ops/pallas/conv_kernels.py:170",
          "launches": tf["conv3x3"], "max_abs_err": c3["max_abs_err"],
          **times(c3["threefry"], library=False),
          "conv_library_ms": c3["threefry"]["lib_ms"]},
         {"name": "conv1x1_fused_threefry", "route": "cuda",
-         "source": "lbt_tpu_torch/csrc/conv_fused.cu",
+         "source": "lbt_tpu_torch/csrc/conv_fused.cuh",
          "replaces": "lbt_tpu/ops/pallas/conv1x1_kernels.py:146",
          "launches": tf["conv1x1"], "max_abs_err": c1["max_abs_err"],
          **times(c1["threefry"], library=False),
          "conv_library_ms": c1["threefry"]["lib_ms"]},
     ]
-    return threefry + [
+    rb = report["rbg"]
+
+    def at_rbg(t, kind):
+        """Phase rbg's counted gate steps, and its rows a step at batch
+        512: the bound by mode 4's instructions, the plain version,
+        ``torch.rand`` of as many uniforms (``rng_ms``: a yardstick of
+        the generator, not the function: ``library_ms`` stays null), and
+        the kernel's device ms a step in the profiles of rbg-int8
+        (``profile_ms``) and of prng-int8 (``threefry_ms``)."""
+        return {"launches": rb["launches"][kind],
+                "max_abs_err": max(t["max_abs_err"],
+                                   rb["forms"]["max_abs_err"]),
+                **times(t, library=False), "rng_ms": t["rng_ms"],
+                "profile_ms": t["profile_ms"],
+                "threefry_ms": t["threefry_ms"]}
+    rbg = [
+        {"name": "k1_quantize_rbg", "route": "cuda",
+         "source": "lbt_tpu_torch/csrc/quantize.cu",
+         "replaces": "lbt_tpu/ops/pallas/quant_kernels.py:126",
+         **at_rbg(rb["k1"], "k1")},
+        {"name": "conv3x3_fused_rbg", "route": "cuda",
+         "source": "lbt_tpu_torch/csrc/conv_fused.cuh",
+         "replaces": "lbt_tpu/ops/pallas/conv_kernels.py:170",
+         **at_rbg(rb["fused"]["conv3x3_fused"], "conv3x3")},
+        {"name": "conv1x1_fused_rbg", "route": "cuda",
+         "source": "lbt_tpu_torch/csrc/conv_fused.cuh",
+         "replaces": "lbt_tpu/ops/pallas/conv1x1_kernels.py:146",
+         **at_rbg(rb["fused"]["conv1x1_fused"], "conv1x1")},
+    ]
+    return threefry + rbg + [
         {"name": "k1_quantize", "route": "cuda",
          "source": "lbt_tpu_torch/csrc/quantize.cu",
          "replaces": "lbt_tpu/ops/pallas/quant_kernels.py:126",
@@ -3945,7 +4230,7 @@ def kernel_lines(report) -> list:
          "records": at_records("k2", "k2_tn"), "dp": at_dp("k2", "k2_tn"),
          "tp": at_tp(tpk["k2"], ("k2", "k2_tn"))},
         {"name": "conv3x3_fused", "route": "cuda",
-         "source": "lbt_tpu_torch/csrc/conv_fused.cu",
+         "source": "lbt_tpu_torch/csrc/conv_fused.cuh",
          "replaces": "lbt_tpu/ops/pallas/conv_kernels.py:170",
          "launches": launches["conv3x3"],
          "max_abs_err": max(c3["max_abs_err"], r3["max_abs_err"],
@@ -3959,7 +4244,7 @@ def kernel_lines(report) -> list:
          "tp": at_tp(tpk["conv3x3_fused"], ("conv3x3",), False,
                      conv_library_ms=tpk["conv3x3_fused"]["lib_ms"])},
         {"name": "conv1x1_fused", "route": "cuda",
-         "source": "lbt_tpu_torch/csrc/conv_fused.cu",
+         "source": "lbt_tpu_torch/csrc/conv_fused.cuh",
          "replaces": "lbt_tpu/ops/pallas/conv1x1_kernels.py:146",
          "launches": launches["conv1x1"],
          "max_abs_err": max(c1["max_abs_err"], r1["max_abs_err"]),
@@ -4024,6 +4309,7 @@ def main(argv=None) -> int:
     phase("k2_train", phase_k2_train, gemm, k2_t, tn_t)
     phase("fused", phase_fused, conv_fused, conv_t, REPS, True)
     phase("train", phase_train, qmod, qops, quant, gemm, conv_fused)
+    phase("rbg", phase_rbg, qmod, qops, quant, gemm, conv_fused)
     phase("trainer", phase_trainer, quant, gemm, conv_fused,
           report["device"]["nvidia_smi"])
     phase("resnet50", phase_resnet50, qmod, qops, quant, gemm, conv_fused)

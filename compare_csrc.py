@@ -11,13 +11,17 @@ K1 of a version that had one beside this checkout's CUDA K1.
         [lbt_tpu_torch/ops/kernels/quant_triton.py] \\
         | tar -x -C lbt_tpu_torch/_build/old
     python3 compare_csrc.py lbt_tpu_torch/_build/old/lbt_tpu_torch/csrc \\
-        [--pre-threefry | --pre-offset | --pre-window] [--resnet50] \\
+        [--pre-threefry | --pre-offset | --pre-window | --pre-rbg] \\
+        [--resnet50] \\
         [--kernels k1,fused] \\
         [--old-k1 lbt_tpu_torch/_build/old/lbt_tpu_torch/ops/kernels/quant_triton.py] \\
         [--out chiprun_out/compare.json]
 
 The other sources must keep the C interface of ``ops/kernels/build.py``,
-or with ``--pre-window`` the one before the noise counter's column window
+or with ``--pre-rbg`` the one before the unsafe_rbg key's noise (mode 4)
+was added (71da3f9 and older: K1 and #4/#5 took two key words, and
+#4/#5's modes were one library; no call here may draw mode 4), or with
+``--pre-window`` the one before the noise counter's column window
 was added (1dd7f99 and older: K1 and #4/#5 took no window; every call
 here has none), or with ``--pre-offset`` the one before the noise
 counter's offset was
@@ -64,6 +68,75 @@ def _no_offset(offset):
     if offset:
         raise ValueError("sources from before the noise offset draw at "
                          "offset 0 only")
+
+
+def _no_rbg_k1(a):
+    """K1's arguments without an unsafe_rbg key's words ``k2, k3``, which
+    the call's noise must not draw (mode 4)."""
+    if a[19] == 4:
+        raise ValueError("sources from before mode 4 draw no Philox noise")
+    return a[:12] + a[14:]
+
+
+def _no_rbg_conv(a):
+    """#4/#5's arguments without ``k2, k3`` (mode 4 raises)."""
+    if a[16] == 4:
+        raise ValueError("sources from before mode 4 draw no Philox noise")
+    return a[:10] + a[12:]
+
+
+def _behind_rbg(libs: dict) -> dict:
+    """``libs`` (K1 and #4/#5 that take the C interface from before mode
+    4, :func:`_pre_rbg`'s) behind this checkout's."""
+    k1 = libs["quantize_library"].lbt_quantize
+
+    def lbt_quantize(*a, fn=k1):
+        return fn(*_no_rbg_k1(a))
+
+    entries = {}
+    for name in ("lbt_conv3x3_fused", "lbt_conv1x1_fused"):
+        def entry(*a, fn=getattr(libs["conv_fused_library"], name)):
+            return fn(*_no_rbg_conv(a))
+
+        entries[name] = staticmethod(entry)
+    return {"quantize_library": type("K1", (), {
+                "lbt_quantize": staticmethod(lbt_quantize)}),
+            "conv_fused_library": type("Fused", (), entries)}
+
+
+def _one_library(lib) -> dict:
+    """#4/#5 of sources from before one library a noise kind (71da3f9 and
+    older: every mode's entry points in one) as this checkout's three:
+    ``{kind: entry points named with the kind's suffix}``."""
+    from lbt_tpu_torch.ops.kernels.build import CONV_FUSED_KINDS
+    return {kind: type("Fused", (), {
+                f"lbt_conv{k}x{k}_fused{suffix}": staticmethod(
+                    getattr(lib, f"lbt_conv{k}x{k}_fused")) for k in (3, 1)})
+            for kind, (_, suffix) in CONV_FUSED_KINDS.items()}
+
+
+def _pre_rbg(build, csrc: Path) -> dict:
+    """The K1 and #4/#5 libraries of ``csrc``, sources from before the
+    unsafe_rbg key's mode 4, behind this checkout's C interface."""
+    k1_lib = ctypes.CDLL(str(build.build_library(
+        "quantize", ["quantize.cu"], csrc=csrc)))
+    k1_lib.lbt_quantize.argtypes = [
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_ulonglong,
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+        ctypes.c_int, ctypes.c_int] + [ctypes.c_uint32] * 7 + [
+        ctypes.c_int, ctypes.c_void_p]
+    k1_lib.lbt_quantize.restype = ctypes.c_int
+    conv_lib = ctypes.CDLL(str(build.build_library(
+        "conv_fused", ["conv_fused.cu"], csrc=csrc)))
+    for name in ("lbt_conv3x3_fused", "lbt_conv1x1_fused"):
+        fn = conv_lib[name]
+        fn.argtypes = [ctypes.c_void_p, ctypes.c_int] + [
+            ctypes.c_void_p] * 6 + [ctypes.c_uint32] * 6 + [
+            ctypes.c_int] * 3 + [ctypes.POINTER(ctypes.c_int),
+                                 ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+    return _behind_rbg({"quantize_library": k1_lib,
+                        "conv_fused_library": conv_lib})
 
 
 def _no_window_k1(a):
@@ -389,6 +462,9 @@ def main(argv=None) -> int:
     ap.add_argument("--pre-offset", action="store_true",
                     help="the other sources have the C interface from "
                          "before the noise counter's offset")
+    ap.add_argument("--pre-rbg", action="store_true",
+                    help="the other sources have the C interface from "
+                         "before the unsafe_rbg key's noise (mode 4)")
     ap.add_argument("--resnet50", action="store_true",
                     help="the bench headline's ResNet-50 training shapes")
     ap.add_argument("--kernels", default="k1,k2,fused",
@@ -407,16 +483,25 @@ def main(argv=None) -> int:
     csrc = args.csrc.resolve()
     old_libs = dict(int8_gemm_library=build.int8_gemm_library(csrc))
     if args.pre_threefry:
-        old_libs.update(_pre_threefry(build, csrc))
+        old_libs.update(_behind_rbg(_pre_threefry(build, csrc)))
     elif args.pre_offset:
-        old_libs.update(_pre_offset(build, csrc))
+        old_libs.update(_behind_rbg(_pre_offset(build, csrc)))
     elif args.pre_window:
-        old_libs.update(_pre_window(build, csrc))
+        old_libs.update(_behind_rbg(_pre_window(build, csrc)))
+    elif args.pre_rbg:
+        old_libs.update(_pre_rbg(build, csrc))
     else:
-        old_libs["conv_fused_library"] = build.conv_fused_library(csrc)
+        old_libs["conv_fused_library"] = {
+            kind: build.conv_fused_library(kind, csrc)
+            for kind in build.CONV_FUSED_KINDS}
         if (csrc / "quantize.cu").exists():
             old_libs["quantize_library"] = build.quantize_library(csrc)
+    if not isinstance(old_libs["conv_fused_library"], dict):
+        old_libs["conv_fused_library"] = _one_library(
+            old_libs["conv_fused_library"])
     old = {k: (lambda lib=lib: lib) for k, lib in old_libs.items()}
+    old["conv_fused_library"] = (
+        lambda kind=0, libs=old_libs["conv_fused_library"]: libs[kind])
 
     if args.resnet50:
         serve_k1, serve_k2 = {}, {}

@@ -10,10 +10,11 @@ The JAX-typed ``QuantConfig.carrier_dtype`` property has no counterpart:
 The port runs every engine: ``'int8'`` (the hand-written kernels),
 ``'pallas'`` as an alias of the same route (its stochastic noise is the
 stream of ``noise_mode``, not a TPU hardware stream), and the float
-simulation ``'sim'`` / ``'sim_bf16'``.  Options that are not ported
-(``remat_bn``, ``bn_residual_q16``, the ``unsafe_rbg`` key) raise
-``NotImplementedError`` from :func:`check_supported` instead of silently
-running something else.
+simulation ``'sim'`` / ``'sim_bf16'``, under either key
+(``noise_impl``): ``'threefry2x32'`` or ``'unsafe_rbg'``, whose ``prng``
+noise is XLA's Philox stream (``dfxp/keys.py``).  Options not yet ported
+(``remat_bn``, ``bn_residual_q16``) raise ``NotImplementedError`` from
+:func:`check_supported` instead of silently running something else.
 """
 
 from __future__ import annotations
@@ -134,7 +135,7 @@ class TrainConfig:
 # engines whose contractions run on integer codes through the kernels
 INT_ENGINES = ("int8", "pallas")
 
-# QuantConfig flags not to be ported (ROADMAP queue 1 item 13)
+# QuantConfig flags not ported yet (ROADMAP queue 1 item 13)
 _NOT_PORTED_FLAGS = ("remat_bn", "bn_residual_q16")
 
 
@@ -145,11 +146,9 @@ def check_supported(cfg: QuantConfig) -> QuantConfig:
     bit-identical to the unsplit form."""
     for flag in _NOT_PORTED_FLAGS:
         if getattr(cfg, flag):
-            raise NotImplementedError(f"QuantConfig.{flag} is not ported")
-    if cfg.noise_impl != "threefry2x32":
-        raise NotImplementedError(
-            f"noise_impl={cfg.noise_impl!r} (the TPU's hardware PRNG key) "
-            f"is not ported; keys are threefry2x32")
+            raise NotImplementedError(
+                f"QuantConfig.{flag} is not ported yet (ROADMAP queue 1 "
+                f"item 13)")
     return cfg
 
 

@@ -1,7 +1,8 @@
 // Device helpers shared by the port's DFXP kernels (quantize.cu and
-// conv_fused.cu): lbt_tpu's three stochastic-rounding noise streams (the
-// counter hashes and jax.random's threefry uniforms), the counter of a
-// draw shared along axis 0, and the order-preserving integer keys their
+// conv_fused.cu): lbt_tpu's stochastic-rounding noise streams (the counter
+// hashes, jax.random's threefry uniforms, and its uniforms under an
+// unsafe_rbg key: XLA's Philox4x32-10 stream), the counter of a draw
+// shared along axis 0, and the order-preserving integer keys their
 // min/max atomics use.  build.py hashes this header with every source, so
 // a change rebuilds both libraries.
 
@@ -64,6 +65,71 @@ __device__ __forceinline__ float threefry_uniform(unsigned int k0,
   return __fsub_rn(__uint_as_float(bits), 1.0f);
 }
 
+// jax.random.uniform(key, shape, float32) under an unsafe_rbg key, as
+// XLA's rng_bit_generator draws it off the TPU (the TPU's own hardware
+// stream, which lbt_tpu's Pallas kernels draw, no card can give): the
+// Philox4x32-10 stream.  Key data (k0, k1, k2, k3) is the state s0 = k0 |
+// k1 << 32, s1 = k2 | k3 << 32; block b is the Philox4x32-10 block
+// (Random123's rounds and constants) of the 128-bit counter (s0 << 64 |
+// s1) + b, low word first, under the key (k0, k1); flat index i takes word
+// i % 4 of block i / 4 (dfxp/keys.py:rbg_bits).  A round is two 32x32 ->
+// 64-bit products (one IMAD.WIDE each) and two 3-input xors: 40 integer
+// instructions a block, so 10 an element where one block serves the four
+// consecutive elements it covers (ops/kernels/work.py), against threefry's
+// 69.
+__device__ __forceinline__ uint4 philox4x32_10(unsigned int k0,
+                                               unsigned int k1, uint4 c) {
+#pragma unroll
+  for (int r = 0; r < 10; ++r) {
+    const unsigned long long p0 =
+        static_cast<unsigned long long>(c.x) * 0xD2511F53u;
+    const unsigned long long p1 =
+        static_cast<unsigned long long>(c.z) * 0xCD9E8D57u;
+    c = make_uint4(static_cast<unsigned int>(p1 >> 32) ^ c.y ^ k0,
+                   static_cast<unsigned int>(p1),
+                   static_cast<unsigned int>(p0 >> 32) ^ c.w ^ k1,
+                   static_cast<unsigned int>(p0));
+    k0 += 0x9E3779B9u;
+    k1 += 0xBB67AE85u;
+  }
+  return c;
+}
+
+// An unsafe_rbg key's four words, and block b of its stream: the 128-bit
+// counter's add with its carries, then the rounds
+struct RbgKey {
+  unsigned int k0, k1, k2, k3;
+};
+
+__device__ __forceinline__ uint4 rbg_block(const RbgKey& k, unsigned int b) {
+  const unsigned long long lo =
+      ((static_cast<unsigned long long>(k.k3) << 32) | k.k2) + b;
+  const unsigned long long hi =
+      ((static_cast<unsigned long long>(k.k1) << 32) | k.k0) + (lo < b);
+  return philox4x32_10(
+      k.k0, k.k1,
+      make_uint4(static_cast<unsigned int>(lo),
+                 static_cast<unsigned int>(lo >> 32),
+                 static_cast<unsigned int>(hi),
+                 static_cast<unsigned int>(hi >> 32)));
+}
+
+// a word of the stream as jax.random.uniform's float: the top 23 bits as
+// the mantissa of 1.f, minus 1 (as threefry_uniform's last step)
+__device__ __forceinline__ float bits_uniform(unsigned int w) {
+  return __fsub_rn(__uint_as_float((w >> 9) | 0x3F800000u), 1.0f);
+}
+
+// the uniform of one flat index, its block drawn for it alone (where the
+// four elements of a block are not one thread's: a window, a shared draw,
+// an offset that is not a multiple of 4)
+__device__ __forceinline__ float rbg_uniform(const RbgKey& k,
+                                             unsigned int idx) {
+  const uint4 r = rbg_block(k, idx >> 2);
+  const unsigned int q = idx & 3u;
+  return bits_uniform(q == 0 ? r.x : (q == 1 ? r.y : (q == 2 ? r.z : r.w)));
+}
+
 // The counter of flat index i: i + offset, or with SHARED (a draw of
 // shape[1:] broadcast over axis 0, lbt_tpu's noise_shared_axis0, inner =
 // prod(shape[1:])) (i + offset) % inner.  offset places a slice of rows
@@ -84,13 +150,14 @@ __device__ __forceinline__ unsigned int noise_index(
   return SHARED ? (i + offset) % inner : i + offset;
 }
 
-// Noise modes: 1 the hash (lowbias32), 2 hash1, 3 threefry; k0 is the
-// hashes' seed or the threefry key's first word, k1 its second.
+// Noise modes: 1 the hash (lowbias32), 2 hash1, 3 threefry, 4 the
+// unsafe_rbg key's Philox stream; k.k0 is the hashes' seed or the key's
+// first word, k.k1 its second, k.k2 and k.k3 an unsafe_rbg key's others.
 __device__ __forceinline__ float noise_uniform(int mode, unsigned int idx,
-                                               unsigned int k0,
-                                               unsigned int k1) {
-  if (mode == 3) return threefry_uniform(k0, k1, idx);
-  return hash_uniform(idx, k0, mode == 2);
+                                               const RbgKey& k) {
+  if (mode == 4) return rbg_uniform(k, idx);
+  if (mode == 3) return threefry_uniform(k.k0, k.k1, idx);
+  return hash_uniform(idx, k.k0, mode == 2);
 }
 
 // float -> uint32 whose unsigned order is the float order (no NaN); 0 is

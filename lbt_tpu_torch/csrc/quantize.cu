@@ -9,7 +9,7 @@
 //           | floor(clip(x_i*mult + u_i, -L, L-1))     stochastic
 //   minmax  = [min_i x_i*mult, max_i x_i*mult]         on request
 // with L = 2^(bits-1), codes int8 (bits <= 8), int16 (<= 16) or int32.
-// The noise u_i is one of lbt_tpu's three streams, drawn at the counter
+// The noise u_i is one of lbt_tpu's four streams, drawn at the counter
 // c_i = i + offset (or (i + offset) % inner for a draw shared along axis
 // 0, inner = prod(shape[1:]); offset places the tensor's rows in a larger
 // batch's draw, 0 unless a rank evaluates a slice of rows; with a column
@@ -19,9 +19,14 @@
 // or one multiply-xorshift round for hash1) of c_i ^ seed, the top 24 bits times 2^-24; or
 // jax.random.uniform's threefry (mode 3: Threefry-2x32 of the counter
 // (0, c_i) under the site key (seed, k1), the two words xored, 23 bits of
-// mantissa).  All in 32-bit integer lanes, so the codes equal lbt_tpu's
-// quantize_int with backend='xla_hash' / 'xla_hash1' / 'xla' (and
-// ops/kernels/quant.py's plain version) bit for bit.
+// mantissa); or jax.random.uniform under an unsafe_rbg key (mode 4: word
+// c_i % 4 of block c_i / 4 of XLA's Philox4x32-10 stream of the key
+// (seed, k1, k2, k3), 23 bits of mantissa; dfxp.cuh).  Mode 4 replaces
+// the TPU kernel's hardware draw (pltpu.prng_seed / prng_random_bits,
+// quant_kernels.py:32-37) with the stream lbt_tpu draws under the same
+// noise_impl off the TPU.  All in 32-bit integer lanes, so the codes
+// equal lbt_tpu's quantize_int with backend='xla_hash' / 'xla_hash1' /
+// 'xla' (and ops/kernels/quant.py's plain version) bit for bit.
 //
 // The multiplier: the TPU kernel built it outside (an in-kernel exp2 is a
 // VPU polynomial there).  Here it is an integer shift into the exponent
@@ -30,13 +35,20 @@
 // in registers from the exponent; block 0 stores it.  No host sync, no
 // extra launch, none of the small torch ops a site used to build it with.
 //
-// What bounds it on an H100: bytes under the hashes, integer issue under
-// threefry.  4 B in and 1-4 B out an element for a few f32 and ~10
-// integer operations: a stage-1 activation of ResNet-20 at batch 128
+// What bounds it on an H100: bytes under the hashes and Philox, integer
+// issue under threefry.  4 B in and 1-4 B out an element for a few f32
+// and ~10 integer operations: a stage-1 activation of ResNet-20 at batch 128
 // (2,097,152 elements, int16 codes) moves 12.6 MB, 3.8 us at 3.35 TB/s
 // (ops/kernels/work.py).  Threefry adds at least 69 integer instructions
 // an element: at the SMs' issue rate (4 warp instructions an SM a clock)
 // that is more than the bytes' time, so mode 3 is bound by operations.
+// Philox makes four words from one block of 40 integer instructions:
+// where a thread's float4 is one block (no window, no shared draw, an
+// offset that is a multiple of 4: every call of the training step), a
+// block serves its four elements, 10 instructions an element plus the
+// float's 1; the rest draws a block an element.  11 instructions take
+// a fifth of the time of an element's 5-6 bytes at the issue rate, so
+// mode 4 is bound by bytes, as the hashes are.
 // Each mode, and each with its draw shared along axis 0 (a modulo an
 // element) or a column window (a division an element), is a template
 // instance of its own, so modes 0-2 unshared and unwindowed compile as
@@ -105,8 +117,8 @@ struct Args {
   unsigned int* keys;   // [~key(min), key(max)] of a multi-block call
   unsigned int* ticket;
   unsigned long long n;
-  unsigned int seed;   // the hashes' seed, or threefry's first key word
-  unsigned int k1;     // threefry's second key word
+  // the hashes' seed in k0, or the key's words (threefry: k0, k1)
+  RbgKey key;
   unsigned int inner;  // the counter is i % inner in a SHARED instance
   unsigned int offset;  // added to i before that
   // the column window (a WINDOW instance): i becomes i + (i / cols) * gap
@@ -114,6 +126,7 @@ struct Args {
   unsigned int cols, gap, col0;
   int bits;
   int vec;       // x 16-byte and codes 4-code aligned
+  int quad;      // mode 4 and a float4's four counters one Philox block
   float lo, hi;  // -L and L-1, as the plain version's f32 clamp bounds
 };
 
@@ -144,18 +157,27 @@ __device__ __forceinline__ float mult_of(int exp, int bits) {
                  : __int_as_float((max(e, -126) + 127) << 23);
 }
 
+// the stochastic code of scaled + u
+template <typename T>
+__device__ __forceinline__ T floor_code(float scaled, float u,
+                                        const Args& p) {
+  const float v = fminf(fmaxf(__fadd_rn(scaled, u), p.lo), p.hi);
+  if (sizeof(T) == 4) return static_cast<T>(__float2int_rd(v));
+  return static_cast<T>(__float_as_int(__fadd_rd(v, kMagic)) -
+                        __float_as_int(kMagic));
+}
+
 // MODE 0: round half to even; 1: floor(+hash); 2: floor(+hash1);
-// 3: floor(+threefry); SHARED: the noise at i % inner; WINDOW: at the
-// element's index in the whole tensor of a column slice.  Codes
-// of at most 16 bits (|v| <= 2^15) round by the magic-number addition in
-// round-to-nearest or round-down mode, on the FP32 pipe; int32 codes
-// through the conversion unit.
+// 3: floor(+threefry); 4: floor(+Philox); SHARED: the noise at i % inner;
+// WINDOW: at the element's index in the whole tensor of a column slice.
+// Codes of at most 16 bits (|v| <= 2^15) round by the magic-number
+// addition in round-to-nearest or round-down mode, on the FP32 pipe;
+// int32 codes through the conversion unit.
 template <typename T, int MODE, bool SHARED, bool WINDOW>
 __device__ __forceinline__ T code_of(float scaled, unsigned int idx,
                                      const Args& p) {
-  float v;
   if (MODE == 0) {
-    v = fminf(fmaxf(scaled, p.lo), p.hi);
+    const float v = fminf(fmaxf(scaled, p.lo), p.hi);
     if (sizeof(T) == 4) return static_cast<T>(__float2int_rn(v));
     return static_cast<T>(__float_as_int(__fadd_rn(v, kMagic)) -
                           __float_as_int(kMagic));
@@ -164,11 +186,8 @@ __device__ __forceinline__ T code_of(float scaled, unsigned int idx,
       MODE,
       noise_index<SHARED, WINDOW>(idx, p.inner, p.offset, p.cols, p.gap,
                                   p.col0),
-      p.seed, p.k1);
-  v = fminf(fmaxf(__fadd_rn(scaled, u), p.lo), p.hi);
-  if (sizeof(T) == 4) return static_cast<T>(__float2int_rd(v));
-  return static_cast<T>(__float_as_int(__fadd_rd(v, kMagic)) -
-                        __float_as_int(kMagic));
+      p.key);
+  return floor_code<T>(scaled, u, p);
 }
 
 __device__ __forceinline__ void warp_minmax(float& lo, float& hi) {
@@ -310,10 +329,19 @@ __global__ void __launch_bounds__(kThreads) k1_quantize_kernel(Args p) {
       const unsigned int k = b + j * kThreads;
       if (k >= nvec) break;
       V c;
-      c.x = code_of<T, MODE, SHARED, WINDOW>(v[j].x, 4 * k, p);
-      c.y = code_of<T, MODE, SHARED, WINDOW>(v[j].y, 4 * k + 1, p);
-      c.z = code_of<T, MODE, SHARED, WINDOW>(v[j].z, 4 * k + 2, p);
-      c.w = code_of<T, MODE, SHARED, WINDOW>(v[j].w, 4 * k + 3, p);
+      if (MODE == 4 && !SHARED && !WINDOW && p.quad) {
+        // counters 4k + offset .. + 3: block k + offset / 4, one for four
+        const uint4 r = rbg_block(p.key, k + (p.offset >> 2));
+        c.x = floor_code<T>(v[j].x, bits_uniform(r.x), p);
+        c.y = floor_code<T>(v[j].y, bits_uniform(r.y), p);
+        c.z = floor_code<T>(v[j].z, bits_uniform(r.z), p);
+        c.w = floor_code<T>(v[j].w, bits_uniform(r.w), p);
+      } else {
+        c.x = code_of<T, MODE, SHARED, WINDOW>(v[j].x, 4 * k, p);
+        c.y = code_of<T, MODE, SHARED, WINDOW>(v[j].y, 4 * k + 1, p);
+        c.z = code_of<T, MODE, SHARED, WINDOW>(v[j].z, 4 * k + 2, p);
+        c.w = code_of<T, MODE, SHARED, WINDOW>(v[j].w, 4 * k + 3, p);
+      }
       o4[k] = c;
     }
   }
@@ -358,6 +386,7 @@ cudaError_t launch(const Args& a, int mode, bool window, bool stats,
   if (mode == 1) return launch_noise<T, 1>(a, window, stats, grid, stream);
   if (mode == 2) return launch_noise<T, 2>(a, window, stats, grid, stream);
   if (mode == 3) return launch_noise<T, 3>(a, window, stats, grid, stream);
+  if (mode == 4) return launch_noise<T, 4>(a, window, stats, grid, stream);
   return launch_mode<T, 0, false, false>(a, stats, grid, stream);
 }
 
@@ -370,7 +399,8 @@ cudaError_t launch(const Args& a, int mode, bool window, bool stats,
 // the first call (each call leaves it so): the two keys, and the ticket
 // counter a cache line further; mode 0 rounds half to even, 1 and 2
 // stochastically with the hash and hash1 noise of seed, 3 with the
-// threefry uniforms of the key (seed, k1); the noise of element i is drawn
+// threefry uniforms of the key (seed, k1), 4 with the Philox uniforms of
+// the unsafe_rbg key (seed, k1, k2, k3); the noise of element i is drawn
 // at the counter i + offset, or (i + offset) % inner when inner > 0
 // (offset + n <= 2^32); n_global > 0 places x, read as rows of cols
 // elements, at columns col0.. of rows n_global wide: i is first r *
@@ -382,7 +412,8 @@ extern "C" int lbt_quantize(const void* x, void* codes, int code_bytes,
                             unsigned long long n, const void* exp,
                             void* mult, void* minmax, void* scratch,
                             int max_blocks, int bits, unsigned int seed,
-                            unsigned int k1, unsigned int inner,
+                            unsigned int k1, unsigned int k2,
+                            unsigned int k3, unsigned int inner,
                             unsigned int offset, unsigned int cols,
                             unsigned int n_global, unsigned int col0,
                             int mode, void* stream) {
@@ -396,7 +427,7 @@ extern "C" int lbt_quantize(const void* x, void* codes, int code_bytes,
           : (n / cols - 1) * static_cast<unsigned long long>(n_global) +
                 col0 + cols + offset;
   if (bits < 1 || bits > 31 || code_bytes != want_bytes || mode < 0 ||
-      mode > 3 || max_blocks < 1 || n >= (1ull << 32) ||
+      mode > 4 || max_blocks < 1 || n >= (1ull << 32) ||
       end > (1ull << 32) ||
       (window && (cols == 0 || n % cols != 0 ||
                   static_cast<unsigned long long>(col0) + cols >
@@ -412,8 +443,7 @@ extern "C" int lbt_quantize(const void* x, void* codes, int code_bytes,
   a.keys = static_cast<unsigned int*>(scratch);
   a.ticket = a.keys == nullptr ? nullptr : a.keys + kScratchWords / 2;
   a.n = n;
-  a.seed = seed;
-  a.k1 = k1;
+  a.key = RbgKey{seed, k1, k2, k3};
   a.inner = inner;
   a.offset = offset;
   a.cols = window ? cols : 1u;
@@ -422,6 +452,7 @@ extern "C" int lbt_quantize(const void* x, void* codes, int code_bytes,
   a.bits = bits;
   a.vec = reinterpret_cast<uintptr_t>(x) % 16 == 0 &&
           reinterpret_cast<uintptr_t>(codes) % (4 * code_bytes) == 0;
+  a.quad = mode == 4 && !window && inner == 0 && offset % 4 == 0;
   const double limit = static_cast<double>(1ull << (bits - 1));
   a.lo = static_cast<float>(-limit);
   a.hi = static_cast<float>(limit - 1.0);

@@ -8,10 +8,11 @@ else the synthetic set (class-prototype images plus noise).
 
 The augmentation (random horizontal flip, zero pad, random crop back to
 the input size) runs in torch on the batch's device.  Its draws come only
-from a threefry key (:mod:`lbt_tpu_torch.dfxp.keys`): the Trainer passes
+from a key (:mod:`lbt_tpu_torch.dfxp.keys`): the Trainer passes
 ``fold_in(data_key, step)``, so a batch's augmentation depends on
 ``(seed, step)`` alone and a resumed run augments as the uninterrupted one
-did.  The draws are not ``jax.random``'s.
+did.  Under a threefry key the draws are not ``jax.random``'s; under an
+``unsafe_rbg`` key they are, bit for bit (:func:`augment_draws`).
 """
 
 from __future__ import annotations
@@ -23,7 +24,7 @@ from typing import Dict, Tuple
 import numpy as np
 import torch
 
-from lbt_tpu_torch.dfxp.keys import threefry2x32
+from lbt_tpu_torch.dfxp.keys import rbg_bits, split, threefry2x32
 
 Arrays = Tuple[np.ndarray, np.ndarray]
 
@@ -156,15 +157,36 @@ def aug_spec(dataset: str):
     return AUG_SPECS.get(dataset)
 
 
+def _rbg_randint(key, n: int, span: int) -> np.ndarray:
+    """``jax.random.randint(key, (n,), 0, span)`` (int32) under an
+    unsafe_rbg key: two words a value from the two halves of
+    ``split(key)``, ``(hi % span * (2**32 % span) + lo % span) % span``."""
+    k1, k2 = split(key)
+    hi, lo = rbg_bits(k1, n), rbg_bits(k2, n)
+    span = np.uint32(span)
+    mult = np.uint32(2 ** 16) % span
+    mult = mult * mult % span
+    return (hi % span * mult + lo % span) % span
+
+
 def augment_draws(key, n: int, pad: int):
     """``(flip, oh, ow)`` for ``n`` examples: a flip bit and the crop's
-    row and column offsets in ``0..2*pad``, each from its own counter
-    block of the threefry cipher under ``key`` (raw ``uint32[2]``)."""
+    row and column offsets in ``0..2*pad``.  Under a threefry key
+    (``uint32[2]``) each comes from its own counter block of the cipher;
+    under an unsafe_rbg key (``uint32[4]``) they are ``lbt_tpu``'s
+    ``bernoulli(kf, 0.5)`` and ``randint(kh / kw, 0, 2*pad + 1)`` of
+    ``kf, kh, kw = split(key, 3)``, bit for bit."""
     key = np.asarray(key, np.uint32)
+    span = 2 * pad + 1
+    if key.shape[-1] == 4:
+        kf, kh, kw = split(key, 3)
+        # uniform(kf) < 0.5: the top bit of the word is 0
+        flip = 1 - (rbg_bits(kf, n) >> np.uint32(31))
+        return flip, _rbg_randint(kh, n, span), _rbg_randint(kw, n, span)
     words, _ = threefry2x32(key[0], key[1], np.zeros(3 * n, np.uint32),
                             np.arange(3 * n, dtype=np.uint32))
     words = words.reshape(3, n)
-    span = np.uint32(2 * pad + 1)
+    span = np.uint32(span)
     return words[0] >> np.uint32(31), words[1] % span, words[2] % span
 
 

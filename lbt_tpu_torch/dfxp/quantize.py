@@ -7,12 +7,14 @@ codes clipped to ``[-2**(bits-1), 2**(bits-1)-1]``, rounded half-to-even
 ``bits >= 32`` is an exact passthrough.
 
 Codes come from kernel K1 (:mod:`lbt_tpu_torch.ops.kernels.quant`).
-Stochastic noise is one of ``lbt_tpu``'s three XLA streams, drawn from a
-key's raw data exactly as ``lbt_tpu`` draws it, so codes match bit for
-bit: ``jax.random.uniform``'s threefry (``backend='xla'``, ``noise_mode=
-'prng'``) or the ``hash`` / ``hash1`` counter hash (``'xla_hash'`` /
-``'xla_hash1'``), each per element or, with ``noise_shared_axis0``, one
-draw of ``shape[1:]`` shared along axis 0 (:func:`noise_spec`).
+Stochastic noise is one of ``lbt_tpu``'s XLA streams, drawn from a key's
+raw data exactly as ``lbt_tpu`` draws it, so codes match bit for bit:
+``jax.random.uniform`` (``backend='xla'``, ``noise_mode='prng'``), which
+is threefry under a 2-word key and XLA's Philox stream under a 4-word
+``unsafe_rbg`` key, or the ``hash`` / ``hash1`` counter hash
+(``'xla_hash'`` / ``'xla_hash1'``), each per element or, with
+``noise_shared_axis0``, one draw of ``shape[1:]`` shared along axis 0
+(:func:`noise_spec`).
 
 For training: the straight-through estimator (:func:`straight_through`,
 :func:`quantize_ste`), the overflow statistics the range controllers read
@@ -29,8 +31,8 @@ from typing import Optional, Sequence, Tuple
 
 import torch
 
-from lbt_tpu_torch.ops.kernels.quant import (HASH, HASH1, THREEFRY, Exp,
-                                             Noise, code_dtype,
+from lbt_tpu_torch.ops.kernels.quant import (HASH, HASH1, RBG, THREEFRY,
+                                             Exp, Noise, code_dtype,
                                              hash_uniform_flat, multiplier,
                                              quantize_codes)
 
@@ -73,9 +75,11 @@ def noise_spec(key: Optional[KeyData], stochastic: bool, backend: str,
                row0: int = 0,
                window: Optional[Tuple[int, int]] = None) -> Optional[Noise]:
     """The :class:`Noise` of a quantize site of ``shape``, or None to
-    round to nearest.  ``backend`` is ``lbt_tpu``'s: ``'xla'`` draws
-    ``jax.random.uniform``'s threefry under the key, ``'xla_hash'`` /
-    ``'xla_hash1'`` the counter hash seeded by :func:`key_seed`.
+    round to nearest.  ``key`` is raw key data: 2 words (threefry2x32)
+    or 4 (unsafe_rbg).  ``backend`` is ``lbt_tpu``'s: ``'xla'`` draws
+    ``jax.random.uniform`` under the key (threefry, or XLA's Philox
+    stream under a 4-word key), ``'xla_hash'`` / ``'xla_hash1'`` the
+    counter hash seeded by :func:`key_seed`.
     ``shared_axis0`` draws ``shape[1:]`` once and broadcasts it along axis
     0 (``lbt_tpu``'s ``_noise``; a 0-d shape draws per element).  ``row0``
     says that the tensor is rows ``row0..`` of a batch along axis 0 and
@@ -104,10 +108,16 @@ def noise_spec(key: Optional[KeyData], stochastic: bool, backend: str,
         shape = (*shape[:-1], n_global)
     inner = math.prod(shape[1:]) if shared_axis0 and len(shape) else 0
     offset = 0 if inner else row0 * math.prod(shape[1:])
-    k0, k1 = (int(v) & 0xFFFFFFFF for v in key)
-    if mode == THREEFRY:
-        return Noise(mode, k0, k1, inner, offset, n_global, col0)
-    return Noise(mode, key_seed(key), 0, inner, offset, n_global, col0)
+    kd = [int(v) & 0xFFFFFFFF for v in key]
+    if len(kd) not in (2, 4):
+        raise ValueError(f"key data of {len(kd)} words: 2 is threefry2x32, "
+                         f"4 unsafe_rbg")
+    if mode != THREEFRY:
+        return Noise(mode, key_seed(kd), 0, inner, offset, n_global, col0)
+    if len(kd) == 4:
+        return Noise(RBG, kd[0], kd[1], inner, offset, n_global, col0,
+                     kd[2], kd[3])
+    return Noise(mode, kd[0], kd[1], inner, offset, n_global, col0)
 
 
 def quantize_int(
@@ -126,9 +136,10 @@ def quantize_int(
     """Quantize to integer codes: ``(codes, multiplier)`` with
     ``dequantized = codes / multiplier`` and codes in :func:`code_dtype`.
 
-    ``key`` is raw key data (two uint32 words); stochastic rounding
-    draws the noise of ``backend`` (``'xla'``, ``'xla_hash'`` or
-    ``'xla_hash1'``, :func:`noise_spec`), shared along axis 0 with
+    ``key`` is raw key data (two uint32 words, or four under
+    ``unsafe_rbg``); stochastic rounding draws the noise of ``backend``
+    (``'xla'``, ``'xla_hash'`` or ``'xla_hash1'``, :func:`noise_spec`),
+    shared along axis 0 with
     ``noise_shared_axis0``.  ``bits`` must be < 32.  ``stats=True``
     returns ``(codes, multiplier, minmax)``, ``minmax`` the f32 ``[min,
     max]`` of ``x * multiplier`` from the same K1 pass.  ``row0`` places

@@ -181,13 +181,13 @@ def refusals(args) -> List[str]:
     """Why the port cannot run this command line: one message per flag
     value, each naming the ROADMAP item that ports it."""
     out = []
-    for flag, item in (("bn_residual_q16", "queue 1 item 13, not to port"),
-                       ("remat_bn", "queue 1 item 13, not to port")):
+    for flag in ("bn_residual_q16", "remat_bn"):
         if getattr(args, flag):
-            out.append(f"--{flag} is not ported (ROADMAP {item})")
+            out.append(f"--{flag} is not ported yet (ROADMAP queue 1 "
+                       f"item 13)")
     if args.scan_steps > 1:
         out.append(f"--scan_steps {args.scan_steps}: the scanned block is "
-                   f"not to be ported (ROADMAP queue 1 item 13)")
+                   f"not ported yet (ROADMAP queue 1 item 13)")
     return out
 
 

@@ -46,8 +46,9 @@ class Ctx:
     ``train`` selects behaviour (BN batch statistics), ``update`` state
     mutation (controllers, BN EMA), ``update_gate`` whether the range
     controllers run this step (``QuantConfig.range_update_every``).
-    ``key`` is the step's raw threefry key data (``uint32[2]``, see
-    :mod:`lbt_tpu_torch.dfxp.keys`); without it quantization rounds
+    ``key`` is the step's raw key data (``uint32[2]`` threefry2x32 or
+    ``uint32[4]`` unsafe_rbg, see :mod:`lbt_tpu_torch.dfxp.keys`);
+    without it quantization rounds
     deterministically.  ``sinks`` maps a layer uid to its stat sink;
     ``n_uids`` sizes the table of site keys built on first use.  Serving
     is ``Ctx(train=False, update=False)``.
@@ -94,17 +95,17 @@ class Ctx:
         """Whether the range controllers run in this call."""
         return bool(self.update and self.update_gate)
 
-    def layer_key(self, uid: int, site: int) -> Optional[Tuple[int, int]]:
-        """``fold_in(fold_in(key, uid), site)`` as two ints, from a table
-        built for every uid and site at once."""
+    def layer_key(self, uid: int, site: int) -> Optional[Tuple[int, ...]]:
+        """``fold_in(fold_in(key, uid), site)`` as ints, two or four as
+        the key's width, from a table built for every uid and site at
+        once (:func:`~lbt_tpu_torch.dfxp.keys.site_keys`)."""
         if self.key is None:
             return None
         if self._keys is None or uid >= self._keys.shape[0]:
             n = max(uid + 1, self.n_uids,
                     0 if self._keys is None else 2 * self._keys.shape[0])
             self._keys = site_keys(self.key, n, N_SITES)
-        k = self._keys[uid, site]
-        return int(k[0]), int(k[1])
+        return tuple(int(v) for v in self._keys[uid, site])
 
     def sink(self, layer: "Layer") -> Optional[torch.Tensor]:
         """The stat sink of ``layer``'s barrier; a layer reached twice in

@@ -25,7 +25,8 @@ from lbt_tpu_torch.config import QuantConfig, carrier_dtype
 from lbt_tpu_torch.dfxp.barrier import grad_quant_barrier, quantize_cotangent
 from lbt_tpu_torch.dfxp.quantize import dequantize
 from lbt_tpu_torch.nn.core import Ctx, Layer, site_init_exp
-from lbt_tpu_torch.ops.kernels.quant import threefry_uniform_flat
+from lbt_tpu_torch.ops.kernels.quant import (rbg_uniform_flat,
+                                             threefry_uniform_flat)
 from lbt_tpu_torch.ops.qops import qconv2d, qmatmul
 
 # PRNG site indices (folded into the layer key), as lbt_tpu's
@@ -287,7 +288,8 @@ class Dropout(Layer):
     """Inverted dropout, ``keep`` the keep probability (the CLI's
     ``--dropout``); active only in training with ``keep < 1``.  The mask is
     ``jax.random.bernoulli(key, keep, shape)`` of the site-4 key bit for
-    bit: the threefry uniforms of the flat index below ``keep`` in f32.
+    bit: the key's uniforms of the flat index (threefry, or XLA's Philox
+    stream under an unsafe_rbg key) below ``keep`` in f32.
     Kept elements become ``x / keep`` in ``x``'s dtype, ``keep`` rounded
     to that dtype first (JAX's weak-typed scalar)."""
 
@@ -302,8 +304,13 @@ class Dropout(Layer):
         if key is None:
             raise ValueError("training dropout needs a PRNG key")
         # rows row0.. of a global batch draw that batch's mask there
-        u = threefry_uniform_flat(*key, x.numel(), device=x.device,
-                                  offset=ctx.row0 * math.prod(x.shape[1:]))
+        offset = ctx.row0 * math.prod(x.shape[1:])
+        if len(key) == 4:
+            u = rbg_uniform_flat(key, x.numel(), device=x.device,
+                                 offset=offset)
+        else:
+            u = threefry_uniform_flat(*key, x.numel(), device=x.device,
+                                      offset=offset)
         # 0-d CPU tensors: scalars to an op on any device, no copy
         mask = u.view(x.shape) < torch.tensor(self.keep, dtype=torch.float32)
         keep = torch.tensor(self.keep, dtype=torch.float32).to(x.dtype)

@@ -109,27 +109,40 @@ def quantize_library(csrc: Path = CSRC_DIR) -> ctypes.CDLL:
                    ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
                    ctypes.c_int, ctypes.c_uint32, ctypes.c_uint32,
                    ctypes.c_uint32, ctypes.c_uint32, ctypes.c_uint32,
-                   ctypes.c_uint32, ctypes.c_uint32, ctypes.c_int,
-                   ctypes.c_void_p]
+                   ctypes.c_uint32, ctypes.c_uint32, ctypes.c_uint32,
+                   ctypes.c_uint32, ctypes.c_int, ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return lib
 
 
+# #4 / #5's libraries, one a noise kind (``csrc/conv_fused.cuh``): the
+# source and the suffix of its entry points' names
+CONV_FUSED_KINDS = {0: ("conv_fused.cu", ""),
+                    1: ("conv_fused_threefry.cu", "_threefry"),
+                    2: ("conv_fused_rbg.cu", "_rbg")}
+
+
+def noise_kind(mode) -> int:
+    """The kind of #4 / #5's library that draws noise mode ``mode`` (None
+    or 0 rounds to nearest): 0 none and the hashes, 1 threefry, 2
+    Philox."""
+    return {3: 1, 4: 2}.get(mode, 0)
+
+
 @functools.cache
-def conv_fused_library(csrc: Path = CSRC_DIR) -> ctypes.CDLL:
-    """Kernels #4 and #5 (``conv_fused.cu`` under ``csrc``), built on
-    first use."""
-    lib = ctypes.CDLL(str(build_library("conv_fused", ["conv_fused.cu"],
-                                        csrc=csrc)))
-    for name in ("lbt_conv3x3_fused", "lbt_conv1x1_fused"):
-        fn = getattr(lib, name)
-        fn.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p,
-                       ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-                       ctypes.c_void_p, ctypes.c_void_p, ctypes.c_uint32,
-                       ctypes.c_uint32, ctypes.c_uint32, ctypes.c_uint32,
-                       ctypes.c_uint32, ctypes.c_uint32,
-                       ctypes.c_int, ctypes.c_int, ctypes.c_int,
-                       ctypes.POINTER(ctypes.c_int), ctypes.c_void_p]
+def conv_fused_library(kind: int = 0, csrc: Path = CSRC_DIR) -> ctypes.CDLL:
+    """Kernels #4 and #5 of one noise kind (:data:`CONV_FUSED_KINDS`:
+    ``conv_fused.cu``, ``conv_fused_threefry.cu`` or
+    ``conv_fused_rbg.cu`` under ``csrc``, one library each so that their
+    builds run side by side), built on first use."""
+    source, suffix = CONV_FUSED_KINDS[kind]
+    lib = ctypes.CDLL(str(build_library(source[:-3], [source], csrc=csrc)))
+    for entry in ("lbt_conv3x3_fused", "lbt_conv1x1_fused"):
+        fn = getattr(lib, entry + suffix)
+        fn.argtypes = ([ctypes.c_void_p, ctypes.c_int]
+                       + [ctypes.c_void_p] * 6 + [ctypes.c_uint32] * 8
+                       + [ctypes.c_int] * 3
+                       + [ctypes.POINTER(ctypes.c_int), ctypes.c_void_p])
         fn.restype = ctypes.c_int
     return lib
 

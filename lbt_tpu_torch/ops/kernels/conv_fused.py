@@ -7,7 +7,10 @@ From a conv's input codes and weight codes they return the codes of the
 conv output quantized at the next site, the per-channel sum and sum of
 squares of those codes, and the min / max of the f32 conv output, which
 never reaches device memory.  The kernels are CUDA C++ in
-``lbt_tpu_torch/csrc/conv_fused.cu``: an implicit GEMM on the int8 tensor
+``lbt_tpu_torch/csrc/conv_fused.cuh``, the entry points of each noise
+kind in a library of its own (``conv_fused.cu``: none and the hashes,
+``conv_fused_threefry.cu``, and ``conv_fused_rbg.cu`` for an unsafe_rbg
+key's Philox stream): an implicit GEMM on the int8 tensor
 cores (``mma.sync`` m16n8k32), 16-byte ``cp.async`` gathers of each tap's
 NHWC rows, 9-bit codes split into int8 planes as fragments are read, one
 launch a call (the last block decodes the min / max).  Its header says
@@ -29,7 +32,7 @@ from typing import Optional, Tuple
 import torch
 
 from lbt_tpu_torch.ops.im2col import Pads, im2col, out_hw
-from lbt_tpu_torch.ops.kernels.quant import Noise, round_codes
+from lbt_tpu_torch.ops.kernels.quant import NOISE_MODES, Noise, round_codes
 
 _CODE_DTYPES = (torch.int8, torch.int16)
 
@@ -95,7 +98,7 @@ def _check(xc, wc, inv_scale, mult_out, strides, pads, bits_out, ksize,
     width = noise.n_global if noise is not None and noise.n_global else cout
     inner = ho * wo * width
     if noise is not None and (
-            noise.mode not in (1, 2, 3) or noise.inner not in (0, inner)
+            noise.mode not in NOISE_MODES or noise.inner not in (0, inner)
             or noise.offset < 0 or (noise.inner and noise.offset % inner)
             or not 0 <= noise.col0 <= width - cout
             or (b * ho * wo - 1) * width + noise.col0 + cout + noise.offset
@@ -116,15 +119,18 @@ def _launch(entry: str, xc, wc, inv_scale, mult_out, strides, pads,
     minmax = torch.empty(2, dtype=torch.float32, device=xc.device)
     dims = (ctypes.c_int * 11)(b, h, w, cin, ho, wo, cout, strides[0],
                                strides[1], pads[0][0], pads[1][0])
-    from lbt_tpu_torch.ops.kernels.build import conv_fused_library
-    fn = getattr(conv_fused_library(), entry)
+    from lbt_tpu_torch.ops.kernels import build
+    kind = build.noise_kind(None if noise is None else noise.mode)
+    fn = getattr(build.conv_fused_library(kind),
+                 entry + build.CONV_FUSED_KINDS[kind][1])
     with torch.cuda.device(xc.device):
         stream = torch.cuda.current_stream(xc.device).cuda_stream
         rc = fn(xc.data_ptr(), int(xc.dtype == torch.int16), wc.data_ptr(),
                 codes.data_ptr(), moments.data_ptr(), minmax.data_ptr(),
                 inv_scale.data_ptr(), mult_out.data_ptr(),
-                *((0, 0, 0, 0, 0, 0, 0) if noise is None else
+                *((0, 0, 0, 0, 0, 0, 0, 0, 0) if noise is None else
                   (noise.k0 & 0xFFFFFFFF, noise.k1 & 0xFFFFFFFF,
+                   noise.k2 & 0xFFFFFFFF, noise.k3 & 0xFFFFFFFF,
                    noise.inner, 0 if noise.inner else noise.offset,
                    noise.n_global, noise.col0, noise.mode)),
                 int(round_bf16), bits_out, dims, stream)
@@ -183,5 +189,5 @@ def conv1x1_fused(xc, wc, inv_scale, mult_out, *, strides, pads,
 conv3x3_fused.launches = 0
 conv1x1_fused.launches = 0
 # the launches of each noise mode, as quantize_codes.launches_by_mode
-conv3x3_fused.launches_by_mode = [0, 0, 0, 0]
-conv1x1_fused.launches_by_mode = [0, 0, 0, 0]
+conv3x3_fused.launches_by_mode = [0] * (1 + len(NOISE_MODES))
+conv1x1_fused.launches_by_mode = [0] * (1 + len(NOISE_MODES))

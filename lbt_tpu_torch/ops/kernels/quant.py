@@ -13,15 +13,18 @@ out beside the codes; on request (``stats=True``) it also gives the
 ``[min, max]`` of the scaled tensor ``x * mult``, all that
 ``overflow_stats`` needs at a zero target rate, reduced across blocks in
 the same launch (a ticket in a per-stream scratch tells the last block).
-The TPU's hardware PRNG is replaced by the three noise streams of
-``lbt_tpu``'s XLA paths over the row-major flat index: the counter hashes
-of ``xla_hash`` / ``xla_hash1`` (:func:`hash_uniform_flat`) and
+The TPU's hardware PRNG is replaced by the noise streams of ``lbt_tpu``'s
+XLA paths over the row-major flat index: the counter hashes of
+``xla_hash`` / ``xla_hash1`` (:func:`hash_uniform_flat`),
 ``jax.random.uniform``'s partitionable threefry of ``xla`` (``noise_mode=
-'prng'``, :func:`threefry_uniform_flat`), each also as one draw of
-``shape[1:]`` shared along axis 0; a :class:`Noise` names the stream, its
-key and that sharing.  So stochastic codes match ``lbt_tpu`` bit for bit.
-The source's header says what bounds the kernel (bytes under the hashes,
-integer operations under threefry) and how its design answers.  Built by
+'prng'``, :func:`threefry_uniform_flat`) and, under an ``unsafe_rbg``
+key, ``jax.random.uniform``'s draw from XLA's ``rng_bit_generator``, which
+is Philox4x32-10 off the TPU (:func:`rbg_uniform_flat`), each also as one
+draw of ``shape[1:]`` shared along axis 0; a :class:`Noise` names the
+stream, its key and that sharing.  So stochastic codes match ``lbt_tpu``
+bit for bit.  The source's header says what bounds the kernel (bytes
+under the hashes, integer operations under threefry and Philox) and how
+its design answers.  Built by
 ``build.py`` and called through ``ctypes`` on PyTorch's current stream.
 
 :func:`quantize_codes` is the wrapper: a CPU tensor takes the plain PyTorch
@@ -37,6 +40,8 @@ from typing import NamedTuple, Optional, Tuple, Union
 
 import torch
 
+from lbt_tpu_torch.dfxp.keys import PHILOX_M, PHILOX_W
+
 _MASK32 = 0xFFFFFFFF
 _INV24 = 2.0 ** -24
 # lowbias32 / multiply-xorshift constants of lbt_tpu's counter hash
@@ -51,13 +56,15 @@ BLOCKS_PER_SM = 4
 Exp = Union[int, torch.Tensor]
 
 # noise modes (the kernels' ``mode``; 0 rounds half to even)
-HASH, HASH1, THREEFRY = 1, 2, 3
+HASH, HASH1, THREEFRY, RBG = 1, 2, 3, 4
+NOISE_MODES = (HASH, HASH1, THREEFRY, RBG)
 
 
 class Noise(NamedTuple):
     """The stochastic-rounding noise of one quantize call.  ``mode`` is
-    :data:`HASH`, :data:`HASH1` or :data:`THREEFRY`; ``k0`` the hashes'
-    32-bit seed or the threefry key's first word, ``k1`` its second;
+    :data:`HASH`, :data:`HASH1`, :data:`THREEFRY` or :data:`RBG`; ``k0``
+    the hashes' 32-bit seed or the key's first word, ``k1`` its second,
+    ``k2`` and ``k3`` an unsafe_rbg key's other two;
     ``inner > 0`` draws element ``i``'s noise at the counter ``i % inner``
     (``lbt_tpu``'s ``noise_shared_axis0``: one draw of ``shape[1:]``,
     ``inner = prod(shape[1:])``, broadcast along axis 0).  ``offset`` is
@@ -77,6 +84,8 @@ class Noise(NamedTuple):
     offset: int = 0
     n_global: int = 0
     col0: int = 0
+    k2: int = 0
+    k3: int = 0
 
 
 def code_dtype(bits: int) -> torch.dtype:
@@ -178,11 +187,78 @@ def threefry_uniform_flat(k0: int, k1: int, n: int, inner: int = 0,
     return bits.to(torch.int32).view(torch.float32) - 1.0
 
 
+def _mulhilo(c: torch.Tensor, m: int):
+    """``(hi32, lo32)`` of ``c * m`` for an int64 tensor holding uint32
+    values and a 32-bit constant, from 16-bit halves of ``m`` so that no
+    int64 product overflows."""
+    pl = c * (m & 0xFFFF)                   # < 2**48
+    ph = c * (m >> 16)
+    return ((ph + (pl >> 16)) >> 16,
+            (((ph & 0xFFFF) << 16) + pl) & _MASK32)
+
+
+def _philox_blocks(key4, blocks: torch.Tensor) -> torch.Tensor:
+    """``[len(blocks), 4]`` int64 words: the Philox4x32-10 blocks ``blocks``
+    (int64, below 2**62) of an unsafe_rbg key's stream, the counter
+    ``(s0 << 64 | s1) + b`` with its carries (``dfxp/keys.py:rbg_bits``),
+    the key ``(k0, k1)``."""
+    k0, k1, k2, k3 = (int(v) & _MASK32 for v in key4)
+    t = blocks + k2
+    c1 = (t >> 32) + k3
+    c2 = (c1 >> 32) + k0
+    c3 = ((c2 >> 32) + k1) & _MASK32
+    c0, c1, c2 = t & _MASK32, c1 & _MASK32, c2 & _MASK32
+    for _ in range(10):
+        hi0, lo0 = _mulhilo(c0, PHILOX_M[0])
+        hi1, lo1 = _mulhilo(c2, PHILOX_M[1])
+        c0, c1, c2, c3 = hi1 ^ c1 ^ k0, lo1, hi0 ^ c3 ^ k1, lo0
+        k0 = (k0 + PHILOX_W[0]) & _MASK32
+        k1 = (k1 + PHILOX_W[1]) & _MASK32
+    return torch.stack([c0, c1, c2, c3], dim=-1)
+
+
+def _rbg_words(key4, start: int, n: int, device) -> torch.Tensor:
+    """Words ``start .. start + n - 1`` of the key's stream (int64): the
+    blocks that hold them, once each."""
+    b0 = start >> 2
+    blocks = torch.arange(b0, (start + n + 3) >> 2, dtype=torch.int64,
+                          device=device)
+    words = _philox_blocks(key4, blocks).reshape(-1)
+    return words[start - 4 * b0:start - 4 * b0 + n]
+
+
+def rbg_uniform_flat(key4, n: int, inner: int = 0, device=None,
+                     offset: int = 0, window: Window = None) -> torch.Tensor:
+    """Uniform [0, 1) f32 noise equal to ``jax.random.uniform(key, shape,
+    float32)`` for an unsafe_rbg key of raw data ``key4`` (4 words) and
+    ``n = prod(shape)``, as XLA draws it off the TPU: element ``i`` is word
+    ``c % 4`` of the Philox4x32-10 block ``c // 4`` of the key's stream,
+    ``c = i + offset`` (or that ``% inner``; ``i`` placed by ``window``
+    first), the top 23 bits as the mantissa of 1.0, minus 1.  In int64
+    torch ops: each block once where the counters run in order (no
+    window), a block an element under a window."""
+    if window is None and not inner:
+        bits = _rbg_words(key4, offset, n, device)
+    elif window is None:
+        bits = _rbg_words(key4, 0, inner, device)[
+            _counters(n, inner, device, offset)]
+    else:
+        c = _counters(n, inner, device, offset, window)
+        bits = _philox_blocks(key4, c >> 2).gather(
+            1, (c & 3)[:, None]).squeeze(1)
+    bits = (bits >> 9) | 0x3F800000
+    return bits.to(torch.int32).view(torch.float32) - 1.0
+
+
 def noise_uniform(noise: Noise, n: int, device=None,
                   cols: int = 0) -> torch.Tensor:
     """The ``n`` uniforms of ``noise``'s stream over the flat index of a
     tensor whose last dim is ``cols`` (which places a column window)."""
     window = (cols, noise.n_global, noise.col0) if noise.n_global else None
+    if noise.mode == RBG:
+        return rbg_uniform_flat(
+            (noise.k0, noise.k1, noise.k2, noise.k3), n, noise.inner,
+            device, noise.offset, window)
     if noise.mode == THREEFRY:
         return threefry_uniform_flat(noise.k0, noise.k1, n, noise.inner,
                                      device, noise.offset, window)
@@ -290,10 +366,11 @@ def _launch(x: torch.Tensor, bits: int, exp: Exp, noise: Optional[Noise],
             None if minmax is None else minmax.data_ptr(),
             None if scratch is None else scratch.data_ptr(),
             _max_blocks(dev.index), bits,
-            *((0, 0, 0, 0, 0, 0, 0, 0) if noise is None else
-              (noise.k0 & _MASK32, noise.k1 & _MASK32, noise.inner,
-               noise.offset, x.shape[-1] if x.dim() else 1,
-               noise.n_global, noise.col0, noise.mode)), stream)
+            *((0, 0, 0, 0, 0, 0, 0, 0, 0, 0) if noise is None else
+              (noise.k0 & _MASK32, noise.k1 & _MASK32, noise.k2 & _MASK32,
+               noise.k3 & _MASK32, noise.inner, noise.offset,
+               x.shape[-1] if x.dim() else 1, noise.n_global, noise.col0,
+               noise.mode)), stream)
     if rc != 0:
         raise RuntimeError(f"K1 launch failed: cudaError {rc} at "
                            f"{tuple(x.shape)} bits={bits}")
@@ -326,7 +403,7 @@ def quantize_codes(x: torch.Tensor, bits: int, exp: Exp,
                          f"x{exp.numel()}")
     if x.numel() >= 2 ** 32:
         raise ValueError("the noise counter covers at most 2**32 elements")
-    if noise is not None and (noise.mode not in (HASH, HASH1, THREEFRY)
+    if noise is not None and (noise.mode not in NOISE_MODES
                               or not 0 <= noise.inner < 2 ** 32
                               or noise.offset < 0
                               or noise_end(noise, x) > 2 ** 32):
@@ -345,5 +422,5 @@ def quantize_codes(x: torch.Tensor, bits: int, exp: Exp,
 
 quantize_codes.launches = 0
 # the launches of each noise mode (0: round to nearest, then HASH, HASH1,
-# THREEFRY)
-quantize_codes.launches_by_mode = [0, 0, 0, 0]
+# THREEFRY, RBG)
+quantize_codes.launches_by_mode = [0] * (1 + len(NOISE_MODES))

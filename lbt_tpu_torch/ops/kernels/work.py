@@ -53,8 +53,14 @@ ISSUE_PER_S = issue_rate()
 #      of the six key injections into the counter's two words, those into
 #      x0 fold into the next round's IADD3 and those into x1 take one add
 #      each (6), the last into x0 one more (1); the output's xor and its
-#      shift-or (2): 69.
-NOISE_INSTRUCTIONS = {0: 0, 1: 9, 2: 6, 3: 69}
+#      shift-or (2): 69;
+#   4: Philox4x32-10 (an unsafe_rbg key): 10 rounds of two 32x32 -> 64-bit
+#      products (one IMAD.WIDE.U32 each) and two 3-input xors of a high
+#      word, a counter word and a round key (one LOP3 each; the round keys
+#      are the same for every thread, made once): 40 a block of four
+#      words, 10 an element where one block serves four elements, as in
+#      K1 and #4/#5 on the training step; the word's shift-or (1): 11.
+NOISE_INSTRUCTIONS = {0: 0, 1: 9, 2: 6, 3: 69, 4: 11}
 
 
 @dataclass(frozen=True)

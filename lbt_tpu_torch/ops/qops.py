@@ -20,8 +20,9 @@ their f32 contractions are full f32; ``sim_bf16`` rounds both
 operands to bf16 and the product to bf16 before it is upcast, as
 ``lbt_tpu``'s all-bf16 ``dot_general`` does, and its transposed
 contractions in the backward stay bf16.  As in ``lbt_tpu``, this route
-draws its operands' noise from threefry (``backend='xla'``) whatever the
-configured stream.  The integer route's widths that K2 does not take (a
+draws its operands' noise from ``jax.random.uniform``'s stream of the
+key (``backend='xla'``: threefry, or Philox under an ``unsafe_rbg`` key)
+whatever the configured ``noise_mode``.  The integer route's widths that K2 does not take (a
 9-bit weight or dense operand) contract in f32 with the configured
 stream: equal to ``lbt_tpu``'s bf16 integer contraction wherever its f32
 sums are exact.

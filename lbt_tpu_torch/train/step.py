@@ -122,7 +122,8 @@ def make_train_step(model: Model, tc: TrainConfig) -> Callable:
     """``train_step(model, velocity, x, y, step, lr, base_key) ->
     {'loss', 'accuracy'}`` (0-d device tensors).  ``velocity`` is
     :func:`~lbt_tpu_torch.train.optim.momentum_init` of the parameters;
-    ``base_key`` is raw threefry key data (``dfxp.keys.base_key(seed)``)."""
+    ``base_key`` is raw key data, 2 words or 4 (``dfxp.keys.base_key(seed,
+    impl)``)."""
     gate = gate_of(model)
     decays = dict(model.decays())
     n_uids = model.num_layers()
@@ -151,7 +152,7 @@ def make_eval_step(model: Model, faithful_eval: bool = False) -> Callable:
     """``eval_step(model, x, y, key) -> {'loss', 'accuracy', 'count'}``
     (loss and accuracy 0-d device tensors, count the batch size).
 
-    ``key`` is raw threefry key data used as the call's key as it is, not
+    ``key`` is raw key data used as the call's key as it is, not
     folded with a step: the Trainer passes ``fold_in(base_key, 0xE7A1)``
     for every batch, so the layers round stochastically in eval as
     ``lbt_tpu``'s do.  ``faithful_eval`` reproduces the reference's eval

@@ -9,12 +9,13 @@ TensorBoard metrics.
 
 Randomness comes from ``TrainConfig.seed`` alone.  The weights are
 :meth:`Model.init` of ``torch.Generator().manual_seed(seed)``;
-``base_key = keys.base_key(seed)`` seeds the stochastic rounding
-(``fold_in(base_key, step)`` per train step, ``fold_in(base_key, 0xE7A1)``
-for every eval batch, as ``lbt_tpu``); the augmentation draws from
-``fold_in(data_key, step)`` with ``data_key = fold_in(fold_in(base_key,
-0xA11CE), 1)``; the batch order is ``batch_iterator``'s ``(seed, epoch)``
-shuffle.  So a run resumed from a checkpoint takes the steps the
+``base_key = keys.base_key(seed, impl=model.cfg.noise_impl)`` seeds the
+stochastic rounding (``fold_in(base_key, step)`` per train step,
+``fold_in(base_key, 0xE7A1)`` for every eval batch, as ``lbt_tpu``); the
+augmentation draws from ``fold_in(data_key, step)`` with ``data_key =
+split(fold_in(base_key, 0xA11CE))[1]``, as ``lbt_tpu`` takes it (its
+other half seeds ``lbt_tpu``'s init, which the port does not share); the
+batch order is ``batch_iterator``'s ``(seed, epoch)`` shuffle.  So a run resumed from a checkpoint takes the steps the
 uninterrupted run took.
 
 Data parallel (``TrainConfig.data_parallel`` in a process group of more
@@ -113,7 +114,7 @@ class Trainer:
         if tc.scan_steps > 1:
             raise NotImplementedError(
                 f"scan_steps={tc.scan_steps}: the scanned K-step block is "
-                f"not to be ported (ROADMAP queue 1 item 13); steps run one "
+                f"not ported yet (ROADMAP queue 1 item 13); steps run one "
                 f"by one")
         self.group = self.tp = None
         if tp > 1:
@@ -165,9 +166,11 @@ class Trainer:
             self.pspecs = shard_model(model, self.tp)
         self.params = dict(model.net.named_parameters())
         self.velocity = momentum_init(self.params)
-        self.base_key = keys.base_key(tc.seed)
-        self.data_key = keys.fold_in(
-            keys.fold_in(self.base_key, DATA_KEY_FOLD), 1)
+        self.base_key = keys.base_key(
+            tc.seed, impl=model.cfg.noise_impl if model.cfg is not None
+            else "threefry2x32")
+        self.data_key = keys.split(
+            keys.fold_in(self.base_key, DATA_KEY_FOLD))[1]
         self.faithful = bool(model.cfg and model.cfg.faithful_eval)
         self.ebuf = None
         if self.dp:

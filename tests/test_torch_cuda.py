@@ -497,7 +497,8 @@ def _trained(dev, steps=2, cfg=QuantConfig.uniform(8, noise_mode="hash")):
         x = torch.from_numpy(rng.normal(0, 1, (4, 32, 32, 3)).astype(
             np.float32)).to(dev)
         y = torch.from_numpy(rng.integers(0, 10, (4,))).to(dev)
-        losses.append(step(model, vel, x, y, i, 1e-2, base_key(3))["loss"])
+        losses.append(step(model, vel, x, y, i, 1e-2,
+                           base_key(3, cfg.noise_impl))["loss"])
     return convert.to_jax_numpy(model, vel), losses
 
 
@@ -601,12 +602,15 @@ def test_eval_step_card_matches_cpu(dev, faithful):
     QuantConfig.uniform(8, noise_mode="hash"), QuantConfig.uniform(8),
     QuantConfig.uniform(8, engine="sim", noise_mode="prng"),
     QuantConfig.uniform(8, engine="sim_bf16", noise_mode="prng"),
-    QuantConfig.fp32()], ids=["int8-hash", "int8-prng", "sim-prng",
-                              "sim_bf16-prng", "fp32"])
+    QuantConfig.fp32(),
+    QuantConfig.uniform(8, engine="int8", noise_mode="prng",
+                        noise_impl="unsafe_rbg")],
+    ids=["int8-hash", "int8-prng", "sim-prng", "sim_bf16-prng", "fp32",
+         "int8-rbg"])
 def test_train_step_card_matches_cpu(dev, cfg):
     """Two steps of ResNet-8 on the card and on the CPU, under the int8
-    engine with hash and threefry noise, both sim engines and the FP32
-    arm: exponents equal, losses and floats to 1e-5 (the card's
+    engine with hash, threefry and (unsafe_rbg keys) Philox noise, both
+    sim engines and the FP32 arm: exponents equal, losses and floats to 1e-5 (the card's
     reductions and cuDNN's convs sum in another order).  Under ``sim``
     the f32 conv sums of cuDNN and of the CPU are not exact (9-bit codes
     times 8-bit codes over up to 4,096 terms: their rounding, about
@@ -1423,3 +1427,159 @@ def test_bf16_contraction_is_exact_on_the_card(dev, x_shape, w_shape,
         outs.append((y.detach(), xs.grad, ws.grad))
     for got, want in zip(*outs):
         assert got.dtype == want.dtype and torch.equal(got, want)
+
+
+# mode 4: an unsafe_rbg key's Philox stream (K1 and #4/#5)
+
+# key data: a seed's, edge words, and a low counter half that carries
+# past 2**64 within the first blocks
+RBG_KEYS = [(0, 7, 0, 7), (0xDEADBEEF, 0x12345678, 0x9ABCDEF0, 0x0FEDCBA9),
+            (0x80000001, 0xFFFFFFFF, 0xFFFFFFFE, 0xFFFFFFFF)]
+
+
+def _rbg(key, inner=0, offset=0):
+    return quant.Noise(quant.RBG, key[0], key[1], inner, offset,
+                       k2=key[2], k3=key[3])
+
+
+@pytest.mark.parametrize("offset", [0, 4, 1, 4098])
+@pytest.mark.parametrize("bits", [4, 8, 9, 16, 20])
+@pytest.mark.parametrize("shape", [(1,), (3,), (4097,), (3, 5, 7),
+                                   (2, 32, 32, 16), (128, 16, 16, 32)])
+def test_k1_rbg_matches_plain(dev, shape, bits, offset):
+    """K1 in mode 4 equals its plain version bitwise, with and without
+    min/max: odd sizes (the scalar tail), offsets that are multiples of 4
+    (one Philox block a float4) and ragged ones (a block an element),
+    each key (the last one's counter carries)."""
+    g = torch.Generator().manual_seed(bits + offset)
+    x = (torch.randn(shape, generator=g) * 3).to(dev)
+    for key in RBG_KEYS:
+        for stats in (False, True):
+            noise = _rbg(key, offset=offset)
+            before = quant.quantize_codes.launches_by_mode[quant.RBG]
+            got = quant.quantize_codes(x, bits, 1, noise, stats)
+            torch.cuda.synchronize()
+            assert (quant.quantize_codes.launches_by_mode[quant.RBG]
+                    == before + 1)
+            _same(got, quant.quantize_codes_plain(x, bits, 1, noise, stats))
+
+
+@pytest.mark.parametrize("bits", [8, 9])
+@pytest.mark.parametrize("shape", [(5,), (4097,), (3, 5, 7), (8, 6, 6, 16)])
+def test_k1_rbg_shared_and_misaligned(dev, shape, bits):
+    """Mode 4 drawn once along axis 0 (``inner``), and on a view whose
+    data does not start 16-byte aligned (the scalar loop)."""
+    g = torch.Generator().manual_seed(len(shape))
+    x = (torch.randn(shape, generator=g) * 3).to(dev)
+    for key in RBG_KEYS:
+        noise = _rbg(key, inner=math.prod(shape[1:]))
+        _same(quant.quantize_codes(x, bits, 1, noise, True),
+              quant.quantize_codes_plain(x, bits, 1, noise, True))
+        view = x.view(-1)[1:]
+        _same(quant.quantize_codes(view, bits, 1, _rbg(key), True),
+              quant.quantize_codes_plain(view, bits, 1, _rbg(key), True))
+
+
+@pytest.mark.parametrize("row0", [0, 3])
+@pytest.mark.parametrize("shape,n_global,col0", [
+    ((3, 3, 256, 128), 256, 128), ((2048, 500), 1000, 500),
+    ((1, 1, 512, 33), 130, 97), ((7, 5, 13), 40, 21)])
+def test_k1_rbg_column_window_matches_plain(dev, shape, n_global, col0,
+                                            row0):
+    """Mode 4 on a tensor-parallel column slice, with a row offset."""
+    g = torch.Generator().manual_seed(n_global + col0)
+    x = (torch.randn(shape, generator=g) * 3).to(dev)
+    full = (*shape[:-1], n_global)
+    noise = _rbg(RBG_KEYS[1], offset=row0 * math.prod(full[1:]))._replace(
+        n_global=n_global, col0=col0)
+    _same(quant.quantize_codes(x, 8, 1, noise, True),
+          quant.quantize_codes_plain(x, 8, 1, noise, True))
+
+
+def test_k1_rbg_graph_replays(dev):
+    """100 replays of a captured mode-4 K1 with min/max, each on fresh
+    data, give the plain version's codes and min/max."""
+    g = torch.Generator().manual_seed(0)
+    x = torch.randn(128, 16, 16, 32, generator=g).to(dev)
+    exp = torch.tensor(2, dtype=torch.int32, device=dev)
+    noise = _rbg(RBG_KEYS[2])
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        quant.quantize_codes(x, 8, exp, noise, stats=True)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, stream=side):
+        out = quant.quantize_codes(x, 8, exp, noise, stats=True)
+    for i in range(100):
+        x.copy_(torch.randn(x.shape, generator=g) * (1 + i % 7))
+        graph.replay()
+        torch.cuda.synchronize()
+        _same(out, quant.quantize_codes_plain(x, 8, exp, noise, stats=True))
+
+
+@pytest.mark.parametrize("round_bf16", [False, True])
+@pytest.mark.parametrize("xdtype", [torch.int8, torch.int16])
+@pytest.mark.parametrize("form", ["", "shared", "offset 4", "offset 6"])
+@pytest.mark.parametrize("case", range(len(FUSED_SHAPES)))
+def test_conv_fused_rbg_matches_plain(dev, case, form, xdtype, round_bf16):
+    """#4 / #5 in mode 4 equal their plain version bitwise: codes,
+    moments, min/max, one launch; per element (a lane's block serves four
+    elements), drawn once along axis 0, and at offsets of a row that are
+    and are not multiples of 4 (Cout = 70 rows are not: a block an
+    element)."""
+    xshape, wshape, s = FUSED_SHAPES[case]
+    g = torch.Generator().manual_seed(case)
+    lim = 256 if xdtype == torch.int16 else 128
+    xc = torch.randint(-lim, lim, xshape, generator=g, dtype=xdtype).to(dev)
+    wc = torch.randint(-128, 128, wshape, generator=g,
+                       dtype=torch.int8).to(dev)
+    inv = torch.tensor([2.0 ** -16], device=dev)
+    mult = torch.tensor([2.0 ** -3], device=dev)
+    pads = qops.conv_pads("SAME", xshape[1:3], wshape[:2], (s, s))
+    ho, wo = qops.out_hw(xshape[1], xshape[2], wshape[:2], (s, s), pads)
+    row = ho * wo * wshape[3]
+    noise = _rbg(RBG_KEYS[case % len(RBG_KEYS)],
+                 inner=row if form == "shared" else 0,
+                 offset=int(form.split()[1]) * row if " " in form else 0)
+    kw = dict(strides=(s, s), pads=pads, noise=noise, round_bf16=round_bf16)
+    fused = (conv_fused.conv3x3_fused if wshape[0] == 3
+             else conv_fused.conv1x1_fused)
+    before = fused.launches_by_mode[quant.RBG]
+    got = fused(xc, wc, inv, mult, **kw)
+    torch.cuda.synchronize()
+    assert fused.launches_by_mode[quant.RBG] == before + 1
+    want = conv_fused.conv_fused_plain(xc, wc, inv, mult, **kw)
+    for a, b in zip(got, want):
+        assert a.dtype == b.dtype and torch.equal(a, b)
+
+
+@pytest.mark.parametrize("row0", [0, 3])
+@pytest.mark.parametrize("shared", [False, True])
+@pytest.mark.parametrize("k,cin,cout,n_global,col0,stride", [
+    (3, 64, 32, 64, 32, 1), (1, 256, 64, 128, 64, 2),
+    (3, 32, 17, 40, 23, 1), (1, 48, 33, 130, 97, 1)])
+def test_conv_fused_rbg_column_window_matches_plain(dev, k, cin, cout,
+                                                    n_global, col0, stride,
+                                                    shared, row0):
+    """#4 / #5 in mode 4 on a slice of the output channels: a window whose
+    row width and first column are multiples of 4 (a lane's block serves
+    four) and one whose are not (a block an element)."""
+    from lbt_tpu_torch.ops.im2col import conv_pads, out_hw
+    g = torch.Generator().manual_seed(cin + col0)
+    xc = torch.randint(-128, 128, (4, 14, 14, cin), generator=g,
+                       dtype=torch.int8)
+    wc = torch.randint(-128, 128, (k, k, cin, cout), generator=g,
+                       dtype=torch.int8)
+    pads = conv_pads("SAME", (14, 14), (k, k), (stride, stride))
+    ho, wo = out_hw(14, 14, (k, k), (stride, stride), pads)
+    noise = _rbg(RBG_KEYS[2], inner=ho * wo * n_global if shared else 0,
+                 offset=row0 * ho * wo * n_global)._replace(
+                     n_global=n_global, col0=col0)
+    inv, mult = torch.tensor([2.0 ** -14]), torch.tensor([2.0 ** -2])
+    fn = conv_fused.conv3x3_fused if k == 3 else conv_fused.conv1x1_fused
+    kw = dict(strides=(stride, stride), pads=pads, noise=noise)
+    got = fn(xc.to(dev), wc.to(dev), inv.to(dev), mult.to(dev), **kw)
+    want = conv_fused.conv_fused_plain(xc, wc, inv, mult, **kw)
+    for a, b in zip(got, want):
+        assert a.dtype == b.dtype and torch.equal(a.cpu(), b)
+

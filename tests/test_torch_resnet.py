@@ -67,9 +67,12 @@ def _randomize(params, qstate, seed):
     return walk(params), walk(qstate)
 
 
-def _jax_layer_forward(layer, params, qstate, x, compiler_options=None):
+def _jax_layer_forward(layer, params, qstate, x, compiler_options=None,
+                       key=None):
+    """``layer``'s eval forward, rounding stochastically under ``key``."""
     sinks = make_sinks(layer)
-    fn = jax.jit(lambda p, q, s, x: layer.apply(p, q, s, x, _EVAL)[0],
+    ctx = _EVAL if key is None else JCtx(train=False, key=key, update=False)
+    fn = jax.jit(lambda p, q, s, x: layer.apply(p, q, s, x, ctx)[0],
                  compiler_options=compiler_options)
     return np.asarray(fn(params, qstate, sinks, jnp.asarray(x)))
 
@@ -157,23 +160,25 @@ def test_converter_raises_on_mismatch():
     dict(bn_residual_q16=True), dict(noise_shared_axis0=True),
     dict(stem_s2d=True), dict(noise_impl="unsafe_rbg")])
 def test_unported_config_options_raise(kw):
-    """``remat_bn``, ``bn_residual_q16`` and the ``unsafe_rbg`` key are not
-    to be ported and raise.  The options ported since build: the noise
-    shared along axis 0 and the s2d stem (a no-op on a CIFAR stem, as in
-    ``lbt_tpu``) the same layers as the default; both sim engines a
+    """``remat_bn`` and ``bn_residual_q16`` are not ported yet and raise.
+    The options ported since build: the noise shared along axis 0 and the
+    s2d stem (a no-op on a CIFAR stem, as in ``lbt_tpu``) the same layers
+    as the default; both sim engines, and the ``unsafe_rbg`` key, a
     conv -> BN -> ReLU -> pool -> dense stack whose serving forward equals
     ``lbt_tpu``'s, at rtol = atol = 1e-5 (every contraction's sum is
-    exact, and under ``sim_bf16`` rounds once to bf16 in both).
-    ``lbt_tpu`` is jitted without excess precision: allowed it, XLA on the
-    CPU computes a bf16 contraction in f32 and drops the rounding of its
-    output to bf16, which the port, the TPU and the card keep (ROADMAP
-    queue 3)."""
+    exact, and under ``sim_bf16`` rounds once to bf16 in both); under the
+    ``unsafe_rbg`` key the forward is given one, so every site rounds
+    stochastically with the Philox stream (its codes bitwise, as
+    ``tests/test_torch_rbg.py`` holds them).  ``lbt_tpu`` is jitted
+    without excess precision: allowed it, XLA on the CPU computes a bf16
+    contraction in f32 and drops the rounding of its output to bf16,
+    which the port, the TPU and the card keep (ROADMAP queue 3)."""
     cfg = QuantConfig.uniform(8, **kw)
-    if set(kw) & {"remat_bn", "bn_residual_q16", "noise_impl"}:
+    if set(kw) & {"remat_bn", "bn_residual_q16"}:
         with pytest.raises(NotImplementedError):
             cifar10_resnet(cfg, 20)
         return
-    if "engine" not in kw:
+    if "engine" not in kw and "noise_impl" not in kw:
         names = [n for n, _ in cifar10_resnet(cfg, 20).net.named_modules()]
         assert names == [n for n, _ in cifar10_resnet(
             QuantConfig.uniform(8), 20).net.named_modules()]
@@ -191,15 +196,19 @@ def test_unported_config_options_raise(kw):
     params, qstate = _randomize(*jnet.init(jax.random.key(3)), seed=12)
     x = np.random.default_rng(5).normal(0, 1, (2, 8, 8, 3)).astype(
         np.float32)
+    key = (jax.random.key(7, impl=kw["noise_impl"]) if "noise_impl" in kw
+           else None)
     want = _jax_layer_forward(jnet, params, qstate, x,
-                              {"xla_allow_excess_precision": False})
+                              {"xla_allow_excess_precision": False}, key)
     net = finalize(Sequential("net", [
         Conv2d("conv", cfg, (3, 3, 3, 16), (2, 2), "SAME", use_bias=False),
         BatchNorm("bn", cfg, 16), ReLU(),
         AvgPool(ksize=(4, 4), strides=(1, 1)), Flatten(),
         Dense("head", cfg, 16, 10)]))
     load_jax_numpy(net, params, qstate)
-    got = net(torch.from_numpy(x), Ctx(train=False)).detach().numpy()
+    got = net(torch.from_numpy(x), Ctx(
+        train=False, key=None if key is None else
+        np.asarray(jax.random.key_data(key)))).detach().numpy()
     np.testing.assert_allclose(got, want, **TOL)
 
 

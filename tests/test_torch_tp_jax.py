@@ -11,8 +11,12 @@ route), on the integer route (``int8``, deterministic and under
 ``noise_mode='hash'``) and on the float route: ``sim`` + ``hash`` (both
 toys), ``sim_bf16`` + ``prng`` (jitted without excess precision, ROADMAP
 queue 3 case 5), ``int8`` with 16-bit cotangents (the float backward) and
-``QuantConfig.fp32()``.  Exponents bitwise; floats at rtol 1e-5, atol
-1e-6, the loss at rtol 1e-5.
+``QuantConfig.fp32()``; and the conv toy under ``unsafe_rbg`` keys with
+``prng`` noise (``benchmarks/ablate.py``'s ``rbg-int8``): GSPMD draws
+each shard's ``rng_bit_generator`` bits where the whole tensor's stream
+has them, as the port's column window places the Philox counter.
+Exponents bitwise; floats at rtol 1e-5, atol 1e-6, the loss at rtol
+1e-5.
 
 ``sim_bf16`` sums bf16 partials, and the two steps round them
 differently.  ``lbt_tpu``'s compiled step all-reduces each rank's
@@ -68,6 +72,8 @@ CASES = {
                                     "noise_mode": "prng"}),
     "toy_g16": ("tp_toy", 8, dict(INT8, bits_g=16, **HASH)),
     "toy_fp32": ("tp_toy", 32, {}),
+    "conv_rbg_prng": ("tp_convtoy", 8, dict(INT8, noise_mode="prng",
+                                            noise_impl="unsafe_rbg")),
 }
 # sim_bf16's bound on the loss (the docstring)
 BF16_LOSS_RTOL = 4e-4
@@ -103,7 +109,9 @@ def port(tmp_path_factory):
     jobs = {name: {"kind": "tp_steps", "single": True, "layout": (1, 2),
                    "model": {"kind": kind, "bits": bits, "cfg": cfg_kw},
                    "data": _data(kind, i), "batch": BATCH, "lr": LR,
-                   "key": keys.base_key(KEY_SEED).tolist()}
+                   "key": keys.base_key(
+                       KEY_SEED, cfg_kw.get("noise_impl", "threefry2x32")
+                   ).tolist()}
             for i, (name, (kind, bits, cfg_kw)) in enumerate(CASES.items())}
     return start_ranks(tmp_path_factory.mktemp("tpjax"), jobs, 2)()
 
@@ -131,7 +139,8 @@ def _gspmd_steps(kind, bits, cfg_kw, init, data):
         params, qstate, vel, m = step(params, qstate, vel, xs,
                                       jnp.asarray(y), jnp.int32(s),
                                       jnp.float32(LR),
-                                      jax.random.key(KEY_SEED))
+                                      jax.random.key(KEY_SEED,
+                                                     impl=jm.cfg.noise_impl))
         out.append((float(m["loss"]), jax.tree.map(np.asarray, params),
                     jax.tree.map(np.asarray, qstate),
                     jax.tree.map(np.asarray, vel)))

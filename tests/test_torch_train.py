@@ -352,7 +352,8 @@ def resnet_pair(cfg, depth=8):
 def compare_train_steps(jm, model, batch_shape=(BATCH, 32, 32, 3),
                         n_classes=10, n_steps=N_STEPS, check_state=None):
     """``n_steps`` steps of ``model`` (the port's, initialized) and ``jm``
-    (lbt_tpu's twin) from the same converted weights, base key and data,
+    (lbt_tpu's twin) from the same converted weights, base key (of
+    ``model.cfg.noise_impl``) and data,
     through the port's ``make_train_step`` and ``lbt_tpu``'s, jitted
     without excess precision, compared after every step;
     ``check_state(port qstate, lbt_tpu qstate)`` adds a check of its own.
@@ -374,7 +375,7 @@ def compare_train_steps(jm, model, batch_shape=(BATCH, 32, 32, 3),
                     compiler_options=NO_EXCESS_PRECISION)
     step = make_train_step(model, tconfig.TrainConfig())
     rng = np.random.default_rng(0)
-    jkey = jax.random.key(7)
+    jkey = jax.random.key(7, impl=cfg.noise_impl)
     for s in range(n_steps):
         x = rng.normal(0, 1, batch_shape).astype(np.float32)
         y = rng.integers(0, n_classes, (batch_shape[0],)).astype(np.int32)
@@ -382,7 +383,7 @@ def compare_train_steps(jm, model, batch_shape=(BATCH, 32, 32, 3),
             params, qstate, velocity, jnp.asarray(x), jnp.asarray(y), s,
             tc.lr, jkey)
         met = step(model, vel, torch.from_numpy(x), torch.from_numpy(y), s,
-                   tc.lr, keys.base_key(7))
+                   tc.lr, keys.base_key(7, cfg.noise_impl))
         np.testing.assert_allclose(met["loss"].item(),
                                    float(jmet["loss"]), rtol=1e-5)
         assert met["accuracy"].item() == float(jmet["accuracy"])

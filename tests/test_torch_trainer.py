@@ -56,8 +56,9 @@ WD = 2e-4
 
 
 def _configs(**kw):
-    return (jconfig.QuantConfig.uniform(8, noise_mode="hash", **kw),
-            tconfig.QuantConfig.uniform(8, noise_mode="hash", **kw))
+    kw = {"noise_mode": "hash", **kw}
+    return (jconfig.QuantConfig.uniform(8, **kw),
+            tconfig.QuantConfig.uniform(8, **kw))
 
 
 def _train_configs(**kw):
@@ -334,13 +335,18 @@ def test_trainer_feed_matches_lbt_tpu():
     assert tfeed[2][5] > 0 and tfeed[3][5] == 0  # momentum reset at 1
 
 
-def test_trainer_trajectory_matches_lbt_tpu():
+@pytest.mark.parametrize("cfg_kw", [
+    {}, {"noise_mode": "prng", "noise_impl": "unsafe_rbg"}],
+    ids=["hash", "rbg_prng"])
+def test_trainer_trajectory_matches_lbt_tpu(cfg_kw):
     """2 epochs x 2 steps (batch 4) from the same weights and key, LR
     decay at epoch 1: exponents bitwise; params, velocity and BN state at
-    the tolerances of ``test_train_step_matches_lbt_tpu``."""
+    the tolerances of ``test_train_step_matches_lbt_tpu``.  Under the
+    ``hash`` noise and under ``unsafe_rbg`` keys with ``prng`` noise (the
+    Trainer's base key of ``noise_impl``, XLA's Philox stream)."""
     data = jdatasets.load_dataset("cifar10", n_train=8, n_test=8)
     jtr, ttr, _, _ = _pair(
-        _configs(), _train_configs(batch_size=4, n_epoch=2, seed=7,
+        _configs(**cfg_kw), _train_configs(batch_size=4, n_epoch=2, seed=7,
                                    lr_decay_epochs=(1,), log_every=1,
                                    weight_decay=WD),
         data)
