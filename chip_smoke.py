@@ -4,9 +4,10 @@ ResNet-20, under ``noise_impl='unsafe_rbg'`` keys too (XLA's Philox stream
 in K1 and #4/#5), the last through the port's Trainer and CLI (main.py's
 defaults among its runs), then train and serve the bench headline,
 ResNet-50 at 224 px and batch 128, train the bench's baseline leg at the
-same size, train VGG-16 / CIFAR-100 under int4w-int8a and serve it folded
-and exported,
-train the reference's small models through the CLI, train the
+same size, train ResNet-20 and the headline under the BN memory options
+``remat_bn`` and ``bn_residual_q16``, train VGG-16 / CIFAR-100 under
+int4w-int8a and serve it folded and exported, train the reference's
+small models through the CLI, train the
 headline through the CLI from TFRecord shards and an ImageFolder tree of
 ImageNet-like JPEGs, ResNet-20 through the C++ loader, with ``--debug_nans``
 checked, train data parallel on ``torch.distributed``: two ranks
@@ -129,9 +130,13 @@ the line on stdout) and exits 1, with no result line.
            Then main.py's defaults: the same command line without
            ``--noise_mode`` (``prng``, threefry), 1 epoch, every counter
            reset just before; each kernel launched, K1 and #4/#5 in
-           threefry mode.  Then the FP32 arm (``--bits 32``, engine
-           ``sim``): 2 ResNet-20 steps on the card and on the CPU, losses
-           equal at rtol 1e-5.
+           threefry mode.  Then ``--scan_steps 4`` for 10 steps (two
+           blocks of 4, then 2 steps one by one; every counter reset just
+           before, each kernel launched) beside the same 10 steps without
+           it: final states equal bit for bit, train rows at the steps
+           ``lbt_tpu`` writes (step 8 at ``--log_every 5``).  Then the
+           FP32 arm (``--bits 32``, engine ``sim``): 2 ResNet-20 steps on
+           the card and on the CPU, losses equal at rtol 1e-5.
            Logs and metrics stay under experiments/smoke_trainer.
 11. resnet50  ``Imagenet_Resnet50`` at full width and depth, 224 px,
            batch 128, weights from a seed, seeded images with labels in
@@ -168,8 +173,21 @@ the line on stdout) and exits 1, with no result line.
            (checked in threefry mode at offset 0 only).
            Then the headline's img/s over this phase's: the port's first
            reading of ``bench.py``'s ``vs_baseline``.
-
-13. vgg16  configuration V: ``VGG16_CIFAR100`` at full width and depth,
+13. remat  the BN memory options ``remat_bn`` and ``bn_residual_q16``
+           (deterministic algorithms on).  (a) ResNet-20 at batch 128
+           under uniform(8, noise_mode='hash') (f32 carriers, unfused BN,
+           where both flags save codes in place of f32 activations and
+           q16 rounds the BN input's cotangent to bf16): the flags off,
+           then each flag, 2 steps through the kernels (counters reset
+           just before, each kernel launched) equal to the plain route's
+           in every tensor; remat_bn's state equal to the flags-off
+           state and q16's first loss to the flags-off one; the last
+           step's host ms and peak memory.  (b) the headline under
+           bn_residual_q16, then remat_bn, then with the flags off: 2
+           steps through the kernels, each equal in every tensor to phase
+           resnet50's gate steps (bf16 carriers, fused BN: neither flag
+           changes a bit); the second step's host ms and peak memory.
+14. vgg16  configuration V: ``VGG16_CIFAR100`` at full width and depth,
            batch 256, under ``benchmarks/vgg_bench.py``'s ``int4w-int8a``
            (uniform(8, int8, hash) with 4-bit weights: 8-bit biases, BN
            parameters and gradients, 9-bit conv activations, unfused BN,
@@ -190,14 +208,14 @@ the line on stdout) and exits 1, with no result line.
            (at most 0.3 of them), the restored export serving the same
            logits; the share of labels the folded and unfolded models
            agree on (recorded, not gated) and ms a request of 128.
-14. zoo    ``lbt_tpu_torch.main`` on the card, 4 steps of 128 and an eval
+15. zoo    ``lbt_tpu_torch.main`` on the card, 4 steps of 128 and an eval
            each, counters reset just before: ``PI_MNIST``, ``MNIST`` and
            ``CIFAR10`` under main.py's defaults (prng, dropout keep 0.5),
            ``CIFAR10_VGG --bits_w 4 --bits_a 8`` and ``CIFAR10_Resnet20
            --gradient_buffer --noise_mode hash``; losses finite, each
            kernel of the path launched (K1 in threefry mode under prng),
            the gradient buffers nonzero.
-15. records  first probes ``g++``, libjpeg (``jpeglib.h`` through ``g++
+16. records  first probes ``g++``, libjpeg (``jpeglib.h`` through ``g++
            -E``, ``-ljpeg`` linking) and PIL; a leg whose prerequisite is
            missing does not run, and a line says so.  Writes 1,280
            training and 300 validation images from a seed (short side
@@ -220,7 +238,7 @@ the line on stdout) and exits 1, with no result line.
            tree raises FloatingPointError at step 0, without the flag logs
            NaN losses and finishes; a clean run with it finishes.  The data
            is deleted after.
-16. dp     data parallelism (``lbt_tpu_torch.parallel``).  (b) in this
+17. dp     data parallelism (``lbt_tpu_torch.parallel``).  (b) in this
            process: 2 ResNet-20 steps of ``make_dp_train_step`` over an
            NCCL group of world size 1, plain and with the low-bit
            all-reduce's psum transport and both rings, each equal bit for
@@ -247,7 +265,7 @@ the line on stdout) and exits 1, with no result line.
            run to 2 epochs that resumes: exit 0, rank 0 alone logging.
            Phases K1-stats and fused also run each stochastic check at a
            non-zero noise counter offset (``CHECK_ROW0``).
-17. tp     tensor parallelism (``parallel.mesh``), the ranks sharing the
+18. tp     tensor parallelism (``parallel.mesh``), the ranks sharing the
            card over gloo (``chip_smoke.py --tp-worker``, a data x model
            layout by ``parallel.make_groups``).  (a) the headline (phase
            resnet50's config, batch 128) at tp = 2 in 2 ranks: the
@@ -976,14 +994,14 @@ TRAIN_LR = 1e-2
 TRAIN_KEY_SEED = 7
 
 
-def build_train_model(seed: int):
-    """CIFAR10_Resnet20 under uniform(8, noise_mode='hash') with the
-    default recipe's weight decay, weights from ``seed``, BN state at
-    init."""
+def build_train_model(seed: int, cfg=None):
+    """CIFAR10_Resnet20 under uniform(8, noise_mode='hash') (or ``cfg``)
+    with the default recipe's weight decay, weights from ``seed``, BN
+    state at init."""
     from lbt_tpu_torch.config import QuantConfig, TrainConfig
     from lbt_tpu_torch.models import build_model
     model = build_model("CIFAR10_Resnet20",
-                        QuantConfig.uniform(8, noise_mode="hash"),
+                        cfg or QuantConfig.uniform(8, noise_mode="hash"),
                         weight_decay=TrainConfig().weight_decay)
     return model.init(torch.Generator().manual_seed(seed))
 
@@ -1932,10 +1950,11 @@ def phase_trainer(quant, gemm, fused, card: str, device: str = "cuda"
     for d in ("a/ckpt", "b/ckpt", "timing"):
         shutil.rmtree(TRAINER_DIR / d, ignore_errors=True)
 
+    scanned = _trainer_scanned(quant, gemm, fused, argv)
     defaults = _trainer_defaults(quant, gemm, fused, device)
     fp32 = _trainer_fp32(device)
     out = {"launches": launches, "losses": losses, "test_accuracy": accs,
-           "defaults": defaults, "fp32": fp32,
+           "scanned": scanned, "defaults": defaults, "fp32": fp32,
            "final_eval": final, "card_subset_eval": card_subset,
            "cpu_subset_eval": cpu_final,
            "epoch2": epoch2, "epoch2_img_per_s": img_s,
@@ -1949,6 +1968,61 @@ def phase_trainer(quant, gemm, fused, card: str, device: str = "cuda"
           f"{run.tc.eval_batch_size}, checkpoint save {save_ms:.1f} ms, "
           f"restore {restore_ms:.1f} ms ({card})", flush=True)
     return out
+
+
+# the scanned CLI run: 10 steps of 128 in blocks of 4 (two blocks, then 2
+# steps one by one); lbt_tpu logs a block's last step once log_every (5)
+# steps have passed since the last log: after step 8 alone
+SCAN_ARGV = ["--n_train", "1280", "--n_epoch", "1"]
+SCAN_STEPS = 4
+SCAN_LOGGED = [8]
+
+
+def _trainer_scanned(quant, gemm, fused, argv) -> dict:
+    """The trainer's command line for 10 steps with ``--scan_steps 4``
+    (every launch counter reset just before; each kernel must launch)
+    and without it: the two runs' final states (their checkpoints) equal
+    bit for bit, the scanned run's train rows at ``SCAN_LOGGED``."""
+    from lbt_tpu_torch.main import main as train_main
+    runs, run_s, launches = {}, {}, {}
+    for name, flags in (("eager", []),
+                        ("scanned", ["--scan_steps", str(SCAN_STEPS)])):
+        shutil.rmtree(TRAINER_DIR / name, ignore_errors=True)
+        reset_counters(quant, gemm, fused)
+        runs[name], ms = _sync_ms(lambda: train_main(
+            argv + SCAN_ARGV + flags + ["--exp_path",
+                                        str(TRAINER_DIR / name)]))
+        launches[name] = train_counters(quant, gemm, fused)
+        run_s[name] = ms / 1e3
+    eager, scanned = runs["eager"], runs["scanned"]
+    for k, v in launches["scanned"].items():
+        check(v > 0, f"{k} never launched on the scanned trainer's path")
+    check(scanned.scan_train_step is not None and eager.step == scanned.step
+          == 10, f"scanned run: {scanned.step} steps, eager {eager.step}")
+    got, want = _trainer_state(scanned), _trainer_state(eager)
+    diff = [k for k in want if not torch.equal(got[k], want[k])]
+    check(set(got) == set(want) and not diff,
+          f"the scanned run differs from the eager one in {diff[:5]} "
+          f"({len(diff)} of {len(want)} tensors)")
+    rows = _rows(TRAINER_DIR / "scanned" / "metrics.jsonl")
+    steps = [r["step"] for r in rows if "train/loss" in r]
+    losses = [r["train/loss"] for r in rows if "train/loss" in r]
+    check(steps == SCAN_LOGGED and all(math.isfinite(v) for v in losses),
+          f"the scanned run logged train rows at steps {steps} "
+          f"({losses}), lbt_tpu at {SCAN_LOGGED}")
+    check(not any("train/input_stall_frac" in r for r in rows),
+          "the scanned run wrote an input-stall row")
+    print(f"trainer --scan_steps {SCAN_STEPS}: 10 steps in "
+          f"{run_s['scanned']:.1f} s (eager {run_s['eager']:.1f} s), state "
+          f"equal to the eager run's in all {len(want)} tensors, train "
+          f"rows at steps {steps}; launches {launches['scanned']}",
+          flush=True)
+    for name in runs:
+        shutil.rmtree(TRAINER_DIR / name / "ckpt", ignore_errors=True)
+    return {"launches": launches["scanned"],
+            "eager_launches": launches["eager"], "run_s": run_s["scanned"],
+            "eager_run_s": run_s["eager"], "logged_steps": steps,
+            "losses": losses}
 
 
 def _trainer_defaults(quant, gemm, fused, device: str) -> dict:
@@ -2037,15 +2111,16 @@ def r50_config():
         conv_act_extra=0, range_update_warmup_steps=0)
 
 
-def build_resnet50(seed: int, serve: bool = False):
+def build_resnet50(seed: int, serve: bool = False, cfg=None):
     """``Imagenet_Resnet50`` at full width and depth under the headline
-    config, weights from ``seed``, the default recipe's weight decay;
-    for serving, BN running statistics, gamma and beta randomized."""
+    config (or ``cfg``), weights from ``seed``, the default recipe's
+    weight decay; for serving, BN running statistics, gamma and beta
+    randomized."""
     from lbt_tpu_torch.config import TrainConfig
     from lbt_tpu_torch.models import build_model
     from lbt_tpu_torch.nn.norm import FusedBatchNorm
     gen = torch.Generator().manual_seed(seed)
-    model = build_model("Imagenet_Resnet50", r50_config(),
+    model = build_model("Imagenet_Resnet50", cfg or r50_config(),
                         num_classes=R50_CLASSES, image_size=R50_IMAGE,
                         weight_decay=TrainConfig().weight_decay).init(gen)
     if serve:
@@ -2372,6 +2447,147 @@ def _b50_train(qmod, qops, quant, gemm, fused) -> dict:
     B50_GATE.update(out.pop("gate_state"), losses=out["losses"])
     for k in ("k2_calls", "tn_calls", "conv_calls"):
         check(not out.pop(k), f"the baseline's path made {k}")
+    return out
+
+
+# ---------------------------------------------------------------------------
+# remat: the BN memory options remat_bn and bn_residual_q16
+# ---------------------------------------------------------------------------
+
+REMAT_GATE_STEPS = 2    # each flag: kernel route vs plain route, bitwise
+REMAT_FLAGS = ("off", "remat_bn", "bn_residual_q16")
+
+
+def _flagged(cfg, flag: str):
+    return cfg if flag == "off" else dataclasses.replace(cfg, **{flag: True})
+
+
+def _remat_steps(model, batches, quant, gemm, fused) -> dict:
+    """``batches`` steps of ``model`` through the kernels, every counter
+    reset just before: the losses, the launches, the state after, and
+    the last step's host ms and peak memory (``max_memory_allocated``,
+    and above what was allocated when it started)."""
+    vel, run = make_trainer(model)
+    reset_counters(quant, gemm, fused)
+    losses = []
+    for i, b in enumerate(batches):
+        if i == len(batches) - 1:
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            held = torch.cuda.memory_allocated()
+            t0 = time.perf_counter()
+        losses.append(run(i, b).item())
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3
+    peak = torch.cuda.max_memory_allocated()
+    return {"losses": losses, "launches": train_counters(quant, gemm, fused),
+            "state": _state(model, vel), "host_ms": ms, "peak": peak,
+            "peak_above_held": peak - held}
+
+
+def phase_remat(qmod, qops, quant, gemm, fused, r50) -> dict:
+    """``remat_bn`` and ``bn_residual_q16`` on the card.  (a) ResNet-20 at
+    batch 128 under uniform(8, noise_mode='hash') (f32 carriers, unfused
+    BN: both flags change what the BN layers save, q16 the backward's
+    numbers): flags off, then each flag, ``REMAT_GATE_STEPS`` steps
+    through the kernels (counters reset just before, each kernel
+    launched) equal to the plain route's in every tensor; the state after
+    remat_bn's steps equal to the flags-off state, and q16's first loss
+    equal to the flags-off one (its forward is unchanged); host ms and
+    peak memory of the last step.  (b) the headline (``r50``: phase
+    resnet50's result) under bn_residual_q16, then remat_bn, then the
+    flags off: 2 steps through the kernels, each run's state equal to
+    phase resnet50's gate steps (bf16 carriers and fused BN: neither flag
+    changes a bit); the peak memory of each run's second step."""
+    from lbt_tpu_torch.config import QuantConfig
+    t0 = time.perf_counter()
+    out = {"resnet20": {}, "resnet50": {}}
+    base = QuantConfig.uniform(8, noise_mode="hash")
+    batches = train_batches(REMAT_GATE_STEPS)
+    torch.use_deterministic_algorithms(True)
+    try:
+        for flag in REMAT_FLAGS:
+            cfg = _flagged(base, flag)
+            run = _remat_steps(build_train_model(SEED, cfg).to("cuda"),
+                               batches, quant, gemm, fused)
+            for k, v in run["launches"].items():
+                check(v > 0, f"remat {flag}: {k} never launched")
+            plain = build_train_model(SEED, cfg).to("cuda")
+            plain_vel, plain_run = make_trainer(plain)
+            with plain_route(qmod, qops, quant, gemm):
+                plain_losses = [plain_run(i, b).item()
+                                for i, b in enumerate(batches)]
+            check(train_counters(quant, gemm, fused) == run["launches"],
+                  f"remat {flag}: the plain route launched a kernel")
+            want = _state(plain, plain_vel)
+            diff = [k for k in want if not torch.equal(run["state"][k],
+                                                       want[k])]
+            check(plain_losses == run["losses"] and not diff,
+                  f"remat {flag}: the kernel and plain routes differ in "
+                  f"the losses {run['losses']} / {plain_losses} or in "
+                  f"{diff[:5]} ({len(diff)} tensors)")
+            del plain, plain_vel, plain_run, want
+            out["resnet20"][flag] = run
+            print(f"remat resnet20 {flag}: {REMAT_GATE_STEPS} steps of "
+                  f"{BATCH}, kernel route == plain route in all "
+                  f"{len(run['state'])} tensors; losses {run['losses']}; "
+                  f"launches {run['launches']}; last step "
+                  f"{run['host_ms']:.3f} ms, peak "
+                  f"{run['peak'] / 2 ** 30:.4f} GiB "
+                  f"({run['peak_above_held'] / 2 ** 30:.4f} above the "
+                  f"allocated)", flush=True)
+        r20 = out["resnet20"]
+        off, remat = r20["off"]["state"], r20["remat_bn"]["state"]
+        diff = [k for k in off if not torch.equal(off[k], remat[k])]
+        check(not diff, f"remat_bn's steps differ from the flags-off "
+              f"steps in {diff[:5]} ({len(diff)} tensors)")
+        check(r20["bn_residual_q16"]["losses"][0] == r20["off"]["losses"][0],
+              f"bn_residual_q16's first loss "
+              f"{r20['bn_residual_q16']['losses'][0]} differs from the "
+              f"flags-off one {r20['off']['losses'][0]}")
+        q16 = r20["bn_residual_q16"]["state"]
+        out["resnet20"]["q16_tensors_moved"] = sum(
+            not torch.equal(off[k], q16[k]) for k in off)
+        print(f"remat resnet20: remat_bn's state == the flags-off state in "
+              f"all {len(off)} tensors; bn_residual_q16's first loss == "
+              f"the flags-off one, {out['resnet20']['q16_tensors_moved']} "
+              f"tensors moved after {REMAT_GATE_STEPS} steps", flush=True)
+        for run in r20.values():
+            if isinstance(run, dict):
+                run.pop("state")
+        del off, remat, q16
+
+        r50_batches_ = r50_batches(REMAT_GATE_STEPS)
+        # the flags-off run last: a difference in peak memory that the
+        # allocator's state after the earlier runs makes shows there
+        for flag in ("bn_residual_q16", "remat_bn", "off"):
+            model = build_resnet50(SEED, cfg=_flagged(r50_config(), flag))
+            run = _remat_steps(model.to("cuda"), r50_batches_, quant, gemm,
+                               fused)
+            del model
+            for k, v in run["launches"].items():
+                check(v > 0, f"remat resnet50 {flag}: {k} never launched")
+            digest = _sha256s(run.pop("state"))
+            diff = [k for k in r50["gate_digest"]
+                    if digest.get(k) != r50["gate_digest"][k]]
+            check(not diff, f"remat resnet50 {flag}: the state differs "
+                  f"from phase resnet50's gate steps in {diff[:5]} "
+                  f"({len(diff)} tensors)")
+            out["resnet50"][flag] = run
+            print(f"remat resnet50 {flag}: {REMAT_GATE_STEPS} steps == "
+                  f"phase resnet50's in all {len(digest)} tensors; "
+                  f"launches {run['launches']}; second step "
+                  f"{run['host_ms']:.3f} ms, peak "
+                  f"{run['peak'] / 2 ** 30:.4f} GiB "
+                  f"({run['peak_above_held'] / 2 ** 30:.4f} above the "
+                  f"allocated; phase resnet50's timed steps "
+                  f"{r50['max_memory_allocated'] / 2 ** 30:.4f} GiB)",
+                  flush=True)
+            torch.cuda.empty_cache()
+    finally:
+        torch.use_deterministic_algorithms(False)
+    out["seconds"] = time.perf_counter() - t0
+    print(f"remat: phase took {out['seconds']:.1f} s", flush=True)
     return out
 
 
@@ -3114,12 +3330,15 @@ DP_CLI = ["--model", "CIFAR10_Resnet20", "--data_parallel",
 def _digest(model, velocity, ebuf=None) -> dict:
     """sha256 of every tensor of the training state: parameters,
     exponents, BN statistics, velocity (and ``ebuf``)."""
+    return _sha256s({**_state(model, velocity),
+                     **{f"ebuf.{k}": v for k, v in (ebuf or {}).items()}})
+
+
+def _sha256s(tensors: dict) -> dict:
     import hashlib
-    state = {**_state(model, velocity),
-             **{f"ebuf.{k}": v for k, v in (ebuf or {}).items()}}
     return {k: hashlib.sha256(v.detach().cpu().contiguous().numpy()
                               .tobytes()).hexdigest()
-            for k, v in state.items()}
+            for k, v in tensors.items()}
 
 
 def _dp_run(model, group, batches, lowbit=None, wire=None):
@@ -4094,7 +4313,10 @@ def kernel_lines(report) -> list:
     column-window form at its shapes (K2: the shapes a one-rank step does
     not have); ``tp_baseline50`` the same for K1 in threefry mode in leg
     (d) (configuration A at tp = 2: its 2 counted steps, and the last
-    one's).  The ``_rbg`` rows are K1 and #4/#5 in mode 4 (an
+    one's); ``remat`` the launches of phase remat's counted runs (2
+    steps of ResNet-20 and of the headline under each BN flag) and of
+    the trainer phase's ``--scan_steps`` run (``scanned``).  The
+    ``_rbg`` rows are K1 and #4/#5 in mode 4 (an
     unsafe_rbg key's Philox stream) from phase rbg: ResNet-20 at batch
     512, launches of its 2 counted steps, ms a step at its shapes."""
     k1, k2, fused = report["k1_train"], report["k2_train"], report["fused"]
@@ -4116,6 +4338,16 @@ def kernel_lines(report) -> list:
                                        for k in kinds)}
     r50 = report["resnet50"]
     r50_launches = r50["launches"]
+    remat = report["remat"]
+
+    def at_remat(*kinds):
+        """Phase remat's counted runs, and the scanned trainer run's."""
+        out = {f"{model}_{flag}": sum(run["launches"][k] for k in kinds)
+               for model in ("resnet20", "resnet50")
+               for flag, run in remat[model].items() if isinstance(run, dict)}
+        out["scanned"] = sum(report["trainer"]["scanned"]["launches"][k]
+                             for k in kinds)
+        return out
 
     def times(t, library=True):
         return {"ms": t["ms"], "plain_ms": t["plain_ms"],
@@ -4214,6 +4446,7 @@ def kernel_lines(report) -> list:
          "resnet50": at_r50(r50["k1"], r50_launches["k1"], False),
          "vgg16": at_r50(v["k1"], v_launches["k1"], False),
          "records": at_records("k1"), "dp": at_dp("k1"),
+         "remat": at_remat("k1"),
          "tp": at_tp(tpk["k1"], ("k1",), False)},
         {"name": "k2_int8_gemm", "route": "cuda",
          "source": "lbt_tpu_torch/csrc/int8_gemm.cu",
@@ -4228,6 +4461,7 @@ def kernel_lines(report) -> list:
          "vgg16": at_r50(v["k2"], v_launches["k2"] + v_launches["k2_tn"],
                          forms=v["k2"]["forms"]),
          "records": at_records("k2", "k2_tn"), "dp": at_dp("k2", "k2_tn"),
+         "remat": at_remat("k2", "k2_tn"),
          "tp": at_tp(tpk["k2"], ("k2", "k2_tn"))},
         {"name": "conv3x3_fused", "route": "cuda",
          "source": "lbt_tpu_torch/csrc/conv_fused.cuh",
@@ -4241,6 +4475,7 @@ def kernel_lines(report) -> list:
          "vgg16": at_r50(v3, v_launches["conv3x3"], False,
                          conv_library_ms=v3["lib_ms"]),
          "records": at_records("conv3x3"), "dp": at_dp("conv3x3"),
+         "remat": at_remat("conv3x3"),
          "tp": at_tp(tpk["conv3x3_fused"], ("conv3x3",), False,
                      conv_library_ms=tpk["conv3x3_fused"]["lib_ms"])},
         {"name": "conv1x1_fused", "route": "cuda",
@@ -4252,6 +4487,7 @@ def kernel_lines(report) -> list:
          "resnet50": at_r50(r1, r50_launches["conv1x1"], False,
                             conv_library_ms=r1["lib_ms"]),
          "records": at_records("conv1x1"), "dp": at_dp("conv1x1"),
+         "remat": at_remat("conv1x1"),
          "tp": at_tp(tpk["conv1x1_fused"], ("conv1x1",), False,
                      conv_library_ms=tpk["conv1x1_fused"]["lib_ms"])},
     ]
@@ -4322,6 +4558,8 @@ def main(argv=None) -> int:
           f"resnet50) over the baseline's "
           f"{report['baseline50']['img_per_s']:.1f} (phase baseline50) = "
           f"{report['vs_baseline']:.3f}", flush=True)
+    phase("remat", phase_remat, qmod, qops, quant, gemm, conv_fused,
+          report["resnet50"])
     phase("vgg16", phase_vgg16, qmod, qops, quant, gemm, conv_fused)
     phase("zoo", phase_zoo, quant, gemm, conv_fused)
     phase("records", phase_records, quant, gemm, conv_fused,

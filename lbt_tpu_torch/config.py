@@ -12,9 +12,9 @@ The port runs every engine: ``'int8'`` (the hand-written kernels),
 stream of ``noise_mode``, not a TPU hardware stream), and the float
 simulation ``'sim'`` / ``'sim_bf16'``, under either key
 (``noise_impl``): ``'threefry2x32'`` or ``'unsafe_rbg'``, whose ``prng``
-noise is XLA's Philox stream (``dfxp/keys.py``).  Options not yet ported
-(``remat_bn``, ``bn_residual_q16``) raise ``NotImplementedError`` from
-:func:`check_supported` instead of silently running something else.
+noise is XLA's Philox stream (``dfxp/keys.py``).  Every option of
+``lbt_tpu``'s configuration runs (``remat_bn`` and ``bn_residual_q16``:
+``nn/norm.py``).
 """
 
 from __future__ import annotations
@@ -24,8 +24,7 @@ from typing import Optional, Tuple
 
 import torch
 
-__all__ = ["INT_ENGINES", "QuantConfig", "TrainConfig", "carrier_dtype",
-           "check_supported"]
+__all__ = ["INT_ENGINES", "QuantConfig", "TrainConfig", "carrier_dtype"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -52,7 +51,7 @@ class QuantConfig:
     act_dtype: str = "f32"
     remat_bn: bool = False
     bn_residual_q16: bool = False
-    conv9_split: bool = False
+    conv9_split: bool = False  # the port's 9-bit convs are split-9 always
     range_update_every: int = 1
     stem_s2d: bool = False
     range_update_warmup_steps: int = 200
@@ -134,23 +133,6 @@ class TrainConfig:
 
 # engines whose contractions run on integer codes through the kernels
 INT_ENGINES = ("int8", "pallas")
-
-# QuantConfig flags not ported yet (ROADMAP queue 1 item 13)
-_NOT_PORTED_FLAGS = ("remat_bn", "bn_residual_q16")
-
-
-def check_supported(cfg: QuantConfig) -> QuantConfig:
-    """Raise ``NotImplementedError`` for a configuration the port does
-    not run; return ``cfg`` unchanged otherwise.  ``conv9_split`` is
-    accepted: the port's 9-bit conv contractions are split-9 always, and
-    bit-identical to the unsplit form."""
-    for flag in _NOT_PORTED_FLAGS:
-        if getattr(cfg, flag):
-            raise NotImplementedError(
-                f"QuantConfig.{flag} is not ported yet (ROADMAP queue 1 "
-                f"item 13)")
-    return cfg
-
 
 def carrier_dtype(cfg: QuantConfig) -> torch.dtype:
     """torch dtype of inter-layer activations (``QuantConfig.act_dtype``):

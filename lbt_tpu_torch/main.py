@@ -19,11 +19,9 @@ plus ``--device``.
         -m lbt_tpu_torch.main --data_parallel --tensor_parallel 2
                                     # a 2 x 2 data x model layout
 
-A command line of ``main.py`` runs here unchanged where the port has what
-it asks for, its defaults included (``--noise_mode prng`` draws
-``jax.random``'s threefry stream bit for bit).  A flag value the port
-cannot run exits with status 2 before any work, naming the value and the
-ROADMAP item that ports it; none is replaced in silence.
+A command line of ``main.py`` runs here unchanged, its defaults included
+(``--noise_mode prng`` draws ``jax.random``'s threefry stream bit for
+bit), ``--remat_bn``, ``--bn_residual_q16`` and ``--scan_steps`` too.
 """
 
 from __future__ import annotations
@@ -177,20 +175,6 @@ def quant_config(args) -> QuantConfig:
     )
 
 
-def refusals(args) -> List[str]:
-    """Why the port cannot run this command line: one message per flag
-    value, each naming the ROADMAP item that ports it."""
-    out = []
-    for flag in ("bn_residual_q16", "remat_bn"):
-        if getattr(args, flag):
-            out.append(f"--{flag} is not ported yet (ROADMAP queue 1 "
-                       f"item 13)")
-    if args.scan_steps > 1:
-        out.append(f"--scan_steps {args.scan_steps}: the scanned block is "
-                   f"not ported yet (ROADMAP queue 1 item 13)")
-    return out
-
-
 def load_data(args, model, ds_name: str, logger):
     """``main.py``'s data branch: TFRecord shards, an ImageFolder tree
     (``<data_dir>/train``, ``<data_dir>/val`` where it exists) or the
@@ -238,10 +222,6 @@ def main(argv: Optional[List[str]] = None) -> Trainer:
     if args.gradient_buffer and not args.model.startswith("CIFAR10_Resnet"):
         _fail("--gradient_buffer only supported for the CIFAR10_Resnet* "
               "models (reference sites)")
-    refused = refusals(args)
-    if refused:
-        _fail("the PyTorch port cannot run this command line:\n  "
-                + "\n  ".join(refused))
     device = torch.device(args.device)
     if device.type == "cuda" and not torch.cuda.is_available():
         _fail(f"--device {args.device}: no CUDA device is available "
@@ -279,6 +259,7 @@ def main(argv: Optional[List[str]] = None) -> Trainer:
         tensor_parallel=args.tensor_parallel,
         lowbit_allreduce=args.lowbit_allreduce,
         lowbit_wire=args.lowbit_wire,
+        scan_steps=args.scan_steps,
     )
     model_kw = dict(dropout_keep=args.dropout,
                     weight_decay=args.weight_decay)

@@ -27,7 +27,7 @@ import numpy as np
 import torch
 from torch import nn
 
-from lbt_tpu_torch.config import QuantConfig, check_supported
+from lbt_tpu_torch.config import QuantConfig
 from lbt_tpu_torch.dfxp.barrier import make_sink
 from lbt_tpu_torch.dfxp.keys import site_keys
 from lbt_tpu_torch.dfxp.quantize import (counts_to_rates, multiplier,
@@ -199,8 +199,6 @@ class Layer(nn.Module):
         super().__init__()
         if name in _RESERVED:
             raise ValueError(f"layer name {name!r} is reserved")
-        if cfg is not None:
-            check_supported(cfg)
         self.name = name
         self.cfg = cfg
         self.uid = -1  # assigned by finalize()

@@ -20,6 +20,20 @@ rows), so every rank normalizes with the same moments; the backward sums
 the per-channel cotangents of the moments over the ranks and divides by
 the global ``n`` (the transpose of ``pmean``), so a data-parallel step is
 the global batch's step.  The EMA takes the synced moments.
+
+``cfg.remat_bn`` and ``cfg.bn_residual_q16`` (``lbt_tpu``'s two BN
+memory options, there ``jax.checkpoint`` around each BN layer) keep the
+same numbers with less saved for the backward: in training every BN layer
+saves its input's integer codes (int8, int16 past 8 bits) and per-channel
+tensors, and rebuilds ``xq`` from the codes in the backward.  Nothing runs
+twice: the forward's side effects (the controllers, the EMA, the sinks,
+sync-BN's collective, a sharded conv's join) happen once.
+``FusedBatchNorm`` and the fused conv route save codes with or without
+the flags.  A 32-bit input site has no codes and keeps autograd.
+``bn_residual_q16`` also rounds the cotangent of the BN's quantized
+input to bf16 (``lbt_tpu``'s ``_tag_xq``: the transpose of its bf16
+storage cast) where ``bits_a <= 9``, whatever ``remat_bn`` says; under
+bf16 carriers that rounding is the carrier's own, so nothing changes.
 """
 
 from __future__ import annotations
@@ -102,25 +116,66 @@ def batch_moments(moments: torch.Tensor, n: int, mult: torch.Tensor):
     return mean.to(torch.float32), var.to(torch.float32)
 
 
+def _saves_codes(cfg: QuantConfig) -> bool:
+    """Whether a BN layer under ``cfg`` saves its input's codes for the
+    backward in place of f32 activations."""
+    return cfg.remat_bn or cfg.bn_residual_q16
+
+
+class _RoundCotangent(torch.autograd.Function):
+    """Identity forward; the backward rounds the cotangent to bf16 (round
+    to nearest even) and back to f32."""
+
+    @staticmethod
+    def forward(ctx, x):
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g.to(torch.bfloat16).to(g.dtype)
+
+
+def _q16(cfg: QuantConfig, xq: torch.Tensor,
+         carrier: torch.dtype) -> torch.Tensor:
+    """``xq`` (a BN layer's quantized input, which reached the layer in
+    ``carrier``) with ``bn_residual_q16``'s bf16 rounding of its
+    cotangent, where ``bits_a <= 9``.  A bf16 input's cotangent is
+    rounded to bf16 at the layer's entry (the cast's backward), so there
+    the rounding is left to it."""
+    if (cfg.bn_residual_q16 and cfg.bits_a <= 9 and xq.requires_grad
+            and carrier != torch.bfloat16):
+        return _RoundCotangent.apply(xq)
+    return xq
+
+
 class _BatchNormalize(torch.autograd.Function):
     """``(xq - mean) / sqrt(var + eps)`` with ``mean``, ``var`` the batch
     moments of ``xq`` over every axis but the last.  The backward is the
     gradient through the moments as ``lbt_tpu``'s autodiff forms it:
     ``dxq = g/s + (dmean + 2 xq dm2) / N`` with ``s = sqrt(var + eps)``,
     ``dm2 = 0.5/s * sum(-g (xq - mean) s^-2)`` and ``dmean = -sum(g/s)
-    - 2 mean dm2``."""
+    - 2 mean dm2``.  Given ``codes`` (``xq = codes / mult``) it saves them
+    in place of ``xq`` and ``xq - mean`` and rebuilds both."""
 
     @staticmethod
-    def forward(ctx, xq, mean, var, eps, dist):
+    def forward(ctx, xq, mean, var, eps, dist, codes=None, mult=None):
         s = sqrt_f32(var + eps)
         num = xq - mean
-        ctx.save_for_backward(xq, num, mean, s)
-        ctx.dist = dist
+        if codes is None:
+            ctx.save_for_backward(xq, num, mean, s)
+        else:
+            ctx.save_for_backward(codes, mult, mean, s)
+        ctx.dist, ctx.rebuild = dist, codes is not None
         return num / s
 
     @staticmethod
     def backward(ctx, g):
-        xq, num, mean, s = ctx.saved_tensors
+        if ctx.rebuild:
+            codes, mult, mean, s = ctx.saved_tensors
+            xq = dequantize(codes, mult)
+            num = xq - mean
+        else:
+            xq, num, mean, s = ctx.saved_tensors
         axes = tuple(range(xq.dim() - 1))
         n = xq.numel() // xq.shape[-1]
         d_s = ((-g) * num * (1.0 / (s * s))).sum(axes)
@@ -128,20 +183,23 @@ class _BatchNormalize(torch.autograd.Function):
         d_mean = -(g / s).sum(axes) - 2.0 * mean * d_m2
         d_mean, d_m2 = _sync_cotangents(ctx.dist, n, d_mean, d_m2)
         dx = g / s + d_mean + d_m2 * (2.0 * xq)
-        return dx, None, None, None, None
+        return dx, None, None, None, None, None, None
 
 
 def _quantize_input(layer: Layer, x, ctx: Ctx):
-    """``(xq, codes, mult)`` of a BN layer's input site at ``bits_a``
-    (``xq`` carries the STE gradient to ``x``), staging the site's
-    controller step."""
-    cfg = layer.cfg
+    """``(xq, codes, mult)`` of a BN layer's input ``x`` (in its carrier)
+    at ``bits_a``, ``xq`` f32 (it carries the STE gradient to ``x``),
+    staging the site's controller step."""
+    cfg, carrier = layer.cfg, x.dtype
+    x = x.to(torch.float32)
     out = quantize_int(x, cfg.bits_a, layer.exp("x"),
                        ctx.layer_key(layer.uid, SITE_X),
                        stats=ctx.controls, row0=ctx.row0, **layer._qkw(ctx))
     if ctx.controls:
         layer._ctrl(ctx, "x", cfg.bits_a, x, out[2])
-    return straight_through(x, dequantize(out[0], out[1])), out[0], out[1]
+    xq = _q16(cfg, straight_through(x, dequantize(out[0], out[1])),
+              carrier)
+    return xq, out[0], out[1]
 
 
 def _conv_input(layer: Layer, conv: Conv2d, x, ctx: Ctx):
@@ -174,7 +232,7 @@ def _conv_input(layer: Layer, conv: Conv2d, x, ctx: Ctx):
         # sharded conv's is its slice's, reduced over the model group
         layer._ctrl(ctx, "x", cfg.bits_a, None, r.minmax * r.mult,
                     shard=conv.shard)
-    return r
+    return r._replace(xq=_q16(cfg, r.xq, carrier_dtype(ccfg)))
 
 
 def _stage_ema(layer: Layer, ctx: Ctx, mean_b, var_b) -> None:
@@ -233,21 +291,20 @@ class Normalization(Layer):
         self._reset_exps()
 
     def forward(self, x, ctx):
-        x = x.to(torch.float32)
         if self.cfg.bits_a >= 32:
-            return self._normalize(x, None, None, ctx)
+            return self._normalize(x.to(torch.float32), None, None, ctx)
         xq, codes, mult = _quantize_input(self, x, ctx)
         moments = (code_moments(codes) if ctx.train or ctx.update
                    else None)
-        return self._normalize(xq, moments, mult, ctx)
+        return self._normalize(xq, moments, mult, ctx, codes)
 
     def forward_from_conv(self, conv: Conv2d, x, ctx: Ctx):
         """``conv`` then this layer, the conv and this layer's input
         quantize fused (kernel #4 or #5)."""
         r = _conv_input(self, conv, x, ctx)
-        return self._normalize(r.xq, r.moments, r.mult, ctx)
+        return self._normalize(r.xq, r.moments, r.mult, ctx, r.codes)
 
-    def _normalize(self, xq, moments, mult, ctx: Ctx):
+    def _normalize(self, xq, moments, mult, ctx: Ctx, codes=None):
         cfg = self.cfg
         if ctx.train or ctx.update:
             if moments is not None:
@@ -258,12 +315,32 @@ class Normalization(Layer):
         if ctx.update:
             _stage_ema(self, ctx, mean_b, var_b)
         if ctx.train and moments is not None:
-            y = _BatchNormalize.apply(xq, mean_b, var_b, self.eps, ctx.dist)
+            y = _BatchNormalize.apply(
+                xq, mean_b, var_b, self.eps, ctx.dist,
+                *((codes, mult) if _saves_codes(cfg) else ()))
         elif ctx.train:
             y = (xq - mean_b) / sqrt_f32(var_b + self.eps)
         else:
             y = (xq - self.mean) / sqrt_f32(self.var + self.eps)
         return barrier(self, y, ctx).to(carrier_dtype(cfg))
+
+
+class _Rescale(torch.autograd.Function):
+    """``xq * gq + bq``, saving ``xq``'s codes and ``gq`` where autograd
+    would save ``xq``; the backward is autograd's, ``xq`` rebuilt from the
+    codes."""
+
+    @staticmethod
+    def forward(ctx, xq, gq, bq, codes, mult):
+        ctx.save_for_backward(codes, mult, gq)
+        return xq * gq + bq
+
+    @staticmethod
+    def backward(ctx, g):
+        codes, mult, gq = ctx.saved_tensors
+        axes = tuple(range(g.dim() - 1))
+        return (g * gq, (g * dequantize(codes, mult)).sum(axes), g.sum(axes),
+                None, None)
 
 
 class Rescale(Layer):
@@ -297,11 +374,17 @@ class Rescale(Layer):
 
     def forward(self, x, ctx):
         cfg = self.cfg
-        x = x.to(torch.float32)
-        xq = self._quant(ctx, "x", x, cfg.bits_a, SITE_X, row0=ctx.row0)
+        if cfg.bits_a < 32:
+            xq, codes, mult = _quantize_input(self, x, ctx)
+        else:
+            xq, codes = x.to(torch.float32), None
         gq = self._quant(ctx, "gamma", self.gamma, cfg.bits_b, SITE_GAMMA)
         bq = self._quant(ctx, "beta", self.beta, cfg.bits_b, SITE_BETA)
-        return barrier(self, xq * gq + bq, ctx).to(carrier_dtype(cfg))
+        if ctx.train and codes is not None and _saves_codes(cfg):
+            y = _Rescale.apply(xq, gq, bq, codes, mult)
+        else:
+            y = xq * gq + bq
+        return barrier(self, y, ctx).to(carrier_dtype(cfg))
 
 
 class _FusedNormalize(torch.autograd.Function):
@@ -375,9 +458,9 @@ class FusedBatchNorm(Layer):
         return {"gamma": self.weight_decay, "beta": 0.0}
 
     def forward(self, x, ctx):
-        x = x.to(torch.float32)
         if self.cfg.bits_a >= 32:
-            return self._normalize(x, None, None, None, ctx)
+            return self._normalize(x.to(torch.float32), None, None, None,
+                                   ctx)
         xq, codes, mult = _quantize_input(self, x, ctx)
         moments = (code_moments(codes) if ctx.train or ctx.update
                    else None)

@@ -283,10 +283,11 @@ def round_codes(scaled: torch.Tensor, bits: int,
     return codes.to(code_dtype(bits))
 
 
+@torch.no_grad()
 def quantize_codes_plain(x: torch.Tensor, bits: int, exp: Exp,
                          noise: Optional[Noise] = None, stats: bool = False):
     """Plain PyTorch version of K1 (any device): ``(codes, mult)`` or
-    ``(codes, mult, minmax)``."""
+    ``(codes, mult, minmax)``, outside autograd as the kernel's are."""
     mult = multiplier(bits, exp, x.device)
     scaled = x * mult.reshape(())
     codes = round_codes(scaled, bits, noise)

@@ -15,6 +15,10 @@ range_update_warmup_steps`` runs the controllers; any other step runs
 with ``update_gate=False`` (exponents hold, barriers emit the hold
 sentinel).
 
+:func:`make_scan_train_step` is ``lbt_tpu``'s K-step block (its
+``lax.scan``) as a Python loop of the same steps: the same keys, the same
+trajectory.
+
 :func:`debug_nans` is the port's ``jax_debug_nans`` (``main.py
 --debug_nans``): while it is on, each step checks its floating outputs for
 NaN and raises ``FloatingPointError``.
@@ -23,7 +27,7 @@ NaN and raises ``FloatingPointError``.
 from __future__ import annotations
 
 import contextlib
-from typing import Callable, Dict, Iterable, Tuple
+from typing import Callable, Dict, Iterable, Optional, Tuple
 
 import numpy as np
 import torch
@@ -146,6 +150,35 @@ def make_train_step(model: Model, tc: TrainConfig) -> Callable:
         return out
 
     return train_step
+
+
+def make_scan_train_step(model: Model, tc: TrainConfig, unroll_steps: int,
+                         augment: Optional[Callable] = None) -> Callable:
+    """``scan_step(model, velocity, xs, ys, step0, lr, base_key[,
+    aug_key]) -> {'loss', 'accuracy'}``, each ``[K]``: ``K =
+    unroll_steps`` steps of :func:`make_train_step` on ``xs[i], ys[i]``
+    (``xs: [K, B, ...]``), step ``step0 + i`` folding its keys as an
+    eager step does.  ``augment`` (``(key, x) -> x``) is applied to each
+    batch with ``fold_in(aug_key, step0 + i)``, as the Trainer's eager
+    loop applies it."""
+    train_step = make_train_step(model, tc)
+
+    def scan_step(model: Model, velocity: Dict[str, torch.Tensor],
+                  xs: torch.Tensor, ys: torch.Tensor, step0: int, lr: float,
+                  base_key, aug_key=None) -> Dict[str, torch.Tensor]:
+        if xs.shape[0] != unroll_steps:
+            raise ValueError(f"a block of {xs.shape[0]} batches, "
+                             f"expected {unroll_steps}")
+        ms = []
+        for i in range(unroll_steps):
+            x = xs[i]
+            if augment is not None:
+                x = augment(fold_in(aug_key, step0 + i), x)
+            ms.append(train_step(model, velocity, x, ys[i], step0 + i, lr,
+                                 base_key))
+        return {k: torch.stack([m[k] for m in ms]) for k in ms[0]}
+
+    return scan_step
 
 
 def make_eval_step(model: Model, faithful_eval: bool = False) -> Callable:

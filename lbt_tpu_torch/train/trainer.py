@@ -5,7 +5,11 @@ One eager train step per batch (``train.step.make_train_step``: forward
 with the range controllers, quantized backward, momentum SGD), batches
 prefetched to the device, the augmentation on the device, per-epoch
 evaluation, periodic checkpoints with exact resume, and JSONL /
-TensorBoard metrics.
+TensorBoard metrics.  With ``TrainConfig.scan_steps = K > 1`` (and not
+data parallel, as in ``lbt_tpu``) an epoch runs in blocks of K steps
+(``train.step.make_scan_train_step``): K host batches reach the device as
+one copy and the metrics are logged a block at a time; the trajectory is
+the eager loop's, bit for bit.
 
 Randomness comes from ``TrainConfig.seed`` alone.  The weights are
 :meth:`Model.init` of ``torch.Generator().manual_seed(seed)``;
@@ -61,7 +65,7 @@ from lbt_tpu_torch.parallel.multihost import host_batch_slice
 from lbt_tpu_torch.train import checkpoint as ckpt
 from lbt_tpu_torch.train.optim import momentum_init, piecewise_lr
 from lbt_tpu_torch.train.step import (make_eval_step, make_masked_eval_step,
-                                      make_train_step)
+                                      make_scan_train_step, make_train_step)
 from lbt_tpu_torch.utils.device import resolve_device
 from lbt_tpu_torch.utils.logging import (MetricsWriter, get_logger,
                                          null_logger)
@@ -111,11 +115,6 @@ class Trainer:
             raise ValueError(
                 "multi-process runs require data_parallel=True (each "
                 "process only holds its own batch shard)")
-        if tc.scan_steps > 1:
-            raise NotImplementedError(
-                f"scan_steps={tc.scan_steps}: the scanned K-step block is "
-                f"not ported yet (ROADMAP queue 1 item 13); steps run one "
-                f"by one")
         self.group = self.tp = None
         if tp > 1:
             from lbt_tpu_torch.parallel import mesh
@@ -187,6 +186,12 @@ class Trainer:
             self.train_step = make_train_step(model, tc)
             self.eval_step = make_eval_step(model,
                                             faithful_eval=self.faithful)
+        # K steps a block off data parallelism; the C++ loader augments
+        # on the host, so the block then augments nothing
+        self.scan_train_step = None
+        if tc.scan_steps > 1 and not self.dp:
+            self.scan_train_step = make_scan_train_step(
+                model, tc, tc.scan_steps, augment=self.augment)
         self.step = 0
         self.epoch = 0
         # the step of the checkpoint this run wrote or resumed from last
@@ -318,22 +323,13 @@ class Trainer:
             self.velocity = momentum_init(self.params)
             self.logger.info("Reset momentum slots (faithful mode)")
 
+        if self.scan_train_step is not None:
+            return self._train_epoch_scanned(epoch, lr)
         # a data-parallel rank reads, decodes and sends only its rows
         rows = (host_batch_slice(tc.batch_size, self.group) if self.dp
                 else None)
-        if self.native is not None:
-            src = self.native.epoch(epoch)
-            if rows is not None:  # the C++ loader yields global batches
-                src = ((x[rows[0]:sum(rows)], y[rows[0]:sum(rows)])
-                       for x, y in src)
-        elif "train_iter" in self.dataset:
-            src = self.dataset["train_iter"](
-                epoch, tc.batch_size, **({"rows": rows} if rows else {}))
-        else:
-            xtr, ytr = self.dataset["train"]
-            src = batch_iterator(xtr, ytr, tc.batch_size, seed=tc.seed,
-                                 epoch=epoch, rows=rows)
-        batches = device_prefetch(src, device=self.device)
+        batches = device_prefetch(self._train_source(epoch, rows),
+                                  device=self.device)
         aug_rows = {} if rows is None else {"rows": (rows[0],
                                                      tc.batch_size)}
         last = {}
@@ -398,6 +394,88 @@ class Trainer:
             self.metrics.write(self.step,
                                {"input_stall_frac": stall / wall},
                                prefix="train/")
+        return last
+
+    def _train_source(self, epoch: int, rows=None):
+        """The epoch's host batches (numpy ``(x, y)``): ``rows`` of each
+        global batch, or whole batches."""
+        tc = self.tc
+        if self.native is not None:
+            src = self.native.epoch(epoch)
+            if rows is not None:  # the C++ loader yields global batches
+                src = ((x[rows[0]:sum(rows)], y[rows[0]:sum(rows)])
+                       for x, y in src)
+            return src
+        if "train_iter" in self.dataset:
+            return self.dataset["train_iter"](
+                epoch, tc.batch_size, **({"rows": rows} if rows else {}))
+        xtr, ytr = self.dataset["train"]
+        return batch_iterator(xtr, ytr, tc.batch_size, seed=tc.seed,
+                              epoch=epoch, rows=rows)
+
+    def _train_epoch_scanned(self, epoch: int, lr: float) -> Dict[str, float]:
+        """``lbt_tpu``'s scanned epoch: K host batches stacked into a
+        block, one copy to the device, one call of the K-step block (it
+        augments each batch with the eager loop's key); a short last block
+        runs its steps one by one through the eager step.  Metrics are
+        read a block at a time: once the steps since the last log reach
+        ``log_every``, the block's last step's are written at the step
+        after it.  No input-stall row, as ``lbt_tpu`` writes none."""
+        tc, K = self.tc, self.tc.scan_steps
+        it = iter(self._train_source(epoch))
+
+        def blocks():
+            while True:
+                block = [b for _, b in zip(range(K), it)]
+                if not block:
+                    return
+                yield tuple(np.stack(a) for a in zip(*block))
+                if len(block) < K:
+                    return
+
+        last = {}
+        t0, n_img = time.time(), 0
+        first_logged = self.step > 0
+        since_log = 0
+        for xs, ys in device_prefetch(blocks(), device=self.device):
+            k = xs.shape[0]
+            if k == K:
+                self.profiler.observe(self.step)
+                ms = self.scan_train_step(
+                    self.model, self.velocity, xs, ys, self.step, lr,
+                    self.base_key, self.data_key)
+                m = {name: v[-1] for name, v in ms.items()}
+                self.step += k
+            else:
+                for x, y in zip(xs, ys):
+                    if self.augment is not None:
+                        x = self.augment(
+                            keys.fold_in(self.data_key, self.step), x)
+                    m = self.train_step(self.model, self.velocity, x, y,
+                                        self.step, lr, self.base_key)
+                    self.step += 1
+            n_img += ys.numel()
+            if not first_logged:
+                m["loss"].item()
+                self.logger.info("first scan block (with warm-up) took "
+                                 "%.1fs", time.time() - t0)
+                first_logged = True
+            since_log += k
+            if since_log >= tc.log_every:
+                since_log = 0
+                loss, acc = torch.stack(
+                    [m["loss"], m["accuracy"]]).cpu().tolist()
+                m = {"loss": loss, "accuracy": acc}
+                self.logger.info(
+                    "epoch %d step %d loss %.4f acc %.4f (%.0f img/s)",
+                    epoch, self.step, loss, acc,
+                    n_img / (time.time() - t0))
+                self.metrics.write(self.step, m, prefix="train/")
+                self.metrics.write_param_means(self.step, self.model)
+                last = m
+        self.profiler.stop()
+        self._sync()
+        self.epoch_time = {"seconds": time.time() - t0, "images": n_img}
         return last
 
     def evaluate(self) -> Dict[str, float]:

@@ -85,36 +85,49 @@ def _to_np(t):
     return t.detach().to(torch.float32).numpy()
 
 
-def run_both(jlayer, layer, x, mode, carrier, g=None, seed=3):
-    """One call of the JAX layer and of the port's on the same trees,
-    input, key and cotangent ``g`` (train mode).  Returns ``(jax, port)``
-    dicts of ``y``, ``dx``, parameter gradients, sink gradients and the
-    new (params, qstate) trees, as numpy."""
+def run_both(jlayer, layer, x, mode, carrier, g=None, seed=3, jit=True):
+    """One call of the JAX layer (jitted, or eagerly with ``jit=False``)
+    and of the port's on the same trees, input, key and cotangent ``g``
+    (train mode).  Returns ``(jax, port)`` dicts of ``y``, ``dx``,
+    parameter gradients, sink gradients and the new (params, qstate)
+    trees, as numpy, and lbt_tpu's params."""
     train, update = MODES[mode]
-    j_dt, t_dt = CARRIERS[carrier]
+    j_dt = CARRIERS[carrier][0]
     key = jax.random.key(seed) if train or update else None
     params, qstate = _randomize(*jlayer.init(jax.random.key(0)), seed=seed)
 
     jctx = JCtx(train=train, key=key, update=update)
     sinks = jmake_sinks(jlayer)
     xj = jnp.asarray(x).astype(j_dt)
+    compiled = jax.jit if jit else (lambda f: f)
 
     def fwd(x, p, s):
         return jlayer.apply(p, qstate, s, x, jctx)
 
     if train:
-        @jax.jit
+        @compiled
         def run(x, p, s, g):
             y, vjp, q = jax.vjp(fwd, x, p, s, has_aux=True)
             return y, q, vjp(g.astype(y.dtype))
         y, q, (dx, dp, ds) = run(xj, params, sinks, jnp.asarray(g))
         want = {"y": y, "q": q, "dx": dx, "dp": dp, "ds": ds}
     else:
-        y, q = jax.jit(fwd)(xj, params, sinks)
+        y, q = compiled(fwd)(xj, params, sinks)
         want = {"y": y, "q": q}
     want = jax.tree.map(lambda a: np.asarray(a).astype(
         np.int32 if a.dtype == jnp.int32 else np.float32), want)
+    got = run_port(layer, params, qstate, x, mode, carrier, g, seed)
+    return want, got, params
 
+
+def run_port(layer, params, qstate, x, mode, carrier, g=None, seed=3):
+    """The port's half of :func:`run_both`: ``layer`` loaded with
+    lbt_tpu's trees, called on ``x`` (in the carrier) with the key of
+    ``seed``."""
+    train, update = MODES[mode]
+    j_dt, t_dt = CARRIERS[carrier]
+    key = jax.random.key(seed) if train or update else None
+    xj = jnp.asarray(x).astype(j_dt)
     load_jax_numpy(layer, params, qstate)
     tsinks = make_sinks(layer)
     ctx = Ctx(train=train, key=None if key is None else _kd(key),
@@ -134,7 +147,7 @@ def run_both(jlayer, layer, x, mode, carrier, g=None, seed=3):
         got["dx"] = _to_np(tx.grad)
         got["dp"] = {k: _to_np(v.grad) for k, v in layer.named_parameters()}
         got["ds"] = {uid: _to_np(s.grad) for uid, s in tsinks.items()}
-    return want, got, params
+    return got
 
 
 def _compare_state(got, want, path=""):

@@ -9,8 +9,9 @@ engine='int8', noise_mode='hash1')`` with ``fused_bn``,
   controllers gated off (bf16 carriers here, f32 in
   ``test_torch_fused_bn.py``);
 * one serving forward of ``imagenet_resnet(18, image_size=64)``;
-* the cold-start exponent knob, the converter both ways with velocity
-  and the CLI's refusals.
+* the cold-start exponent knob, the converter both ways with velocity,
+  the CLI's headline flags, and ``--remat_bn`` / ``--bn_residual_q16``
+  on the headline, where neither changes a bit.
 
 Tolerances are stated on each test.  lbt_tpu compiles the whole train
 step with both branches of its controller cadence; that compile takes
@@ -34,7 +35,7 @@ from lbt_tpu.train.step import make_train_step as jmake_train_step
 from lbt_tpu_torch import config as tconfig
 from lbt_tpu_torch import convert
 from lbt_tpu_torch.dfxp import keys
-from lbt_tpu_torch.main import build_parser, refusals
+from lbt_tpu_torch.main import build_parser, quant_config
 from lbt_tpu_torch.models import build_model, imagenet_resnet
 from lbt_tpu_torch.models.zoo import MODEL_DATASET
 from lbt_tpu_torch.nn.core import Ctx
@@ -270,20 +271,45 @@ def test_resnet50_converter_round_trip(act_dtype):
 
 
 def test_cli_takes_the_headline_and_refuses_the_rest():
-    """The headline's command line has no refusal, nor has it with
-    ``--stem_s2d`` and ``--noise_mode prng`` (refused before they were
-    ported); ``--remat_bn`` and ``--bn_residual_q16`` are still named."""
+    """The headline's command line gives the headline's config, with
+    ``--stem_s2d`` and ``--noise_mode prng`` too and with ``--remat_bn``
+    and ``--bn_residual_q16`` (all refused before they were ported).
+    Under the headline (fused BN, bf16 carriers) the two BN flags change
+    no bit: 2 train steps of ``imagenet_resnet(18, image_size=32)`` at
+    batch 2 with both equal the steps without, in every state tensor."""
     p = build_parser()
     argv = ["--model", "Imagenet_Resnet50", "--bits", "8", "--engine",
             "int8", "--noise_mode", "hash1", "--fused_bn",
             "--range_update_every", "8", "--act_dtype", "bf16",
             "--conv_act_extra", "0", "--batch_size", "128"]
-    assert refusals(p.parse_args(argv)) == []
+    want = headline("bf16", tconfig)
+    assert quant_config(p.parse_args(argv)) == want
     assert MODEL_DATASET["Imagenet_Resnet50"] == "imagenet"
     assert MODEL_DATASET["Imagenet_Resnet18"] == "imagenet"
-    assert refusals(p.parse_args(argv[:4] + ["--noise_mode", "prng",
-                                             "--stem_s2d"])) == []
-    msgs = refusals(p.parse_args(argv + ["--remat_bn",
-                                         "--bn_residual_q16"]))
-    assert any("--remat_bn" in m for m in msgs)
-    assert any("--bn_residual_q16" in m for m in msgs)
+    s2d = quant_config(p.parse_args(argv[:4] + ["--noise_mode", "prng",
+                                                "--stem_s2d"]))
+    assert s2d.stem_s2d and s2d.noise_mode == "prng"
+    flagged = quant_config(p.parse_args(argv + ["--remat_bn",
+                                                "--bn_residual_q16"]))
+    assert flagged == dataclasses.replace(want, remat_bn=True,
+                                          bn_residual_q16=True)
+    rng = np.random.default_rng(2)
+    batches = [(torch.from_numpy(rng.normal(0, 1, (2, 32, 32, 3)).astype(
+        np.float32)), torch.from_numpy(rng.integers(0, 10, (2,))))
+        for _ in range(2)]
+    states = []
+    for cfg in (want, flagged):
+        model = imagenet_resnet(cfg, 18, num_classes=10, image_size=32).init(
+            torch.Generator().manual_seed(0))
+        step = make_train_step(model, tconfig.TrainConfig())
+        vel = {k: torch.zeros_like(v)
+               for k, v in model.net.named_parameters()}
+        losses = [step(model, vel, x, y, i, 0.01, keys.base_key(3))["loss"]
+                  for i, (x, y) in enumerate(batches)]
+        states.append((losses, model.net.state_dict(), vel))
+    (l0, s0, v0), (l1, s1, v1) = states
+    assert all(torch.equal(a, b) for a, b in zip(l0, l1))
+    for k in s0:
+        assert torch.equal(s0[k], s1[k]), k
+    for k in v0:
+        assert torch.equal(v0[k], v1[k]), k

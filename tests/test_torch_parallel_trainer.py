@@ -10,8 +10,9 @@ a 2-device mesh:
    writing logs, metrics and checkpoints; resume with augmentation,
    bitwise, and the low-bit all-reduce's ``ebuf`` restored as
    ``lbt_tpu`` restores it;
-6. the CLI under ``torch.distributed.run``, and its refusal of tensor
-   parallelism on the float route.
+6. the CLI under ``torch.distributed.run``, with the flags refused
+   before they were ported (``--remat_bn``, ``--bn_residual_q16``,
+   ``--scan_steps``) under data and tensor parallelism.
 """
 
 import json
@@ -165,6 +166,8 @@ def trainer_runs(tmp_path_factory):
     jobs = {
         "epoch": _trainer_job(epochs=1, logdir=str(tmp / "log{rank}"),
                               augment=False),
+        "scan": _trainer_job(epochs=1, augment=False,
+                             tc={"scan_steps": 3}),
         "straight": _trainer_job(train=True, tc=dict(
             two, checkpoint_dir=ck["straight"])),
         "first": _trainer_job(train=True, tc=dict(
@@ -216,6 +219,19 @@ def test_trainer_ranks_hold_equal_state(trainer_runs):
         a, b = port[0][job], port[1][job]
         for k in ("params", "qstate", "velocity"):
             _assert_equal_trees(a[k], b[k], f"{job} {k}")
+        assert a["eval"] == b["eval"]
+
+
+def test_trainer_runs_scan_steps_step_by_step_data_parallel(trainer_runs):
+    """Data parallel, ``scan_steps=3`` is ignored, as ``lbt_tpu``'s
+    Trainer ignores it there: no K-step block, and the epoch equals the
+    one run without it bit for bit on both ranks."""
+    _, port = trainer_runs
+    for r in range(2):
+        a, b = port[r]["scan"], port[r]["epoch"]
+        assert not a["scanned"] and a["step"] == b["step"]
+        for k in ("params", "qstate", "velocity"):
+            _assert_equal_trees(a[k], b[k], f"rank {r} {k}")
         assert a["eval"] == b["eval"]
 
 
@@ -313,27 +329,44 @@ def test_cli_trains_data_parallel_under_torchrun(tmp_path):
     assert os.listdir(exp / "ckpt") == ["4"]
 
 
-def test_cli_refuses_tensor_parallelism(tmp_path, capsys):
-    """``--tensor_parallel 2`` is accepted on every route, the float
-    route (``--engine sim`` / ``sim_bf16``, ``--bits 32``, 16-bit
-    cotangents) as the integer one, beside the data-parallel flags; what
-    the CLI still refuses, exiting with status 2 before any work, is
-    ROADMAP queue 1 item 13's flags, each named, under tensor
-    parallelism too."""
-    from lbt_tpu_torch.main import build_parser, main, refusals
+def _torchrun_cli(tmp_path, name, flags):
+    """``lbt_tpu_torch.main`` on ResNet-20 under ``torch.distributed.run``
+    with 2 ranks on the CPU, 1 epoch of 4 steps of 8 and an eval; returns
+    the logged train losses' steps."""
+    exp = tmp_path / name
+    cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone",
+           "--nproc_per_node", "2", "-m", "lbt_tpu_torch.main",
+           "--device", "cpu", "--model", "CIFAR10_Resnet20", "--noise_mode",
+           "hash", "--n_train", "32", "--n_test", "20", "--batch_size", "8",
+           "--n_epoch", "1", "--log_every", "1", "--exp_path", str(exp),
+           *flags]
+    out = subprocess.run(cmd, cwd=tmp_path, env=rank_env(),
+                         capture_output=True, text=True, timeout=240)
+    assert out.returncode == 0, out.stdout[-3000:] + out.stderr[-3000:]
+    rows = [json.loads(s) for s in
+            (exp / "metrics.jsonl").read_text().splitlines()]
+    assert all(math.isfinite(r["train/loss"]) for r in rows
+               if "train/loss" in r)
+    assert any("test/loss" in r for r in rows)
+    return [r["step"] for r in rows if "train/loss" in r]
+
+
+def test_cli_refuses_tensor_parallelism(tmp_path):
+    """``--tensor_parallel 2`` is accepted on every route beside the
+    data-parallel flags, and ROADMAP queue 1 item 13's flags, refused
+    until they were ported, run under it and under ``--data_parallel``:
+    ``--remat_bn --bn_residual_q16 --scan_steps 2`` on 2 ranks.  At
+    ``--tensor_parallel 2`` (one data index, not data parallel) the
+    steps run in blocks of 2 and the losses are logged a block at a time;
+    data parallel, ``scan_steps`` is ignored, as ``lbt_tpu`` ignores it,
+    and every step is logged."""
+    from lbt_tpu_torch.main import build_parser, quant_config
     tp = ["--data_parallel", "--tensor_parallel", "2"]
-    for argv in (["--data_parallel"], ["--lowbit_allreduce"],
-                 ["--lowbit_allreduce", "--lowbit_wire", "int16"], tp,
-                 tp + ["--engine", "sim"], tp + ["--engine", "sim_bf16"],
+    for argv in (tp + ["--engine", "sim"], tp + ["--engine", "sim_bf16"],
                  tp + ["--bits", "32"], tp + ["--bits_g", "16"]):
-        assert refusals(build_parser().parse_args(argv)) == []
-    for flag in (["--remat_bn"], ["--bn_residual_q16"],
-                 ["--scan_steps", "4"]):
-        with pytest.raises(SystemExit) as e:
-            main(tp + ["--engine", "sim_bf16", "--device", "cpu",
-                       "--exp_path", str(tmp_path / "exp"), *flag])
-        assert e.value.code == 2
-        err = capsys.readouterr().err
-        assert flag[0] in err and "ROADMAP queue 1 item 13" in err
-        assert "--tensor_parallel" not in err
-    assert not (tmp_path / "exp").exists()
+        args = build_parser().parse_args(argv)
+        assert args.tensor_parallel == 2 and quant_config(args)
+    flags = ["--remat_bn", "--bn_residual_q16", "--scan_steps", "2"]
+    assert _torchrun_cli(tmp_path, "tp", tp + flags) == [2, 4]
+    assert _torchrun_cli(tmp_path, "dp", ["--data_parallel"] + flags) == [
+        1, 2, 3, 4]

@@ -26,7 +26,6 @@ from lbt_tpu.nn.core import finalize as jfinalize
 from lbt_tpu.nn.core import make_sinks
 from lbt_tpu.nn.layers import Conv2d as JConv2d
 from lbt_tpu.nn.norm import BatchNorm as JBatchNorm
-from lbt_tpu_torch import config as tconfig
 from lbt_tpu_torch.convert import from_jax_numpy, load_jax_numpy
 from lbt_tpu_torch.infer import Predictor, make_predict_fn
 from lbt_tpu_torch.models import build_model, cifar10_resnet
@@ -160,11 +159,12 @@ def test_converter_raises_on_mismatch():
     dict(bn_residual_q16=True), dict(noise_shared_axis0=True),
     dict(stem_s2d=True), dict(noise_impl="unsafe_rbg")])
 def test_unported_config_options_raise(kw):
-    """``remat_bn`` and ``bn_residual_q16`` are not ported yet and raise.
-    The options ported since build: the noise shared along axis 0 and the
-    s2d stem (a no-op on a CIFAR stem, as in ``lbt_tpu``) the same layers
-    as the default; both sim engines, and the ``unsafe_rbg`` key, a
-    conv -> BN -> ReLU -> pool -> dense stack whose serving forward equals
+    """The options ported since build, each refused before: the noise
+    shared along axis 0 and the s2d stem (a no-op on a CIFAR stem, as in
+    ``lbt_tpu``) build the same layers as the default; both sim engines,
+    the ``unsafe_rbg`` key and the BN memory options ``remat_bn`` and
+    ``bn_residual_q16`` (training only: serving is untouched), a conv ->
+    BN -> ReLU -> pool -> dense stack whose serving forward equals
     ``lbt_tpu``'s, at rtol = atol = 1e-5 (every contraction's sum is
     exact, and under ``sim_bf16`` rounds once to bf16 in both); under the
     ``unsafe_rbg`` key the forward is given one, so every site rounds
@@ -174,11 +174,7 @@ def test_unported_config_options_raise(kw):
     contraction in f32 and drops the rounding of its output to bf16,
     which the port, the TPU and the card keep (ROADMAP queue 3)."""
     cfg = QuantConfig.uniform(8, **kw)
-    if set(kw) & {"remat_bn", "bn_residual_q16"}:
-        with pytest.raises(NotImplementedError):
-            cifar10_resnet(cfg, 20)
-        return
-    if "engine" not in kw and "noise_impl" not in kw:
+    if set(kw) <= {"noise_shared_axis0", "stem_s2d"}:
         names = [n for n, _ in cifar10_resnet(cfg, 20).net.named_modules()]
         assert names == [n for n, _ in cifar10_resnet(
             QuantConfig.uniform(8), 20).net.named_modules()]
@@ -200,16 +196,24 @@ def test_unported_config_options_raise(kw):
            else None)
     want = _jax_layer_forward(jnet, params, qstate, x,
                               {"xla_allow_excess_precision": False}, key)
-    net = finalize(Sequential("net", [
-        Conv2d("conv", cfg, (3, 3, 3, 16), (2, 2), "SAME", use_bias=False),
-        BatchNorm("bn", cfg, 16), ReLU(),
-        AvgPool(ksize=(4, 4), strides=(1, 1)), Flatten(),
-        Dense("head", cfg, 16, 10)]))
-    load_jax_numpy(net, params, qstate)
-    got = net(torch.from_numpy(x), Ctx(
-        train=False, key=None if key is None else
-        np.asarray(jax.random.key_data(key)))).detach().numpy()
+
+    def serve(c):
+        net = finalize(Sequential("net", [
+            Conv2d("conv", c, (3, 3, 3, 16), (2, 2), "SAME",
+                   use_bias=False),
+            BatchNorm("bn", c, 16), ReLU(),
+            AvgPool(ksize=(4, 4), strides=(1, 1)), Flatten(),
+            Dense("head", c, 16, 10)]))
+        load_jax_numpy(net, params, qstate)
+        return net(torch.from_numpy(x), Ctx(
+            train=False, key=None if key is None else
+            np.asarray(jax.random.key_data(key)))).detach().numpy()
+
+    got = serve(cfg)
     np.testing.assert_allclose(got, want, **TOL)
+    if set(kw) & {"remat_bn", "bn_residual_q16"}:
+        # serving is untouched: the logits without the option, bitwise
+        np.testing.assert_array_equal(got, serve(QuantConfig.uniform(8)))
 
 
 def test_imagenet_resnet_refuses_the_s2d_stem():
@@ -238,7 +242,6 @@ def test_registry_and_serving_only_context():
     cfg = QuantConfig.uniform(8, engine="pallas")
     model = build_model("CIFAR10_Resnet32", cfg)
     assert model.name == "cifar10_resnet32"
-    assert tconfig.check_supported(cfg) is cfg
     # lbt_tpu's other registry models (refused before they were ported)
     assert build_model("MNIST", cfg).name == "lenet_mnist"
     assert build_model("VGG16_CIFAR100", cfg).name == "vgg16"

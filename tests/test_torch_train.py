@@ -234,7 +234,7 @@ def test_config_matches_lbt_tpu(name):
             with pytest.raises(ValueError):
                 mine(**bad)
         assert mine(conv9_split=True).quant_backend == "xla"
-        assert tconfig.check_supported(mine(conv9_split=True))
+        assert cifar10_resnet(mine(conv9_split=True), 8).cfg.conv9_split
 
 
 def _jax_trees(depth, cfg, seed=0, wd=0.0):

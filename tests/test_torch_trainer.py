@@ -587,11 +587,39 @@ def test_cli_trains_and_writes(tmp_path):
 @pytest.mark.parametrize("tc_kw,trainer_kw,item", [
     ({"scan_steps": 4}, {}, "item 13"),
 ])
-def test_trainer_refuses_what_it_cannot_run(tc_kw, trainer_kw, item):
+def test_trainer_refuses_what_it_cannot_run(tc_kw, trainer_kw, item,
+                                            tmp_path):
+    """What the Trainer refused until ROADMAP queue 1 ``item`` ported it:
+    ``scan_steps=4`` over 6 steps of batch 4 (one block of 4, then 2
+    steps one by one), augmentation on, equals the eager Trainer bit for
+    bit in every state tensor; its ``metrics.jsonl`` rows land a block at
+    a time (``log_every=2``: steps 4 and 6, where the eager loop writes
+    2, 4 and 6), with no input-stall row."""
     cfg = tconfig.QuantConfig.uniform(8, noise_mode="hash")
-    with pytest.raises(NotImplementedError, match=f"ROADMAP queue 1 {item}"):
-        Trainer(cifar10_resnet(cfg, 8), tconfig.TrainConfig(**tc_kw), {},
-                device="cpu", **trainer_kw)
+    data = load_dataset("cifar10", n_train=24, n_test=8)
+    runs = {}
+    for name, kw in (("eager", {}), ("scanned", tc_kw)):
+        tc = tconfig.TrainConfig(batch_size=4, log_every=2, seed=3, **kw)
+        tr = Trainer(cifar10_resnet(cfg, 8, weight_decay=WD), tc, data,
+                     augment=make_augment("cifar10"),
+                     logdir=str(tmp_path / name), device="cpu",
+                     **trainer_kw)
+        assert (tr.scan_train_step is not None) == (name == "scanned")
+        tr.train_epoch(0)
+        tr.metrics.close()
+        runs[name] = tr
+    eager, scanned = runs["eager"], runs["scanned"]
+    assert eager.step == scanned.step == 6
+    got, want = _state(scanned), _state(eager)
+    assert set(got) == set(want)
+    for k in want:
+        assert torch.equal(got[k], want[k]), k
+    steps = {name: [r["step"] for r in _rows(tmp_path / name /
+                                             "metrics.jsonl")
+                    if "train/loss" in r] for name in runs}
+    assert steps == {"eager": [2, 4, 6], "scanned": [4, 6]}
+    rows = _rows(tmp_path / "scanned" / "metrics.jsonl")
+    assert not any("train/input_stall_frac" in r for r in rows)
 
 
 @pytest.mark.parametrize("tc_kw", [
@@ -678,18 +706,19 @@ def test_step_profiler_writes_a_chrome_trace(tmp_path):
                   "--engine", "sim"], None,
                  id="argv10---tensor_parallel 2"),
 ])
-def test_cli_refuses_what_it_cannot_run(tmp_path, capsys, argv, msg):
-    """What the port cannot run exits with status 2 before any work,
-    naming the value and the ROADMAP item.  main.py's defaults (``prng``
-    noise), the FP32 arm, the sim engines, the s2d stem, the reference's
-    small models, ``--gradient_buffer``, ``--data_parallel`` and the
-    float route under ``--tensor_parallel``, refused before they were
-    ported, have no refusal now and give main.py's config."""
-    from lbt_tpu_torch.main import build_parser, quant_config, refusals
+def test_cli_refuses_what_it_cannot_run(tmp_path, argv, msg):
+    """What the port's CLI refused before it was ported runs now, and
+    gives main.py's config: main.py's defaults (``prng`` noise), the
+    FP32 arm, the sim engines, the s2d stem, the reference's small
+    models, ``--gradient_buffer``, ``--data_parallel`` and the float
+    route under ``--tensor_parallel``; ``--scan_steps 4``, ``--remat_bn``
+    and ``--bn_residual_q16`` (``msg``) each train an epoch of 6 steps on
+    the CPU, the block of 4 then 2 steps one by one under
+    ``--scan_steps``, with finite logged losses."""
+    from lbt_tpu_torch.main import build_parser, quant_config
+    args = build_parser().parse_args(argv)
+    cfg = quant_config(args)
     if msg is None:
-        args = build_parser().parse_args(argv)
-        assert refusals(args) == []
-        cfg = tconfig.check_supported(quant_config(args))
         if "32" in argv:
             assert cfg == tconfig.QuantConfig.fp32()
         else:
@@ -697,10 +726,17 @@ def test_cli_refuses_what_it_cannot_run(tmp_path, capsys, argv, msg):
                 args.engine, args.noise_mode)
             assert cfg.stem_s2d == ("--stem_s2d" in argv)
         return
+    flag = msg.split()[0][2:]
+    assert getattr(cfg if flag != "scan_steps" else args, flag)
     exp = tmp_path / "exp"
-    with pytest.raises(SystemExit) as e:
-        main(argv + ["--device", "cpu", "--exp_path", str(exp)])
-    assert e.value.code == 2
-    err = capsys.readouterr().err
-    assert msg in err and "ROADMAP queue 1 item" in err, err
-    assert not exp.exists()
+    tr = main(argv + ["--device", "cpu", "--model", "CIFAR10_Resnet20",
+                      "--n_train", "48", "--n_test", "16", "--batch_size",
+                      "8", "--n_epoch", "1", "--log_every", "2",
+                      "--exp_path", str(exp)])
+    assert tr.step == 6
+    assert (tr.scan_train_step is not None) == (flag == "scan_steps")
+    assert getattr(tr.model.cfg if flag != "scan_steps" else tr.tc, flag)
+    losses = [r["train/loss"] for r in _rows(exp / "metrics.jsonl")
+              if "train/loss" in r]
+    assert len(losses) == (2 if flag == "scan_steps" else 3)
+    assert all(math.isfinite(v) for v in losses)

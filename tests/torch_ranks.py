@@ -316,6 +316,7 @@ def trainer(job, group):
     tr.metrics.close()
     return {"eval": ev, "params": p, "qstate": q, "velocity": v,
             "ebuf": e, "step": tr.step, "saves": saves, "state": state,
+            "scanned": tr.scan_train_step is not None,
             "layout": None if tr.tp is None else (
                 None if tr.group is None else tr.group.world, tr.tp.world)}
 
