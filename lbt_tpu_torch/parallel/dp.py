@@ -18,6 +18,9 @@ index run one program on the same rows, as ``lbt_tpu``'s per-data-shard
 GSPMD program does, so the noise key folds in the data index, and every
 sum and mean above is over the data group only (a sharded leaf's
 gradient, velocity and ``ebuf`` are its slice's).
+
+The step records the single-device step's ranges (``train/step.py``);
+its collectives lie inside ``lbt/step`` and outside every phase range.
 """
 
 from __future__ import annotations
@@ -36,6 +39,7 @@ from lbt_tpu_torch.parallel.lowbit import (lowbit_allreduce,
 from lbt_tpu_torch.train.step import (check_step, forward_backward, gate_of,
                                       sgd_update)
 from lbt_tpu_torch.utils.device import full_f32
+from lbt_tpu_torch.utils.profiling import span
 
 __all__ = ["make_dp_train_step"]
 
@@ -66,36 +70,40 @@ def make_dp_train_step(model: Model, tc: TrainConfig, dist,
                 ebuf: Dict[str, torch.Tensor], x: torch.Tensor,
                 y: torch.Tensor, step: int, lr: float,
                 base_key) -> Dict[str, torch.Tensor]:
-        key = fold_in(fold_in(np.asarray(base_key), step), dist.rank)
-        ctx = Ctx(train=True, key=key, update=True, update_gate=gate(step),
-                  sinks=model.make_sinks(), n_uids=n_uids, dist=dist)
-        loss, acc, stats = forward_backward(model, ctx, x, y,
-                                            divisor=float(world))
-        with torch.no_grad():
-            if stats:
-                uids = list(stats)
-                mean = dist.mean(torch.stack([stats[u] for u in uids]))
-                model.absorb_sinks(dict(zip(uids, mean)))
-            grads = {k: p.grad for k, p in model.net.named_parameters()}
-            if lowbit_bits is None:
-                grads = dict(zip(grads, dist.all_reduce_each(
-                    list(grads.values()))))
-            else:
-                if lowbit_wire is None:
-                    grads, new = lowbit_allreduce(grads, ebuf, dist,
-                                                  bits=lowbit_bits, tp=tp)
+        with span("lbt/step"):
+            key = fold_in(fold_in(np.asarray(base_key), step), dist.rank)
+            ctx = Ctx(train=True, key=key, update=True,
+                      update_gate=gate(step), sinks=model.make_sinks(),
+                      n_uids=n_uids, dist=dist)
+            loss, acc, stats = forward_backward(model, ctx, x, y,
+                                                divisor=float(world))
+            with torch.no_grad():
+                if stats:
+                    uids = list(stats)
+                    mean = dist.mean(torch.stack([stats[u] for u in uids]))
+                    with span("lbt/update"):
+                        model.absorb_sinks(dict(zip(uids, mean)))
+                grads = {k: p.grad for k, p in model.net.named_parameters()}
+                if lowbit_bits is None:
+                    grads = dict(zip(grads, dist.all_reduce_each(
+                        list(grads.values()))))
                 else:
-                    grads, new = ring_lowbit_allreduce(
-                        grads, ebuf, dist, bits=lowbit_bits,
-                        wire=lowbit_wire, tp=tp)
-                for k, v in new.items():
-                    ebuf[k].copy_(v)
-            # psum of the 1/N-scaled loss, pmean of the accuracy
-            la = dist.all_reduce(torch.stack([loss / world, acc]))
-        sgd_update(model, velocity, grads, decays, lr, tc.momentum)
-        out = {"loss": la[0], "accuracy": la[1] / world}
-        check_step(model, velocity, out, step,
-                   [(f"ebuf.{k}", v) for k, v in (ebuf or {}).items()])
+                    if lowbit_wire is None:
+                        grads, new = lowbit_allreduce(
+                            grads, ebuf, dist, bits=lowbit_bits, tp=tp)
+                    else:
+                        grads, new = ring_lowbit_allreduce(
+                            grads, ebuf, dist, bits=lowbit_bits,
+                            wire=lowbit_wire, tp=tp)
+                    for k, v in new.items():
+                        ebuf[k].copy_(v)
+                # psum of the 1/N-scaled loss, pmean of the accuracy
+                la = dist.all_reduce(torch.stack([loss / world, acc]))
+            with span("lbt/update"):
+                sgd_update(model, velocity, grads, decays, lr, tc.momentum)
+            out = {"loss": la[0], "accuracy": la[1] / world}
+            check_step(model, velocity, out, step,
+                       [(f"ebuf.{k}", v) for k, v in (ebuf or {}).items()])
         return out
 
     return dp_step

@@ -19,6 +19,11 @@ sentinel).
 ``lax.scan``) as a Python loop of the same steps: the same keys, the same
 trajectory.
 
+Each train step records its ranges in a running ``torch.profiler``
+profile (``utils.profiling.span``): ``lbt/step`` around the step,
+``lbt/forward``, ``lbt/backward``, and ``lbt/update`` around the commit
+and again around ``absorb_sinks`` and the SGD update.
+
 :func:`debug_nans` is the port's ``jax_debug_nans`` (``main.py
 --debug_nans``): while it is on, each step checks its floating outputs for
 NaN and raises ``FloatingPointError``.
@@ -38,6 +43,7 @@ from lbt_tpu_torch.nn.core import Ctx
 from lbt_tpu_torch.nn.model import Model
 from lbt_tpu_torch.train.optim import apply_weight_decay, momentum_update
 from lbt_tpu_torch.utils.device import full_f32
+from lbt_tpu_torch.utils.profiling import span
 
 # process-wide, as jax.config's jax_debug_nans is
 _DEBUG_NANS = [False]
@@ -90,14 +96,16 @@ def forward_backward(model: Model, ctx: Ctx, x: torch.Tensor,
     cotangent reached it, as ``lbt_tpu``'s would read."""
     for p in model.net.parameters():
         p.grad = None
-    logits = model.apply(x, ctx)
-    loss, acc = model.loss_and_acc(logits, y)
-    (loss / divisor if divisor != 1.0 else loss).backward()
-    with torch.no_grad():
+    with span("lbt/forward"):
+        logits = model.apply(x, ctx)
+        loss, acc = model.loss_and_acc(logits, y)
+    with span("lbt/backward"):
+        (loss / divisor if divisor != 1.0 else loss).backward()
+    with span("lbt/update"), torch.no_grad():
         ctx.commit()
-    return loss.detach(), acc.detach(), {
-        uid: s.grad if s.grad is not None else torch.zeros_like(s)
-        for uid, s in ctx.sinks.items()}
+        stats = {uid: s.grad if s.grad is not None else torch.zeros_like(s)
+                 for uid, s in ctx.sinks.items()}
+    return loss.detach(), acc.detach(), stats
 
 
 @torch.no_grad()
@@ -136,17 +144,19 @@ def make_train_step(model: Model, tc: TrainConfig) -> Callable:
     def train_step(model: Model, velocity: Dict[str, torch.Tensor],
                    x: torch.Tensor, y: torch.Tensor, step: int, lr: float,
                    base_key) -> Dict[str, torch.Tensor]:
-        ctx = Ctx(train=True, key=fold_in(np.asarray(base_key), step),
-                  update=True, update_gate=gate(step),
-                  sinks=model.make_sinks(), n_uids=n_uids)
-        loss, acc, stats = forward_backward(model, ctx, x, y)
-        with torch.no_grad():
-            model.absorb_sinks(stats)
-        sgd_update(model, velocity,
-                   {k: p.grad for k, p in model.net.named_parameters()},
-                   decays, lr, tc.momentum)
-        out = {"loss": loss, "accuracy": acc}
-        check_step(model, velocity, out, step)
+        with span("lbt/step"):
+            ctx = Ctx(train=True, key=fold_in(np.asarray(base_key), step),
+                      update=True, update_gate=gate(step),
+                      sinks=model.make_sinks(), n_uids=n_uids)
+            loss, acc, stats = forward_backward(model, ctx, x, y)
+            with span("lbt/update"), torch.no_grad():
+                model.absorb_sinks(stats)
+                sgd_update(model, velocity,
+                           {k: p.grad
+                            for k, p in model.net.named_parameters()},
+                           decays, lr, tc.momentum)
+            out = {"loss": loss, "accuracy": acc}
+            check_step(model, velocity, out, step)
         return out
 
     return train_step
