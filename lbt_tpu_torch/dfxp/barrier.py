@@ -20,14 +20,23 @@ from lbt_tpu_torch.dfxp.quantize import (Exp, KeyData, dequantize,
                                          overflow_indicators, overflow_rates,
                                          quantize_int)
 
-__all__ = ["HOLD_STATS", "SINK_SHAPE", "grad_quant_barrier", "make_sink",
-           "quantize_cotangent"]
+__all__ = ["HOLD_STATS", "SINK_SHAPE", "grad_quant_barrier", "hold_stats",
+           "make_sink", "quantize_cotangent"]
 
 SINK_SHAPE = (2,)
 
 # Statistics that make update_exponent hold: ovf = 0 (no widen), ovf2 = 1
 # (no tighten).  Emitted on steps whose controllers are gated off.
 HOLD_STATS = (0.0, 1.0)
+
+
+def hold_stats(device) -> torch.Tensor:
+    """:data:`HOLD_STATS` as a fresh f32 ``(2,)`` tensor made on
+    ``device`` by one ``arange`` fill (0, 1), never from Python data: a
+    CUDA tensor built from a tuple is a pageable copy that waits for the
+    card.  Fresh, so the ``.grad`` that autograd keeps of it is no tensor
+    that another sink shares."""
+    return torch.arange(2, dtype=torch.float32, device=device)
 
 
 def make_sink(device=None) -> torch.Tensor:
@@ -53,7 +62,7 @@ def quantize_cotangent(g: torch.Tensor, bits: int, exp: Exp,
     elif gate:
         stats = overflow_rates(g, bits, exp)
     else:
-        stats = torch.tensor(HOLD_STATS, device=g.device)
+        stats = hold_stats(g.device)
     return out[0], out[1], stats
 
 

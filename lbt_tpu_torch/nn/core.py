@@ -15,12 +15,14 @@ on the :class:`Ctx` (:meth:`Ctx.stage`); the train step commits the
 staged values after the backward pass (:meth:`Ctx.commit`), as ``lbt_tpu``
 returns ``new_qstate``.  Gradient-site exponents move only in
 :meth:`Layer.absorb_sinks`, from the statistics the cotangent barriers
-wrote into the sinks (:func:`make_sinks`).
+wrote into the sinks (:func:`make_sinks`), or, on a step whose
+controllers are gated off, by :func:`hold_exponents` without reading them.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Dict, Iterable, List, Optional, Sequence, Tuple
 
 import numpy as np
@@ -28,9 +30,9 @@ import torch
 from torch import nn
 
 from lbt_tpu_torch.config import QuantConfig
-from lbt_tpu_torch.dfxp.barrier import make_sink
+from lbt_tpu_torch.dfxp.barrier import HOLD_STATS, make_sink
 from lbt_tpu_torch.dfxp.keys import site_keys
-from lbt_tpu_torch.dfxp.quantize import (counts_to_rates, multiplier,
+from lbt_tpu_torch.dfxp.quantize import (EXP_MIN, counts_to_rates, multiplier,
                                          overflow_counts, overflow_indicators,
                                          overflow_stats, quantize_ste,
                                          update_exponent)
@@ -178,7 +180,8 @@ class Ctx:
                 self._whole_rates()
             if self._ctrl:
                 rates = self.dist.mean(torch.stack(
-                    [r.to(torch.float32) for _, r, _, _ in self._ctrl]))
+                    [r.to(torch.float32) for _, r, _, _ in self._ctrl]),
+                    kind="stats")
                 for (exp, _, bits, target), r in zip(self._ctrl, rates):
                     exp.copy_(update_exponent(exp, r, bits, target))
                 self._ctrl.clear()
@@ -232,16 +235,27 @@ class Layer(nn.Module):
             return {c.name: c.decay_tree() for c in children}
         return self.own_decay()
 
-    def absorb_sinks(self, sink_cots: Dict[int, torch.Tensor]) -> None:
+    def absorb_sinks(self, sink_cots: Dict[int, torch.Tensor],
+                     held: Iterable[int] = ()) -> None:
         """Step each gradient-site exponent under this layer from its
-        sink's cotangent (``uid -> (2,)`` statistics)."""
-        for child in self.sublayers():
-            child.absorb_sinks(sink_cots)
-        if self.has_grad_sink() and self.uid in sink_cots:
-            exp = self.exp("grad")
-            exp.copy_(update_exponent(exp, sink_cots[self.uid],
-                                      self.cfg.bits_g,
-                                      self.cfg.target_overflow_rate))
+        sink's cotangent (``uid -> (2,)`` statistics), about ten small
+        launches a site.  The sites of ``held`` (uids whose sinks carry
+        :data:`~lbt_tpu_torch.dfxp.barrier.HOLD_STATS`: the controllers
+        were gated off) read nothing and take that step together, in
+        :func:`hold_exponents`."""
+        held = set(held)
+        holding = []
+        for layer in walk(self):
+            if not layer.has_grad_sink():
+                continue
+            if layer.uid in held:
+                holding.append(layer)
+            elif layer.uid in sink_cots:
+                exp = layer.exp("grad")
+                exp.copy_(update_exponent(exp, sink_cots[layer.uid],
+                                          layer.cfg.bits_g,
+                                          layer.cfg.target_overflow_rate))
+        hold_exponents(holding)
 
     # -- quantizer exponents ----------------------------------------------
     def _register_exps(self, sites: Iterable[Tuple[str, int, int]]) -> None:
@@ -318,6 +332,41 @@ class Layer(nn.Module):
                                   row0=row0, **self._qkw(ctx))
         self._ctrl(ctx, site, bits, t, minmax)
         return tq
+
+
+@functools.cache
+def hold_step(target_overflow_rate: float) -> int:
+    """The step :func:`~lbt_tpu_torch.dfxp.quantize.update_exponent`
+    takes on :data:`~lbt_tpu_torch.dfxp.barrier.HOLD_STATS` at this
+    target (0 for a target in [0, 1)): ``update_exponent`` of 0 on the
+    host, once a target."""
+    return int(update_exponent(0, torch.tensor(HOLD_STATS), 8,
+                               target_overflow_rate))
+
+
+def hold_exponents(layers: Sequence[Layer]) -> None:
+    """Give the gradient-site exponent of each of ``layers`` the step that
+    ``update_exponent`` gives it on ``HOLD_STATS`` (:func:`hold_step`),
+    clamped to ``[EXP_MIN, bits_g - 1]`` as there, with no read of the
+    device: a foreach clamp (after an add, at a target outside [0, 1)) of
+    every site of one ``bits_g`` and step at once, a few launches in all.
+    The clamp still matters: a cold-start ``initial_exponent_g`` may lie
+    above ``bits_g - 1``.  ``hold_exponents.held_sites`` counts the sites
+    held so."""
+    groups: Dict[Tuple[int, int], List[torch.Tensor]] = {}
+    for layer in layers:
+        cfg = layer.cfg
+        groups.setdefault((cfg.bits_g, hold_step(cfg.target_overflow_rate)),
+                          []).append(layer.exp("grad"))
+    for (bits, step), exps in groups.items():
+        if step:
+            torch._foreach_add_(exps, step)
+        torch._foreach_clamp_min_(exps, EXP_MIN)
+        torch._foreach_clamp_max_(exps, bits - 1)
+    hold_exponents.held_sites += len(layers)
+
+
+hold_exponents.held_sites = 0
 
 
 def site_init_exp(cfg: QuantConfig, site: str) -> int:

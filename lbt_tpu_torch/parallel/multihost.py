@@ -116,10 +116,10 @@ class Group:
         parts = torch.split(flat, [t.numel() for t in tensors])
         return [v.view(t.shape) for v, t in zip(parts, tensors)]
 
-    def mean(self, t: torch.Tensor) -> torch.Tensor:
+    def mean(self, t: torch.Tensor, kind: str = "reduce") -> torch.Tensor:
         """XLA's ``pmean``: the sum over ranks, then divided by their
         number (exact for {0, 1} indicators)."""
-        return self.all_reduce(t) / self.world
+        return self.all_reduce(t, kind=kind) / self.world
 
     def all_gather(self, t: torch.Tensor, dim: int = -1,
                    kind: str = "gather") -> torch.Tensor:

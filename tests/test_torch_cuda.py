@@ -639,6 +639,58 @@ def test_train_step_card_matches_cpu(dev, cfg):
         cmp(a, b)
 
 
+def test_gated_off_step_makes_no_blocking_call(dev):
+    """A ResNet-8 step under the headline's options with its controllers
+    gated off (cadence 2, an odd step) makes no blocking CUDA runtime call
+    inside its ``lbt/step`` range (the names that portbench's
+    ``host_syncs_per_step.train`` counts): the barriers make the hold
+    statistic on the card, and the step holds the exponents without
+    reading them back, every gradient site of the model.  The first such
+    step clamps ``initial_exponent_g=20`` to 7 on the card as on the
+    CPU."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from lbt_tpu_torch.nn import core
+    syncs = {"cudaStreamSynchronize", "cudaDeviceSynchronize",
+             "cudaEventSynchronize", "cudaMemcpy"}
+    cfg = QuantConfig.uniform(8, engine="int8", noise_mode="hash1",
+                              fused_bn=True, range_update_every=2,
+                              range_update_warmup_steps=0, conv_act_extra=0,
+                              act_dtype="bf16", initial_exponent_g=20)
+    rng = np.random.default_rng(0)
+    x = rng.normal(0, 1, (8, 32, 32, 3)).astype(np.float32)
+    y = rng.integers(0, 10, (8,)).astype(np.int64)
+    runs, exps = [], []
+    for d in (torch.device("cpu"), dev):
+        model = cifar10_resnet(cfg, 8).init(
+            torch.Generator().manual_seed(0)).to(d)
+        vel = momentum_init(dict(model.net.named_parameters()))
+        step = make_train_step(model, TrainConfig())
+        runs.append(lambda s, model=model, vel=vel, step=step, d=d: step(
+            model, vel, torch.from_numpy(x).to(d), torch.from_numpy(y).to(d),
+            s, 1e-2, base_key(3)))
+        runs[-1](1)
+        exps.append({k: int(b) for k, b in model.net.named_buffers()
+                     if k.endswith("exp_grad")})
+    assert exps[1] == exps[0] and set(exps[0].values()) == {7}
+    run = runs[1]
+    run(2)
+    run(3)
+    torch.cuda.synchronize()
+    held = core.hold_exponents.held_sites
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        run(5)
+    assert core.hold_exponents.held_sites - held == len(exps[1])
+    events = prof.events()
+    (span,) = [e for e in events if e.name == "lbt/step"]
+    inside = {e.name for e in events
+              if span.time_range.start <= e.time_range.start
+              <= span.time_range.end}
+    assert "cudaLaunchKernel" in inside
+    assert not syncs & inside, sorted(syncs & inside)
+
+
 # the redesigned kernels at the edges of their tiles and pipelines
 
 @pytest.mark.parametrize("m", [1, 17, 131072])

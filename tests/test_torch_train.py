@@ -18,6 +18,7 @@ import pytest
 import torch
 
 import lbt_tpu.config as jconfig
+from lbt_tpu.dfxp.barrier import HOLD_STATS as JHOLD_STATS
 from lbt_tpu.dfxp.barrier import grad_quant_barrier as jbarrier
 from lbt_tpu.models import cifar10_resnet as jax_resnet
 from lbt_tpu.ops import qops as jops
@@ -28,12 +29,14 @@ from lbt_tpu_torch import config as tconfig
 from lbt_tpu_torch import convert
 from lbt_tpu_torch.dfxp import keys
 from lbt_tpu_torch.dfxp import quantize as tq
-from lbt_tpu_torch.dfxp.barrier import grad_quant_barrier, make_sink
+from lbt_tpu_torch.dfxp.barrier import (HOLD_STATS, grad_quant_barrier,
+                                        make_sink)
 from lbt_tpu_torch.models import cifar10_resnet
+from lbt_tpu_torch.nn import core
 from lbt_tpu_torch.nn.core import Ctx
 from lbt_tpu_torch.ops import qops
 from lbt_tpu_torch.train.optim import momentum_init, piecewise_lr
-from lbt_tpu_torch.train.step import make_train_step
+from lbt_tpu_torch.train.step import forward_backward, make_train_step
 
 jq = importlib.import_module("lbt_tpu.dfxp.quantize")
 
@@ -450,11 +453,158 @@ def test_cadence_gates_the_controllers():
         return {k: b.clone() for k, b in model.net.named_buffers()
                 if k.rsplit(".", 1)[-1].startswith("exp_")}
 
+    # every gradient site of ResNet-8 is reached: the gated-off step
+    # holds all of them, the others none
+    n_sinks = len(model.make_sinks())
+    held = core.hold_exponents.held_sites
     run(0)
+    assert core.hold_exponents.held_sites == held
     before = exps()
     mean0 = model.net.layers[1].layers[0].mean.clone()
     run(1)
+    assert core.hold_exponents.held_sites == held + n_sinks
     assert all(torch.equal(before[k], v) for k, v in exps().items())
     assert not torch.equal(mean0, model.net.layers[1].layers[0].mean)
     run(2)
+    assert core.hold_exponents.held_sites == held + n_sinks
     assert any(not torch.equal(before[k], v) for k, v in exps().items())
+
+
+def _grad_exps(model):
+    """Each gradient-site exponent buffer of ``model``, by layer uid."""
+    return {layer.uid: layer.exp("grad") for layer in core.walk(model.net)
+            if layer.has_grad_sink()}
+
+
+def _absorb_site_by_site(model):
+    """``model.absorb_sinks`` as every site once stepped: each through
+    ``update_exponent``, a held one on ``HOLD_STATS``."""
+    def absorb(stats, held=()):
+        for layer in core.walk(model.net):
+            if layer.has_grad_sink() and (layer.uid in stats
+                                          or layer.uid in held):
+                stat = (torch.tensor(HOLD_STATS) if layer.uid in held
+                        else stats[layer.uid])
+                exp = layer.exp("grad")
+                exp.copy_(tq.update_exponent(
+                    exp, stat, layer.cfg.bits_g,
+                    layer.cfg.target_overflow_rate))
+    return absorb
+
+
+@pytest.mark.parametrize("target", [0.0, 0.01])
+def test_cadence_hold_matches_update_exponent(target):
+    """Four steps of ResNet-8 at ``range_update_every=2`` without warmup,
+    from step 1 (gated off first) and ``initial_exponent_g=20``, above
+    ``bits_g - 1``: the batched hold leaves every exponent, parameter,
+    BN statistic and velocity bitwise where stepping each held site
+    through ``update_exponent`` on ``HOLD_STATS`` leaves them, after
+    every step; on the first step each gradient exponent is ``lbt_tpu``'s
+    ``update_exponent`` of 20 on its ``HOLD_STATS``: clamped to 7."""
+    cfg = tconfig.QuantConfig.uniform(
+        8, noise_mode="hash", range_update_every=2,
+        range_update_warmup_steps=0, initial_exponent_g=20,
+        target_overflow_rate=target)
+    twins = [cifar10_resnet(cfg, 8).init(torch.Generator().manual_seed(0))
+             for _ in range(2)]
+    twins[1].absorb_sinks = _absorb_site_by_site(twins[1])
+    vels = [momentum_init(dict(m.net.named_parameters())) for m in twins]
+    steps = [make_train_step(m, tconfig.TrainConfig()) for m in twins]
+    rng = np.random.default_rng(2)
+    hold = jnp.asarray(JHOLD_STATS, jnp.float32)
+    for s in range(1, 5):
+        x = torch.from_numpy(rng.normal(0, 1, (2, 32, 32, 3)).astype(
+            np.float32))
+        before = {u: int(e) for u, e in _grad_exps(twins[0]).items()}
+        for m, v, step in zip(twins, vels, steps):
+            step(m, v, x, torch.tensor([3, 5]), s, 0.01, keys.base_key(0))
+        got, want = (m.net.state_dict() for m in twins)
+        for k in want:
+            assert torch.equal(got[k], want[k]), (s, k)
+        for k in vels[1]:
+            assert torch.equal(vels[0][k], vels[1][k]), (s, k)
+        if s == 1:
+            for u, e in _grad_exps(twins[0]).items():
+                assert int(e) == int(jq.update_exponent(
+                    jnp.int32(before[u]), hold, 8, target)) == 7
+
+
+@pytest.mark.parametrize("target", [-0.5, 0.0, 0.01, 0.99999999, 1.0, 2.0])
+def test_hold_exponents_match_lbt_tpu(target):
+    """``hold_exponents`` gives each site ``lbt_tpu``'s ``update_exponent``
+    on its ``HOLD_STATS`` in one batch of mixed ``bits_g``, at every
+    exponent and at targets that widen (below 0), hold, and tighten (1
+    and above, 0.99999999 among them: it is 1 in f32)."""
+    from lbt_tpu_torch.nn.layers import Dense
+    sites = []
+    for bits in (4, 8):
+        cfg = dataclasses.replace(tconfig.QuantConfig.uniform(
+            8, target_overflow_rate=target), bits_g=bits)
+        for e in (31, bits, bits - 1, 0, jq.EXP_MIN, jq.EXP_MIN - 5):
+            layer = core.finalize(Dense("d", cfg, 2, 2))
+            layer.exp("grad").fill_(e)
+            sites.append((layer, e, bits))
+    core.hold_exponents([layer for layer, _, _ in sites])
+    hold = jnp.asarray(JHOLD_STATS, jnp.float32)
+    for layer, e, bits in sites:
+        assert layer.exp("grad").dtype == torch.int32
+        assert int(layer.exp("grad")) == int(jq.update_exponent(
+            jnp.int32(e), hold, bits, target)), (e, bits)
+
+
+def test_gated_off_backward_holds_on_the_device(monkeypatch):
+    """With the controllers gated off, the backward builds no tensor from
+    Python data (on a card that is a pageable copy and a wait: here
+    ``torch.tensor`` raises inside ``backward``); the sink a cotangent
+    reached (d1) reads ``HOLD_STATS``, is held (its exponent as
+    ``update_exponent`` on ``HOLD_STATS`` leaves it, one site counted in
+    ``held_sites``), and the one none reached (d0, frozen) tightens on
+    zero statistics, as ``lbt_tpu``'s zero sink cotangent does.  Gated on,
+    no site is held and d0 tightens again."""
+    from lbt_tpu_torch.nn.layers import Dense, ReLU
+    from lbt_tpu_torch.nn.model import Model
+    cfg = tconfig.QuantConfig.uniform(8, noise_mode="hash")
+    model = Model("m", [Dense("d0", cfg, 6, 8), ReLU(),
+                        Dense("d1", cfg, 8, 3)], (6,), 3, cfg).init(
+        torch.Generator().manual_seed(0))
+    d0, d1 = model.net.layers[0], model.net.layers[2]
+    for p in d0.parameters():
+        p.requires_grad_(False)
+    x = torch.from_numpy(np.random.default_rng(0).normal(
+        0, 1, (4, 6)).astype(np.float32))
+
+    def no_tensor(*args, **kwargs):
+        raise AssertionError("a tensor from Python data in the backward")
+
+    real_backward = torch.Tensor.backward
+
+    def guarded_backward(self, *args, **kwargs):
+        with monkeypatch.context() as mp:
+            mp.setattr(torch, "tensor", no_tensor)
+            return real_backward(self, *args, **kwargs)
+
+    zero = jnp.zeros((2,), jnp.float32)
+    hold = jnp.asarray(JHOLD_STATS, jnp.float32)
+    for gate in (False, True):
+        ctx = Ctx(train=True, key=keys.base_key(0), update_gate=gate,
+                  sinks=model.make_sinks(), n_uids=model.num_layers())
+        e0, e1 = int(d0.exp("grad")), int(d1.exp("grad"))
+        with monkeypatch.context() as mp:
+            if not gate:
+                mp.setattr(torch.Tensor, "backward", guarded_backward)
+            _, _, stats, held = forward_backward(model, ctx, x,
+                                                 torch.tensor([0, 1, 2, 0]))
+        assert ctx.sinks[d0.uid].grad is None
+        n = core.hold_exponents.held_sites
+        model.absorb_sinks(stats, held)
+        assert int(d0.exp("grad")) == int(jq.update_exponent(
+            jnp.int32(e0), zero, 8, 0.0)) == e0 - 1
+        if gate:
+            assert held == [] and set(stats) == {d0.uid, d1.uid}
+            assert core.hold_exponents.held_sites == n
+            continue
+        assert held == [d1.uid] and set(stats) == {d0.uid}
+        assert ctx.sinks[d1.uid].grad.tolist() == list(HOLD_STATS)
+        assert core.hold_exponents.held_sites == n + 1
+        assert int(d1.exp("grad")) == int(jq.update_exponent(
+            jnp.int32(e1), hold, 8, 0.0)) == e1
