@@ -3,11 +3,12 @@
 
 ``"loop": "closed_train"`` is a training job: one client that sends the
 next batch when the step before has been dispatched.  Its batches cycle a
-pool of ``pool_batches`` host batches of ``batch_size`` images (f32 NHWC,
-standard normal, at the configuration's image size) and labels (uniform
-over its classes), drawn on the device from the seed in one call each and
-kept in host memory, as a dataset in RAM.  The first ``compare_steps``
-(the cell's limits file) take batches 0, 1, 2 ...: rows that all differ.
+pool of ``pool_batches`` host batches of ``batch_size`` rows (samples:
+images, sequences), each drawn on the device from the seed by the
+architecture's ``draw`` (``portbench/reference/<name>.py``) and kept in
+host memory as drawn, as a dataset in RAM.  The first
+``compare_steps`` (the cell's limits file) take batches 0, 1, 2 ...: rows
+that all differ.
 """
 
 from __future__ import annotations
@@ -16,7 +17,7 @@ import itertools
 import json
 import time
 from pathlib import Path
-from typing import Dict, Iterator, List, Tuple
+from typing import Callable, Dict, Iterator, List, Tuple
 
 import numpy as np
 import torch
@@ -32,17 +33,14 @@ def load(path: Path) -> Dict:
     return mix
 
 
-def pool(mix: Dict, image_size: int, num_classes: int, seed: int,
-         device) -> List[Batch]:
-    """The host batches of ``mix`` from ``seed`` (drawn on ``device``)."""
+def pool(mix: Dict, draw: Callable, seed: int, device) -> List[Batch]:
+    """The host batches of ``mix`` from ``seed``: ``draw(batch_size,
+    generator, device)``'s ``(x, y)`` from one generator on ``device``,
+    copied to the host with their dtypes and shapes."""
     gen = torch.Generator(device=device).manual_seed(seed)
-    b = mix["batch_size"]
     out = []
     for _ in range(mix["pool_batches"]):
-        x = torch.randn((b, image_size, image_size, 3), generator=gen,
-                        device=device, dtype=torch.float32)
-        y = torch.randint(0, num_classes, (b,), generator=gen, device=device,
-                          dtype=torch.int64)
+        x, y = draw(mix["batch_size"], gen, device)
         out.append((x.cpu().numpy(), y.cpu().numpy()))
     return out
 

@@ -2,10 +2,15 @@
 
 ``python3 portbench/run.py --workload <name> --seed <n> --seconds <s>
 --trace <0|1>`` finds the cell, its configuration
-(``portbench/configs/<config>.json``), its traffic mix
+(``portbench/configs/<config>.json``), its architecture (the
+configuration's ``architecture.reference``: its plain reference and input
+draw ``portbench/reference/<arch>.py`` and its model operations
+``portbench/counts/<arch>.py``), its traffic mix
 (``portbench/traffic/<mix>.json``), its limits
-(``portbench/limits/<cell>.json``) and its per-layer metrics
-(``portbench/metrics/<metric>.py``) by name, and runs:
+(``portbench/limits/<cell>.json``), its per-layer metrics
+(``portbench/metrics/<metric>.py``) and the port's kernels
+(``portbench/kernels/*.py``) by name (:mod:`portbench.by_name`), and
+runs:
 
 1. set-up: the port's ``Trainer`` (:mod:`portbench.program`) with the
    benchmark's seeded weights, the seeded pool of host batches, the
@@ -14,15 +19,17 @@
    warm-up steps, which run both branches of the controllers' cadence and
    build every kernel;
 2. the window: ``train_epoch`` over the pool in a cycle for ``--seconds``,
-   steps dispatched back to back, one synchronise at its end; every image
-   of every step counts, over the whole window's host time;
+   steps dispatched back to back, one synchronise at its end; every
+   sample (a row of a batch: an image, a sequence) of every step counts,
+   over the whole window's host time;
 3. with ``--trace 1``, a profiled sub-window of whole cadence periods
    (:mod:`portbench.trace`), for the per-layer metrics and the breakdown;
 4. the check on ``sys.modules`` (no ``jax``, ``jaxlib``, ``flax`` or
    ``lbt_tpu``, by whole top-level name);
-5. the program freed, the plain reference (:mod:`portbench.reference`)
-   runs the same steps from the same weights, keys and batches, and the
-   numbers of :mod:`portbench.check` decide ``correct``.
+5. the program freed, the architecture's plain reference
+   (:mod:`portbench.reference`) runs the same steps from the same
+   weights, keys and batches, and the numbers of :mod:`portbench.check`
+   decide ``correct``.
 
 The last line of standard output is the result's JSON; the numbers
 compared, each beside its limit, are the last lines of standard error.
@@ -31,9 +38,10 @@ compared, each beside its limit, are the last lines of standard error.
 from __future__ import annotations
 
 import argparse
+import functools
 import gc
-import importlib.util
 import json
+import math
 import sys
 import time
 from pathlib import Path
@@ -41,8 +49,7 @@ from typing import Dict
 
 import torch
 
-from portbench import check, generator
-from portbench.reference import resnet
+from portbench import by_name, check, generator
 from portbench.yardstick import flops
 
 HERE = Path(__file__).resolve().parent
@@ -65,16 +72,14 @@ def load_json(path: Path) -> Dict:
 def metric_reader(name: str, here: Path = HERE):
     """The module of per-layer metric ``name``
     (``<here>/metrics/<name>.py``)."""
-    path = here / "metrics" / f"{name}.py"
-    spec = importlib.util.spec_from_file_location(
-        f"portbench.metrics.{name.replace('.', '_')}", path)
-    mod = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(mod)
-    return mod
+    return by_name.load("metrics", name, here)
 
 
 class Cell:
-    """A cell of ``bench`` (``BENCHMARK.json``'s dict) and its files."""
+    """A cell of ``bench`` (``BENCHMARK.json``'s dict) and its files:
+    ``arch``, the architecture's reference module, and ``count``, its
+    operation count, both named by the configuration's
+    ``architecture.reference``."""
 
     def __init__(self, bench: Dict, workload: str, here: Path = HERE):
         cells = {w["name"]: w for w in bench["workloads"]}
@@ -93,7 +98,11 @@ class Cell:
         self.per_layer = [m for m in bench["per_layer"]
                           if workload in m.get("workloads", [workload])]
         self.here = here
-        self.spec = resnet.Spec.from_config(self.cfg)
+        arch = self.cfg["architecture"]["reference"]
+        self.arch = by_name.load("reference", arch, here)
+        self.count = by_name.load("counts", arch, here)
+        self.spec = self.arch.Spec.from_config(self.cfg)
+        self.draw = functools.partial(self.arch.draw, self.spec)
 
 
 def key_seed(seed: int) -> int:
@@ -103,7 +112,7 @@ def key_seed(seed: int) -> int:
 
 def initial_params(cell: Cell, seed: int, device):
     gen = torch.Generator(device=device).manual_seed(seed)
-    return resnet.init_params(cell.spec, gen, device)
+    return cell.arch.init_params(cell.spec, gen, device)
 
 
 def _sync(device):
@@ -123,8 +132,7 @@ def set_up(cell: Cell, seed: int, device, faults=None):
     if steps > mix["pool_batches"] or steps > mix["warmup_steps"]:
         raise ValueError("the compared steps need their own batches and "
                          "fall within the warm-up")
-    pool = generator.pool(mix, cell.spec.image_size, cell.spec.num_classes,
-                          seed + 1, dev)
+    pool = generator.pool(mix, cell.draw, seed + 1, dev)
     params0 = initial_params(cell, seed, dev)
     prog = prog_mod.Program(cell.cfg, mix["batch_size"], key_seed(seed),
                             mix["start_step"], dev)
@@ -154,8 +162,8 @@ def reference_readings(cell: Cell, seed: int, pool, device, spec=None,
     only the first rows of each batch)."""
     dev = torch.device(device)
     spec = spec or cell.spec
-    ref = resnet.Reference(spec, initial_params(cell, seed, dev),
-                           key_seed(seed))
+    ref = cell.arch.Reference(spec, initial_params(cell, seed, dev),
+                              key_seed(seed))
     p0 = {k: v.detach().clone() for k, v in ref.params.items()}
     b0 = {k: v.clone() for k, v in ref.buffers.items()}
     losses = []
@@ -206,19 +214,20 @@ def run_cell(cell: Cell, seed: int, seconds: float, trace: bool, device,
             else 0)
 
     rec = {"window": window,
-           "train_ops_per_image": flops.train_ops_per_image(cell.spec),
+           "train_ops_per_image": cell.count.train_ops_per_sample(
+               cell.spec),
            "peak_ops_per_s": flops.peak_ops_per_s(cell.spec)}
     if trace:
         n_prof = generator.profile_steps(
             mix, cell.cfg["quant"]["range_update_every"])
         prof = {"steps": n_prof}
-        before = prog_mod.counters()
-        with prog_mod.recorded_calls() as calls, \
+        before = prog_mod.counters(cell.here)
+        with prog_mod.recorded_calls(cell.here) as calls, \
                 trace_mod.profiled(prof, lambda: _sync(dev)):
             prog.run(generator.first(pool, n_prof))
         prof["calls"] = dict(calls)
-        prof["counters"] = {k: v - before[k]
-                            for k, v in prog_mod.counters().items()}
+        after = prog_mod.counters(cell.here)
+        prof["counters"] = {k: v - before[k] for k, v in after.items()}
         rec["profile"] = prof
     found = forbidden_modules()
     del prog
@@ -267,8 +276,16 @@ def result_line(cell: Cell, res: Dict, trace: bool, device_name: str,
     return {"correct": bool(res["correct"]), "attempted": res["attempted"],
             "failed": res["failed"], "metrics": metrics, "device": device,
             **out,
-            "checks": {k: {"value": nums[k]["value"], "limit": v}
+            "checks": {k: {"value": _finite(nums[k]["value"]
+                                            if k in nums else None),
+                           "limit": v}
                        for k, v in res["limits"].items()}}
+
+
+def _finite(v):
+    """``v``, or None for a number that is absent or not finite (which
+    JSON cannot hold)."""
+    return v if v is not None and math.isfinite(v) else None
 
 
 def parse(argv) -> argparse.Namespace:

@@ -1,7 +1,8 @@
 """The system under test: ``lbt_tpu_torch``'s ``Trainer`` built from a
 configuration file, its weights loaded from the benchmark's seeded ones,
 and what the benchmark reads of it: the losses a step returns, its state,
-the kernels' call shapes and launch counters.
+the call shapes and launch counters of the kernels that
+``portbench/kernels/`` names.
 
 Imported only after the harness has checked for the card, and never by
 ``portbench/reference``."""
@@ -10,7 +11,9 @@ from __future__ import annotations
 
 import collections
 import contextlib
+import importlib
 import logging
+from pathlib import Path
 from typing import Dict, List
 from unittest import mock
 
@@ -18,11 +21,9 @@ import torch
 
 import lbt_tpu_torch
 from lbt_tpu_torch.config import QuantConfig, TrainConfig
-from lbt_tpu_torch.dfxp import quantize as qmod
 from lbt_tpu_torch.models import build_model
-from lbt_tpu_torch.ops import qops
-from lbt_tpu_torch.ops.kernels import conv_fused, gemm, quant
 from lbt_tpu_torch.train.trainer import Trainer
+from portbench import by_name
 
 PACKAGE_FILE = lbt_tpu_torch.__file__
 
@@ -36,6 +37,19 @@ def _quiet_logger() -> logging.Logger:
     return log
 
 
+def build_kwargs(cfg: Dict) -> Dict:
+    """The zoo builder's keyword arguments that ``cfg`` lists
+    (``architecture.build``: dotted paths into the configuration, each
+    passed under its last name)."""
+    out = {}
+    for path in cfg["architecture"]["build"]:
+        v = cfg
+        for part in path.split("."):
+            v = v[part]
+        out[path.rsplit(".", 1)[-1]] = v
+    return out
+
+
 class Program:
     """One ``Trainer`` on ``device`` under the configuration ``cfg`` (a
     configuration file's dict), batches of ``batch_size``, the stochastic
@@ -43,11 +57,10 @@ class Program:
 
     def __init__(self, cfg: Dict, batch_size: int, key_seed: int,
                  start_step: int, device):
-        m, t = cfg["model"], cfg["train"]
+        t = cfg["train"]
         self.qc = QuantConfig(**cfg["quant"])
-        model = build_model(m["zoo"], self.qc, num_classes=m["num_classes"],
-                            image_size=m["image_size"],
-                            weight_decay=t["weight_decay"])
+        model = build_model(cfg["model"]["zoo"], self.qc,
+                            **build_kwargs(cfg))
         tc = TrainConfig(lr=t["lr"], momentum=t["momentum"],
                          weight_decay=t["weight_decay"],
                          batch_size=batch_size, seed=key_seed,
@@ -115,53 +128,33 @@ class Program:
 # -- the kernels' calls and counters ------------------------------------------
 
 
-def counters() -> Dict[str, int]:
-    """The kernel wrappers' launch counters."""
-    return {"k1": quant.quantize_codes.launches,
-            "k2": gemm.int8_matmul.launches,
-            "k2_tn": gemm.int8_matmul_tn.launches,
-            "conv3x3": conv_fused.conv3x3_fused.launches,
-            "conv1x1": conv_fused.conv1x1_fused.launches}
+def counters(here: Path = by_name.HERE) -> Dict[str, int]:
+    """The launch counters of ``here``'s kernel files."""
+    return {name: getattr(importlib.import_module(module), fn).launches
+            for k in by_name.kernels(here).values()
+            for name, (module, fn) in k.COUNTERS.items()}
+
+
+def _recording(fn, record, calls: Dict[str, List], key: str):
+    def rec(*args, **kwargs):
+        out = fn(*args, **kwargs)
+        calls[key].append(record(out, *args, **kwargs))
+        return out
+    return rec
 
 
 @contextlib.contextmanager
-def recorded_calls():
-    """While open, every call of K1, K2 (both forms) and #4/#5 is recorded
-    with what the yardstick needs (shapes, code widths, noise mode,
-    statistics) in the dict it yields."""
+def recorded_calls(here: Path = by_name.HERE):
+    """While open, every call of a kernel of ``here``'s kernel files
+    through one of its sites is recorded as its file's ``record`` gives it
+    (shapes, code widths, noise mode, statistics: what the yardstick
+    needs), under the file's name, in the dict it yields."""
     calls = collections.defaultdict(list)
-
-    def k1(x, bits, exp, noise=None, stats=False):
-        out = quant.quantize_codes(x, bits, exp, noise, stats)
-        calls["k1"].append((x.numel(), out[0].element_size(), bool(stats),
-                            0 if noise is None else noise.mode))
-        return out
-
-    def k2(a, b, inv=None):
-        calls["k2"].append((a.shape[0], a.shape[1], b.shape[1],
-                            inv is not None))
-        return gemm.int8_matmul(a, b, inv)
-
-    def k2_tn(a, b):
-        calls["k2_tn"].append((a.shape[0], a.shape[1], b.shape[1]))
-        return gemm.int8_matmul_tn(a, b)
-
-    def fused(fn):
-        def rec(xc, wc, inv, mult, *, strides, pads, bits_out=8, noise=None,
-                round_bf16=False):
-            calls["conv"].append((tuple(xc.shape), xc.element_size(),
-                                  tuple(wc.shape), tuple(strides),
-                                  tuple(map(tuple, pads)),
-                                  0 if noise is None else noise.mode))
-            return fn(xc, wc, inv, mult, strides=strides, pads=pads,
-                      bits_out=bits_out, noise=noise, round_bf16=round_bf16)
-        return rec
-
-    with mock.patch.object(qmod, "quantize_codes", k1), \
-            mock.patch.object(qops, "int8_matmul", k2), \
-            mock.patch.object(qops, "int8_matmul_tn", k2_tn), \
-            mock.patch.object(qops, "conv3x3_fused",
-                              fused(conv_fused.conv3x3_fused)), \
-            mock.patch.object(qops, "conv1x1_fused",
-                              fused(conv_fused.conv1x1_fused)):
+    with contextlib.ExitStack() as stack:
+        for key, k in by_name.kernels(here).items():
+            for module, name in k.WRAPS:
+                mod = importlib.import_module(module)
+                stack.enter_context(mock.patch.object(
+                    mod, name, _recording(getattr(mod, name), k.record,
+                                          calls, key)))
         yield calls

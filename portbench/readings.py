@@ -26,7 +26,6 @@ if __name__ == "__main__":
 import torch  # noqa: E402
 
 from portbench import check, harness  # noqa: E402
-from portbench.reference import resnet  # noqa: E402
 
 
 def seed_readings(cell, seed, device, control, half, fh=None):
@@ -38,8 +37,8 @@ def seed_readings(cell, seed, device, control, half, fh=None):
     want = harness.reference_readings(cell, seed, pool, dev)
     rows = [("sound", got)]
     if control:
-        low = resnet.Spec.from_config(cell.cfg, bits_w=4, bits_a=4,
-                                      bits_b=4, bits_g=4)
+        low = cell.arch.Spec.from_config(cell.cfg, bits_w=4, bits_a=4,
+                                         bits_b=4, bits_g=4)
         rows.append(("control", harness.reference_readings(
             cell, seed, pool, dev, spec=low)))
     if half:
@@ -48,9 +47,10 @@ def seed_readings(cell, seed, device, control, half, fh=None):
     out = []
     for kind, r in rows:
         nums = check.numbers(r, want)
+        have = [k for k in check.NUMBERS if k in nums]
         line = {"workload": cell.name, "seed": seed, "kind": kind,
-                "numbers": {k: nums[k]["value"] for k in check.NUMBERS},
-                "worst": {k: nums[k]["leaf"] for k in check.NUMBERS},
+                "numbers": {k: nums[k]["value"] for k in have},
+                "worst": {k: nums[k]["leaf"] for k in have},
                 "exps_differ": nums["exps_differ"],
                 "loss": r["loss"], "ref_loss": want["loss"],
                 "seconds": time.perf_counter() - t0}

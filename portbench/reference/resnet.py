@@ -37,6 +37,14 @@ DFXP (dynamic fixed point) rules, per quantize site:
 Contractions are exact here: sums of products of codes in float64 (exact
 below 2**53), one GEMM a kernel tap.  Then SGD with momentum and the
 in-gradient weight decay ``g + 2 wd w`` on conv / dense weights and gamma.
+
+The harness reaches an architecture through its reference module
+(``portbench/reference/<name>.py``, the configuration's
+``architecture.reference``), which provides :meth:`Spec.from_config`,
+:func:`init_params`, :func:`draw` and :class:`Reference`, as this one
+does.  Another architecture may reuse this module's sites and layers, and
+:class:`Reference`'s training state by subclassing it with its own
+``build``, ``leaves`` and ``forward``.
 """
 
 from __future__ import annotations
@@ -236,6 +244,18 @@ def init_params(spec: Spec, gen: torch.Generator,
             out[name] = (torch.ones if init == "ones" else torch.zeros)(
                 shape, device=device)
     return out
+
+
+def draw(spec: Spec, batch: int, gen: torch.Generator, device):
+    """One batch of inputs from ``gen``: ``batch`` images (f32 NHWC,
+    standard normal, at the image size), then as many labels (int64,
+    uniform over the classes)."""
+    s = spec.image_size
+    x = torch.randn((batch, s, s, 3), generator=gen, device=device,
+                    dtype=torch.float32)
+    y = torch.randint(0, spec.num_classes, (batch,), generator=gen,
+                      device=device, dtype=torch.int64)
+    return x, y
 
 
 # -- quantization ------------------------------------------------------------
@@ -670,16 +690,21 @@ def _exp_sites(n: Node, spec: Spec):
 
 class Reference:
     """The model's parameters, velocity, BN running statistics and
-    exponents, and :meth:`step`."""
+    exponents, and :meth:`step`.  The architecture is the class's
+    ``build``, ``leaves`` and ``forward``."""
+
+    build = staticmethod(build)
+    leaves = staticmethod(leaves)
+    forward = staticmethod(forward)
 
     def __init__(self, spec: Spec, params: Dict[str, torch.Tensor],
                  key_seed: int):
         self.spec = spec
-        self.root, self.n_uids = build(spec)
+        self.root, self.n_uids = self.build(spec)
         self.base_key = noise.base_key(key_seed)
         self.params = {k: v.detach().clone().requires_grad_(True)
                        for k, v in params.items()}
-        self.decay = {name: wd for name, _, _, wd in leaves(spec)}
+        self.decay = {name: wd for name, _, _, wd in self.leaves(spec)}
         self.velocity = {k: torch.zeros_like(v)
                          for k, v in self.params.items()}
         dev = next(iter(params.values())).device
@@ -702,13 +727,13 @@ class Reference:
         return {self.paths[k]: v for k, v in self.exps.items()}
 
     def step(self, x: torch.Tensor, y: torch.Tensor, step: int) -> float:
-        """One training step on ``x`` (NHWC f32) and labels ``y``; returns
-        the loss."""
+        """One training step on a batch of :func:`draw`'s inputs ``x`` and
+        labels ``y``; returns the loss."""
         spec = self.spec
         st = Step(self, step)
         for p in self.params.values():
             p.grad = None
-        loss = loss_of(forward(st, self.root, x, self.params), y)
+        loss = loss_of(self.forward(st, self.root, x, self.params), y)
         loss.backward()
         with torch.no_grad():
             # forward sites, then gradient sites, from one host read

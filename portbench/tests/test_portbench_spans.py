@@ -81,8 +81,7 @@ def test_the_twin_s_traced_record_holds_a_step_range_a_step(twin):
     step, each holding its forward, backward and updates."""
     from portbench import program
     cell = harness.Cell(bench(), "r50-int8-train-b256", here=twin)
-    pool = generator.pool({**cell.mix, "pool_batches": 2},
-                          cell.spec.image_size, cell.spec.num_classes, 5,
+    pool = generator.pool({**cell.mix, "pool_batches": 2}, cell.draw, 5,
                           torch.device("cpu"))
     prog = program.Program(cell.cfg, TWIN_BATCH, 5, 200, "cpu")
     rec = {"steps": 2}

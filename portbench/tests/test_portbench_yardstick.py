@@ -80,7 +80,8 @@ def test_model_operations(workload, peak):
     configuration's contraction precision's."""
     cell = harness.Cell(harness.load_json(ROOT / "BENCHMARK.json"),
                         workload)
-    assert flops.forward_macs(cell.spec) == (4_089_184_256, 118_013_952)
-    assert flops.train_ops_per_image(cell.spec) == \
+    assert cell.count.forward_macs(cell.spec) == (4_089_184_256,
+                                                  118_013_952)
+    assert cell.count.train_ops_per_sample(cell.spec) == \
         2 * (3 * 4_089_184_256 - 118_013_952)
     assert flops.peak_ops_per_s(cell.spec) == peak

@@ -5,28 +5,36 @@ The record holds the sub-window's host wall seconds and steps, every
 device interval ``(start_ns, end_ns, name)`` (kernels, copies and
 fills), every host operation's interval, the port's kernel calls as
 recorded by their wrappers (``program.recorded_calls``) and the wrappers'
-launch counters.  No trace file is written.
+launch counters.  The port's kernels are those of ``portbench/kernels/``,
+one file each.  No trace file is written.
 """
 
 from __future__ import annotations
 
 import collections
 import contextlib
+import functools
 import time
 from typing import Dict, List, Tuple
 
 import numpy as np
 import torch
 
-# the port's own kernels by the device name of their launches
-KERNELS = {"k1": ("k1_quantize_kernel",),
-           "k2": ("int8_gemm_kernel", "int8_gemm_tn_kernel"),
-           "fused": ("conv_fused_kernel",)}
+from portbench import by_name
+
 TOP = 10
 
 
+@functools.cache
+def _classes() -> Tuple[Tuple[str, Tuple[str, ...]], ...]:
+    return tuple((k.CLASS, tuple(k.DEVICE_NAMES))
+                 for k in by_name.kernels().values())
+
+
 def kernel_class(name: str):
-    for cls, names in KERNELS.items():
+    """The class (a kernel file's ``CLASS``) of the device operation
+    ``name``, or None for an operation that is no kernel of the port's."""
+    for cls, names in _classes():
         if any(n in name for n in names):
             return cls
     return None

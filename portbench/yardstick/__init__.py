@@ -1,3 +1,3 @@
 """The benchmark's yardstick: the roofline arithmetic of the port's kernels
-(:mod:`.roofline`) and the model's operation count and the card's peaks
-(:mod:`.flops`)."""
+(:mod:`.roofline`) and the card's peaks (:mod:`.flops`).  Each
+architecture's model operations are in ``portbench/counts/``."""
