@@ -26,6 +26,8 @@ from lbt_tpu_torch.train.optim import momentum_init
 from lbt_tpu_torch.train.step import make_eval_step, make_train_step
 from lbt_tpu_torch.train.trainer import Trainer
 
+pytest_plugins = ["torch_suite"]
+
 pytestmark = pytest.mark.cuda
 
 

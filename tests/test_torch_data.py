@@ -16,6 +16,8 @@ from lbt_tpu_torch.data import datasets
 from lbt_tpu_torch.data.pipeline import batch_iterator, device_prefetch
 from lbt_tpu_torch.dfxp import keys
 
+pytest_plugins = ["torch_suite"]
+
 
 def test_load_dataset_matches_lbt_tpu_bitwise():
     want = jdatasets.load_dataset("cifar10", n_train=256, n_test=100)

@@ -38,18 +38,11 @@ from lbt_tpu_torch.nn.model import Model
 from lbt_tpu_torch.train.optim import momentum_init
 from lbt_tpu_torch.train.step import debug_nans, make_eval_step, make_train_step
 
+pytest_plugins = ["torch_suite"]
+
 C = 10
 SHAPE = (4, 4, 3)
 BATCH = 4
-
-
-@pytest.fixture(autouse=True)
-def _one_thread():
-    """Small tensors: one intra-op thread beside the other test workers."""
-    saved = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(saved)
 
 
 def _pair(pkg_cfgs, w=None):

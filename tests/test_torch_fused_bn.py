@@ -41,6 +41,8 @@ from lbt_tpu_torch.ops import qops
 
 from test_torch_imagenet import headline, resnet50_steps_match_lbt_tpu
 
+pytest_plugins = ["torch_suite"]
+
 jq = importlib.import_module("lbt_tpu.dfxp.quantize")
 
 TOL = dict(rtol=1e-5, atol=1e-6)

@@ -31,6 +31,8 @@ from lbt_tpu_torch.ops import qops
 from lbt_tpu_torch.ops.kernels.conv_fused import (conv1x1_fused,
                                                   conv3x3_fused)
 
+pytest_plugins = ["torch_suite"]
+
 jq = importlib.import_module("lbt_tpu.dfxp.quantize")
 
 

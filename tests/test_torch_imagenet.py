@@ -43,6 +43,8 @@ from lbt_tpu_torch.train.step import make_train_step
 
 from test_torch_train import _compare_trees, _lsb
 
+pytest_plugins = ["torch_suite"]
+
 N_STEPS = 3
 BATCH = 4
 

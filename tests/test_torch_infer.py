@@ -34,19 +34,11 @@ from lbt_tpu_torch.nn.model import Model
 from lbt_tpu_torch.nn.norm import BatchNorm, FusedBatchNorm, Normalization
 from lbt_tpu_torch.train.trainer import Trainer
 
+pytest_plugins = ["torch_suite"]
+
 INT4W = dataclasses.replace(
     jconfig.QuantConfig.uniform(8, engine="int8", noise_mode="hash"),
     bits_w=4)
-
-
-@pytest.fixture(autouse=True)
-def _one_thread():
-    """Small tensors: one intra-op thread is as fast, and leaves the CPU to
-    the test suite's other workers."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 def randomize(model: Model, seed: int = 0) -> Model:

@@ -7,6 +7,8 @@ import pytest
 
 from lbt_tpu_torch.ops.kernels import work
 
+pytest_plugins = ["torch_suite"]
+
 
 def test_gemm_tn_work_at_stage_1_dw():
     """K2's X^T.g form at ResNet-20's stage-1 dW (batch 128): A [131072,

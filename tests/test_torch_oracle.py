@@ -18,7 +18,6 @@ no JAX.
 """
 
 import numpy as np
-import pytest
 import torch
 
 import oracle
@@ -30,6 +29,8 @@ from lbt_tpu_torch.nn.model import Model
 from lbt_tpu_torch.nn.norm import BatchNorm
 from lbt_tpu_torch.train.optim import momentum_init
 from lbt_tpu_torch.train.step import make_train_step
+
+pytest_plugins = ["torch_suite"]
 
 WD = 0.01
 LR = 0.05
@@ -105,14 +106,6 @@ def _train(bits, n_steps, seed):
 def _close(got, want, name):
     np.testing.assert_allclose(got, want, rtol=2e-4, atol=2e-5,
                                err_msg=name)
-
-
-@pytest.fixture(autouse=True)
-def one_thread():
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 def test_sim_engine_matches_numpy_oracle():

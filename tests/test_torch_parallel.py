@@ -43,6 +43,8 @@ from lbt_tpu_torch.dfxp import keys
 from lbt_tpu_torch.ops.kernels import quant
 from torch_ranks import WD, start_ranks
 
+pytest_plugins = ["torch_suite"]
+
 KEY_SEED = 7
 LR = 0.01
 BATCH = 8          # the global batch: 2 ranks of 4 rows

@@ -10,6 +10,8 @@ import pytest
 from test_torch_parallel import (check_dp_steps, check_equal_ranks,
                                  jax_steps, run_dp_cases)
 
+pytest_plugins = ["torch_suite"]
+
 TOY = {"kind": "toy", "cfg": {"stochastic": False}}
 RESNET = {"kind": "resnet8", "cfg": {"noise_mode": "hash"}}
 CASES = {f"{name}_{wire or 'psum'}": dict(model=model, lowbit_bits=8,

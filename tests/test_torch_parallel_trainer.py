@@ -42,6 +42,8 @@ from test_torch_parallel import KEY_SEED, _assert_equal_trees, close_trees
 from test_torch_trainer import exact_bn_moments
 from torch_ranks import WD, build, rank_env, start_ranks
 
+pytest_plugins = ["torch_suite"]
+
 
 @pytest.fixture
 def two_devices(monkeypatch):

@@ -28,17 +28,10 @@ from lbt_tpu_torch.ops.kernels.conv_fused import (conv1x1_fused,
                                                   conv3x3_fused)
 from test_torch_train import compare_train_steps, resnet_pair
 
+pytest_plugins = ["torch_suite"]
+
 jq = importlib.import_module("lbt_tpu.dfxp.quantize")
 
-
-@pytest.fixture(autouse=True)
-def _one_thread():
-    """These tests' tensors are small: one intra-op thread is as fast, and
-    leaves the CPU to the test suite's other workers."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 # raw key data of site keys as the layers fold them, and edge words
 _KEYS = [(0, 0), (0, 7), (0xDEADBEEF, 0x12345678), (0xFFFFFFFF, 0x80000001)]

@@ -16,6 +16,8 @@ from lbt_tpu.ops.pallas.quant_kernels import matmul_int8_pallas
 from lbt_tpu_torch.ops import qops
 from lbt_tpu_torch.ops.kernels.gemm import int8_matmul, int8_matmul_plain
 
+pytest_plugins = ["torch_suite"]
+
 
 @pytest.mark.parametrize("mkn", [(130, 100, 70), (64, 27, 16), (128, 64, 10)])
 def test_k2_plain_matches_matmul_int8_pallas(mkn):

@@ -21,6 +21,8 @@ from lbt_tpu.ops.pallas.quant_kernels import quantize_pallas
 from lbt_tpu_torch.dfxp import quantize as tq
 from lbt_tpu_torch.ops.kernels import gemm, quant
 
+pytest_plugins = ["torch_suite"]
+
 # the module (lbt_tpu.dfxp re-exports a function of the same name)
 jq = importlib.import_module("lbt_tpu.dfxp.quantize")
 

@@ -54,6 +54,8 @@ from lbt_tpu_torch.train.trainer import (DATA_KEY_FOLD, EVAL_KEY_FOLD,
                                          Trainer)
 from test_torch_train import compare_train_steps, resnet_pair
 
+pytest_plugins = ["torch_suite"]
+
 jq = importlib.import_module("lbt_tpu.dfxp.quantize")
 
 RBG = "unsafe_rbg"
@@ -63,16 +65,6 @@ RBG = "unsafe_rbg"
 _KEYS = [(0, 0, 0, 0), (0, 7, 0, 7), (0xDEADBEEF, 0x12345678, 0x9ABCDEF0,
                                       0x0FEDCBA9),
          (0x80000001, 0xFFFFFFFF, 0xFFFFFFFE, 0xFFFFFFFF)]
-
-
-@pytest.fixture(autouse=True)
-def _one_thread():
-    """Small tensors: one intra-op thread is as fast, and leaves the CPU to
-    the test suite's other workers."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 def _jkey(kd):

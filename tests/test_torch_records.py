@@ -23,7 +23,6 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
-import torch
 from PIL import Image
 
 import lbt_tpu.config as jconfig
@@ -40,16 +39,9 @@ from lbt_tpu_torch.models import cifar10_resnet
 from lbt_tpu_torch.train.trainer import Trainer
 from test_torch_train import _compare_trees, _lsb
 
+pytest_plugins = ["torch_suite"]
+
 WD = 2e-4
-
-
-@pytest.fixture(autouse=True)
-def _one_thread():
-    """Small tensors: one intra-op thread beside the other test workers."""
-    saved = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(saved)
 
 
 def _jtfrecord():

@@ -48,6 +48,8 @@ from test_torch_imagenet import headline
 from test_torch_train import compare_train_steps, resnet_pair
 from test_torch_trainer import _compare_trees, _lsb, _numpy, _pair, _rows
 
+pytest_plugins = ["torch_suite"]
+
 FLAGS = {"off": {}, "remat": {"remat_bn": True},
          "q16": {"bn_residual_q16": True},
          "both": {"remat_bn": True, "bn_residual_q16": True}}

@@ -34,6 +34,8 @@ from lbt_tpu_torch.nn.core import Ctx, Sequential, finalize
 from lbt_tpu_torch.nn.layers import Conv2d
 from lbt_tpu_torch.nn.norm import BatchNorm
 
+pytest_plugins = ["torch_suite"]
+
 TOL = dict(rtol=1e-5, atol=1e-5)
 CONFIGS = {
     "uniform8": QuantConfig.uniform(8),

@@ -34,17 +34,11 @@ from test_torch_resnet import _randomize
 from test_torch_train import (NO_EXCESS_PRECISION, compare_train_steps,
                               resnet_pair)
 
+pytest_plugins = ["torch_suite"]
+
 _EVAL = JCtx(train=False, key=None, update=False)
 
 
-@pytest.fixture(autouse=True)
-def _one_thread():
-    """These tests' tensors are small: one intra-op thread is as fast, and
-    leaves the CPU to the test suite's other workers."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 _KX, _KW = (3, 0x9E3779B9), (0xDEADBEEF, 12)
 
 # (engine, bits_x, bits_w, bits_g, forward and gradients bitwise?):

@@ -23,6 +23,8 @@ from lbt_tpu_torch.parallel import dp as dp_mod
 from lbt_tpu_torch.train import step as step_mod
 from lbt_tpu_torch.train.optim import momentum_init
 
+pytest_plugins = ["torch_suite"]
+
 NAMES = {"lbt/step", "lbt/forward", "lbt/backward", "lbt/update"}
 PACKAGE = Path(lbt_tpu_torch.__file__).parent
 

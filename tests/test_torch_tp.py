@@ -46,17 +46,11 @@ from lbt_tpu_torch.ops.kernels.conv_fused import (conv1x1_fused,
 from lbt_tpu_torch.parallel import mesh, multihost
 from torch_ranks import build, start_ranks
 
+pytest_plugins = ["torch_suite"]
+
 KEY = (7, 11)
 MODES = {"hash": "xla_hash", "hash1": "xla_hash1", "threefry": "xla",
          "nearest": None}
-
-
-@pytest.fixture(autouse=True)
-def one_thread():
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 # ---------------------------------------------------------------------------

@@ -58,6 +58,8 @@ from test_torch_parallel import close_trees
 from test_torch_train import NO_EXCESS_PRECISION
 from torch_ranks import quant_config, start_ranks
 
+pytest_plugins = ["torch_suite"]
+
 KEY_SEED, LR, BATCH, N_STEPS = 9, 0.05, 8, 3
 INT8, SIM, HASH = {"engine": "int8"}, {"engine": "sim"}, {"noise_mode": "hash"}
 # name: (model, bits of QuantConfig.uniform, its keywords)

@@ -32,16 +32,10 @@ from lbt_tpu_torch.models import cifar10_resnet
 from lbt_tpu_torch.train.trainer import Trainer
 from torch_ranks import WD, rank_env, start_ranks
 
+pytest_plugins = ["torch_suite"]
+
 N_TRAIN, N_TEST, BATCH = 32, 20, 8
 HASH = {"noise_mode": "hash"}
-
-
-@pytest.fixture(autouse=True)
-def one_thread():
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 def _tc(**kw):
@@ -77,10 +71,7 @@ def runs(tmp_path_factory):
     tmp = tmp_path_factory.mktemp("tptrainer")
     ck = {k: str(tmp / k) for k in ("tp2", "tp2_first", "one", "tp22",
                                     "dp2")}
-    # one process's checkpoint (2 epochs), for the tp = 2 restore; one
-    # intra-op thread, as each rank has
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
+    # one process's checkpoint (2 epochs), for the tp = 2 restore
     one = _one_process(_tc(n_epoch=2, checkpoint_dir=ck["one"]))
     tp2 = dict(tensor_parallel=2)
     lowbit = dict(lowbit_allreduce=True, n_epoch=1)
@@ -105,7 +96,6 @@ def runs(tmp_path_factory):
     out["one_restored"] = _one_process(
         _tc(n_epoch=2, checkpoint_dir=ck["tp2"]), restore_only=True)
     out["ck"] = ck
-    torch.set_num_threads(threads)
     return out
 
 

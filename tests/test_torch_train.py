@@ -38,6 +38,8 @@ from lbt_tpu_torch.ops import qops
 from lbt_tpu_torch.train.optim import momentum_init, piecewise_lr
 from lbt_tpu_torch.train.step import forward_backward, make_train_step
 
+pytest_plugins = ["torch_suite"]
+
 jq = importlib.import_module("lbt_tpu.dfxp.quantize")
 
 

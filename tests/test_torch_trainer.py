@@ -51,6 +51,8 @@ from lbt_tpu_torch.utils.logging import MetricsWriter
 from lbt_tpu_torch.utils.profiling import START_STEP, StepProfiler
 from test_torch_train import _compare_trees, _lsb
 
+pytest_plugins = ["torch_suite"]
+
 _REPO = str(pathlib.Path(__file__).resolve().parent.parent)
 WD = 2e-4
 

@@ -37,21 +37,13 @@ from lbt_tpu_torch.nn.model import Model
 from lbt_tpu_torch.nn.norm import BatchNorm
 from test_torch_train import compare_train_steps
 
+pytest_plugins = ["torch_suite"]
+
 # benchmarks/vgg_bench.py's int4w-int8a: 4-bit weights, 8-bit biases, BN
 # parameters and gradients, 9-bit conv activations
 INT4W = dataclasses.replace(
     jconfig.QuantConfig.uniform(8, engine="int8", noise_mode="hash"),
     bits_w=4)
-
-
-@pytest.fixture(autouse=True)
-def _one_thread():
-    """Small tensors: one intra-op thread is as fast, and leaves the CPU to
-    the test suite's other workers."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 def _kd(key) -> np.ndarray:

@@ -25,6 +25,7 @@ from unittest import mock
 import numpy as np
 import torch
 import torch.distributed as dist
+import torch_suite  # noqa: F401  (one intra-op thread, here and in ranks)
 
 from lbt_tpu_torch import config as tconfig
 from lbt_tpu_torch import convert
@@ -49,9 +50,10 @@ _REPO = str(Path(__file__).resolve().parent.parent)
 
 
 def rank_env() -> dict:
-    """The environment of a rank process: one OpenMP thread, the repo
-    importable, no launcher's variables."""
-    env = dict(os.environ, OMP_NUM_THREADS="1", PYTHONPATH=_REPO)
+    """The environment of a rank process: the test process's (one
+    intra-op thread, from :mod:`torch_suite`), the repo importable, no
+    launcher's variables."""
+    env = dict(os.environ, PYTHONPATH=_REPO)
     for k in ("WORLD_SIZE", "RANK", "LOCAL_RANK", "LOCAL_WORLD_SIZE",
               "MASTER_ADDR", "MASTER_PORT"):
         env.pop(k, None)
@@ -328,7 +330,6 @@ def trainer(job, group):
 def main(argv) -> None:
     jobs_path, rank, world, store, out_path = argv
     rank, world = int(rank), int(world)
-    torch.set_num_threads(1)
     dist.init_process_group(
         "gloo", store=dist.FileStore(store, world), rank=rank,
         world_size=world)
