@@ -64,8 +64,10 @@ the line on stdout) and exits 1, with no result line.
            gives each kernel's device time as the serving path runs it.
 6. train shapes  one training step of CIFAR10_Resnet20 under
            uniform(8, noise_mode='hash') at batch 128 records every call
-           of K1 (with its min/max output), K2 (both forms) and #4/#5.
-7. K1-stats, K2-train, fused  each of those calls' shapes: the kernel vs
+           of K1 (with its min/max output), K2 (both forms), #4/#5 and
+           the conv backward's dgrad and wgrad.
+7. K1-stats, K2-train, fused, conv-bwd  each of those calls' shapes: the
+           kernel vs
            its plain version, bitwise (codes, min/max, int64 sums,
            moments; K1 and #4/#5 also with threefry noise), timed as in
            3-4, per training step (K1 and #4/#5 again with threefry in
@@ -79,7 +81,11 @@ the line on stdout) and exits 1, with no result line.
            the nearest it takes, and the row says so); for #4/#5 cuDNN's
            fp16 channels-last ``conv2d`` of the same codes, the conv alone
            (``conv_lib_ms``); none for the step's K1 calls, stochastic or
-           9-bit.
+           9-bit.  dgrad and wgrad are also held bitwise against the
+           im2col route they replaced (K2 over im2col patches of the
+           zero-dilated cotangent or of x) and timed beside it
+           (``old_ms``), with cuDNN's fp16 dgrad / wgrad alone as the
+           library yardstick (``lib_ms``).
 8. train   ResNet-20 at batch 128, weights from seed 0, data from a numpy
            seed: 4 steps through the kernels (every launch counter reset
            just before and required to rise) and the same 4 steps through
@@ -197,8 +203,8 @@ the line on stdout) and exits 1, with no result line.
            before; K1, K2's two forms and #4 each launched) equal to the
            plain route in every tensor, the first loss at batch 8 equal
            to the CPU's, 8 timed steps, peak memory, a 2-step profile,
-           and K1, K2 and #4 at V's shapes beside their bounds and
-           library calls; the Dropout mask against the CPU's (f32, bf16)
+           and K1, K2, #4, dgrad and wgrad at V's shapes beside their
+           bounds and library calls; the Dropout mask against the CPU's (f32, bf16)
            and its device ms.  Then a ``Trainer`` on V's config trains
            one epoch of 10 steps (counters reset just before, each
            kernel launched, losses finite), and its
@@ -608,6 +614,7 @@ def phase_device() -> dict:
 # (tag, source, its loader): #4/#5's noise kinds in a source each
 CUDA_SOURCES = (("k1", "quantize.cu", lambda b: b.quantize_library()),
                 ("k2", "int8_gemm.cu", lambda b: b.int8_gemm_library()),
+                ("conv_bwd", "conv_bwd.cu", lambda b: b.conv_bwd_library()),
                 ("fused", "conv_fused.cu",
                  lambda b: b.conv_fused_library(0)),
                 ("fused_threefry", "conv_fused_threefry.cu",
@@ -837,10 +844,10 @@ def phase_k2(gemm, k2_calls) -> dict:
 
 @contextlib.contextmanager
 def plain_route(qmod, qops, quant, gemm):
-    """Send the path through the plain versions of K1, K2 (both forms)
-    and #4/#5 on the card (for timing and cross-checking the kernel route
-    only)."""
-    from lbt_tpu_torch.ops.kernels import conv_fused
+    """Send the path through the plain versions of K1, K2 (both forms),
+    #4/#5 and the conv backward's dgrad and wgrad on the card (for timing
+    and cross-checking the kernel route only)."""
+    from lbt_tpu_torch.ops.kernels import conv_bwd, conv_fused
     with mock.patch.object(qmod, "quantize_codes",
                            quant.quantize_codes_plain), \
             mock.patch.object(qops, "int8_matmul", gemm.int8_matmul_plain), \
@@ -849,7 +856,11 @@ def plain_route(qmod, qops, quant, gemm):
             mock.patch.object(qops, "conv3x3_fused",
                               conv_fused.conv_fused_plain), \
             mock.patch.object(qops, "conv1x1_fused",
-                              conv_fused.conv_fused_plain):
+                              conv_fused.conv_fused_plain), \
+            mock.patch.object(qops, "int8_conv_dgrad",
+                              conv_bwd.int8_conv_dgrad_plain), \
+            mock.patch.object(qops, "int8_conv_wgrad",
+                              conv_bwd.int8_conv_wgrad_plain):
         yield
 
 
@@ -1039,11 +1050,14 @@ def model_impl(model) -> str:
 
 
 def train_counters(quant, gemm, fused) -> dict:
+    from lbt_tpu_torch.ops.kernels import conv_bwd
     return {"k1": quant.quantize_codes.launches,
             "k2": gemm.int8_matmul.launches,
             "k2_tn": gemm.int8_matmul_tn.launches,
             "conv3x3": fused.conv3x3_fused.launches,
-            "conv1x1": fused.conv1x1_fused.launches}
+            "conv1x1": fused.conv1x1_fused.launches,
+            "dgrad": conv_bwd.int8_conv_dgrad.launches,
+            "wgrad": conv_bwd.int8_conv_wgrad.launches}
 
 
 def mode_counters(quant, fused, mode: int) -> dict:
@@ -1059,8 +1073,10 @@ def threefry_counters(quant, fused) -> dict:
 
 
 def reset_counters(quant, gemm, fused) -> None:
+    from lbt_tpu_torch.ops.kernels import conv_bwd
     for fn in (quant.quantize_codes, gemm.int8_matmul, gemm.int8_matmul_tn,
-               fused.conv3x3_fused, fused.conv1x1_fused):
+               fused.conv3x3_fused, fused.conv1x1_fused,
+               conv_bwd.int8_conv_dgrad, conv_bwd.int8_conv_wgrad):
         fn.launches = 0
     for fn in (quant.quantize_codes, fused.conv3x3_fused,
                fused.conv1x1_fused):
@@ -1073,13 +1089,15 @@ def record_train_calls(qmod, qops, quant, gemm, fused, model=None,
     recorded: (shape, bits, noise mode, shared, stats) of K1; (M, K, N,
     scaled) of K2; (K, M, N) of its X^T.g form; (kind, x shape, x dtype,
     W shape, strides, pads, noise mode, shared, round_bf16) of #4/#5
-    (noise mode 0 rounds to nearest; shared: drawn once along axis 0).
-    Each of
+    (noise mode 0 rounds to nearest; shared: drawn once along axis 0);
+    (kind, x shape, x dtype, W shape, strides, pads, scaled) of the conv
+    backward's dgrad and wgrad.  Each of
     ``steps`` is ``(step index, weight)``: a call counts ``weight`` times,
     so a cadence's gated-on and gated-off steps average into calls a step.
     ResNet-20 and one step of ``train_batches`` unless ``model`` and
     ``batch`` are given."""
-    k1, k2, tn, conv = (collections.Counter() for _ in range(4))
+    from lbt_tpu_torch.ops.kernels import conv_bwd
+    k1, k2, tn, conv, bwd = (collections.Counter() for _ in range(5))
     weight = [1.0]
 
     def k1_rec(t, bits, exp, noise=None, stats=False):
@@ -1107,6 +1125,18 @@ def record_train_calls(qmod, qops, quant, gemm, fused, model=None,
                                         noise=noise, round_bf16=round_bf16)
         return rec
 
+    def dgrad_rec(gc, wc, x_hw, strides, pads, inv=None):
+        bwd[("dgrad", (gc.shape[0], *x_hw, wc.shape[2]), str(torch.int8),
+             tuple(wc.shape), tuple(strides), tuple(map(tuple, pads)),
+             inv is not None)] += weight[0]
+        return conv_bwd.int8_conv_dgrad(gc, wc, x_hw, strides, pads, inv)
+
+    def wgrad_rec(xc, gc, ksize, strides, pads):
+        bwd[("wgrad", tuple(xc.shape), str(xc.dtype),
+             (*ksize, xc.shape[3], gc.shape[3]), tuple(strides),
+             tuple(map(tuple, pads)), False)] += weight[0]
+        return conv_bwd.int8_conv_wgrad(xc, gc, ksize, strides, pads)
+
     if model is None:
         model = build_train_model(SEED).to("cuda")
         batch = train_batches(1)[0]
@@ -1117,15 +1147,18 @@ def record_train_calls(qmod, qops, quant, gemm, fused, model=None,
             mock.patch.object(qops, "conv3x3_fused",
                               conv_rec("conv3x3_fused")), \
             mock.patch.object(qops, "conv1x1_fused",
-                              conv_rec("conv1x1_fused")):
+                              conv_rec("conv1x1_fused")), \
+            mock.patch.object(qops, "int8_conv_dgrad", dgrad_rec), \
+            mock.patch.object(qops, "int8_conv_wgrad", wgrad_rec):
         for i, w in steps:
             weight[0] = w
             run(i, batch)
     torch.cuda.synchronize()
     print(f"train shapes: a step makes {sum(k1.values()):g} K1, "
           f"{sum(k2.values()):g} K2, {sum(tn.values()):g} K2 X^T.g, "
-          f"{sum(conv.values()):g} fused conv calls", flush=True)
-    return k1, k2, tn, conv
+          f"{sum(conv.values()):g} fused conv, "
+          f"{sum(bwd.values()):g} dgrad and wgrad calls", flush=True)
+    return k1, k2, tn, conv, bwd
 
 
 def _us(v) -> str:
@@ -1381,6 +1414,137 @@ def phase_fused(fused, conv_calls, reps=REPS, threefry_twins=False,
     return out
 
 
+def lib_conv_bwd(xc, wc, gc, strides, pads):
+    """``((dgrad fn, args), (wgrad fn, args), note)``: cuDNN's fp16 dgrad
+    and wgrad of the same codes, channels-last, alone (a yardstick: the
+    port never calls them), with the symmetric padding of the same output
+    size; ``None`` for both where no symmetric padding gives it."""
+    import torch.nn.functional as F
+    pad = tuple(max(p) for p in pads)
+
+    def nchw(t):
+        return t.half().permute(0, 3, 1, 2).contiguous(
+            memory_format=torch.channels_last)
+    x16, w16, g16 = nchw(xc), nchw(wc.permute(3, 0, 1, 2)), nchw(gc)
+    if F.conv2d(x16[:1], w16, stride=strides,
+                padding=pad).shape[2:] != gc.shape[1:3]:
+        return None, None, "no symmetric padding gives the output size"
+    return ((lambda g, w: torch.nn.grad.conv2d_input(
+                x16.shape, w, g, strides, pad), (g16, w16)),
+            (lambda x, g: torch.nn.grad.conv2d_weight(
+                x, w16.shape, g, strides, pad), (x16, g16)),
+            "cuDNN fp16 alone")
+
+
+def phase_conv_bwd(qops, bwd_calls, reps=REPS, tag="conv-bwd") -> dict:
+    """dgrad and wgrad at every conv backward call of the step that takes
+    them: each kernel bitwise against its plain version and against the
+    im2col route it replaced (``qops._im2col_dgrad`` / ``_im2col_wgrad``:
+    K2 over im2col patches of the zero-dilated cotangent or of ``x``),
+    dgrad with and without its scale, wgrad with the path's int8 or 9-bit
+    codes; timed per shape as in 7, beside the bound, the plain version,
+    the im2col route (``old_ms``) and cuDNN's fp16 dgrad / wgrad alone
+    (``lib_ms``)."""
+    from lbt_tpu_torch.ops.im2col import out_hw
+    from lbt_tpu_torch.ops.kernels import conv_bwd, work
+    gen = torch.Generator().manual_seed(SEED + 9)
+    out = {}
+    for kind in ("dgrad", "wgrad"):
+        err, rows = 0.0, []
+        for key, count in sorted(bwd_calls.items()):
+            k, xshape, xdtype, wshape, strides, pads, scaled = key
+            if k != kind:
+                continue
+            kh, kw, cin, cout = wshape
+            lim = 256 if xdtype == str(torch.int16) else 128
+            xc = torch.randint(-lim, lim, xshape, generator=gen,
+                               dtype=torch.int16 if lim == 256
+                               else torch.int8).cuda()
+            wc = torch.randint(-128, 128, wshape, generator=gen,
+                               dtype=torch.int8).cuda()
+            gc = torch.randint(-128, 128, (
+                xshape[0], *out_hw(xshape[1], xshape[2], (kh, kw), strides,
+                                   pads), cout), generator=gen,
+                dtype=torch.int8).cuda()
+            inv = torch.tensor([2.0 ** -13], device="cuda")
+            dgrad_lib, wgrad_lib, note = lib_conv_bwd(xc, wc, gc, strides,
+                                                      pads)
+            if kind == "dgrad":
+                def fn(g, w, inv=inv if scaled else None):
+                    return conv_bwd.int8_conv_dgrad(g, w, xshape[1:3],
+                                                    strides, pads, inv)
+
+                def plain(g, w, inv=inv if scaled else None):
+                    return conv_bwd.int8_conv_dgrad_plain(
+                        g, w, xshape[1:3], strides, pads, inv)
+
+                def old(g, w, inv=inv if scaled else None):
+                    return qops._im2col_dgrad(g, w, xshape[1:3], strides,
+                                              pads, inv)
+                args, lib = (gc, wc), dgrad_lib
+                w_ = work.conv_dgrad_work(gc.shape, wshape, xshape[1:3],
+                                          strides, pads, scaled)
+                # the im2col route's patches, written and read back
+                patches = xshape[0] * xshape[1] * xshape[2] * kh * kw * cout
+                for s in (inv, None):
+                    got = fn(gc, wc, s)
+                    for want in (plain(gc, wc, s), old(gc, wc, s)):
+                        torch.cuda.synchronize()
+                        err = max(err, _max_err(got, want))
+                        check(got.dtype == want.dtype
+                              and torch.equal(got, want),
+                              f"dgrad differs from its plain version or "
+                              f"the im2col route at x {xshape} w {wshape} "
+                              f"s{strides} scaled={s is not None}")
+            else:
+                def fn(x, g):
+                    return conv_bwd.int8_conv_wgrad(x, g, (kh, kw), strides,
+                                                    pads)
+
+                def plain(x, g):
+                    return conv_bwd.int8_conv_wgrad_plain(x, g, (kh, kw),
+                                                          strides, pads)
+
+                def old(x, g):
+                    return qops._im2col_wgrad(x, g, (kh, kw), strides, pads)
+                args, lib = (xc, gc), wgrad_lib
+                w_ = work.conv_wgrad_work(xshape, xc.element_size(),
+                                          gc.shape, (kh, kw), strides, pads)
+                patches = gc.numel() // cout * kh * kw * cin
+                got = fn(xc, gc)
+                for want in (plain(xc, gc), old(xc, gc)):
+                    torch.cuda.synchronize()
+                    err = max(err, _max_err(got, want))
+                    check(got.dtype == want.dtype and torch.equal(got, want),
+                          f"wgrad differs from its plain version or the "
+                          f"im2col route at x {xshape} {xdtype} w {wshape} "
+                          f"s{strides}")
+            del got, want
+            row = {"x": list(xshape), "x_dtype": xdtype, "w": list(wshape),
+                   "strides": list(strides), "pads": [list(p) for p in pads],
+                   "scaled": scaled, "calls": count,
+                   **_timings(fn, plain, args, w_.bytes, w_,
+                              None if lib is None else (*lib, note), reps)}
+            if lib is None:
+                row.update(lib_ms=None, lib_note=note)
+            row["old_ms"] = device_ms(
+                old, rotating_inputs(args, w_.bytes + 2 * patches),
+                *reps[0])
+            rows.append(row)
+            torch.cuda.empty_cache()
+
+        def label(r):
+            return (f"x{r['x']} {r['x_dtype'][6:]} w{r['w']} "
+                    f"s{r['strides'][0]}")
+        tot = _print_rows(f"{tag} {kind}", rows, label)
+        tot["old_ms"] = sum(r["calls"] * r["old_ms"] for r in rows)
+        print(f"{tag} {kind}: per step {tot['ms']:.4f} ms against the "
+              f"im2col route's {tot['old_ms']:.4f} for the same calls",
+              flush=True)
+        out[kind] = {"max_abs_err": err, **tot, "shapes": rows}
+    return out
+
+
 def _state(model, velocity) -> dict:
     out = {f"net.{k}": v.detach().clone()
            for k, v in model.net.state_dict().items()}
@@ -1392,7 +1556,8 @@ def _kernel_device_ms(rows, n_steps) -> dict:
     names = {"k1": ("k1_quantize_kernel",),
              "k2": ("int8_gemm_kernel", "int8_gemm_tn_kernel"),
              "conv3x3": ("conv_fused_kernel<3", "conv_fused_kernelILi3"),
-             "conv1x1": ("conv_fused_kernel<1", "conv_fused_kernelILi1")}
+             "conv1x1": ("conv_fused_kernel<1", "conv_fused_kernelILi1"),
+             "dgrad": ("conv_dgrad_kernel",), "wgrad": ("conv_wgrad_kernel",)}
     return {k: sum(r["device_ms"] for r in rows
                    if any(n in r["name"] for n in ns)) / n_steps
             for k, ns in names.items()}
@@ -1645,7 +1810,7 @@ def _rbg_yardstick(res, count, in_step, kind) -> None:
 def _rbg_train(qmod, qops, quant, gemm, fused) -> dict:
     batches = rbg_batches(RBG_GATE_STEPS)
     probe = build_rbg(SEED).to("cuda")
-    k1, _, _, conv = record_train_calls(qmod, qops, quant, gemm, fused,
+    k1, _, _, conv, _ = record_train_calls(qmod, qops, quant, gemm, fused,
                                         probe, batches[0])
     del probe
 
@@ -2160,7 +2325,9 @@ def phase_resnet50(qmod, qops, quant, gemm, fused) -> dict:
                                     out.pop("tn_calls"), R50_K2_REPS,
                                     "R50 K2")),
             ("fused", phase_fused, (fused, out.pop("conv_calls"),
-                                    FAST_REPS, False, False))):
+                                    FAST_REPS, False, False)),
+            ("conv_bwd", phase_conv_bwd, (qops, out.pop("bwd_calls"),
+                                          FAST_REPS, "R50 conv-bwd"))):
         out[tag] = fn(*args)
     out["serve"] = _r50_serve(qmod, qops, quant, gemm)
     out["seconds"] = time.perf_counter() - t0
@@ -2202,7 +2369,7 @@ def train_leg(tag, build, gate_steps, timed_steps, modules, launched,
     batches = batches or r50_batches(gate_steps)
     n_batch, image = batches[0][0].shape[0], batches[0][0].shape[1]
     probe = build(SEED).to("cuda")
-    k1, k2, tn, conv = record_train_calls(
+    k1, k2, tn, conv, bwd = record_train_calls(
         qmod, qops, quant, gemm, fused, probe, batches[0],
         steps=record_steps)
     del probe
@@ -2292,7 +2459,7 @@ def train_leg(tag, build, gate_steps, timed_steps, modules, launched,
             "samples_ms": times, "max_memory_allocated": peak,
             "memory_allocated_before": held,
             "profile": prof, "k1_calls": k1, "k2_calls": k2,
-            "tn_calls": tn, "conv_calls": conv,
+            "tn_calls": tn, "conv_calls": conv, "bwd_calls": bwd,
             **({"gate_digest": gate_digest} if digest else {}),
             **({"gate_state": gate_state} if snapshot else {})}
 
@@ -2445,7 +2612,7 @@ def _b50_train(qmod, qops, quant, gemm, fused) -> dict:
                     B50_TIMED_STEPS, (qmod, qops, quant, gemm, fused),
                     launched, ((0, 1.0),), ("k1",), snapshot=True)
     B50_GATE.update(out.pop("gate_state"), losses=out["losses"])
-    for k in ("k2_calls", "tn_calls", "conv_calls"):
+    for k in ("k2_calls", "tn_calls", "conv_calls", "bwd_calls"):
         check(not out.pop(k), f"the baseline's path made {k}")
     return out
 
@@ -2640,7 +2807,7 @@ def phase_vgg16(qmod, qops, quant, gemm, fused) -> dict:
     t0 = time.perf_counter()
 
     def launched(launches, threefry):
-        for k in ("k1", "k2", "k2_tn", "conv3x3"):
+        for k in ("k1", "k2", "k2_tn", "conv3x3", "dgrad", "wgrad"):
             check(launches[k] > 0, f"{k} never launched on VGG-16's "
                   f"training path")
 
@@ -2657,6 +2824,8 @@ def phase_vgg16(qmod, qops, quant, gemm, fused) -> dict:
     out["k2"] = phase_k2_train(gemm, out.pop("k2_calls"),
                                out.pop("tn_calls"), R50_K2_REPS, "V K2")
     out["fused"] = phase_fused(fused, out.pop("conv_calls"), FAST_REPS)
+    out["conv_bwd"] = phase_conv_bwd(qops, out.pop("bwd_calls"), FAST_REPS,
+                                     "V conv-bwd")
     out["dropout"] = _v_dropout()
     torch.cuda.empty_cache()
     out["deploy"] = _v_deploy(qmod, qops, quant, gemm, fused)
@@ -2716,7 +2885,7 @@ def _v_deploy(qmod, qops, quant, gemm, fused) -> dict:
     run.metrics.close()
     launches = train_counters(quant, gemm, fused)
     check(run.step == V_TRAIN_STEPS, f"V's Trainer took {run.step} steps")
-    for k in ("k1", "k2", "k2_tn", "conv3x3"):
+    for k in ("k1", "k2", "k2_tn", "conv3x3", "dgrad", "wgrad"):
         check(launches[k] > 0, f"{k} never launched in V's Trainer run")
     rows = _rows(V_DIR / "metrics.jsonl")
     losses = [r["train/loss"] for r in rows if "train/loss" in r]
@@ -4292,7 +4461,7 @@ def port_modules():
 
 
 def kernel_lines(report) -> list:
-    """The four kernels: launches from the trainer's counted run,
+    """The kernels: launches from the trainer's counted run,
     errors from every comparison; device, plain, bound and library ms per
     training step at the path's shapes (operands out of L2).  The step's
     K1 calls are stochastic or 9-bit, which no library call computes
@@ -4318,8 +4487,13 @@ def kernel_lines(report) -> list:
     the trainer phase's ``--scan_steps`` run (``scanned``).  The
     ``_rbg`` rows are K1 and #4/#5 in mode 4 (an
     unsafe_rbg key's Philox stream) from phase rbg: ResNet-20 at batch
-    512, launches of its 2 counted steps, ms a step at its shapes."""
+    512, launches of its 2 counted steps, ms a step at its shapes.  The
+    conv backward's rows (``conv_dgrad``, ``conv_wgrad``) add the im2col
+    route's ms for the same calls (``im2col_route_ms``) and cuDNN's fp16
+    dgrad / wgrad alone (``cudnn_fp16_ms``, not the same function), and
+    ``tp_launches``, rank 0's in phase tp leg (a)."""
     k1, k2, fused = report["k1_train"], report["k2_train"], report["fused"]
+    bwd = report["conv_bwd"]
     launches = report["trainer"]["launches"]
     rec = report["records"]
     rec_runs = {**rec["cli"], **({"native_loader": rec["native_loader"]}
@@ -4490,7 +4664,27 @@ def kernel_lines(report) -> list:
          "remat": at_remat("conv1x1"),
          "tp": at_tp(tpk["conv1x1_fused"], ("conv1x1",), False,
                      conv_library_ms=tpk["conv1x1_fused"]["lib_ms"])},
-    ]
+    ] + [
+        {"name": f"conv_{kind}", "route": "cuda",
+         "source": "lbt_tpu_torch/csrc/conv_bwd.cu",
+         "replaces": "none: XLA emitted lbt_tpu's conv backward",
+         "launches": launches[kind],
+         "max_abs_err": max(bwd[kind]["max_abs_err"],
+                            r50["conv_bwd"][kind]["max_abs_err"],
+                            v["conv_bwd"][kind]["max_abs_err"]),
+         **times(bwd[kind], library=False),
+         "im2col_route_ms": bwd[kind]["old_ms"],
+         "cudnn_fp16_ms": bwd[kind]["lib_ms"],
+         "resnet50": at_r50(r50["conv_bwd"][kind], r50_launches[kind], False,
+                            im2col_route_ms=r50["conv_bwd"][kind]["old_ms"],
+                            cudnn_fp16_ms=r50["conv_bwd"][kind]["lib_ms"]),
+         "vgg16": at_r50(v["conv_bwd"][kind], v_launches[kind], False,
+                         im2col_route_ms=v["conv_bwd"][kind]["old_ms"],
+                         cudnn_fp16_ms=v["conv_bwd"][kind]["lib_ms"]),
+         "records": at_records(kind), "dp": at_dp(kind),
+         "remat": at_remat(kind),
+         "tp_launches": tp["r50"]["launches"][kind]}
+        for kind in ("dgrad", "wgrad")]
 
 
 # the phase running now, named in the report of a failure
@@ -4539,11 +4733,12 @@ def main(argv=None) -> int:
     phase("profile", phase_profile, Predictor(probe), x)
 
     PHASE[0] = "train shapes"
-    k1_t, k2_t, tn_t, conv_t = record_train_calls(qmod, qops, quant, gemm,
-                                                  conv_fused)
+    k1_t, k2_t, tn_t, conv_t, bwd_t = record_train_calls(
+        qmod, qops, quant, gemm, conv_fused)
     phase("k1_train", phase_k1_train, quant, k1_t, REPS, "K1-stats", True)
     phase("k2_train", phase_k2_train, gemm, k2_t, tn_t)
     phase("fused", phase_fused, conv_fused, conv_t, REPS, True)
+    phase("conv_bwd", phase_conv_bwd, qops, bwd_t)
     phase("train", phase_train, qmod, qops, quant, gemm, conv_fused)
     phase("rbg", phase_rbg, qmod, qops, quant, gemm, conv_fused)
     phase("trainer", phase_trainer, quant, gemm, conv_fused,

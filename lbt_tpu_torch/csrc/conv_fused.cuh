@@ -71,7 +71,7 @@
 //   * 9-bit (int16) codes split into int8 planes h = x >> 1 and l = x & 1
 //     as fragments are read from shared memory (prmt), and the sum
 //     2*(h.w) + l.w runs as three IMMAs into one int32 accumulator:
-//     exact, since |acc| <= 576 * 2^15 < 2^31 (qops._split9's identity);
+//     exact, since |acc| <= 576 * 2^15 < 2^31 (gemm.split9's identity);
 //   * weights: HWIO is K-major for the GEMM's B once transposed; each
 //     block transposes its Cout tile into shared memory once (4x4 byte
 //     blocks: four word loads and prmt; panels of at most 1024 K) while
@@ -115,6 +115,7 @@
 #include <cuda_runtime.h>
 
 #include "dfxp.cuh"
+#include "int8_mma.cuh"
 
 namespace {
 
@@ -150,36 +151,6 @@ struct Args {
   unsigned int offset;  // the counter's offset (0 when shared)
   unsigned int ng, col0;  // the counter's row width and first column
 };
-
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void cp_async16(void* dst, const void* src,
-                                           bool ok) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
-                   smem_u32(dst)),
-               "l"(src), "r"(ok ? 16 : 0));
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
-}
-
-__device__ __forceinline__ void mma_s8(int (&c)[4], uint32_t a0, uint32_t a1,
-                                       uint32_t a2, uint32_t a3, uint32_t b0,
-                                       uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+r"(c[0]), "+r"(c[1]), "+r"(c[2]), "+r"(c[3])
-      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "r"(b0), "r"(b1));
-}
 
 // the bfloat16 nearest to finite v, ties to even, as a float (inf stays
 // inf): PyTorch's float -> bfloat16 conversion
@@ -310,7 +281,7 @@ __global__ void __launch_bounds__(kThreads) conv_fused_kernel(Args p) {
             ok ? x + ((static_cast<int64_t>(s_b[r]) * p.h + ih) * p.w +
                       iw) * p.cin + c
                : x;
-        cp_async16(dst + r * kRow + 16 * q, src, ok);
+        cp_async16(dst + r * kRow + 16 * q, src, ok ? 16 : 0);
       }
     } else {  // one code at a time: this thread's K column, every pixel,
               // all of its loads issued before its stores

@@ -99,6 +99,23 @@ def int8_gemm_library(csrc: Path = CSRC_DIR) -> ctypes.CDLL:
 
 
 @functools.cache
+def conv_bwd_library(csrc: Path = CSRC_DIR) -> ctypes.CDLL:
+    """The int8 conv backward's dgrad and wgrad (``conv_bwd.cu`` under
+    ``csrc``), built on first use."""
+    lib = ctypes.CDLL(str(build_library("conv_bwd", ["conv_bwd.cu"],
+                                        csrc=csrc)))
+    fn = lib.lbt_conv_dgrad
+    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.POINTER(ctypes.c_int),
+                                           ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    fn = lib.lbt_conv_wgrad
+    fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.POINTER(ctypes.c_int),
+                                           ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    return lib
+
+
+@functools.cache
 def quantize_library(csrc: Path = CSRC_DIR) -> ctypes.CDLL:
     """K1 (``quantize.cu`` under ``csrc``), built on first use."""
     lib = ctypes.CDLL(str(build_library("quantize", ["quantize.cu"],

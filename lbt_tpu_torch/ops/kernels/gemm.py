@@ -33,6 +33,14 @@ _INT_MAX = 2 ** 31 - 1
 K_CHUNK = 2 ** 16
 
 
+def split9(xc: torch.Tensor):
+    """``c = 2h + l``: int8 planes ``h = floor(c/2)`` and ``l`` in {0, 1}
+    of 9-bit codes ``xc`` (int16), which the int8 kernels contract one
+    plane at a time; ``2 (h . g) + l . g`` is ``xc . g`` exactly."""
+    hi = xc >> 1
+    return hi.to(torch.int8), (xc - 2 * hi).to(torch.int8)
+
+
 def int8_matmul_plain(a: torch.Tensor, b: torch.Tensor,
                       inv_scale: Optional[torch.Tensor] = None
                       ) -> torch.Tensor:

@@ -146,3 +146,47 @@ def conv_fused_work(xshape: Sequence[int], x_bytes: int,
     ops = 2 * pixels * kh * kw * cin * cout * (2 if x_bytes == 2 else 1)
     return Work(nbytes, ops, INT8_OPS_PER_S,
                 NOISE_INSTRUCTIONS[noise_mode] * pixels * cout, int_ops_per_s)
+
+
+def _taps_read(n_in: int, n_out: int, taps: int, stride: int,
+               lo: int) -> int:
+    """The (output position, tap) pairs along one dim whose input
+    position ``o * stride + t - lo`` lies inside the ``n_in`` inputs: the
+    products a conv's backward needs there."""
+    return sum(1 for o in range(n_out) for t in range(taps)
+               if 0 <= o * stride + t - lo < n_in)
+
+
+def conv_dgrad_work(gshape: Sequence[int], wshape: Sequence[int],
+                    x_hw: Sequence[int], strides: Sequence[int], pads,
+                    scaled: bool = True) -> Work:
+    """The dgrad kernel: int8 cotangent codes [B,Ho,Wo,Cout] and HWIO
+    weight codes in, f32 (``scaled``, with its one-float scale) or int32
+    dx [B,H,W,Cin] out; the useful products only, those of a tap and an
+    output pixel whose input pixel lies inside the image."""
+    b, ho, wo, cout = gshape
+    kh, kw, cin, _ = wshape
+    (h, w), (sh, sw), ((pt, _), (pl, _)) = x_hw, strides, pads
+    pairs = (_taps_read(h, ho, kh, sh, pt) * _taps_read(w, wo, kw, sw, pl))
+    nbytes = (b * ho * wo * cout + math.prod(wshape) + 4 * b * h * w * cin
+              + (4 if scaled else 0))
+    return Work(nbytes, 2 * b * pairs * cin * cout, INT8_OPS_PER_S)
+
+
+def conv_wgrad_work(xshape: Sequence[int], x_bytes: int,
+                    gshape: Sequence[int], ksize: Sequence[int],
+                    strides: Sequence[int], pads) -> Work:
+    """The wgrad kernel: NHWC input codes (``x_bytes`` each; only the
+    pixels some tap reads count) and int8 cotangent codes in, int64
+    [kh*kw*Cin, Cout] out; the useful products, twice for 9-bit codes'
+    two split-9 planes."""
+    b, h, w, cin = xshape
+    _, ho, wo, cout = gshape
+    (kh, kw), (sh, sw), ((pt, _), (pl, _)) = ksize, strides, pads
+    read = (b * _lines_read(h, ho, kh, sh, pt) * _lines_read(w, wo, kw, sw, pl)
+            * cin)
+    pairs = (_taps_read(h, ho, kh, sh, pt) * _taps_read(w, wo, kw, sw, pl))
+    nbytes = read * x_bytes + b * ho * wo * cout + 8 * kh * kw * cin * cout
+    return Work(nbytes, 2 * b * pairs * cin * cout * (2 if x_bytes == 2
+                                                      else 1),
+                INT8_OPS_PER_S)

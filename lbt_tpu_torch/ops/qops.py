@@ -46,8 +46,13 @@ barrier, so with ``bits_g <= 8`` its codes are recovered exactly and both
 contractions run on integers:
 
     dx = g . W^T                 K2 on a copy of W^T (dense)
-    dx = im2col(dilate(g)) . W'  K2, W' the flipped HIO-transposed kernel
-    dW = X^T . g                 K2's split-K X^T.g form, int64 sums
+    dx = conv^T(g, W)            the dgrad kernel, taps gathered in place
+    dW = X^T . g                 K2's split-K X^T.g form, int64 sums (dense)
+    dW = conv^T(X, g)            the wgrad kernel, its split-K sums
+
+A conv whose channel counts are not multiples of 16 (the RGB stem) takes
+K2 over im2col patches instead: of the zero-dilated cotangent against the
+flipped HIO-transposed kernel for ``dx``, of ``X`` for ``dW``.
 
 For 9-bit x the dW contraction is split-9 as well (``lbt_tpu`` contracts
 it in bf16 with f32 sums, inexact past 2**24).  Wider cotangents (and
@@ -97,8 +102,11 @@ from lbt_tpu_torch.dfxp.quantize import (Exp, KeyData, dequantize,
                                          quantize_int, quantize_ste)
 from lbt_tpu_torch.ops.im2col import (conv_pads, conv_same_padding,
                                       dilate_pad, dx_pads, im2col, out_hw)
+from lbt_tpu_torch.ops.kernels.conv_bwd import (implicit, int8_conv_dgrad,
+                                               int8_conv_wgrad)
 from lbt_tpu_torch.ops.kernels.conv_fused import conv1x1_fused, conv3x3_fused
-from lbt_tpu_torch.ops.kernels.gemm import int8_matmul, int8_matmul_tn
+from lbt_tpu_torch.ops.kernels.gemm import (int8_matmul, int8_matmul_tn,
+                                           split9)
 
 __all__ = ["BNInput", "conv_pads", "conv_same_padding", "im2col",
            "int_route", "qconv2d", "qconv2d_bn_input", "qmatmul"]
@@ -295,12 +303,6 @@ def _recover_codes(g: torch.Tensor, mult: torch.Tensor) -> torch.Tensor:
     return torch.round(g.to(torch.float32) * mult).to(torch.int8)
 
 
-def _split9(xc: torch.Tensor):
-    """``c = 2h + l``: int8 planes ``h = floor(c/2)`` and ``l`` in {0, 1}."""
-    hi = xc >> 1
-    return hi.to(torch.int8), (xc - 2 * hi).to(torch.int8)
-
-
 def _int_sum_to_f32(acc: torch.Tensor, inv: torch.Tensor) -> torch.Tensor:
     return acc.to(torch.float32) * inv
 
@@ -311,16 +313,15 @@ def _summed(dx: torch.Tensor, tp) -> torch.Tensor:
     return dx if tp is None else tp.all_reduce(dx, kind="dx")
 
 
-def _partial_dx(a: torch.Tensor, b: torch.Tensor, inv: torch.Tensor,
-                tp) -> torch.Tensor:
-    """``a @ b`` dequantized by ``inv``: K2 with its epilogue on one
-    rank; under tensor parallelism each rank's int32 partial sum over its
-    columns, summed over the model group ``tp``, then dequantized (the
-    same bits as one rank's epilogue)."""
+def _partial_dx(contract, inv: torch.Tensor, tp) -> torch.Tensor:
+    """An integer contraction dequantized by ``inv``: ``contract(inv)``,
+    the kernel with its epilogue, on one rank; under tensor parallelism
+    each rank's int32 partial sum over its columns, ``contract(None)``,
+    summed over the model group ``tp``, then dequantized (the same bits
+    as one rank's epilogue)."""
     if tp is None:
-        return int8_matmul(a, b, inv)
-    acc = tp.all_reduce(int8_matmul(a, b), kind="dx")
-    return _int_sum_to_f32(acc, inv)
+        return contract(inv)
+    return _int_sum_to_f32(tp.all_reduce(contract(None), kind="dx"), inv)
 
 
 # ---------------------------------------------------------------------------
@@ -350,7 +351,8 @@ class _QMatmul(torch.autograd.Function):
         mg = multiplier(ctx.bits_g, ctx.exp_g, g.device)
         gc = _recover_codes(g, mg)
         if ctx.needs_input_grad[0]:
-            dx = _partial_dx(gc, wc.t().contiguous(),
+            wt = wc.t().contiguous()
+            dx = _partial_dx(lambda inv: int8_matmul(gc, wt, inv),
                              (1.0 / (mg * mw)).reshape(1), ctx.tp)
         if ctx.needs_input_grad[1]:
             dw = _int_sum_to_f32(int8_matmul_tn(xc, gc), 1.0 / (mx * mg))
@@ -408,10 +410,30 @@ def _conv_forward(xc, wc, mx, mw, strides, pads) -> torch.Tensor:
     inv = (1.0 / (mx * mw)).reshape(1)
     if xc.dtype == torch.int8:
         return int8_matmul(im2col(xc, (kh, kw), strides, pads), w2, inv)
-    hi, lo = _split9(xc)
+    hi, lo = split9(xc)
     acc = (2 * int8_matmul(im2col(hi, (kh, kw), strides, pads), w2)
            + int8_matmul(im2col(lo, (kh, kw), strides, pads), w2))
     return _int_sum_to_f32(acc, inv)
+
+
+def _im2col_dgrad(gc, wc, x_hw, strides, pads, inv=None) -> torch.Tensor:
+    """:func:`int8_conv_dgrad` for any channel counts: K2 over the im2col
+    of the zero-dilated, padded cotangent against the flipped,
+    HIO-transposed kernel."""
+    cols, wflip = _dx_operands(gc, wc, x_hw, strides, pads)
+    return int8_matmul(cols, wflip, inv).view(gc.shape[0], *x_hw,
+                                              wc.shape[2])
+
+
+def _im2col_wgrad(xc, gc, ksize, strides, pads) -> torch.Tensor:
+    """:func:`int8_conv_wgrad` for any channel counts: K2's X^T.g over the
+    im2col of the input codes (split-9 planes for 9-bit codes)."""
+    g2 = gc.reshape(-1, gc.shape[3])
+    if xc.dtype == torch.int8:
+        return int8_matmul_tn(im2col(xc, ksize, strides, pads), g2)
+    hi, lo = split9(xc)
+    return (2 * int8_matmul_tn(im2col(hi, ksize, strides, pads), g2)
+            + int8_matmul_tn(im2col(lo, ksize, strides, pads), g2))
 
 
 def _conv_backward(gc, mg, xc, wc, mx, mw, strides, pads, need_dx, need_dw,
@@ -419,22 +441,23 @@ def _conv_backward(gc, mg, xc, wc, mx, mw, strides, pads, need_dx, need_dw,
     """``(dx, dW)`` of a conv from the cotangent's int8 codes ``gc``
     ``[B, Ho, Wo, Cout]`` (``None`` where not needed); under tensor
     parallelism ``wc`` and ``gc`` hold this rank's output channels, and
-    ``dx`` sums the model group ``tp``'s partial contractions."""
-    b, h, w, cin = xc.shape
+    ``dx`` sums the model group ``tp``'s partial contractions.  Channel
+    counts that are multiples of 16 take the implicit-GEMM kernels, which
+    gather the taps as they load; others (the RGB stem's ``Cin = 3``) K2
+    over im2col patches."""
+    _, h, w, cin = xc.shape
     kh, kw, _, cout = wc.shape
+    if implicit(cin, cout):
+        dgrad, wgrad = int8_conv_dgrad, int8_conv_wgrad
+    else:
+        dgrad, wgrad = _im2col_dgrad, _im2col_wgrad
     dx = dw = None
     if need_dx:
-        cols, wflip = _dx_operands(gc, wc, (h, w), strides, pads)
-        dx = _partial_dx(cols, wflip, (1.0 / (mg * mw)).reshape(1),
-                         tp).view(b, h, w, cin)
+        dx = _partial_dx(
+            lambda inv: dgrad(gc, wc, (h, w), strides, pads, inv),
+            (1.0 / (mg * mw)).reshape(1), tp)
     if need_dw:
-        g2 = gc.reshape(-1, cout)
-        if xc.dtype == torch.int8:
-            acc = int8_matmul_tn(im2col(xc, (kh, kw), strides, pads), g2)
-        else:
-            hi, lo = _split9(xc)
-            acc = (2 * int8_matmul_tn(im2col(hi, (kh, kw), strides, pads), g2)
-                   + int8_matmul_tn(im2col(lo, (kh, kw), strides, pads), g2))
+        acc = wgrad(xc, gc, (kh, kw), strides, pads)
         dw = _int_sum_to_f32(acc, 1.0 / (mx * mg)).view(kh, kw, cin, cout)
     return dx, dw
 

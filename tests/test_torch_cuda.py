@@ -1637,3 +1637,142 @@ def test_conv_fused_rbg_column_window_matches_plain(dev, k, cin, cout,
     for a, b in zip(got, want):
         assert a.dtype == b.dtype and torch.equal(a.cpu(), b)
 
+
+
+# the int8 conv backward's dgrad and wgrad kernels (ops/kernels/conv_bwd.py)
+
+# every distinct backward geometry of ResNet-50/224 that the kernels take
+# (all but the RGB stem's): (x shape at batch 8, kernel HWIO, stride)
+R50_BWD_SHAPES = [
+    ((8, 56, 56, 64), (1, 1, 64, 64), 1),
+    ((8, 56, 56, 64), (3, 3, 64, 64), 1),
+    ((8, 56, 56, 64), (1, 1, 64, 256), 1),
+    ((8, 56, 56, 256), (1, 1, 256, 64), 1),
+    ((8, 56, 56, 256), (1, 1, 256, 128), 1),
+    ((8, 56, 56, 128), (3, 3, 128, 128), 2),
+    ((8, 56, 56, 256), (1, 1, 256, 512), 2),
+    ((8, 28, 28, 128), (1, 1, 128, 512), 1),
+    ((8, 28, 28, 512), (1, 1, 512, 128), 1),
+    ((8, 28, 28, 128), (3, 3, 128, 128), 1),
+    ((8, 28, 28, 512), (1, 1, 512, 256), 1),
+    ((8, 28, 28, 256), (3, 3, 256, 256), 2),
+    ((8, 28, 28, 512), (1, 1, 512, 1024), 2),
+    ((8, 14, 14, 256), (1, 1, 256, 1024), 1),
+    ((8, 14, 14, 1024), (1, 1, 1024, 256), 1),
+    ((8, 14, 14, 256), (3, 3, 256, 256), 1),
+    ((8, 14, 14, 1024), (1, 1, 1024, 512), 1),
+    ((8, 14, 14, 512), (3, 3, 512, 512), 2),
+    ((8, 14, 14, 1024), (1, 1, 1024, 2048), 2),
+    ((8, 7, 7, 512), (1, 1, 512, 2048), 1),
+    ((8, 7, 7, 2048), (1, 1, 2048, 512), 1),
+    ((8, 7, 7, 512), (3, 3, 512, 512), 1),
+]
+# ragged pixel tiles, channel tiles and stride classes, a 7x7 stride-2
+# conv, pads past the kernel, a wgrad of more pixels than one chunk
+# allows, and ResNet-20's widths
+RAGGED_BWD_SHAPES = [
+    ((1, 7, 7, 48), (3, 3, 48, 80), 1),
+    ((3, 9, 11, 16), (3, 3, 16, 16), 2),
+    ((2, 15, 13, 32), (7, 7, 32, 48), 2),
+    ((1, 5, 5, 16), (1, 1, 16, 16), 2),
+    ((40, 56, 56, 16), (1, 1, 16, 32), 1),
+    ((128, 32, 32, 16), (3, 3, 16, 16), 1),
+    ((128, 16, 16, 32), (3, 3, 32, 64), 2),
+]
+
+
+@pytest.mark.parametrize("case,xdtype", [
+    *((shape, torch.int8) for shape in R50_BWD_SHAPES),
+    *((shape, dtype) for shape in RAGGED_BWD_SHAPES
+      for dtype in (torch.int8, torch.int16))])
+def test_conv_bwd_matches_plain(dev, case, xdtype):
+    """dgrad (scaled and int32) and wgrad equal their plain versions bit
+    for bit, one launch a call (two for 9-bit codes' wgrad)."""
+    from lbt_tpu_torch.ops.kernels import conv_bwd
+    xshape, wshape, s = case
+    kh, kw, cin, cout = wshape
+    strides = (s, s)
+    padding = ((3, 4), (5, 1)) if xshape == (1, 5, 5, 16) else "SAME"
+    pads = qops.conv_pads(padding, xshape[1:3], (kh, kw), strides)
+    ho, wo = qops.out_hw(*xshape[1:3], (kh, kw), strides, pads)
+    g = torch.Generator().manual_seed(sum(xshape) + sum(wshape))
+    lim = 256 if xdtype == torch.int16 else 128
+    xc = torch.randint(-lim, lim, xshape, generator=g, dtype=xdtype).to(dev)
+    wc = torch.randint(-128, 128, wshape, generator=g,
+                       dtype=torch.int8).to(dev)
+    gc = torch.randint(-128, 128, (xshape[0], ho, wo, cout), generator=g,
+                       dtype=torch.int8).to(dev)
+    inv = torch.tensor([2.0 ** -13], device=dev)
+    for scale in (inv, None):
+        before = conv_bwd.int8_conv_dgrad.launches
+        got = conv_bwd.int8_conv_dgrad(gc, wc, xshape[1:3], strides, pads,
+                                       scale)
+        torch.cuda.synchronize()
+        assert conv_bwd.int8_conv_dgrad.launches == before + 1
+        want = conv_bwd.int8_conv_dgrad_plain(gc, wc, xshape[1:3], strides,
+                                              pads, scale)
+        assert got.dtype == want.dtype and torch.equal(got, want)
+    before = conv_bwd.int8_conv_wgrad.launches
+    got = conv_bwd.int8_conv_wgrad(xc, gc, (kh, kw), strides, pads)
+    torch.cuda.synchronize()
+    assert conv_bwd.int8_conv_wgrad.launches == before + (
+        2 if xdtype == torch.int16 else 1)
+    want = conv_bwd.int8_conv_wgrad_plain(xc, gc, (kh, kw), strides, pads)
+    assert got.dtype == torch.int64 and torch.equal(got, want)
+
+
+def test_conv_bwd_refuses_what_it_cannot_gather(dev):
+    """Channels that are not multiples of 16 and operands off a 16-byte
+    boundary raise; the callers send such convs through im2col."""
+    from lbt_tpu_torch.ops.kernels import conv_bwd
+    gc = torch.zeros((1, 4, 4, 8), dtype=torch.int8, device=dev)
+    wc = torch.zeros((3, 3, 16, 8), dtype=torch.int8, device=dev)
+    with pytest.raises(ValueError, match="multiples of 16"):
+        conv_bwd.int8_conv_dgrad(gc, wc, (4, 4), (1, 1), ((1, 1), (1, 1)))
+    buf = torch.zeros(16 * 16 + 1, dtype=torch.int8, device=dev)
+    gc = buf[1:].view(1, 4, 4, 16)
+    wc = torch.zeros((3, 3, 16, 16), dtype=torch.int8, device=dev)
+    with pytest.raises(ValueError, match="aligned"):
+        conv_bwd.int8_conv_dgrad(gc, wc, (4, 4), (1, 1), ((1, 1), (1, 1)))
+
+
+def test_headline_step_launches_one_dgrad_and_wgrad_a_conv(dev,
+                                                           monkeypatch):
+    """One step of the headline (ResNet-50/224, batch 4) on the card: each
+    of the 52 convs that the fused kernels run launches one dgrad and one
+    wgrad; K2 keeps the stem's forward and dW and the head's three
+    contractions, and ``im2col`` runs for the stem alone (its forward and
+    its dW), ``dilate_pad`` never."""
+    from lbt_tpu_torch.models import imagenet_resnet
+    from lbt_tpu_torch.ops.kernels import conv_bwd
+    seen = {"im2col": [], "dilate_pad": []}
+
+    def channels(name, fn):
+        def wrapped(t, *args, **kwargs):
+            seen[name].append(t.shape[-1])
+            return fn(t, *args, **kwargs)
+        return wrapped
+
+    for name in seen:
+        monkeypatch.setattr(qops, name, channels(name, getattr(qops, name)))
+    model = imagenet_resnet(_headline("bf16"), 50, weight_decay=2e-4).init(
+        torch.Generator().manual_seed(0)).to(dev)
+    vel = momentum_init(dict(model.net.named_parameters()))
+    step = make_train_step(model, TrainConfig())
+    rng = np.random.default_rng(0)
+    x = torch.from_numpy(rng.normal(0, 1, (4, 224, 224, 3)).astype(
+        np.float32)).to(dev)
+    y = torch.from_numpy(rng.integers(0, 1000, (4,))).to(dev)
+    counters = (conv_bwd.int8_conv_dgrad, conv_bwd.int8_conv_wgrad,
+                gemm.int8_matmul, gemm.int8_matmul_tn,
+                conv_fused.conv3x3_fused, conv_fused.conv1x1_fused)
+    before = [c.launches for c in counters]
+    loss = step(model, vel, x, y, 0, 1e-2, base_key(3))["loss"]
+    torch.cuda.synchronize()
+    assert math.isfinite(loss.item())
+    dgrad, wgrad, k2, k2_tn, c3, c1 = (c.launches - b
+                                       for c, b in zip(counters, before))
+    assert c3 + c1 == 52
+    assert dgrad == wgrad == 52
+    assert k2 == 3 and k2_tn == 2
+    assert seen == {"im2col": [3, 3], "dilate_pad": []}

@@ -105,3 +105,22 @@ def test_noise_integer_operations_in_the_fused_epilogue():
     assert (w0.int_ops, w3.int_ops) == (0, 69 * 128 * 32 * 32 * 16)
     assert (w3.bytes, w3.ops) == (w0.bytes, w0.ops)
     assert w3.bound_by == "operations" and w3.bound_ms > w0.bound_ms
+
+
+def test_conv_backward_work_counts_the_useful_products():
+    """dgrad and wgrad at a 3x3 stride-2 conv with TF-SAME pads (0, 1) on
+    an 8x8 input (4x4 out): along each dim tap 0 reads 4 rows, taps 1 and
+    2 read 4 and 3 (the last output's tap 2 falls in the pad), so 11 x 11
+    (tap, output pixel) pairs a batch row, the same products both ways;
+    dgrad moves g, W and the f32 dx (its scale), wgrad the input rows
+    some tap reads (all 8), g and the int64 dW."""
+    pads = ((0, 1), (0, 1))
+    d = work.conv_dgrad_work((2, 4, 4, 32), (3, 3, 16, 32), (8, 8), (2, 2),
+                             pads)
+    w = work.conv_wgrad_work((2, 8, 8, 16), 1, (2, 4, 4, 32), (3, 3),
+                             (2, 2), pads)
+    assert d.ops == w.ops == 2 * 2 * 11 * 11 * 16 * 32
+    assert d.bytes == 2 * 16 * 32 + 9 * 16 * 32 + 4 * 2 * 64 * 16 + 4
+    assert w.bytes == 2 * 64 * 16 + 2 * 16 * 32 + 8 * 9 * 16 * 32
+    assert work.conv_wgrad_work((2, 8, 8, 16), 2, (2, 4, 4, 32), (3, 3),
+                                (2, 2), pads).ops == 2 * w.ops

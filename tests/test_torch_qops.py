@@ -134,3 +134,127 @@ def test_qops_refuse_code_widths_beyond_the_int8_engine(widths):
                         engine="int8", **kw)
     got = qops.qmatmul(torch.from_numpy(a), torch.from_numpy(b), 1, 0, **kw)
     np.testing.assert_allclose(got.numpy(), np.asarray(want), **tol)
+
+
+# the int8 conv backward's dgrad and wgrad against the im2col route they
+# replace: (x shape, kernel HWIO, strides, padding, x code dtype)
+CONV_BWD_CASES = {
+    "1x1s1": ((2, 5, 5, 16), (1, 1, 16, 32), 1, "SAME", torch.int8),
+    "1x1s2": ((2, 7, 7, 32), (1, 1, 32, 16), 2, "SAME", torch.int8),
+    "3x3s1_7": ((2, 7, 7, 16), (3, 3, 16, 16), 1, "SAME", torch.int8),
+    "3x3s2_7": ((2, 7, 7, 32), (3, 3, 32, 16), 2, "SAME", torch.int8),
+    "3x3s2_15": ((1, 15, 15, 16), (3, 3, 16, 32), 2, "SAME", torch.int8),
+    "7x7s2_16": ((1, 15, 15, 16), (7, 7, 16, 16), 2, "SAME", torch.int8),
+    "5x5s2_valid_remainder": ((2, 12, 13, 16), (5, 5, 16, 16), 2, "VALID",
+                              torch.int8),
+    "5x5_pads_past_the_kernel": ((1, 6, 7, 16), (5, 5, 16, 16), 1,
+                                 ((5, 6), (0, 6)), torch.int8),
+    "3x3s2_split9": ((2, 7, 7, 16), (3, 3, 16, 32), 2, "SAME", torch.int16),
+}
+
+
+@pytest.mark.parametrize("case", sorted(CONV_BWD_CASES))
+def test_conv_bwd_plain_matches_the_im2col_route(case):
+    """``int8_conv_dgrad`` / ``int8_conv_wgrad`` (their plain versions on
+    the CPU) equal the route they replace bit for bit (``_im2col_dgrad``,
+    ``_im2col_wgrad``: K2 over im2col patches, K2's plain version on the
+    CPU), dgrad with and without the dequantizing scale (the int32
+    partial of a sharded layer), wgrad with int8 and split-9 codes."""
+    from lbt_tpu_torch.ops.im2col import dx_pads
+    from lbt_tpu_torch.ops.kernels.conv_bwd import (int8_conv_dgrad,
+                                                    int8_conv_wgrad)
+    xshape, wshape, s, padding, xdtype = CONV_BWD_CASES[case]
+    kh, kw, cin, cout = wshape
+    strides = (s, s)
+    pads = qops.conv_pads(padding, xshape[1:3], (kh, kw), strides)
+    ho, wo = qops.out_hw(*xshape[1:3], (kh, kw), strides, pads)
+    if case == "5x5_pads_past_the_kernel":
+        assert min(min(p) for p in dx_pads(
+            xshape[1:3], (kh, kw), strides, pads, (ho, wo))) < 0
+    g = torch.Generator().manual_seed(len(case))
+    lim = 256 if xdtype == torch.int16 else 128
+    xc = torch.randint(-lim, lim, xshape, generator=g, dtype=xdtype)
+    wc = torch.randint(-128, 128, wshape, generator=g, dtype=torch.int8)
+    gc = torch.randint(-128, 128, (xshape[0], ho, wo, cout), generator=g,
+                       dtype=torch.int8)
+    inv = torch.tensor([2.0 ** -13])
+
+    for scale in (inv, None):
+        got = int8_conv_dgrad(gc, wc, xshape[1:3], strides, pads, scale)
+        want = qops._im2col_dgrad(gc, wc, xshape[1:3], strides, pads, scale)
+        assert got.dtype == want.dtype and torch.equal(got, want)
+
+    got = int8_conv_wgrad(xc, gc, (kh, kw), strides, pads)
+    want = qops._im2col_wgrad(xc, gc, (kh, kw), strides, pads)
+    assert got.dtype == torch.int64 and torch.equal(got, want)
+
+
+def test_int8_train_step_gathers_conv_taps_in_place(monkeypatch):
+    """One int8 ResNet-8 step under the headline's options: the convs
+    whose channels are multiples of 16 go through the dgrad and wgrad
+    wrappers (one call each a conv, none for the stem's dx), and
+    ``im2col`` and ``dilate_pad`` run only for the RGB stem (its dW); the
+    loss, parameters and velocity equal the im2col route's bit for bit."""
+    import dataclasses
+
+    from lbt_tpu_torch import convert
+    from lbt_tpu_torch.config import QuantConfig, TrainConfig
+    from lbt_tpu_torch.dfxp.keys import base_key
+    from lbt_tpu_torch.models import cifar10_resnet
+    from lbt_tpu_torch.train.optim import momentum_init
+    from lbt_tpu_torch.train.step import make_train_step
+
+    cfg = dataclasses.replace(
+        QuantConfig.uniform(8, engine="int8", noise_mode="hash1"),
+        fused_bn=True, act_dtype="bf16", conv_act_extra=0)
+    rng = np.random.default_rng(0)
+    x = torch.from_numpy(rng.normal(0, 1, (2, 32, 32, 3)).astype(np.float32))
+    y = torch.from_numpy(rng.integers(0, 10, (2,)))
+
+    def step():
+        model = cifar10_resnet(cfg, 8, weight_decay=2e-4).init(
+            torch.Generator().manual_seed(0))
+        vel = momentum_init(dict(model.net.named_parameters()))
+        loss = make_train_step(model, TrainConfig())(
+            model, vel, x, y, 0, 1e-2, base_key(3))["loss"]
+        return loss, convert.to_jax_numpy(model, vel)
+
+    calls = {"im2col": [], "dilate_pad": [], "dgrad": 0, "wgrad": 0}
+
+    def counted(name, fn, channels):
+        def wrapped(*args, **kwargs):
+            if isinstance(calls[name], list):
+                calls[name].append(channels(*args))
+            else:
+                calls[name] += 1
+            return fn(*args, **kwargs)
+        return wrapped
+
+    with monkeypatch.context() as m:
+        for name, attr, channels in (
+                ("im2col", "im2col", lambda t, *a: t.shape[-1]),
+                ("dilate_pad", "dilate_pad", lambda t, *a: t.shape[-1]),
+                ("dgrad", "int8_conv_dgrad", None),
+                ("wgrad", "int8_conv_wgrad", None)):
+            m.setattr(qops, attr, counted(name, getattr(qops, attr),
+                                          channels))
+        loss, state = step()
+    # 9 convs: the stem, 6 3x3 and 2 1x1 shortcut convs
+    assert calls["dgrad"] == 8 and calls["wgrad"] == 8
+    assert calls["im2col"] == [3] and calls["dilate_pad"] == []
+
+    with monkeypatch.context() as m:
+        m.setattr(qops, "int8_conv_dgrad", qops._im2col_dgrad)
+        m.setattr(qops, "int8_conv_wgrad", qops._im2col_wgrad)
+        want_loss, want = step()
+    assert torch.equal(loss, want_loss)
+
+    def same(a, b):
+        if isinstance(a, dict):
+            assert a.keys() == b.keys()
+            for k in a:
+                same(a[k], b[k])
+        else:
+            np.testing.assert_array_equal(a, b)
+    for a, b in zip(state, want):
+        same(a, b)
