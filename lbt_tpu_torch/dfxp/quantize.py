@@ -18,17 +18,19 @@ is threefry under a 2-word key and XLA's Philox stream under a 4-word
 
 For training: the straight-through estimator (:func:`straight_through`,
 :func:`quantize_ste`), the overflow statistics the range controllers read
-(:func:`overflow_rates`, :func:`overflow_stats`, and
+(:func:`overflow_counts`, :func:`overflow_rates`, and
 :func:`overflow_indicators` from the ``[min, max]`` that K1 emits beside
-the codes), and the controller step :func:`update_exponent`.  Exponents
-and statistics stay device tensors: a controller step needs no host sync.
+the codes), and the controller step :func:`update_exponent`, each of one
+site or of a stack of sites, one a row.  Exponents and statistics stay
+device tensors: a controller step needs no host sync.
 """
 
 from __future__ import annotations
 
 import math
-from typing import Optional, Sequence, Tuple
+from typing import Optional, Sequence, Tuple, Union
 
+import numpy as np
 import torch
 
 from lbt_tpu_torch.ops.kernels.quant import (HASH, HASH1, RBG, THREEFRY,
@@ -39,8 +41,8 @@ from lbt_tpu_torch.ops.kernels.quant import (HASH, HASH1, RBG, THREEFRY,
 __all__ = ["EXP_MIN", "Noise", "code_dtype", "counts_to_rates",
            "dequantize", "hash_uniform", "key_seed", "multiplier",
            "noise_spec", "overflow_counts", "overflow_indicators",
-           "overflow_rates", "overflow_stats", "quantize", "quantize_int",
-           "quantize_ste", "straight_through", "update_exponent"]
+           "overflow_rates", "quantize", "quantize_int", "quantize_ste",
+           "straight_through", "update_exponent"]
 
 # Below this exponent the f32 multiplier 2**(bits-1-exp) would overflow.
 EXP_MIN = -110
@@ -247,11 +249,23 @@ def overflow_counts(x: torch.Tensor, bits: int, exp: Exp) -> torch.Tensor:
                         over2.to(torch.float32).sum()])
 
 
-def counts_to_rates(counts: torch.Tensor, numel: int) -> torch.Tensor:
+def _reciprocal(numel: int) -> float:
+    """``1 / numel`` rounded to f32, as an f32 one divided by ``numel``
+    rounds it, as a Python float (exact: it is an f32 value)."""
+    return float(np.float32(1.0) / np.float32(max(numel, 1)))
+
+
+def counts_to_rates(counts: torch.Tensor,
+                    numel: Union[int, Sequence[int]]) -> torch.Tensor:
     """Overflow counts of ``numel`` elements as fractions: the exact
-    counts times the f32 reciprocal of ``numel``, as XLA's mean rounds."""
-    inv_n = torch.tensor(1.0, device=counts.device) / max(numel, 1)
-    return counts * inv_n
+    counts times the f32 reciprocal of ``numel``, as XLA's mean rounds.
+    ``counts`` is one ``(2,)`` with an int ``numel``, or ``[N, 2]`` with
+    one ``numel`` a row.  The reciprocals reach the device as kernel
+    arguments, not as a tensor made from Python data."""
+    if isinstance(numel, int):
+        return counts * _reciprocal(numel)
+    return torch.stack(torch._foreach_mul(
+        list(counts.unbind(0)), [_reciprocal(n) for n in numel]))
 
 
 def overflow_rates(x: torch.Tensor, bits: int, exp: Exp) -> torch.Tensor:
@@ -262,24 +276,14 @@ def overflow_rates(x: torch.Tensor, bits: int, exp: Exp) -> torch.Tensor:
 
 def overflow_indicators(minmax: torch.Tensor, bits: int) -> torch.Tensor:
     """The indicator form of the overflow statistics from ``[min, max]``
-    of the scaled tensor: ``[any clips at full range, any at half]`` as
-    f32 (``lbt_tpu``'s ``overflow_stats`` at a zero target)."""
+    of the scaled tensor (``[..., 2]``): ``[any clips at full range, any
+    at half]`` as f32 (``lbt_tpu``'s ``overflow_stats`` at a zero
+    target)."""
     limit = float(2 ** (bits - 1))
-    mn, mx = minmax[0], minmax[1]
+    mn, mx = minmax[..., 0], minmax[..., 1]
     over = (mx >= limit) | (mn < -limit)
     over2 = (mx >= limit / 2) | (mn < -limit / 2)
-    return torch.stack([over, over2]).to(torch.float32)
-
-
-def overflow_stats(x: torch.Tensor, bits: int, exp: Exp,
-                   target_overflow_rate: float = 0.0) -> torch.Tensor:
-    """Statistics sufficient for :func:`update_exponent`: the indicator
-    form at a zero target, the true fractions otherwise."""
-    if target_overflow_rate != 0.0:
-        return overflow_rates(x, bits, exp)
-    scaled = x.detach().to(torch.float32) * multiplier(bits, exp, x.device)
-    return overflow_indicators(
-        torch.stack([scaled.amin(), scaled.amax()]), bits)
+    return torch.stack([over, over2], dim=-1).to(torch.float32)
 
 
 def update_exponent(exp: Exp, rates: torch.Tensor, bits: int,

@@ -10,32 +10,33 @@ uid folds into the same site keys.
 
 State updates of a training forward follow ``lbt_tpu``'s functional
 order: every exponent is read before its controller steps in that step.
-A layer stages the new value of a forward-site exponent or BN statistic
-on the :class:`Ctx` (:meth:`Ctx.stage`); the train step commits the
-staged values after the backward pass (:meth:`Ctx.commit`), as ``lbt_tpu``
-returns ``new_qstate``.  Gradient-site exponents move only in
+A layer stages a BN statistic's new value on the :class:`Ctx`
+(:meth:`Ctx.stage`), and what it measured of a forward site's tensor for
+that site's controller (:meth:`Layer._ctrl`); the train step commits
+both after the backward pass (:meth:`Ctx.commit`), as ``lbt_tpu``
+returns ``new_qstate``.  Gradient-site exponents move in
 :meth:`Layer.absorb_sinks`, from the statistics the cotangent barriers
-wrote into the sinks (:func:`make_sinks`), or, on a step whose
-controllers are gated off, by :func:`hold_exponents` without reading them.
+wrote into the sinks (:func:`make_sinks`).  Both step their exponents in
+one batched pass (:func:`_step`): one ``update_exponent`` of the stacked
+exponents of each ``(bits, target)``, whatever the number of sites.
 """
 
 from __future__ import annotations
 
 import dataclasses
-import functools
-from typing import Dict, Iterable, List, Optional, Sequence, Tuple
+from typing import (Dict, Iterable, List, NamedTuple, Optional, Sequence,
+                    Tuple)
 
 import numpy as np
 import torch
 from torch import nn
 
 from lbt_tpu_torch.config import QuantConfig
-from lbt_tpu_torch.dfxp.barrier import HOLD_STATS, make_sink
+from lbt_tpu_torch.dfxp.barrier import make_sink
 from lbt_tpu_torch.dfxp.keys import site_keys
-from lbt_tpu_torch.dfxp.quantize import (EXP_MIN, counts_to_rates, multiplier,
+from lbt_tpu_torch.dfxp.quantize import (counts_to_rates, multiplier,
                                          overflow_counts, overflow_indicators,
-                                         overflow_stats, quantize_ste,
-                                         update_exponent)
+                                         quantize_ste, update_exponent)
 
 _RESERVED = {"exp", "state", "grad", "buffer"}
 N_SITES = 5  # site indices folded into a layer key: x, w, b, g, dropout
@@ -65,11 +66,10 @@ class Ctx:
     Under tensor parallelism ``dist`` is this rank's data group, and a
     controller of a tensor that this rank holds a column slice of (a
     sharded ``W``, the BN input of a sharded conv) reads the whole
-    tensor's statistics: :meth:`stage_ctrl` with the model group waits
-    for :meth:`commit`, which takes the min of the slices' minima
-    and the max of their maxima (or sums their overflow counts) over the
-    model group in one all-reduce, then averages over the data group as
-    for any site."""
+    tensor's statistics: :meth:`commit` takes the min of the slices'
+    minima and the max of their maxima (or sums their overflow counts)
+    over the model group in one all-reduce, then averages over the data
+    group as for any site."""
 
     train: bool
     key: Optional[np.ndarray] = None
@@ -82,7 +82,6 @@ class Ctx:
     _keys: Optional[np.ndarray] = dataclasses.field(default=None, repr=False)
     _staged: list = dataclasses.field(default_factory=list, repr=False)
     _ctrl: list = dataclasses.field(default_factory=list, repr=False)
-    _sharded: list = dataclasses.field(default_factory=list, repr=False)
     _means: list = dataclasses.field(default_factory=list, repr=False)
     _taken: set = dataclasses.field(default_factory=set, repr=False)
 
@@ -132,59 +131,10 @@ class Ctx:
         else:
             self._staged.append((buf, value.detach()))
 
-    def stage_ctrl(self, exp: torch.Tensor, rates: torch.Tensor, bits: int,
-                   target: float, model=None, numel: int = 0) -> None:
-        """Stage a controller step of ``exp`` from this rank's overflow
-        ``rates``.  On one device it is staged at once; under ``dist`` the
-        rates of every site wait for :meth:`commit`, which averages them
-        over the ranks in one all-reduce.  With a ``model`` group (the
-        site's tensor is sharded over it) ``rates`` is this rank's
-        slice's statistic, ``[min, max]`` of the scaled slice at a zero
-        target, else its overflow counts of the whole tensor's ``numel``
-        elements, and waits for the model group's."""
-        if model is not None:
-            self._sharded.append((exp, rates, bits, target, model, numel))
-        elif self.dist is None:
-            self.stage(exp, update_exponent(exp, rates, bits, target))
-        else:
-            self._ctrl.append((exp, rates, bits, target))
-
-    def _whole_rates(self) -> None:
-        """The sharded sites' statistics over the model group (one MAX
-        all-reduce of every ``[-min, max]``, one SUM of every count pair),
-        as rates, staged as a whole tensor's would be."""
-        group = self._sharded[0][4]
-        for zero in (True, False):
-            sites = [e for e in self._sharded if (e[3] == 0.0) == zero]
-            if not sites:
-                continue
-            stats = torch.stack([s[1].to(torch.float32) for s in sites])
-            if zero:
-                stats[:, 0] = -stats[:, 0]
-                whole = group.all_reduce(stats, "max", kind="stats")
-                whole[:, 0] = -whole[:, 0]
-            else:
-                whole = group.all_reduce(stats, kind="stats")
-            for (exp, _, bits, target, _, numel), w in zip(sites, whole):
-                rates = (overflow_indicators(w, bits) if zero else
-                         counts_to_rates(w, numel))
-                if self.dist is None:
-                    exp.copy_(update_exponent(exp, rates, bits, target))
-                else:
-                    self._ctrl.append((exp, rates, bits, target))
-        self._sharded.clear()
-
     def commit(self) -> None:
         with torch.no_grad():
-            if self._sharded:
-                self._whole_rates()
             if self._ctrl:
-                rates = self.dist.mean(torch.stack(
-                    [r.to(torch.float32) for _, r, _, _ in self._ctrl]),
-                    kind="stats")
-                for (exp, _, bits, target), r in zip(self._ctrl, rates):
-                    exp.copy_(update_exponent(exp, r, bits, target))
-                self._ctrl.clear()
+                self._step_controllers()
             if self._means:
                 sums = self.dist.all_reduce_each([v for _, v in self._means])
                 for (buf, _), total in zip(self._means, sums):
@@ -193,6 +143,100 @@ class Ctx:
             for buf, value in self._staged:
                 buf.copy_(value)
         self._staged.clear()
+
+    def _step_controllers(self) -> None:
+        """Step every staged controller at once: stack the statistics
+        (the unsharded sites in staging order, then the sharded ones at a
+        zero target, then the rest); the sharded rows over their model
+        group, one MAX all-reduce of ``[-min, max]`` and one SUM of the
+        counts; every row as rates; under ``dist`` one mean of the rates
+        over the data group; then :func:`_step`."""
+        local = [s for s in self._ctrl if s.group is None]
+        zero = [s for s in self._ctrl
+                if s.group is not None and s.target == 0.0]
+        counted = [s for s in self._ctrl
+                   if s.group is not None and s.target != 0.0]
+        sites = local + zero + counted
+        stats = torch.stack([s.stat.to(torch.float32) for s in sites])
+        a, b = len(local), len(local) + len(zero)
+        if zero:
+            # the min of the slices' minima is the max of their negations
+            mm = stats[a:b]
+            mm[:, 0].neg_()
+            mm.copy_(zero[0].group.all_reduce(mm, "max", kind="stats"))
+            mm[:, 0].neg_()
+        if counted:
+            stats[b:].copy_(counted[0].group.all_reduce(stats[b:],
+                                                        kind="stats"))
+        rates = _rates(sites, stats)
+        if self.dist is not None:
+            rates = self.dist.mean(rates, kind="stats")
+        _step(sites, rates)
+        self._ctrl.clear()
+
+
+class _Site(NamedTuple):
+    """A site's exponent buffer, width and target; of a forward site also
+    what :meth:`Layer._ctrl` measured and the model group its tensor is
+    sharded over (None: whole on this rank)."""
+    exp: torch.Tensor
+    bits: int
+    target: float
+    stat: Optional[torch.Tensor] = None
+    group: Optional[object] = None
+    numel: int = 0
+
+
+def _by_rule(sites: Sequence[_Site]) -> Dict[Tuple[int, float], List[int]]:
+    """The indices of ``sites`` under each ``(bits, target)``, ascending."""
+    out: Dict[Tuple[int, float], List[int]] = {}
+    for i, s in enumerate(sites):
+        out.setdefault((s.bits, s.target), []).append(i)
+    return out
+
+
+def _take(rows: torch.Tensor, idx: List[int]) -> torch.Tensor:
+    """Rows ``idx`` (ascending) of ``rows``: ``rows`` itself when they
+    are all of them, else one stack of its rows' views."""
+    if len(idx) == rows.shape[0]:
+        return rows
+    views = rows.unbind(0)
+    return torch.stack([views[i] for i in idx])
+
+
+def _rates(sites: Sequence[_Site], stats: torch.Tensor) -> torch.Tensor:
+    """Each site's row of ``stats`` as the rates ``update_exponent`` reads
+    (``lbt_tpu``'s ``overflow_stats``): the indicators of ``[min, max]``
+    at a zero target, else the counts as fractions of ``numel``; the rows
+    of each ``(bits, target)`` at once, back in the sites' order."""
+    parts = []
+    for (bits, target), idx in _by_rule(sites).items():
+        rows = _take(stats, idx)
+        parts.append((idx, overflow_indicators(rows, bits) if target == 0.0
+                      else counts_to_rates(rows, [sites[i].numel
+                                                  for i in idx])))
+    if len(parts) == 1:
+        return parts[0][1]
+    out: List[Optional[torch.Tensor]] = [None] * len(sites)
+    for idx, rates in parts:
+        for i, row in zip(idx, rates.unbind(0)):
+            out[i] = row
+    return torch.stack(out)
+
+
+def _step(sites: Sequence[_Site], rates: torch.Tensor) -> None:
+    """Step each site's exponent from its row of ``rates`` (``[N, 2]``):
+    one ``update_exponent`` (widen, tighten or hold, clamped to
+    ``[EXP_MIN, bits - 1]``) of the stacked exponents of each ``(bits,
+    target)``, then one foreach copy into the sites' buffers.  Nothing is
+    read back to the host and no tensor is made from Python data."""
+    exps, new = [], []
+    for (bits, target), idx in _by_rule(sites).items():
+        group = [sites[i].exp for i in idx]
+        exps += group
+        new += update_exponent(torch.stack(group), _take(rates, idx), bits,
+                               target).unbind(0)
+    torch._foreach_copy_(exps, new)
 
 
 class Layer(nn.Module):
@@ -235,27 +279,18 @@ class Layer(nn.Module):
             return {c.name: c.decay_tree() for c in children}
         return self.own_decay()
 
-    def absorb_sinks(self, sink_cots: Dict[int, torch.Tensor],
-                     held: Iterable[int] = ()) -> None:
-        """Step each gradient-site exponent under this layer from its
-        sink's cotangent (``uid -> (2,)`` statistics), about ten small
-        launches a site.  The sites of ``held`` (uids whose sinks carry
-        :data:`~lbt_tpu_torch.dfxp.barrier.HOLD_STATS`: the controllers
-        were gated off) read nothing and take that step together, in
-        :func:`hold_exponents`."""
-        held = set(held)
-        holding = []
-        for layer in walk(self):
-            if not layer.has_grad_sink():
-                continue
-            if layer.uid in held:
-                holding.append(layer)
-            elif layer.uid in sink_cots:
-                exp = layer.exp("grad")
-                exp.copy_(update_exponent(exp, sink_cots[layer.uid],
-                                          layer.cfg.bits_g,
-                                          layer.cfg.target_overflow_rate))
-        hold_exponents(holding)
+    def absorb_sinks(self, stats: Dict[int, torch.Tensor]) -> None:
+        """Step the gradient-site exponent of every layer under this one
+        whose uid ``stats`` holds from that sink's statistics (``uid ->
+        (2,)`` rates; a gated-off barrier's are
+        :data:`~lbt_tpu_torch.dfxp.barrier.HOLD_STATS`, on which the step
+        holds), all in one batched step (:func:`_step`)."""
+        layers = [layer for layer in walk(self)
+                  if layer.has_grad_sink() and layer.uid in stats]
+        if layers:
+            _step([_Site(layer.exp("grad"), layer.cfg.bits_g,
+                         layer.cfg.target_overflow_rate) for layer in layers],
+                  torch.stack([stats[layer.uid] for layer in layers]))
 
     # -- quantizer exponents ----------------------------------------------
     def _register_exps(self, sites: Iterable[Tuple[str, int, int]]) -> None:
@@ -289,33 +324,32 @@ class Layer(nn.Module):
 
     def _ctrl(self, ctx: Ctx, site: str, bits: int, x: torch.Tensor,
               minmax: Optional[torch.Tensor] = None, shard=None) -> None:
-        """Stage one controller step of ``site``, measured on the
-        pre-quantization tensor ``x`` at the current exponent (from K1's
-        ``minmax`` of ``x * multiplier`` when given).  With a ``shard``
-        (``parallel.mesh.Shard``) ``x`` / ``minmax`` are of this rank's
-        column slice, and the step reads the whole tensor's statistics
-        (:meth:`Ctx.stage_ctrl`).  No-op unless the controllers run."""
+        """Stage one controller step of ``site`` on ``ctx``, for
+        :meth:`Ctx.commit`, with what was measured of the
+        pre-quantization tensor ``x`` at the current exponent:
+        ``[min, max]`` of ``x * multiplier`` at a zero target (K1's
+        ``minmax`` when given), else ``x``'s overflow counts.  With a
+        ``shard`` (``parallel.mesh.Shard``) ``x`` / ``minmax`` are of this
+        rank's column slice, and the step reads the whole tensor's
+        statistics over ``shard.group``.  No-op unless the controllers
+        run."""
         if not ctx.controls or bits >= 32 or site not in self.exp_sites():
             return
         target = self.cfg.target_overflow_rate
         exp = self.exp(site)
-        if shard is not None:
-            if target != 0.0:
-                stat = overflow_counts(x, bits, exp)
-            elif minmax is not None:
-                stat = minmax
-            else:
-                scaled = x.detach().to(torch.float32) * multiplier(
-                    bits, exp, x.device)
-                stat = torch.stack([scaled.amin(), scaled.amax()])
-            numel = 0 if x is None else x.numel() // shard.width * shard.n
-            ctx.stage_ctrl(exp, stat, bits, target, shard.group, numel)
-            return
-        if minmax is not None and target == 0.0:
-            rates = overflow_indicators(minmax, bits)
+        if target != 0.0:
+            stat = overflow_counts(x, bits, exp)
+        elif minmax is not None:
+            stat = minmax
         else:
-            rates = overflow_stats(x, bits, exp, target)
-        ctx.stage_ctrl(exp, rates, bits, target)
+            scaled = x.detach().to(torch.float32) * multiplier(
+                bits, exp, x.device)
+            stat = torch.stack([scaled.amin(), scaled.amax()])
+        numel = 0 if x is None else x.numel()
+        if shard is not None:
+            numel = numel // shard.width * shard.n
+        ctx._ctrl.append(_Site(exp, bits, target, stat,
+                               None if shard is None else shard.group, numel))
 
     def _quant(self, ctx: Ctx, site: str, t: torch.Tensor, bits: int,
                site_idx: int, row0: int = 0) -> torch.Tensor:
@@ -332,41 +366,6 @@ class Layer(nn.Module):
                                   row0=row0, **self._qkw(ctx))
         self._ctrl(ctx, site, bits, t, minmax)
         return tq
-
-
-@functools.cache
-def hold_step(target_overflow_rate: float) -> int:
-    """The step :func:`~lbt_tpu_torch.dfxp.quantize.update_exponent`
-    takes on :data:`~lbt_tpu_torch.dfxp.barrier.HOLD_STATS` at this
-    target (0 for a target in [0, 1)): ``update_exponent`` of 0 on the
-    host, once a target."""
-    return int(update_exponent(0, torch.tensor(HOLD_STATS), 8,
-                               target_overflow_rate))
-
-
-def hold_exponents(layers: Sequence[Layer]) -> None:
-    """Give the gradient-site exponent of each of ``layers`` the step that
-    ``update_exponent`` gives it on ``HOLD_STATS`` (:func:`hold_step`),
-    clamped to ``[EXP_MIN, bits_g - 1]`` as there, with no read of the
-    device: a foreach clamp (after an add, at a target outside [0, 1)) of
-    every site of one ``bits_g`` and step at once, a few launches in all.
-    The clamp still matters: a cold-start ``initial_exponent_g`` may lie
-    above ``bits_g - 1``.  ``hold_exponents.held_sites`` counts the sites
-    held so."""
-    groups: Dict[Tuple[int, int], List[torch.Tensor]] = {}
-    for layer in layers:
-        cfg = layer.cfg
-        groups.setdefault((cfg.bits_g, hold_step(cfg.target_overflow_rate)),
-                          []).append(layer.exp("grad"))
-    for (bits, step), exps in groups.items():
-        if step:
-            torch._foreach_add_(exps, step)
-        torch._foreach_clamp_min_(exps, EXP_MIN)
-        torch._foreach_clamp_max_(exps, bits - 1)
-    hold_exponents.held_sites += len(layers)
-
-
-hold_exponents.held_sites = 0
 
 
 def site_init_exp(cfg: QuantConfig, site: str) -> int:

@@ -54,9 +54,8 @@ class Model:
     def make_sinks(self) -> Dict[int, torch.Tensor]:
         return core.make_sinks(self.net, self.device)
 
-    def absorb_sinks(self, sink_cots: Dict[int, torch.Tensor],
-                     held=()) -> None:
-        self.net.absorb_sinks(sink_cots, held)
+    def absorb_sinks(self, stats: Dict[int, torch.Tensor]) -> None:
+        self.net.absorb_sinks(stats)
 
     def decay_tree(self) -> Dict:
         return self.net.decay_tree()

@@ -10,8 +10,8 @@ The kernel is CUDA C++ (``lbt_tpu_torch/csrc/quantize.cu``), one launch a
 call.  It takes the site's exponent, builds the multiplier inside from its
 IEEE-754 bits (exact, as :func:`multiplier` builds it here) and writes it
 out beside the codes; on request (``stats=True``) it also gives the
-``[min, max]`` of the scaled tensor ``x * mult``, all that
-``overflow_stats`` needs at a zero target rate, reduced across blocks in
+``[min, max]`` of the scaled tensor ``x * mult``, all that a range
+controller reads at a zero target rate, reduced across blocks in
 the same launch (a ticket in a per-stream scratch tells the last block).
 The TPU's hardware PRNG is replaced by the noise streams of ``lbt_tpu``'s
 XLA paths over the row-major flat index: the counter hashes of

@@ -11,7 +11,8 @@ all-reduce with error feedback (``parallel/lowbit.py``).  The loss is
 scaled by 1/N before the backward, so the summed gradient is the global
 batch's mean-loss gradient.  Only ``ebuf``, the low-bit all-reduce's
 residual, is each rank's own.  A step with the controllers gated off
-averages no statistics: its held sinks carry ``HOLD_STATS`` on every rank.
+averages no statistics: its reached sinks carry ``HOLD_STATS`` on every
+rank.
 
 On a data x model layout (``parallel/mesh.py``) the step's ``dist`` is
 the rank's data group and ``tp`` its model group: the ranks of one data
@@ -76,11 +77,11 @@ def make_dp_train_step(model: Model, tc: TrainConfig, dist,
             ctx = Ctx(train=True, key=key, update=True,
                       update_gate=gate(step), sinks=model.make_sinks(),
                       n_uids=n_uids, dist=dist)
-            loss, acc, stats, held = forward_backward(
+            loss, acc, stats = forward_backward(
                 model, ctx, x, y, divisor=float(world))
             with torch.no_grad():
-                # gated off, every rank holds the same sinks (one graph)
-                # and has zeros in the rest: their means, with no
+                # gated off, every rank has HOLD_STATS in the same sinks
+                # (one graph) and zeros in the rest: their means, with no
                 # collective
                 if stats and ctx.update_gate:
                     uids = list(stats)
@@ -88,7 +89,7 @@ def make_dp_train_step(model: Model, tc: TrainConfig, dist,
                         torch.stack([stats[u] for u in uids]),
                         kind="stats")))
                 with span("lbt/update"):
-                    model.absorb_sinks(stats, held)
+                    model.absorb_sinks(stats)
                 grads = {k: p.grad for k, p in model.net.named_parameters()}
                 if lowbit_bits is None:
                     grads = dict(zip(grads, dist.all_reduce_each(

@@ -12,11 +12,11 @@ and BN buffers and the velocity are updated in place.
 The controller cadence (``QuantConfig.range_update_every = K``) is a
 Python branch: a step with ``step % K == 0`` or ``step <
 range_update_warmup_steps`` runs the controllers; any other step runs
-with ``update_gate=False`` (exponents hold, barriers emit the hold
-sentinel).  A hold costs no host round trip: the barriers make the
-sentinel on the device, and the step reads none back.  It knows on the
-host which sinks a cotangent reached (those with a ``.grad``), and holds
-their exponents in a few batched launches (``nn.core.hold_exponents``).
+with ``update_gate=False`` (forward-site exponents hold, barriers emit
+the hold sentinel).  A hold costs no host round trip: the barriers make
+the sentinel on the device, and the gradient sites take the same batched
+step as on any other step (``nn.core.Layer.absorb_sinks``), which holds
+them on it.
 
 :func:`make_scan_train_step` is ``lbt_tpu``'s K-step block (its
 ``lax.scan``) as a Python loop of the same steps: the same keys, the same
@@ -95,12 +95,10 @@ def forward_backward(model: Model, ctx: Ctx, x: torch.Tensor,
                      y: torch.Tensor, divisor: float = 1.0):
     """The step's forward and backward of ``loss / divisor`` under ``ctx``
     (its ``sinks`` fresh), the staged state committed.  Returns ``(loss,
-    accuracy, sink statistics, held)``: the statistics are each sink's
+    accuracy, sink statistics)``: the statistics are each sink's
     gradient, zero where no cotangent reached it, as ``lbt_tpu``'s would
-    read.  With the controllers gated off, every barrier under ``ctx``
-    emitted ``HOLD_STATS``: the sinks a cotangent reached are ``held``
-    (uids, known on the host from which sinks have a gradient) and left
-    out of the statistics."""
+    read (with the controllers gated off, a reached sink's is the
+    ``HOLD_STATS`` its barrier made on the device)."""
     for p in model.net.parameters():
         p.grad = None
     with span("lbt/forward"):
@@ -110,15 +108,9 @@ def forward_backward(model: Model, ctx: Ctx, x: torch.Tensor,
         (loss / divisor if divisor != 1.0 else loss).backward()
     with span("lbt/update"), torch.no_grad():
         ctx.commit()
-        stats, held = {}, []
-        for uid, s in ctx.sinks.items():
-            if s.grad is None:
-                stats[uid] = torch.zeros_like(s)
-            elif ctx.update_gate:
-                stats[uid] = s.grad
-            else:
-                held.append(uid)
-    return loss.detach(), acc.detach(), stats, held
+        stats = {uid: torch.zeros_like(s) if s.grad is None else s.grad
+                 for uid, s in ctx.sinks.items()}
+    return loss.detach(), acc.detach(), stats
 
 
 @torch.no_grad()
@@ -161,9 +153,9 @@ def make_train_step(model: Model, tc: TrainConfig) -> Callable:
             ctx = Ctx(train=True, key=fold_in(np.asarray(base_key), step),
                       update=True, update_gate=gate(step),
                       sinks=model.make_sinks(), n_uids=n_uids)
-            loss, acc, stats, held = forward_backward(model, ctx, x, y)
+            loss, acc, stats = forward_backward(model, ctx, x, y)
             with span("lbt/update"), torch.no_grad():
-                model.absorb_sinks(stats, held)
+                model.absorb_sinks(stats)
                 sgd_update(model, velocity,
                            {k: p.grad
                             for k, p in model.net.named_parameters()},

@@ -332,18 +332,14 @@ def _exps(tree, path=""):
 
 def test_dp_gated_off_step_averages_no_statistics(dp_runs):
     """The headline case's cadence (controllers on, off, on): the
-    gated-off step runs no statistics collective and holds every gradient
-    site of each rank (ResNet-8's sinks are all reached), and its
-    exponents are those it started from, as the one-device step's hold
-    leaves them (they lie in range); the cadence-1 case averages
-    statistics on every step and holds none."""
+    gated-off step runs no statistics collective, and its exponents are
+    those it started from, as the one-device step's hold leaves them
+    (they lie in range); the cadence-1 case averages statistics on every
+    step."""
     for r in dp_runs:
         head, hash_ = r["headline"], r["hash"]
         calls = [s["stats_calls"] for s in head["steps"]]
-        held = [s["held_sites"] for s in head["steps"]]
         assert 0 < calls[0] == calls[1] < calls[2]
-        assert held[1] - held[0] == head["sinks"] > 0
-        assert held[2] == held[1]
         assert _exps(head["steps"][1]["qstate"]) == _exps(
             head["steps"][0]["qstate"])
         calls = [s["stats_calls"] for s in hash_["steps"]]

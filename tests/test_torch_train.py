@@ -79,27 +79,106 @@ def test_site_keys_match_layer_keys():
 # ---------------------------------------------------------------------------
 
 
+def _staged_rates(ctx):
+    """The rates of the controller step last staged on ``ctx``."""
+    site = ctx._ctrl[-1]
+    return core._rates([site], site.stat[None])[0]
+
+
 @pytest.mark.parametrize("bits", [8, 9])
 @pytest.mark.parametrize("target", [0.0, 0.01])
 def test_overflow_stats_and_update_exponent_match_lbt_tpu(bits, target):
+    """A site's staged statistics, as rates, are ``lbt_tpu``'s
+    ``overflow_stats`` of its tensor, and the committed exponent is
+    ``lbt_tpu``'s ``update_exponent`` of them; at a zero target K1's
+    ``[min, max]`` stages the same rates."""
+    from lbt_tpu_torch.nn.layers import Dense
+    cfg = tconfig.QuantConfig.uniform(8, target_overflow_rate=target)
+    layer = core.finalize(Dense("d", cfg, 2, 2))
     rng = np.random.default_rng(bits)
     for scale in (1e-6, 0.01, 1.0, 50.0, 1e30):
         x = (rng.normal(0, 1, (6, 7, 5)) * scale).astype(np.float32)
         for exp in (bits - 1, 3, 0, -20, jq.EXP_MIN, jq.EXP_MIN + 1):
             want = np.asarray(jq.overflow_stats(jnp.asarray(x), bits,
                                                 jnp.int32(exp), target))
-            got = tq.overflow_stats(torch.from_numpy(x), bits, exp, target)
-            np.testing.assert_array_equal(got.numpy(), want)
-            new = tq.update_exponent(torch.tensor(exp, dtype=torch.int32),
-                                     got, bits, target)
-            assert new.dtype == torch.int32
-            assert new.item() == int(jq.update_exponent(
+            layer.exp("x").fill_(exp)
+            ctx = Ctx(train=True)
+            layer._ctrl(ctx, "x", bits, torch.from_numpy(x))
+            np.testing.assert_array_equal(_staged_rates(ctx).numpy(), want)
+            ctx.commit()
+            assert layer.exp("x").dtype == torch.int32
+            assert int(layer.exp("x")) == int(jq.update_exponent(
                 jnp.int32(exp), jnp.asarray(want), bits, target))
             if target == 0.0:  # K1's min / max gives the same indicators
                 _, _, mm = tq.quantize_int(torch.from_numpy(x), bits, exp,
                                            stats=True)
-                np.testing.assert_array_equal(
-                    tq.overflow_indicators(mm, bits).numpy(), want)
+                layer._ctrl(ctx, "x", bits, torch.from_numpy(x), mm)
+                np.testing.assert_array_equal(_staged_rates(ctx).numpy(),
+                                              want)
+
+
+class _OneRank:
+    """A group of one rank (``parallel.multihost.Group``'s collectives)
+    that records each all-reduce: its op, kind and input."""
+    world = 1
+
+    def __init__(self):
+        self.calls = []
+
+    def all_reduce(self, t, op="sum", kind="reduce"):
+        self.calls.append((op, kind, t.detach().clone()))
+        return t.detach().clone()
+
+    def mean(self, t, kind="reduce"):
+        return self.all_reduce(t, kind=kind) / self.world
+
+
+@pytest.mark.parametrize("target", [0.0, 0.01])
+def test_batched_controller_step_matches_site_by_site(target):
+    """Forward sites of 4, 8 and 9 bits, some sharded over a model group
+    of one rank, some measured by K1's ``[min, max]``, staged through
+    ``Layer._ctrl`` under a data group of one rank and committed in one
+    batched step: each exponent is ``lbt_tpu``'s ``update_exponent``,
+    site by site, of ``overflow_stats`` of the site's tensor.  The model
+    group sees one all-reduce of the sharded rows (MAX of ``[-min, max]``
+    at a zero target, SUM of the counts otherwise), the data group one
+    mean of every site's rates, the unsharded sites' first in staging
+    order, then the sharded ones'."""
+    from lbt_tpu_torch.nn.layers import Dense
+    from lbt_tpu_torch.parallel.mesh import Shard
+    cfg = tconfig.QuantConfig.uniform(8, target_overflow_rate=target)
+    model_group, data_group = _OneRank(), _OneRank()
+    ctx = Ctx(train=True, dist=data_group)
+    rng = np.random.default_rng(7)
+    want, rows = [], ([], [])
+    for i in range(15):
+        layer = core.finalize(Dense(f"d{i}", cfg, 2, 2))
+        bits, sharded = (4, 8, 9)[i % 3], i % 4 == 1
+        e = (bits - 1, 2, 0, -3, jq.EXP_MIN)[i % 5]
+        layer.exp("x").fill_(e)
+        x = (rng.normal(0, 1, (3, 8))
+             * 2.0 ** rng.integers(-8, 10)).astype(np.float32)
+        if i % 5 in (1, 3):  # the minimum decides
+            x = -np.abs(x)
+        mm = (tq.quantize_int(torch.from_numpy(x), bits, e, stats=True)[2]
+              if i % 3 == 0 else None)
+        layer._ctrl(ctx, "x", bits, torch.from_numpy(x), mm,
+                    shard=Shard(model_group, 0, 8, 8) if sharded else None)
+        rates = np.asarray(jq.overflow_stats(jnp.asarray(x), bits,
+                                             jnp.int32(e), target))
+        rows[sharded].append(rates)
+        want.append((layer, e, int(jq.update_exponent(
+            jnp.int32(e), jnp.asarray(rates), bits, target))))
+    ctx.commit()
+    assert [int(layer.exp("x")) for layer, _, _ in want] == [
+        w for _, _, w in want]
+    assert {-1, 1} <= {int(np.sign(w - e)) for _, e, w in want}
+    ((op, kind, stats),) = model_group.calls
+    assert (op, kind, stats.shape) == ("max" if target == 0.0 else "sum",
+                                       "stats", (len(rows[1]), 2))
+    ((op, kind, rates),) = data_group.calls
+    assert (op, kind) == ("sum", "stats")
+    np.testing.assert_array_equal(rates.numpy(), np.stack(rows[0] + rows[1]))
 
 
 # ---------------------------------------------------------------------------
@@ -455,20 +534,13 @@ def test_cadence_gates_the_controllers():
         return {k: b.clone() for k, b in model.net.named_buffers()
                 if k.rsplit(".", 1)[-1].startswith("exp_")}
 
-    # every gradient site of ResNet-8 is reached: the gated-off step
-    # holds all of them, the others none
-    n_sinks = len(model.make_sinks())
-    held = core.hold_exponents.held_sites
     run(0)
-    assert core.hold_exponents.held_sites == held
     before = exps()
     mean0 = model.net.layers[1].layers[0].mean.clone()
     run(1)
-    assert core.hold_exponents.held_sites == held + n_sinks
     assert all(torch.equal(before[k], v) for k, v in exps().items())
     assert not torch.equal(mean0, model.net.layers[1].layers[0].mean)
     run(2)
-    assert core.hold_exponents.held_sites == held + n_sinks
     assert any(not torch.equal(before[k], v) for k, v in exps().items())
 
 
@@ -480,16 +552,14 @@ def _grad_exps(model):
 
 def _absorb_site_by_site(model):
     """``model.absorb_sinks`` as every site once stepped: each through
-    ``update_exponent``, a held one on ``HOLD_STATS``."""
-    def absorb(stats, held=()):
+    ``update_exponent`` on its sink's statistics (``HOLD_STATS`` where a
+    gated-off barrier wrote them)."""
+    def absorb(stats):
         for layer in core.walk(model.net):
-            if layer.has_grad_sink() and (layer.uid in stats
-                                          or layer.uid in held):
-                stat = (torch.tensor(HOLD_STATS) if layer.uid in held
-                        else stats[layer.uid])
+            if layer.has_grad_sink() and layer.uid in stats:
                 exp = layer.exp("grad")
                 exp.copy_(tq.update_exponent(
-                    exp, stat, layer.cfg.bits_g,
+                    exp, stats[layer.uid], layer.cfg.bits_g,
                     layer.cfg.target_overflow_rate))
     return absorb
 
@@ -498,9 +568,9 @@ def _absorb_site_by_site(model):
 def test_cadence_hold_matches_update_exponent(target):
     """Four steps of ResNet-8 at ``range_update_every=2`` without warmup,
     from step 1 (gated off first) and ``initial_exponent_g=20``, above
-    ``bits_g - 1``: the batched hold leaves every exponent, parameter,
-    BN statistic and velocity bitwise where stepping each held site
-    through ``update_exponent`` on ``HOLD_STATS`` leaves them, after
+    ``bits_g - 1``: the batched step leaves every exponent, parameter,
+    BN statistic and velocity bitwise where stepping each site through
+    ``update_exponent`` on its sink's statistics leaves them, after
     every step; on the first step each gradient exponent is ``lbt_tpu``'s
     ``update_exponent`` of 20 on its ``HOLD_STATS``: clamped to 7."""
     cfg = tconfig.QuantConfig.uniform(
@@ -532,21 +602,26 @@ def test_cadence_hold_matches_update_exponent(target):
 
 
 @pytest.mark.parametrize("target", [-0.5, 0.0, 0.01, 0.99999999, 1.0, 2.0])
-def test_hold_exponents_match_lbt_tpu(target):
-    """``hold_exponents`` gives each site ``lbt_tpu``'s ``update_exponent``
-    on its ``HOLD_STATS`` in one batch of mixed ``bits_g``, at every
-    exponent and at targets that widen (below 0), hold, and tighten (1
-    and above, 0.99999999 among them: it is 1 in f32)."""
+def test_batched_hold_matches_lbt_tpu(target):
+    """The batched step of ``absorb_sinks`` on the ``HOLD_STATS`` rows a
+    gated-off barrier makes (``hold_stats``) gives each site ``lbt_tpu``'s
+    ``update_exponent`` on ``HOLD_STATS``, in one batch of mixed
+    ``bits_g``, at every exponent and at targets that widen (below 0),
+    hold, and tighten (1 and above, 0.99999999 among them: it is 1 in
+    f32)."""
+    from lbt_tpu_torch.dfxp.barrier import hold_stats
     from lbt_tpu_torch.nn.layers import Dense
     sites = []
     for bits in (4, 8):
         cfg = dataclasses.replace(tconfig.QuantConfig.uniform(
             8, target_overflow_rate=target), bits_g=bits)
         for e in (31, bits, bits - 1, 0, jq.EXP_MIN, jq.EXP_MIN - 5):
-            layer = core.finalize(Dense("d", cfg, 2, 2))
-            layer.exp("grad").fill_(e)
+            layer = Dense(f"d{len(sites)}", cfg, 2, 2)
             sites.append((layer, e, bits))
-    core.hold_exponents([layer for layer, _, _ in sites])
+    net = core.finalize(core.Sequential("net", [s[0] for s in sites]))
+    for layer, e, _ in sites:
+        layer.exp("grad").fill_(e)
+    net.absorb_sinks({layer.uid: hold_stats("cpu") for layer, _, _ in sites})
     hold = jnp.asarray(JHOLD_STATS, jnp.float32)
     for layer, e, bits in sites:
         assert layer.exp("grad").dtype == torch.int32
@@ -557,12 +632,12 @@ def test_hold_exponents_match_lbt_tpu(target):
 def test_gated_off_backward_holds_on_the_device(monkeypatch):
     """With the controllers gated off, the backward builds no tensor from
     Python data (on a card that is a pageable copy and a wait: here
-    ``torch.tensor`` raises inside ``backward``); the sink a cotangent
-    reached (d1) reads ``HOLD_STATS``, is held (its exponent as
-    ``update_exponent`` on ``HOLD_STATS`` leaves it, one site counted in
-    ``held_sites``), and the one none reached (d0, frozen) tightens on
-    zero statistics, as ``lbt_tpu``'s zero sink cotangent does.  Gated on,
-    no site is held and d0 tightens again."""
+    ``torch.tensor`` raises inside ``backward``), nor, gated on or off,
+    does the commit's or ``absorb_sinks``' batched step; the sink a
+    cotangent reached (d1) reads ``HOLD_STATS``, on which the step holds
+    its exponent, and the one none reached (d0, frozen) tightens on zero
+    statistics, as ``lbt_tpu``'s zero sink cotangent does.  Gated on, d1
+    reads its cotangent's statistics and d0 tightens again."""
     from lbt_tpu_torch.nn.layers import Dense, ReLU
     from lbt_tpu_torch.nn.model import Model
     cfg = tconfig.QuantConfig.uniform(8, noise_mode="hash")
@@ -574,17 +649,19 @@ def test_gated_off_backward_holds_on_the_device(monkeypatch):
         p.requires_grad_(False)
     x = torch.from_numpy(np.random.default_rng(0).normal(
         0, 1, (4, 6)).astype(np.float32))
+    y = torch.tensor([0, 1, 2, 0])
 
     def no_tensor(*args, **kwargs):
-        raise AssertionError("a tensor from Python data in the backward")
+        raise AssertionError("a tensor from Python data in the step")
 
-    real_backward = torch.Tensor.backward
+    def guarded(fn):
+        def call(*args, **kwargs):
+            with monkeypatch.context() as mp:
+                mp.setattr(torch, "tensor", no_tensor)
+                return fn(*args, **kwargs)
+        return call
 
-    def guarded_backward(self, *args, **kwargs):
-        with monkeypatch.context() as mp:
-            mp.setattr(torch, "tensor", no_tensor)
-            return real_backward(self, *args, **kwargs)
-
+    monkeypatch.setattr(Ctx, "commit", guarded(Ctx.commit))
     zero = jnp.zeros((2,), jnp.float32)
     hold = jnp.asarray(JHOLD_STATS, jnp.float32)
     for gate in (False, True):
@@ -593,20 +670,19 @@ def test_gated_off_backward_holds_on_the_device(monkeypatch):
         e0, e1 = int(d0.exp("grad")), int(d1.exp("grad"))
         with monkeypatch.context() as mp:
             if not gate:
-                mp.setattr(torch.Tensor, "backward", guarded_backward)
-            _, _, stats, held = forward_backward(model, ctx, x,
-                                                 torch.tensor([0, 1, 2, 0]))
+                mp.setattr(torch.Tensor, "backward",
+                           guarded(torch.Tensor.backward))
+            _, _, stats = forward_backward(model, ctx, x, y)
         assert ctx.sinks[d0.uid].grad is None
-        n = core.hold_exponents.held_sites
-        model.absorb_sinks(stats, held)
+        assert set(stats) == {d0.uid, d1.uid}
+        assert stats[d1.uid] is ctx.sinks[d1.uid].grad
+        guarded(model.absorb_sinks)(stats)
         assert int(d0.exp("grad")) == int(jq.update_exponent(
             jnp.int32(e0), zero, 8, 0.0)) == e0 - 1
-        if gate:
-            assert held == [] and set(stats) == {d0.uid, d1.uid}
-            assert core.hold_exponents.held_sites == n
-            continue
-        assert held == [d1.uid] and set(stats) == {d0.uid}
-        assert ctx.sinks[d1.uid].grad.tolist() == list(HOLD_STATS)
-        assert core.hold_exponents.held_sites == n + 1
+        want = hold if not gate else jnp.asarray(stats[d1.uid].numpy())
+        if not gate:
+            assert stats[d1.uid].tolist() == list(HOLD_STATS)
         assert int(d1.exp("grad")) == int(jq.update_exponent(
-            jnp.int32(e1), hold, 8, 0.0)) == e1
+            jnp.int32(e1), want, 8, 0.0))
+        if not gate:
+            assert int(d1.exp("grad")) == e1

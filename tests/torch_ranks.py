@@ -30,7 +30,6 @@ import torch_suite  # noqa: F401  (one intra-op thread, here and in ranks)
 from lbt_tpu_torch import config as tconfig
 from lbt_tpu_torch import convert
 from lbt_tpu_torch.models import cifar10_resnet
-from lbt_tpu_torch.nn import core
 from lbt_tpu_torch.nn.layers import (AvgPool, Conv2d, Dense, Flatten,
                                     GradientBuffer, ReLU)
 from lbt_tpu_torch.nn.model import Model
@@ -167,7 +166,7 @@ def collectives(job, group):
 def dp_steps(job, group):
     """A DP step on each of ``job["data"]``'s global batches (this rank's
     rows) from the model's init; the state after each, with the running
-    counts of statistics collectives and of held gradient sites."""
+    count of statistics collectives."""
     model = build(job["model"])
     init = convert.to_jax_numpy(model)
     vel = momentum_init(dict(model.net.named_parameters()))
@@ -185,9 +184,8 @@ def dp_steps(job, group):
         p, q, v, e = convert.to_jax_numpy(model, vel, ebuf)
         out.append({"loss": m["loss"].item(), "acc": m["accuracy"].item(),
                     "params": p, "qstate": q, "velocity": v, "ebuf": e,
-                    "stats_calls": group.by_kind.get("stats", [0, 0])[1],
-                    "held_sites": core.hold_exponents.held_sites})
-    return {"init": init, "steps": out, "sinks": len(model.make_sinks())}
+                    "stats_calls": group.by_kind.get("stats", [0, 0])[1]})
+    return {"init": init, "steps": out}
 
 
 def sub_layout(data: int, model: int):
